@@ -1,0 +1,79 @@
+"""Audio: time-domain entry point (counterpart of flan_tpu/audio/audio.py:
+32-250; reference: src/flan/Audio/Audio.h).
+
+Audio is a frozen AudioBuffer; every method returns a new object on the
+same device as its input. This slice carries the constructors, WAV file
+I/O and the conversions to PV and SPV.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from flan_tpu_torch.core.audio_buffer import AudioBuffer, SndfileStrings
+from flan_tpu_torch.io.wav import read_wav, write_wav
+from flan_tpu_torch.ops import stft
+
+
+@dataclass(frozen=True)
+class Audio(AudioBuffer):
+    """Audio data with algorithms (reference Audio/Audio.h)."""
+
+    def _with(self, **kwargs) -> "Audio":
+        return dataclasses.replace(self, **kwargs)
+
+    @staticmethod
+    def create_null() -> "Audio":
+        return Audio()
+
+    @staticmethod
+    def create_from_array(array, sample_rate: float = 48000.0,
+                          device=None) -> "Audio":
+        """[frames] or [channels, frames] array or tensor -> Audio on
+        `device` (a tensor's own device when None)."""
+        data = torch.atleast_2d(torch.as_tensor(array, dtype=torch.float32,
+                                                device=device))
+        return Audio(data=data.contiguous(), sample_rate=float(sample_rate))
+
+    @staticmethod
+    def load_from_file(filename: str, return_strings: bool = False,
+                       device=None):
+        """Load a WAV file onto `device` (reference
+        AudioConstructors.cpp:35). Other codecs are not ported yet."""
+        with open(filename, "rb") as f:
+            head = f.read(12)
+        if head[:4] != b"RIFF" or head[8:12] != b"WAVE":
+            raise ValueError(f"{filename}: not a RIFF/WAVE file; "
+                             "flan_tpu_torch reads WAV only")
+        data, sr, strings = read_wav(filename)
+        audio = Audio(data=torch.from_numpy(data).to(device), sample_rate=sr)
+        return (audio, strings) if return_strings else audio
+
+    def save_to_file(self, filename: str,
+                     strings: Optional[SndfileStrings] = None) -> None:
+        """Save as WAV float32 (reference AudioBuffer.cpp:139-190)."""
+        write_wav(filename, self.to_numpy(), self.sample_rate, strings)
+
+    def convert_to_PV(self, window_size: int = 2048, hop: int = 128,
+                      dft_size: int = 4096):
+        """STFT + phase vocode (reference Conversions/AudioPV.cpp:12-78)."""
+        from flan_tpu_torch.pv.pv import PV
+        if self.is_null():
+            return PV.create_null()
+        mag, freq = stft.pv_forward(
+            self.data, window_size=window_size, hop=hop, dft_size=dft_size,
+            sample_rate=float(self.sample_rate))
+        return PV(mag=mag, freq=freq, sample_rate=float(self.sample_rate),
+                  hop_size=hop, window_size=window_size)
+
+    def convert_to_SPV(self, dft_size: int = 1024):
+        """Sliding-DFT phase vocoder (reference Conversions/AudioSPV.cpp).
+        dft_size is the bin count, as in the reference's call convention."""
+        from flan_tpu_torch.spv.spv import SPV, spv_forward
+        if self.is_null():
+            return SPV.create_null()
+        mag, freq = spv_forward(self.data, dft_size, float(self.sample_rate))
+        return SPV(mag=mag, freq=freq, sample_rate=float(self.sample_rate))

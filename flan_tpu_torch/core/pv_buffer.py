@@ -1,0 +1,105 @@
+"""PVBuffer: phase-vocoder (time x frequency) container (counterpart of
+flan_tpu/core/pv_buffer.py; reference: src/flan/PV/PVBuffer.h).
+
+Structure of arrays: mag and freq are two [channels, frames, bins] float32
+tensors on one device. The integer hop is stored (it is exact); the
+analysis rate and dft size are derived.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+
+@dataclass(frozen=True)
+class PVFormat:
+    """Static format info (reference PVBuffer::Format, PVBuffer.h:43-52)."""
+    num_channels: int = 0
+    num_frames: int = 0
+    num_bins: int = 0
+    sample_rate: float = 48000.0
+    hop_size: int = 128
+    window_size: int = 2048
+
+    @property
+    def analysis_rate(self) -> float:
+        return self.sample_rate / self.hop_size
+
+    @property
+    def dft_size(self) -> int:
+        return 2 * (self.num_bins - 1)
+
+
+def _empty_planes() -> torch.Tensor:
+    return torch.zeros((0, 0, 0), dtype=torch.float32)
+
+
+@dataclass(frozen=True)
+class PVBuffer:
+    """SoA phase-vocoder buffer: mag, freq [channels, frames, bins]."""
+    mag: torch.Tensor = field(default_factory=_empty_planes)
+    freq: torch.Tensor = field(default_factory=_empty_planes)
+    sample_rate: float = 48000.0
+    hop_size: int = 128
+    window_size: int = 2048
+
+    @property
+    def device(self) -> torch.device:
+        return self.mag.device
+
+    @property
+    def num_channels(self) -> int:
+        return int(self.mag.shape[0])
+
+    @property
+    def num_frames(self) -> int:
+        return int(self.mag.shape[1])
+
+    @property
+    def num_bins(self) -> int:
+        return int(self.mag.shape[2])
+
+    @property
+    def analysis_rate(self) -> float:
+        """PV frames per second (reference PVBuffer.h:49)."""
+        return self.sample_rate / self.hop_size
+
+    @property
+    def dft_size(self) -> int:
+        return 2 * (self.num_bins - 1)
+
+    @property
+    def length(self) -> float:
+        return self.num_frames / self.analysis_rate
+
+    @property
+    def bin_width(self) -> float:
+        """Hz per bin = sample_rate / dft_size."""
+        return self.sample_rate / self.dft_size
+
+    def get_format(self) -> PVFormat:
+        return PVFormat(self.num_channels, self.num_frames, self.num_bins,
+                        float(self.sample_rate), self.hop_size,
+                        self.window_size)
+
+    def is_null(self) -> bool:
+        return (self.num_channels == 0 or self.num_frames == 0
+                or self.num_bins == 0 or self.sample_rate <= 0)
+
+    def frame_to_time(self, f) -> float:
+        return f / self.analysis_rate
+
+    def time_to_frame(self, t) -> float:
+        return t * self.analysis_rate
+
+    def bin_to_frequency(self, b) -> float:
+        return b * self.bin_width
+
+    def frequency_to_bin(self, f) -> float:
+        return f / self.bin_width
+
+    def to_numpy(self):
+        return (self.mag.detach().cpu().numpy(),
+                self.freq.detach().cpu().numpy())

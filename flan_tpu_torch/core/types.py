@@ -1,0 +1,35 @@
+"""Numeric conventions (counterpart of flan_tpu/core/types.py): dB <->
+amplitude and the power-of-two container size (reference:
+src/flan/defines.h, FFTHelper.h).
+"""
+from __future__ import annotations
+
+import math
+from typing import Union
+
+import numpy as np
+import torch
+
+ArrayLike = Union[np.ndarray, torch.Tensor, float, int]
+
+
+def decibel_to_amplitude(db: ArrayLike) -> ArrayLike:
+    """dB -> linear amplitude."""
+    if isinstance(db, (float, int)):
+        return 10.0 ** (db / 20.0)
+    return torch.pow(10.0, torch.as_tensor(db, dtype=torch.float32) / 20.0)
+
+
+def amplitude_to_decibel(amp: ArrayLike) -> ArrayLike:
+    """Linear amplitude -> dB."""
+    if isinstance(amp, (float, int)):
+        return 20.0 * math.log10(max(amp, 1e-38))
+    amp = torch.as_tensor(amp, dtype=torch.float32)
+    return 20.0 * torch.log10(torch.clamp(amp, min=1e-38))
+
+
+def power_of_2_container(x: int) -> int:
+    """Smallest power of two >= x (reference FFTHelper.h)."""
+    if x <= 1:
+        return 1
+    return 1 << (int(x) - 1).bit_length()

@@ -1,0 +1,112 @@
+"""Function layer: constant-or-callable algorithm parameters on tensors
+(counterpart of flan_tpu/func/function.py; reference: src/flan/Function.h).
+
+A Function wraps a constant or a callable. Callables are evaluated once on
+a whole float32 grid tensor, so they must accept tensors (plain arithmetic
+and torch functions do). Constants short-circuit: sampling a constant
+returns a python float, which keeps downstream ops cheap exactly like the
+reference's variant fast path.
+"""
+from __future__ import annotations
+
+from typing import Callable, Union
+
+import torch
+
+FunctionLike = Union[float, int, "Function", Callable]
+
+
+def _broadcast_f32(out, shape, device) -> torch.Tensor:
+    out = torch.as_tensor(out, dtype=torch.float32, device=device)
+    return torch.broadcast_to(out, shape)
+
+
+class Function:
+    """A constant or a callable over one scalar input (usually time)."""
+
+    def __init__(self, f: FunctionLike):
+        if isinstance(f, Function):
+            self._const, self._fn = f._const, f._fn
+        elif callable(f):
+            self._const, self._fn = None, f
+        else:
+            self._const, self._fn = float(f), None
+
+    @property
+    def is_constant(self) -> bool:
+        return self._const is not None
+
+    @property
+    def constant_value(self) -> float:
+        return self._const
+
+    def __call__(self, x):
+        if self._const is not None:
+            if isinstance(x, torch.Tensor):
+                return torch.full(x.shape, self._const, dtype=torch.float32,
+                                  device=x.device)
+            return self._const
+        return self._fn(x)
+
+    def sample(self, start: int, end: int, period: float, device=None):
+        """Rasterize onto the grid (start..end-1) * period (reference
+        Function::sample, Function.h:139-187). Constants return a python
+        float; callables a float32 [end-start] tensor on `device`."""
+        if self._const is not None:
+            return self._const
+        grid = torch.arange(start, end, dtype=torch.float32,
+                            device=device) * period
+        return _broadcast_f32(self._fn(grid), grid.shape, device)
+
+
+class Function2d:
+    """A constant or a callable over (time, frequency); callables take
+    broadcastable tensors."""
+
+    def __init__(self, f: FunctionLike):
+        if isinstance(f, Function2d):
+            self._const, self._fn = f._const, f._fn
+        elif isinstance(f, Function):
+            fn = f._fn
+            self._const = f._const
+            self._fn = None if fn is None else (lambda t, fr: fn(t))
+        elif callable(f):
+            self._const, self._fn = None, f
+        else:
+            self._const, self._fn = float(f), None
+
+    @property
+    def is_constant(self) -> bool:
+        return self._const is not None
+
+    @property
+    def constant_value(self) -> float:
+        return self._const
+
+    def __call__(self, t, f):
+        if self._const is not None:
+            shape = torch.broadcast_shapes(t.shape, f.shape)
+            return torch.full(shape, self._const, dtype=torch.float32,
+                              device=t.device)
+        return self._fn(t, f)
+
+    def sample_grid(self, num_frames: int, frame_period: float,
+                    num_bins: int, bin_width: float, device=None):
+        """Rasterize over the frame x bin grid (reference Function.h:157-187):
+        a python float for constants, else a float32 [num_frames, num_bins]
+        tensor on `device`."""
+        if self._const is not None:
+            return self._const
+        t = torch.arange(num_frames, dtype=torch.float32,
+                         device=device)[:, None] * frame_period
+        f = torch.arange(num_bins, dtype=torch.float32,
+                         device=device)[None, :] * bin_width
+        return _broadcast_f32(self._fn(t, f), (num_frames, num_bins), device)
+
+
+def as_function(f: FunctionLike) -> Function:
+    return f if isinstance(f, Function) else Function(f)
+
+
+def as_function2d(f) -> Function2d:
+    return f if isinstance(f, Function2d) else Function2d(f)

@@ -1,0 +1,74 @@
+"""SPV: sliding-DFT phase vocoder, one spectral frame per audio sample
+(counterpart of flan_tpu/spv/spv.py; reference: src/flan/SPV/SPVBuffer.h,
+Conversions/AudioSPV.cpp).
+
+The transforms dispatch by device (ops/spv_kernels.py): the Hopper kernels
+for CUDA tensors, their plain versions for CPU tensors.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import torch
+
+from flan_tpu_torch.ops.spv_kernels import spv_forward, spv_inverse
+
+
+def _empty_planes() -> torch.Tensor:
+    return torch.zeros((0, 0, 0), dtype=torch.float32)
+
+
+@dataclass(frozen=True)
+class SPV:
+    """Per-sample spectral data, SoA mag/freq [C, F, B] float32."""
+    mag: torch.Tensor = field(default_factory=_empty_planes)
+    freq: torch.Tensor = field(default_factory=_empty_planes)
+    sample_rate: float = 48000.0
+
+    @property
+    def device(self) -> torch.device:
+        return self.mag.device
+
+    @property
+    def num_channels(self) -> int:
+        return int(self.mag.shape[0])
+
+    @property
+    def num_frames(self) -> int:
+        return int(self.mag.shape[1])
+
+    @property
+    def num_bins(self) -> int:
+        return int(self.mag.shape[2])
+
+    @property
+    def analysis_rate(self) -> float:
+        return self.sample_rate
+
+    @property
+    def bin_width(self) -> float:
+        return self.sample_rate / (2 * self.num_bins)
+
+    def is_null(self) -> bool:
+        return (self.num_channels == 0 or self.num_frames == 0
+                or self.num_bins == 0 or self.sample_rate <= 0)
+
+    @staticmethod
+    def create_null() -> "SPV":
+        return SPV()
+
+    def to_numpy(self):
+        return (self.mag.detach().cpu().numpy(),
+                self.freq.detach().cpu().numpy())
+
+    def convert_to_audio(self):
+        """Phase accumulation + alternating-sign real-part sum (reference
+        AudioSPV.cpp:113-150)."""
+        from flan_tpu_torch.audio.audio import Audio
+        if self.is_null():
+            return Audio.create_null()
+        data = spv_inverse(self.mag, self.freq, self.sample_rate)
+        return Audio(data=data, sample_rate=self.sample_rate)
+
+
+__all__ = ["SPV", "spv_forward", "spv_inverse"]
