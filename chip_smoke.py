@@ -7,9 +7,13 @@ Runs from the root of a checkout and needs one CUDA card and the CUDA
 toolkit (nvcc). It imports nothing of JAX. Phases:
 
   0. print the card's name and power limit; fail without a CUDA card;
-  1. build the SPV kernels from flan_tpu_torch/csrc with nvcc;
-  2. hold each kernel against its plain PyTorch version on the card, over
-     bin counts, channel counts and a ragged length;
+  1. build the kernel library from flan_tpu_torch/csrc with nvcc (one
+     process per source, all at once) and print each kernel's registers
+     and spills;
+  2. hold each kernel against its plain PyTorch version on the card: the
+     SPV kernels over bin counts, channel counts and a ragged length; the
+     SQPV kernels over bins per octave, bandwidths at 8 and 48 kHz,
+     channel counts, a ragged length and odd periods;
   3. drive the PV time-stretch class path at headline size (600 s stereo
      48 kHz, window 2048 / hop 128 / dft 4096, 2x) and check its output;
      time it once whole and once stage by stage;
@@ -17,15 +21,24 @@ toolkit (nvcc). It imports nothing of JAX. Phases:
      through the class path, which runs both kernels; then hold its SPV
      planes and each kernel against the plain versions on the same input,
      require the kernels' round-trip SNR to reach the plain one's within
-     1 dB, and time each kernel against its plain version.
+     1 dB, and time each kernel against its plain version;
+  5. drive the SQPV round trip and a 1.5x repitch at bench size (10 s mono
+     48 kHz, 16-24000 Hz, 24 bins per octave) through the class path,
+     which runs both SQPV kernels; then hold its planes and the inverse
+     kernel against the plain versions on the same input, require the
+     kernels' tone-fit SNR to reach the plain path's within 1 dB and the
+     repitched tone to sit at 330 Hz on both paths, and time each kernel
+     against its plain version.
 
-The launch counters are zeroed just before the main path (phases 3 and 4)
-and read just after it, before any launch made for a comparison. Every failed check raises, so the script exits
-nonzero without printing the result line. The line before the last is one
-JSON object describing the kernels; the last is the result line.
+The launch counters are zeroed just before each main path (phases 3 and 4
+together, then phase 5) and read just after it, before any launch made
+for a comparison. Every failed check raises, so the script exits nonzero
+without printing the result line. The line before the last is one JSON
+object describing the kernels; the last is the result line.
 """
 import json
 import math
+import re
 import subprocess
 import time
 
@@ -37,6 +50,29 @@ TOL_MAG = 1e-5      # kernel vs plain, times the magnitude peak
 TOL_INV = 1e-4      # kernel vs plain inverse, times the output peak
 TOL_STRETCH = 2e-4  # stretch on the card vs the CPU, times the peak
 SPV_SECONDS, SPV_BINS = 30.0, 512   # the SPV bench shape (mono, 48 kHz)
+# the SQPV bench shape (mono, 48 kHz; flan_tpu's bench.py bench_sqpv)
+SQPV_SECONDS, SQPV_BAND, SQPV_BPO = 10.0, (16.0, 24000.0), 24.0
+# SQPV kernel vs plain, times the peak: the readings grow with length, to
+# 1.21e-5 (magnitude) and 1.00e-4 (inverse) at the bench shape (PERF.md)
+TOL_SQPV_MAG = 2e-5
+TOL_SQPV_INV = 2e-4
+TOL_REPITCH_HZ = 2.0  # repitched 220 Hz tone, from 330 Hz (1 Hz bins)
+# (sample rate, bins per octave, bandwidth, channels, frames)
+SQPV_CASES = [(8000.0, 6.0, (100.0, 3000.0), 1, 16000),
+              (8000.0, 12.0, (100.0, 3000.0), 2, 12345),
+              (8000.0, 24.0, (100.0, 3000.0), 1, 16000),
+              (48000.0, 6.0, (16.0, 24000.0), 2, 96000),
+              (48000.0, 12.0, (16.0, 24000.0), 1, 77777),
+              (48000.0, 24.0, (16.0, 24000.0), 2, 96000)]
+# The least time of a kernel: the larger of its bytes over the card's
+# memory rate and its operations over the float32 rate outside the tensor
+# cores (H100 SXM data sheet). Operations per element are counted from the
+# arithmetic of each plain version (the polynomial atan2 as 24, sincos as
+# 20); the byte bound is the larger for all four kernels.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+OPS_PER_ELEMENT = {"spv_forward": 54, "spv_inverse": 25,
+                   "sqpv_forward": 100, "sqpv_inverse": 40}
 
 
 def fail(msg: str):
@@ -108,28 +144,31 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def live_rms(a, ref, live, step: int = 1 << 16) -> float:
+def live_rms(a, ref, live, step: int = 1 << 16, period=None) -> float:
     """RMS of a - ref in float64 over the bins where live holds, taken in
-    chunks of frames so the temporaries stay small at bench size."""
+    chunks of frames so the temporaries stay small at bench size. With a
+    period, each difference is first wrapped into [-period/2, period/2]."""
     total, count = 0.0, 0
     for t0 in range(0, a.shape[1], step):
         part = live[:, t0:t0 + step]
         d = (a[:, t0:t0 + step][part].double()
              - ref[:, t0:t0 + step][part].double())
+        if period is not None:
+            d = d - period * (d / period).round()
         total += float(d.pow(2).sum())
         count += int(part.sum())
     return math.sqrt(total / max(count, 1))
 
 
-def forward_errors(mag, freq, ref_m, ref_f, m64, f64) -> dict:
+def forward_errors(mag, freq, ref_m, ref_f, m64, f64, period=None) -> dict:
     """The kernel's forward planes against the float32 plain version
     (magnitude, max abs) and the float64 one (frequency, RMS over bins
     above 1e-3 of the peak, beside the float32 plain version's own)."""
     scale = float(ref_m.abs().max())
     live = m64 > 1e-3 * scale
     return {"mag_err": float((mag - ref_m).abs().max()), "scale": scale,
-            "drift_k": live_rms(freq, f64, live),
-            "drift_p": live_rms(ref_f, f64, live)}
+            "drift_k": live_rms(freq, f64, live, period=period),
+            "drift_p": live_rms(ref_f, f64, live, period=period)}
 
 
 def check_forward(e: dict, tol_mag: float, case: str) -> None:
@@ -181,6 +220,66 @@ def phase2_kernel_vs_plain(torch, spv_kernels, dev):
         worst["spv_forward"] = max(worst["spv_forward"], e["mag_err"])
         worst["spv_inverse"] = max(worst["spv_inverse"], err_o)
         del mag, freq, ref_m, ref_f, m64, f64, out, ref_out, live
+    return worst
+
+
+def decoded_hz(torch, pitch, positive):
+    """The signed frequency +-2^pitch of SQPV planes, in float64."""
+    return torch.where(positive, 1.0, -1.0).double() * torch.exp2(
+        pitch.double())
+
+
+def sqpv_errors(torch, planes, ref, ref64, sample_rate: float) -> dict:
+    """The SQPV forward kernel's planes against the float32 plain version
+    (magnitude) and the decoded frequency against the float64 one, as
+    forward_errors does for the SPV, modulo the sample rate: the phase
+    difference is wrapped to [-pi, pi], so on a noise bin whose advance
+    sits within rounding of pi two float32 orders can land sr apart. Those
+    two frequencies give the inverse the same cycle increment, frac(f/sr);
+    unwrapped, one such frame out of 12 M moved the RMS from 0.2 to 14 Hz
+    (48 kHz, 6 bins per octave, 2 s stereo; H100)."""
+    return forward_errors(planes[0], decoded_hz(torch, *planes[1:]), ref[0],
+                          decoded_hz(torch, *ref[1:]), ref64[0],
+                          decoded_hz(torch, *ref64[1:]), period=sample_rate)
+
+
+def phase2_sqpv(torch, sqpv_kernels, cq_geometry, dev):
+    """The SQPV kernels against their plain versions on the same CUDA
+    tensors, with the SPV checks: magnitude against the peak, decoded
+    frequency drift against float64 at most twice the plain version's, and
+    the inverse kernel on the plain planes against the plain inverse."""
+    worst = {"sqpv_forward": 0.0, "sqpv_inverse": 0.0}
+    odd = False
+    for sr, bpo, band, ch, n in SQPV_CASES:
+        odd |= bool((cq_geometry(sr, bpo, band).periods % 2 == 1).any())
+        x = torch.from_numpy(stereo_signal(2.0, seed=1, sr=sr)[:ch, :n]).to(
+            dev).contiguous()
+        planes = sqpv_kernels.sqpv_forward_cuda(x, sr, bpo, band)
+        ref = sqpv_kernels.sqpv_forward_ref(x, sr, bpo, band)
+        ref64 = sqpv_kernels.sqpv_forward_ref(x.double(), sr, bpo, band)
+        out = sqpv_kernels.sqpv_inverse_cuda(*ref, sr, bpo, band)
+        ref_out = sqpv_kernels.sqpv_inverse_ref(*ref, sr, bpo, band)
+        torch.cuda.synchronize()
+        e = sqpv_errors(torch, planes, ref, ref64, sr)
+        peak = float(ref_out.abs().max())
+        err_o = float((out - ref_out).abs().max())
+        print(json.dumps({
+            "phase": 2, "kernels": "sqpv", "sample_rate": sr,
+            "bins_per_octave": bpo, "band": band, "bins": ref[0].shape[2],
+            "channels": ch, "frames": n,
+            "mag_err_rel": e["mag_err"] / e["scale"],
+            "freq_drift_hz_rms_kernel": e["drift_k"],
+            "freq_drift_hz_rms_plain": e["drift_p"],
+            "sign_mismatches": int((planes[2] != ref[2]).sum()),
+            "inv_err_rel": err_o / peak}), flush=True)
+        case = f"SQPV sr={sr} bpo={bpo} band={band} C={ch} N={n}"
+        check_forward(e, TOL_SQPV_MAG, case)
+        check(math.isfinite(err_o) and err_o < TOL_SQPV_INV * peak,
+              f"inverse, {case}: {err_o} vs peak {peak}")
+        worst["sqpv_forward"] = max(worst["sqpv_forward"], e["mag_err"])
+        worst["sqpv_inverse"] = max(worst["sqpv_inverse"], err_o)
+        del planes, ref, ref64, out, ref_out
+    check(odd, "no SQPV case has an odd period: the quirk went untested")
     return worst
 
 
@@ -306,15 +405,10 @@ def phase4_check(torch, spv_kernels, x, spv, y, wall_k):
     return m, f, {"spv_forward": e["mag_err"], "spv_inverse": err_o}
 
 
-def time_kernels(torch, spv_kernels, x, m, f):
-    """Each kernel and its plain version at the SPV bench shape, in turns
-    plain, kernel, kernel, plain, one call per turn after a warm-up."""
-    pairs = {
-        "spv_forward": (lambda: spv_kernels.spv_forward(x, SPV_BINS, SR),
-                        lambda: spv_kernels.spv_forward_ref(x, SPV_BINS, SR)),
-        "spv_inverse": (lambda: spv_kernels.spv_inverse(m, f, SR),
-                        lambda: spv_kernels.spv_inverse_ref(m, f, SR)),
-    }
+def time_kernels(torch, pairs: dict) -> dict:
+    """Each kernel and its plain version, in turns plain, kernel, kernel,
+    plain (one plain call, three kernel calls per turn) after a warm-up.
+    pairs maps a name to (kernel call, plain call)."""
     times = {}
     for name, (kernel, plain) in pairs.items():
         kernel(), plain()
@@ -324,6 +418,138 @@ def time_kernels(torch, spv_kernels, x, m, f):
         p2 = cuda_ms(torch, plain, 1)
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
     return times
+
+
+def profile_launches(torch, calls: dict) -> dict:
+    """Device microseconds of every CUDA kernel that one call of each
+    entry in `calls` launches, from torch.profiler, keyed by call and then
+    by the kernel's function name. The profiler is information, not a
+    check: where it records no device time the result is empty."""
+    from torch.profiler import ProfilerActivity, profile
+    split = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        split[name] = {
+            (re.findall(r"([A-Za-z_]\w*)(?:<[^()]*>)?\(", ev.key)
+             or [ev.key])[0]:
+                round(ev.device_time_total / max(ev.count, 1), 1)
+            for ev in prof.key_averages()
+            if ev.device_time_total > 0}
+    return split
+
+
+def tone_snr_db(y: np.ndarray, f0: float, lo: int, hi: int) -> float:
+    """SNR of y[lo:hi] against the sinusoid at f0 fitted to it in amplitude
+    and phase: the SQPV inverse accumulates phase from zero, so its output
+    keeps each component's frequency and magnitude, not its phase. The
+    signal's noise floor is part of the residual, so the bench signal
+    (0.4 sine + 0.1 noise) caps this at about 9 dB."""
+    t = np.arange(lo, hi, dtype=np.float64) / SR
+    basis = np.stack([np.sin(2 * np.pi * f0 * t),
+                      np.cos(2 * np.pi * f0 * t)], 1)
+    seg = y[lo:hi].astype(np.float64)
+    coef, *_ = np.linalg.lstsq(basis, seg, rcond=None)
+    fit = basis @ coef
+    err = seg - fit
+    return float(10 * np.log10(fit @ fit / max(err @ err, 1e-30)))
+
+
+def phase5_sqpv(torch, Audio, dev):
+    """SQPV round trip and 1.5x repitch at bench size through the class
+    path, which runs both SQPV kernels. Returns the input on the card, the
+    SQPV, both outputs, the round trip's wall seconds and its peak
+    device memory in GB, counted above what was allocated before it."""
+    x = stereo_signal(SQPV_SECONDS)[:1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    a = Audio.create_from_array(x, SR, device=dev)
+    sq = a.convert_to_SQPV(SQPV_BAND, SQPV_BPO)
+    y = sq.convert_to_audio().data
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    y_up = sq.repitch(1.5).convert_to_audio().data
+    torch.cuda.synchronize()
+    return a.data, sq, y, y_up, wall, peak_gb
+
+
+def phase5_check(torch, sqpv_kernels, SQPV, x, sq, y, y_up, wall_k, peak_gb):
+    """The main path's SQPV planes, and the inverse kernel, against the
+    plain versions on the same input at the bench shape; the tone-fit SNR
+    of both round trips; the repitched tone on both paths. Returns the
+    plain planes and the kernels' largest absolute errors."""
+    args = (SR, SQPV_BPO, SQPV_BAND)
+    t0 = time.perf_counter()
+    ref = sqpv_kernels.sqpv_forward_ref(x, *args)
+    y_ref = sqpv_kernels.sqpv_inverse_ref(*ref, *args)
+    torch.cuda.synchronize()
+    wall_p = time.perf_counter() - t0
+    ref64 = sqpv_kernels.sqpv_forward_ref(x.double(), *args)
+    e = sqpv_errors(torch, (sq.mag, sq.pitch, sq.positive), ref, ref64,
+                    SR)
+    del ref64
+    out = sqpv_kernels.sqpv_inverse_cuda(*ref, *args)
+    up = SQPV(*ref, sample_rate=SR, bins_per_octave=SQPV_BPO,
+              bandwidth=SQPV_BAND).repitch(1.5)
+    y_up_ref = sqpv_kernels.sqpv_inverse_ref(up.mag, up.pitch, up.positive,
+                                             *args)
+    torch.cuda.synchronize()
+    peak = float(y_ref.abs().max())
+    err_o = float((out - y_ref).abs().max())
+    y_np, y_ref_np, up_np, up_ref_np = (
+        t.cpu().numpy()[0] for t in (y, y_ref, y_up, y_up_ref))
+    x_np = x.cpu().numpy()[0]
+    check(all(bool(np.isfinite(v).all()) for v in (y_np, up_np)),
+          "SQPV outputs not finite")
+    # a 1 s window in the middle of the 10 s: 220 Hz, and 330 after repitch
+    lo, hi = int(4.5 * SR), int(5.5 * SR)
+    snr = {name: tone_snr_db(v, 220.0, lo, hi) for name, v in
+           (("input", x_np), ("kernels", y_np), ("plain", y_ref_np))}
+    hz_k, hz_p = (dominant_hz(v[lo:hi]) for v in (up_np, up_ref_np))
+    print(json.dumps({"phase": 5, "path": "sqpv_roundtrip_10s_mono_48k_24bpo",
+                      "bins": int(sq.num_bins), "frames": int(sq.num_frames),
+                      "wall_s_kernels": wall_k, "wall_s_plain": wall_p,
+                      "x_realtime_kernels": SQPV_SECONDS / wall_k,
+                      "x_realtime_plain": SQPV_SECONDS / wall_p,
+                      "peak_alloc_gb_kernels": peak_gb,
+                      "mag_err_rel": e["mag_err"] / e["scale"],
+                      "freq_drift_hz_rms_kernel": e["drift_k"],
+                      "freq_drift_hz_rms_plain": e["drift_p"],
+                      "sign_mismatches": int((sq.positive != ref[2]).sum()),
+                      "inv_err_rel": err_o / peak,
+                      "tone_snr_db_input": snr["input"],
+                      "tone_snr_db_kernels": snr["kernels"],
+                      "tone_snr_db_plain": snr["plain"],
+                      "repitch_hz_kernels": hz_k, "repitch_hz_plain": hz_p}),
+          flush=True)
+    check(sq.mag.shape == ref[0].shape and sq.num_frames == x.shape[1]
+          and y.shape == y_up.shape == x.shape,
+          f"SQPV shapes {tuple(sq.mag.shape)} {tuple(y.shape)}")
+    check_forward(e, TOL_SQPV_MAG, "SQPV bench shape")
+    check(math.isfinite(err_o) and err_o < TOL_SQPV_INV * peak,
+          f"SQPV inverse, bench shape: {err_o} vs peak {peak}")
+    check(snr["kernels"] >= snr["plain"] - 1.0,
+          f"SQPV tone SNR kernels {snr['kernels']} dB vs plain "
+          f"{snr['plain']} dB")
+    for name, hz in (("kernels", hz_k), ("plain", hz_p)):
+        check(abs(hz - 330.0) <= TOL_REPITCH_HZ,
+              f"SQPV repitch 1.5x on the {name} path: {hz} Hz, want 330")
+    return ref, {"sqpv_forward": e["mag_err"], "sqpv_inverse": err_o}
+
+
+def bound(name: str, elements: int, nbytes: int):
+    """(bound_ms, bound_by) for `elements` frame-bin elements of work and
+    `nbytes` of required traffic."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = OPS_PER_ELEMENT[name] * elements / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def main() -> None:
@@ -336,43 +562,95 @@ def main() -> None:
     # full float32 on the card: TF32 would change the plain versions' sums
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from flan_tpu_torch import Audio
-    from flan_tpu_torch.ops import spv_kernels
+    from flan_tpu_torch import SQPV, Audio
+    from flan_tpu_torch.ops import build, spv_kernels, sqpv_kernels
+    from flan_tpu_torch.sqpv.transform import cq_geometry
     dev = torch.device("cuda", 0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     # phase 1: build
     t0 = time.perf_counter()
-    path, log = spv_kernels.build_library()
-    spv_kernels.load_library()
+    path, log = build.build_library()
+    build.load_library()
     print(f"phase 1: built {path.name} in {time.perf_counter() - t0:.2f} s",
           flush=True)
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if ("registers" in line or "spill" in line or "Compiling" in line
+                or line.endswith(".cu:")):
             print(f"  nvcc: {line.strip()}", flush=True)
 
     # phase 2: kernel against plain
     worst = phase2_kernel_vs_plain(torch, spv_kernels, dev)
+    worst.update(phase2_sqpv(torch, sqpv_kernels, cq_geometry, dev))
 
-    # phases 3 and 4: the main path, counted
+    # phases 3 and 4: the stretch and SPV main paths, counted
     spv_kernels.reset_launch_counts()
     phase3_stretch(torch, Audio, dev)
     x, spv, y, wall_k = phase4_spv(torch, Audio, dev)
     launches = dict(spv_kernels.LAUNCHES)
+    # phase 5: the SQPV main path, counted
+    sqpv_kernels.reset_launch_counts()
+    xq, sq, yq, yq_up, wall_q, peak_q = phase5_sqpv(torch, Audio, dev)
+    launches.update(sqpv_kernels.LAUNCHES)
     for name, count in launches.items():
         check(count > 0, f"{name} kernel was not launched on the main path")
 
     m, f, errs = phase4_check(torch, spv_kernels, x, spv, y, wall_k)
     del spv, y
-    times = time_kernels(torch, spv_kernels, x, m, f)
+    times = time_kernels(torch, {
+        "spv_forward": (lambda: spv_kernels.spv_forward(x, SPV_BINS, SR),
+                        lambda: spv_kernels.spv_forward_ref(x, SPV_BINS, SR)),
+        "spv_inverse": (lambda: spv_kernels.spv_inverse(m, f, SR),
+                        lambda: spv_kernels.spv_inverse_ref(m, f, SR))})
+    split = profile_launches(torch, {
+        "spv_forward": lambda: spv_kernels.spv_forward(x, SPV_BINS, SR),
+        "spv_inverse": lambda: spv_kernels.spv_inverse(m, f, SR)})
+    del m, f
+    ref, errs_q = phase5_check(torch, sqpv_kernels, SQPV, xq, sq, yq, yq_up,
+                               wall_q, peak_q)
+    errs.update(errs_q)
+    del sq, yq, yq_up
+    args = (SR, SQPV_BPO, SQPV_BAND)
+    times.update(time_kernels(torch, {
+        "sqpv_forward": (lambda: sqpv_kernels.sqpv_forward_cuda(xq, *args),
+                         lambda: sqpv_kernels.sqpv_forward_ref(xq, *args)),
+        "sqpv_inverse": (lambda: sqpv_kernels.sqpv_inverse_cuda(*ref, *args),
+                         lambda: sqpv_kernels.sqpv_inverse_ref(*ref, *args))}))
+
+    split.update(profile_launches(torch, {
+        "sqpv_forward": lambda: sqpv_kernels.sqpv_forward_cuda(xq, *args),
+        "sqpv_inverse": lambda: sqpv_kernels.sqpv_inverse_cuda(*ref, *args)}))
+    print(json.dumps({"profile_us_per_launch": split}), flush=True)
+
+    # required traffic: x in and 8 bytes a frame-bin out (SPV forward), the
+    # reverse (SPV inverse); x in and 9 bytes out (SQPV forward, whose work
+    # runs over the w0 warm-up frames too), the reverse (SQPV inverse)
+    n_spv = x.shape[1] * SPV_BINS
+    nb_q = ref[0].shape[2]
+    n_sqpv = xq.shape[1] * nb_q
+    w0 = cq_geometry(*args).w0
+    bounds = {
+        "spv_forward": bound("spv_forward", n_spv, 4 * x.shape[1] + 8 * n_spv),
+        "spv_inverse": bound("spv_inverse", n_spv, 8 * n_spv + 4 * x.shape[1]),
+        "sqpv_forward": bound("sqpv_forward", (w0 + xq.shape[1]) * nb_q,
+                              4 * xq.shape[1] + 9 * n_sqpv),
+        "sqpv_inverse": bound("sqpv_inverse", n_sqpv,
+                              9 * n_sqpv + 4 * xq.shape[1])}
+    source = {"spv": "flan_tpu_torch/csrc/spv_kernels.cu",
+              "sqpv": "flan_tpu_torch/csrc/sqpv_kernels.cu"}
     replaces = {"spv_forward": "flan_tpu/ops/spv_pallas.py:93",
-                "spv_inverse": "flan_tpu/ops/spv_pallas.py:239"}
+                "spv_inverse": "flan_tpu/ops/spv_pallas.py:239",
+                "sqpv_forward": "flan_tpu/ops/sqpv_pallas.py:139",
+                "sqpv_inverse": "flan_tpu/ops/sqpv_pallas.py:336"}
     kernels = [{"name": name, "route": "cuda",
-                "source": "flan_tpu_torch/csrc/spv_kernels.cu",
+                "source": source[name.split("_")[0]],
                 "replaces": replaces[name], "launches": launches[name],
                 "max_abs_err": max(worst[name], errs[name]),
-                "ms": times[name][0], "plain_ms": times[name][1]}
+                "ms": times[name][0], "plain_ms": times[name][1],
+                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                # no single PyTorch call computes any of these functions
+                "library_ms": None}
                for name in replaces]
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

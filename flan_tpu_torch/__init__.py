@@ -1,12 +1,20 @@
 """flan_tpu_torch: the PyTorch / CUDA port of flan_tpu.
 
 Runs on an NVIDIA GPU (Hopper kernels in csrc/) and on the CPU (the
-kernels' plain PyTorch versions). It imports torch and never jax; the JAX
-package flan_tpu stays the reference the port is tested against.
+kernels' plain PyTorch versions). Host data goes to the card unless the
+caller names a device (`device="cpu"`). It imports torch and never jax;
+the JAX package flan_tpu stays the reference the port is tested against.
 
-This slice covers the phase-vocoder time-stretch class path
-(Audio.load_from_file -> convert_to_PV -> PV.stretch -> convert_to_audio)
-and the SPV round trip (Audio.convert_to_SPV -> SPV.convert_to_audio).
+The port covers:
+- the phase-vocoder time-stretch class path (Audio.load_from_file ->
+  convert_to_PV -> PV.stretch -> convert_to_audio);
+- the SPV round trip and its algorithms (Audio.convert_to_SPV /
+  convert_to_ms_SPV -> SPV.repitch / modify_frequency ->
+  convert_to_audio / convert_to_lr_audio), kernels B1 and B2;
+- the SQPV constant-Q round trip and its algorithms
+  (Audio.convert_to_SQPV / convert_to_ms_SQPV -> SQPV.repitch /
+  modify_pitch / select -> convert_to_audio / convert_to_lr_audio),
+  kernels B3 and B4.
 """
 from flan_tpu_torch.audio.audio import Audio
 from flan_tpu_torch.core.audio_buffer import (AudioBuffer, AudioFormat,
@@ -17,12 +25,13 @@ from flan_tpu_torch.func.function import (Function, Function2d, as_function,
                                           as_function2d)
 from flan_tpu_torch.pv.pv import PV
 from flan_tpu_torch.spv.spv import SPV
+from flan_tpu_torch.sqpv.sqpv import SQPV
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Audio", "AudioBuffer", "AudioFormat", "SndfileStrings",
-    "PV", "PVBuffer", "PVFormat", "SPV",
+    "PV", "PVBuffer", "PVFormat", "SPV", "SQPV",
     "Function", "Function2d", "as_function", "as_function2d",
     "interpolators",
 ]

@@ -2,20 +2,26 @@
 32-250; reference: src/flan/Audio/Audio.h).
 
 Audio is a frozen AudioBuffer; every method returns a new object on the
-same device as its input. This slice carries the constructors, WAV file
-I/O and the conversions to PV and SPV.
+same device as its input. Host data goes to the card unless the caller
+names a device (core/types.py DEFAULT_DEVICE). This slice carries the
+constructors, WAV file I/O, mid/side conversion and the conversions to PV,
+SPV and SQPV.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
 from flan_tpu_torch.core.audio_buffer import AudioBuffer, SndfileStrings
+from flan_tpu_torch.core.types import DEFAULT_DEVICE
 from flan_tpu_torch.io.wav import read_wav, write_wav
 from flan_tpu_torch.ops import stft
+
+_SQRT2 = math.sqrt(2.0)
 
 
 @dataclass(frozen=True)
@@ -29,19 +35,25 @@ class Audio(AudioBuffer):
     def create_null() -> "Audio":
         return Audio()
 
+    def copy(self) -> "Audio":
+        return self._with()
+
     @staticmethod
     def create_from_array(array, sample_rate: float = 48000.0,
                           device=None) -> "Audio":
         """[frames] or [channels, frames] array or tensor -> Audio on
-        `device` (a tensor's own device when None)."""
+        `device`. When device is None a tensor keeps its own device and
+        host data goes to DEFAULT_DEVICE, the card."""
+        if device is None and not isinstance(array, torch.Tensor):
+            device = DEFAULT_DEVICE
         data = torch.atleast_2d(torch.as_tensor(array, dtype=torch.float32,
                                                 device=device))
         return Audio(data=data.contiguous(), sample_rate=float(sample_rate))
 
     @staticmethod
     def load_from_file(filename: str, return_strings: bool = False,
-                       device=None):
-        """Load a WAV file onto `device` (reference
+                       device=DEFAULT_DEVICE):
+        """Load a WAV file onto `device`, the card unless named (reference
         AudioConstructors.cpp:35). Other codecs are not ported yet."""
         with open(filename, "rb") as f:
             head = f.read(12)
@@ -77,3 +89,46 @@ class Audio(AudioBuffer):
             return SPV.create_null()
         mag, freq = spv_forward(self.data, dft_size, float(self.sample_rate))
         return SPV(mag=mag, freq=freq, sample_rate=float(self.sample_rate))
+
+    def convert_to_ms_SPV(self, dft_size: int = 1024):
+        """Mid/side first, then SPV (reference AudioSPV.cpp:108-111)."""
+        return self.convert_to_mid_side().convert_to_SPV(dft_size)
+
+    def convert_to_SQPV(self, bandwidth=(16.0, 24000.0),
+                        bins_per_octave: float = 24.0):
+        """Sliding constant-Q transform (reference Audio.h:197-205;
+        AudioSQPV.cpp:64-121, dormant upstream and activated in the JAX
+        package). See sqpv/transform.py."""
+        from flan_tpu_torch.sqpv.sqpv import SQPV
+        from flan_tpu_torch.sqpv.transform import sqpv_forward
+        if self.is_null():
+            return SQPV.create_null()
+        bandwidth = (float(bandwidth[0]), float(bandwidth[1]))
+        mag, pitch, positive = sqpv_forward(
+            self.data, float(self.sample_rate), float(bins_per_octave),
+            bandwidth)
+        return SQPV(mag=mag, pitch=pitch, positive=positive,
+                    sample_rate=float(self.sample_rate),
+                    bins_per_octave=float(bins_per_octave),
+                    bandwidth=bandwidth)
+
+    def convert_to_ms_SQPV(self, bandwidth=(16.0, 24000.0),
+                           bins_per_octave: float = 24.0):
+        """Mid/side first, then SQPV (reference AudioSQPV.cpp:123-126)."""
+        return self.convert_to_mid_side().convert_to_SQPV(bandwidth,
+                                                          bins_per_octave)
+
+    def convert_to_mid_side(self) -> "Audio":
+        """L/R -> M/S with the reference's 1/sqrt(2) convention (reference
+        AudioConversions.cpp:32-51); anything but two channels is copied."""
+        if self.is_null():
+            return Audio.create_null()
+        if self.num_channels != 2:
+            return self.copy()
+        m = stft.true_div(self.data[0] + self.data[1], _SQRT2)
+        s = stft.true_div(self.data[0] - self.data[1], _SQRT2)
+        return self._with(data=torch.stack([m, s]))
+
+    def convert_to_left_right(self) -> "Audio":
+        """M/S -> L/R; self-inverse (reference AudioConversions.cpp:53-56)."""
+        return self.convert_to_mid_side()

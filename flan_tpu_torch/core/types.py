@@ -12,6 +12,11 @@ import torch
 
 ArrayLike = Union[np.ndarray, torch.Tensor, float, int]
 
+# Where host data (numpy arrays, lists, files) goes unless the caller names
+# a device: the port runs on the card, and the CPU only when asked for.
+# Without a card the default raises, as torch raises.
+DEFAULT_DEVICE = "cuda"
+
 
 def decibel_to_amplitude(db: ArrayLike) -> ArrayLike:
     """dB -> linear amplitude."""

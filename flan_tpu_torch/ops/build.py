@@ -1,0 +1,132 @@
+"""Build and load the port's CUDA kernel library.
+
+Every csrc/*.cu file is compiled by its own nvcc process for sm_90a, all
+started together, and the objects are linked into one shared library with
+a plain C interface, loaded with ctypes. The build goes to
+build/flan_tpu_torch/ in the checkout and is redone only when a source, a
+header or a flag changes (one digest over all of them). Nothing here runs
+when a module is imported: the first kernel launch builds the library.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "flan_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+TILE_FRAMES = 128       # frames per tile in every kernel (csrc/common.cuh)
+MAX_BINS = 2048         # 256 threads x 8 bins each in the epilogues
+
+_p, _i, _ll, _d, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_double, ctypes.c_float)
+# entry point -> argument types; every one returns a CUDA error code
+SIGNATURES = {
+    "flan_spv_forward": [_p, _p, _p, _p, _p, _p, _p, _i, _ll, _i, _d, _p],
+    "flan_spv_inverse": [_p, _p, _p, _p, _i, _ll, _i, _d, _p],
+    "flan_sqpv_forward": [_p, _p, _p, _p, _p, _p, _p, _p, _i, _ll, _i, _i,
+                          _f, _f, _d, _p],
+    "flan_sqpv_inverse": [_p, _p, _p, _p, _p, _p, _i, _ll, _i, _d, _p],
+}
+# functions of no argument that must return TILE_FRAMES or MAX_BINS; every
+# source takes both from csrc/common.cuh
+_LIMITS = {"flan_spv_tile_frames": TILE_FRAMES,
+           "flan_spv_max_bins": MAX_BINS}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return h.hexdigest()
+
+
+def build_library() -> tuple[Path, str]:
+    """Compile every csrc/*.cu for sm_90a and link them into
+    BUILD_DIR/libflan_kernels.so, unless a build of the same sources and
+    flags is there. Returns the library's path and the compilers' output
+    (registers, shared memory and spills per kernel); raises if nvcc is
+    missing or fails."""
+    digest = _digest()
+    lib = BUILD_DIR / "libflan_kernels.so"
+    stamp = BUILD_DIR / "libflan_kernels.sha256"
+    if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+        return lib, ""
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: the kernels need the CUDA "
+                           "toolkit to build")
+    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = os.getpid()
+    srcs = sources()
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(srcs, objs)]
+    # wait for every compiler before raising, so none is left running
+    outs = [proc.communicate()[0] for proc in procs]
+    for src, proc, out in zip(srcs, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{out}")
+    logs = [f"{src.name}:\n{out}" for src, out in zip(srcs, outs)]
+    tmp = BUILD_DIR / f"libflan_kernels.{tag}.so"
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                           *map(str, objs)], capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc failed to link {lib.name}:\n{link.stderr}")
+    os.replace(tmp, lib)
+    stamp.write_text(digest)
+    return lib, "\n".join(logs)
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, once per process."""
+    path, _ = build_library()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    for name, want in _LIMITS.items():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        if fn() != want:
+            raise RuntimeError(f"{name}() is {fn()} in csrc, {want} in "
+                               "ops/build.py")
+    return lib
+
+
+def check_cuda(t: torch.Tensor, name: str, ndim: int,
+               dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless t is a non-empty contiguous CUDA tensor of ndim
+    dimensions and the given dtype: what every kernel wrapper takes."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.ndim != ndim or t.numel() == 0:
+        raise ValueError(f"{name} must be a non-empty {ndim}-d tensor, "
+                         f"got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

@@ -21,39 +21,28 @@ limit and does not apply: the kernels take 2 <= B <= 2048 and any N.
 
 Dispatch is by the tensor's device: a CPU tensor goes to the plain
 version; a CUDA tensor goes to the kernel or the call raises. The kernel
-library is built with nvcc from the package's own source at first use and
-rebuilt when the source changes (build/flan_tpu_torch/ in the checkout).
-LAUNCHES counts the kernel launches of each wrapper.
+library (ops/build.py) is built with nvcc from the package's own sources
+at first use. LAUNCHES counts the kernel launches of each wrapper.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
-import hashlib
 import math
-import os
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from flan_tpu_torch.ops.build import (MAX_BINS, TILE_FRAMES, check_cuda,
+                                      load_library, raise_on)
 from flan_tpu_torch.ops.fastmath import atan2 as _fast_atan2
 from flan_tpu_torch.ops.stft import (_wrap_radians, bin_frequencies,
-                                     cumsum_mod1_frames, true_div)
+                                     cpu_exact, cumsum_mod1_frames, true_div)
 
-TILE_FRAMES = 128       # frames per tile in the kernels
-MAX_BINS = 2048         # 256 threads x 8 bins each in the epilogues
 _REF_CHUNK = 1024       # frames per chunk of the plain versions (as spv.py)
 _REF_BLOCK = 128        # frames per cumsum block inside a chunk (as spv.py)
 _TWO_PI = 2.0 * math.pi
 
 LAUNCHES = {"spv_forward": 0, "spv_inverse": 0}
-
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "spv_kernels.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "flan_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def reset_launch_counts() -> None:
@@ -82,7 +71,7 @@ def twiddle_table_np(nbins: int):
 
 # ------------------------------------------------------------ plain versions
 
-def _cumsum_blocked(x: torch.Tensor, block: int = _REF_BLOCK):
+def cumsum_blocked(x: torch.Tensor, block: int = _REF_BLOCK):
     """Inclusive cumsum along axis 1 of [C, T, B] in blocks of `block`
     frames chained by an exclusive prefix of block totals: the association
     of flan_tpu/spv/spv.py _cumsum_frames_tri."""
@@ -142,8 +131,8 @@ def spv_forward_ref(x: torch.Tensor, nbins: int, sample_rate: float,
         off = t0 % two_b
         deltas = (xp[:, t0 + two_b:t0 + two_b + h] - xp[:, t0:t0 + h])
         deltas = deltas[:, :, None]
-        s_re = _cumsum_blocked(deltas * tw_re[off:off + h]) + sum_re
-        s_im = _cumsum_blocked(deltas * tw_im[off:off + h]) + sum_im
+        s_re = cumsum_blocked(deltas * tw_re[off:off + h]) + sum_re
+        s_im = cumsum_blocked(deltas * tw_im[off:off + h]) + sum_im
         # rotate to the frame's reference phase: * conj(twiddle(t+1, b))
         cn_re = tw_re[off + 1:off + 1 + h]
         cn_im = -tw_im[off + 1:off + 1 + h]
@@ -157,7 +146,7 @@ def spv_forward_ref(x: torch.Tensor, nbins: int, sample_rate: float,
         prev = torch.cat([prev_phase, phase[:, :-1]], dim=1)
         # deliberate wrap at analysis rate == sample rate (spv.py:252-258)
         delta = _wrap_radians(phase - prev - expected)
-        mag[:, t0:t0 + h] = torch.sqrt(energy)
+        mag[:, t0:t0 + h] = cpu_exact(torch.sqrt, energy)
         freq[:, t0:t0 + h] = bin_freq + delta * (sample_rate / _TWO_PI)
         sum_re, sum_im = s_re[:, -1:], s_im[:, -1:]
         prev_phase = phase[:, -1:]
@@ -186,68 +175,10 @@ def spv_inverse_ref(mag: torch.Tensor, freq: torch.Tensor,
 
 # ------------------------------------------------------------------ kernels
 
-def build_library() -> tuple[Path, str]:
-    """Compile csrc/spv_kernels.cu for sm_90a into BUILD_DIR unless a build
-    of the same source and flags is there. Returns the library's path and
-    the compiler's output (register and shared-memory use per kernel)."""
-    digest = hashlib.sha256(_SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / "libspv_kernels.so"
-    stamp = BUILD_DIR / "libspv_kernels.sha256"
-    if lib.exists() and stamp.exists() and stamp.read_text() == digest:
-        return lib, ""
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: the SPV kernels need the CUDA "
-                           "toolkit to build")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"libspv_kernels.{os.getpid()}.so"
-    proc = subprocess.run(
-        [os.path.join(CUDA_HOME, "bin", "nvcc"), *NVCC_FLAGS, "-o", str(tmp),
-         str(_SOURCE)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, lib)
-    stamp.write_text(digest)
-    return lib, proc.stdout + proc.stderr
-
-
-@functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, once per process."""
-    path, _ = build_library()
-    lib = ctypes.CDLL(str(path))
-    p, i, ll, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-        ctypes.c_double
-    lib.flan_spv_forward.argtypes = [p, p, p, p, p, p, p, i, ll, i, d, p]
-    lib.flan_spv_forward.restype = i
-    lib.flan_spv_inverse.argtypes = [p, p, p, p, i, ll, i, d, p]
-    lib.flan_spv_inverse.restype = i
-    lib.flan_spv_tile_frames.restype = i
-    lib.flan_spv_max_bins.restype = i
-    if (lib.flan_spv_tile_frames() != TILE_FRAMES
-            or lib.flan_spv_max_bins() != MAX_BINS):
-        raise RuntimeError("spv_kernels.cu and spv_kernels.py disagree on "
-                           "the tile or bin limits")
-    return lib
-
-
 @functools.lru_cache(maxsize=8)
 def _device_twiddles(nbins: int, device: torch.device):
     return tuple(torch.from_numpy(t).to(device)
                  for t in twiddle_table_np(nbins))
-
-
-def _check_cuda(t: torch.Tensor, name: str, ndim: int) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
-    if t.ndim != ndim or t.numel() == 0:
-        raise ValueError(f"{name} must be a non-empty {ndim}-d tensor, "
-                         f"got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def _check_bins(nbins: int, low: int) -> None:
@@ -255,13 +186,8 @@ def _check_bins(nbins: int, low: int) -> None:
         raise ValueError(f"nbins must be in [{low}, {MAX_BINS}], got {nbins}")
 
 
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-
-
 def _spv_forward_cuda(x: torch.Tensor, nbins: int, sample_rate: float):
-    _check_cuda(x, "x", 2)
+    check_cuda(x, "x", 2)
     _check_bins(nbins, 2)
     lib = load_library()
     c, n = x.shape
@@ -278,15 +204,15 @@ def _spv_forward_cuda(x: torch.Tensor, nbins: int, sample_rate: float):
             tot_re.data_ptr(), tot_im.data_ptr(), mag.data_ptr(),
             freq.data_ptr(), c, n, nbins, float(sample_rate),
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "spv_forward")
+    raise_on(err, "spv_forward")
     LAUNCHES["spv_forward"] += 1
     return mag, freq
 
 
 def _spv_inverse_cuda(mag: torch.Tensor, freq: torch.Tensor,
                       sample_rate: float):
-    _check_cuda(mag, "mag", 3)
-    _check_cuda(freq, "freq", 3)
+    check_cuda(mag, "mag", 3)
+    check_cuda(freq, "freq", 3)
     if freq.shape != mag.shape or freq.device != mag.device:
         raise ValueError("mag and freq must share shape and device")
     c, n, nbins = mag.shape
@@ -301,7 +227,7 @@ def _spv_inverse_cuda(mag: torch.Tensor, freq: torch.Tensor,
             mag.data_ptr(), freq.data_ptr(), tot.data_ptr(), out.data_ptr(),
             c, n, nbins, float(sample_rate),
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "spv_inverse")
+    raise_on(err, "spv_inverse")
     LAUNCHES["spv_inverse"] += 1
     return out
 

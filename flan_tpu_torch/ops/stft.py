@@ -64,6 +64,19 @@ def true_div(x: torch.Tensor, s: float) -> torch.Tensor:
     return x / torch.full((), s, dtype=x.dtype, device=x.device)
 
 
+def cpu_exact(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn(x) for fn torch.sqrt or torch.log2, with a float32 CPU tensor
+    evaluated in float64 and rounded back. torch's float32 CPU sqrt and
+    log2 can be off by up to 3e-4 relative in the part of a call that an
+    intra-op worker thread computes the first time it runs them (torch
+    2.13 on an AVX-512 CPU, in one process in two to ten), so a plain
+    version gave two outputs for one input; rounded back from float64 the
+    result stays within one float32 ulp. On the card fn runs in float32."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return fn(x.double()).to(x.dtype)
+    return fn(x)
+
+
 def bin_frequencies(nbins: int, bin_hz: float, frame_rate: float,
                     dtype=torch.float32, device=None):
     """(bin_freq, expected): each bin's centre frequency, b * bin_hz, and
@@ -94,7 +107,7 @@ def rfft_mag_phase(x: torch.Tensor, n: int):
     energy = re * re + im * im
     dead = energy == 0.0
     phase = _fast_atan2(torch.where(dead, 0.0, im), torch.where(dead, 1.0, re))
-    return torch.sqrt(energy), phase
+    return cpu_exact(torch.sqrt, energy), phase
 
 
 def irfft_polar(mag: torch.Tensor, phase: torch.Tensor, n: int):

@@ -7,11 +7,14 @@ for CUDA tensors, their plain versions for CPU tensors.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 
 import torch
 
+from flan_tpu_torch.func.function import as_function2d
 from flan_tpu_torch.ops.spv_kernels import spv_forward, spv_inverse
+from flan_tpu_torch.ops.stft import true_div
 
 
 def _empty_planes() -> torch.Tensor:
@@ -57,10 +60,34 @@ class SPV:
     def create_null() -> "SPV":
         return SPV()
 
+    def copy(self) -> "SPV":
+        return dataclasses.replace(self)
+
     def to_numpy(self):
         return (self.mag.detach().cpu().numpy(),
                 self.freq.detach().cpu().numpy())
 
+    # --- Algorithms (reference SPV.cpp:21-44) -------------------------------
+    def modify_frequency(self, mod) -> "SPV":
+        """Map each frame's frequencies through mod(time, frequency)."""
+        if self.is_null():
+            return SPV.create_null()
+        fn = as_function2d(mod)
+        t = true_div(torch.arange(self.num_frames, dtype=torch.float32,
+                                  device=self.device)[None, :, None],
+                     self.sample_rate)
+        tt = torch.broadcast_to(t, self.freq.shape)
+        new_freq = torch.broadcast_to(
+            torch.as_tensor(fn(tt, self.freq), dtype=torch.float32,
+                            device=self.device), self.freq.shape)
+        return dataclasses.replace(self, freq=new_freq.contiguous())
+
+    def repitch(self, factor) -> "SPV":
+        """Scale each frequency by factor(time, frequency) (SPV.cpp:41-44)."""
+        fn = as_function2d(factor)
+        return self.modify_frequency(lambda t, f: f * fn(t, f))
+
+    # --- Conversions (reference AudioSPV.cpp:113-150) -----------------------
     def convert_to_audio(self):
         """Phase accumulation + alternating-sign real-part sum (reference
         AudioSPV.cpp:113-150)."""
@@ -69,6 +96,10 @@ class SPV:
             return Audio.create_null()
         data = spv_inverse(self.mag, self.freq, self.sample_rate)
         return Audio(data=data, sample_rate=self.sample_rate)
+
+    def convert_to_lr_audio(self):
+        """Inverse, then mid/side back to left/right."""
+        return self.convert_to_audio().convert_to_left_right()
 
 
 __all__ = ["SPV", "spv_forward", "spv_inverse"]

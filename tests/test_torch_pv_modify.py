@@ -135,7 +135,7 @@ def _input_pv():
     b = (i % np.uint64(B)).astype(np.float32)
     fr = (b + np.float32(0.45) * jit) * np.float32(250.0)
     return pv_from_numpy(m.reshape(C, F, B), fr.reshape(C, F, B), SR, HOP,
-                         WIN)
+                         WIN, device="cpu")
 
 
 def _assert_planes_close(ours, name, mag_tol=1e-4, freq_tol=1e-2,

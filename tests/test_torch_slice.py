@@ -53,7 +53,7 @@ def test_stretch_class_path_matches_flan_tpu():
     want = np.array(flan_tpu.Audio.create_from_array(x, SR)
                     .convert_to_PV(512, 64, 512).stretch(2.0)
                     .convert_to_audio().data)
-    pv = (flan_tpu_torch.Audio.create_from_array(x, SR)
+    pv = (flan_tpu_torch.Audio.create_from_array(x, SR, device="cpu")
           .convert_to_PV(512, 64, 512).stretch(2.0))
     got = pv.convert_to_audio().to_numpy()
     assert got.shape == want.shape
@@ -76,7 +76,7 @@ def test_spv_round_trip_matches_flan_tpu():
     ja = flan_tpu.Audio.create_from_array(x, SR).convert_to_SPV(128)
     jm, jf = (np.array(a) for a in (ja.mag, ja.freq))
     want = np.array(ja.convert_to_audio().data)
-    spv = audio_from_numpy(x, SR).convert_to_SPV(128)
+    spv = audio_from_numpy(x, SR, device="cpu").convert_to_SPV(128)
     got = spv.convert_to_audio().to_numpy()
     scale = np.abs(jm).max()
     assert np.abs(spv.to_numpy()[0] - jm).max() < 1e-5 * scale
@@ -95,7 +95,8 @@ def test_spv_round_trip_matches_flan_tpu():
 def test_state_carries_across_from_flan_tpu():
     x = _stereo(3000)
     jpv = flan_tpu.Audio.create_from_array(x, SR).convert_to_PV(256, 64, 512)
-    pv = pv_from_numpy(np.array(jpv.mag), np.array(jpv.freq), SR, 64, 256)
+    pv = pv_from_numpy(np.array(jpv.mag), np.array(jpv.freq), SR, 64, 256,
+                       device="cpu")
     assert (pv.num_channels, pv.num_frames, pv.num_bins) == (
         jpv.num_channels, jpv.num_frames, jpv.num_bins)
     assert pv.dft_size == 512 and pv.bin_width == jpv.bin_width
@@ -105,7 +106,8 @@ def test_state_carries_across_from_flan_tpu():
     # measured 1.7e-4 of the peak, bound 1.8x that
     assert np.abs(got - want).max() < 3e-4 * np.abs(want).max()
     with pytest.raises(ValueError):
-        pv_from_numpy(np.zeros((2, 3)), np.zeros((2, 3)), SR, 64, 256)
+        pv_from_numpy(np.zeros((2, 3)), np.zeros((2, 3)), SR, 64, 256,
+                      device="cpu")
 
 
 def test_null_objects_propagate():
@@ -121,9 +123,10 @@ def test_wav_round_trip(tmp_path):
     x = _stereo(1000)
     strings = flan_tpu_torch.SndfileStrings(title="t", artist="a")
     path = str(tmp_path / "x.wav")
-    flan_tpu_torch.Audio.create_from_array(x, SR).save_to_file(path, strings)
+    flan_tpu_torch.Audio.create_from_array(x, SR, device="cpu").save_to_file(
+        path, strings)
     back, got_strings = flan_tpu_torch.Audio.load_from_file(
-        path, return_strings=True)
+        path, return_strings=True, device="cpu")
     assert back.sample_rate == SR and got_strings == strings
     assert np.array_equal(back.to_numpy(), x)
     # the JAX package's codec reads the port's file to the same samples
@@ -136,7 +139,7 @@ def test_wav_pcm_round_trip(tmp_path, bits, step):
     x = np.clip(_stereo(500), -1.0, 1.0)
     path = str(tmp_path / f"pcm{bits}.wav")
     write_wav(path, x, SR, bits=bits, float_format=False)
-    back = flan_tpu_torch.Audio.load_from_file(path).to_numpy()
+    back = flan_tpu_torch.Audio.load_from_file(path, device="cpu").to_numpy()
     assert np.abs(back - x).max() <= step
     assert np.array_equal(back, jax_pkg_read_wav(path)[0])
 
@@ -145,7 +148,7 @@ def test_load_rejects_other_formats(tmp_path):
     path = tmp_path / "x.flac"
     path.write_bytes(b"fLaC" + bytes(64))
     with pytest.raises(ValueError, match="WAV"):
-        flan_tpu_torch.Audio.load_from_file(str(path))
+        flan_tpu_torch.Audio.load_from_file(str(path), device="cpu")
 
 
 def test_create_from_array_keeps_a_tensor_device():
@@ -156,8 +159,13 @@ def test_create_from_array_keeps_a_tensor_device():
 
 def test_port_never_imports_jax():
     code = ("import sys, flan_tpu_torch, flan_tpu_torch.convert; "
-            "flan_tpu_torch.Audio.create_from_array([0.0] * 600, 8000.0)"
-            ".convert_to_PV(256, 64, 256).stretch(2.0).convert_to_audio(); "
+            "a = flan_tpu_torch.Audio.create_from_array([0.1] * 900, "
+            "8000.0, device='cpu'); "
+            "a.convert_to_PV(256, 64, 256).stretch(2.0).convert_to_audio(); "
+            "sq = a.convert_to_SQPV((100.0, 3000.0), 6.0); "
+            "sq.repitch(1.5).select(0.05, lambda t, p: t)"
+            ".convert_to_audio(); "
+            "a.convert_to_ms_SPV(16).repitch(2.0).convert_to_lr_audio(); "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'flan_tpu' or m.startswith('flan_tpu.') "
             "for m in sys.modules)")

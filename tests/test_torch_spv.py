@@ -128,7 +128,7 @@ def _planes(name):
 
 def test_sdft_forward_golden():
     sig = np.fromfile(os.path.join(FIXDIR, "sdft_sig.f32"), dtype="<f4")
-    got_m, got_f = audio_from_numpy(sig, SR).convert_to_SPV(16).to_numpy()
+    got_m, got_f = audio_from_numpy(sig, SR, device="cpu").convert_to_SPV(16).to_numpy()
     ref_m, ref_f = _planes("sdft_fwd")
     assert got_m.shape == ref_m.shape
     np.testing.assert_allclose(got_m, ref_m, atol=2e-4)
@@ -142,7 +142,8 @@ def test_sdft_forward_golden():
 
 def test_sdft_inverse_golden():
     ref_m, ref_f = _planes("sdft_fwd")
-    inv = spv_from_numpy(ref_m, ref_f, SR).convert_to_audio().to_numpy()[0]
+    inv = spv_from_numpy(ref_m, ref_f, SR,
+                         device="cpu").convert_to_audio().to_numpy()[0]
     ref_inv = np.fromfile(os.path.join(FIXDIR, "sdft_inv.f32"), dtype="<f4")
     assert inv.shape == ref_inv.shape
     np.testing.assert_allclose(inv, ref_inv, atol=2e-3)

@@ -1,0 +1,432 @@
+"""flan_tpu_torch's SQPV slice against flan_tpu on the CPU.
+
+The plain versions of kernels B3 and B4 (ops/sqpv_kernels.py) are held
+against the JAX scan path and the fused Pallas forward in interpret mode;
+the class path, its algorithms, mid/side and the new SPV methods against
+flan_tpu on the same inputs; and the analytic oracles of
+tests/test_sqpv_transform.py. tests/test_torch_cuda.py holds the CUDA
+kernels to the plain versions on the card. Inputs are made with numpy from
+a seed and handed to both packages; every tolerance names the reading it
+was set from (CPU).
+"""
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import flan_tpu
+import flan_tpu_torch
+from flan_tpu.ops.sqpv_pallas import _cq_tables, sqpv_forward_fused
+from flan_tpu.sqpv import SQPV as JaxSQPV
+from flan_tpu.sqpv.transform import _cq_params as jax_cq_params
+from flan_tpu.sqpv.transform import sqpv_forward as jax_sqpv_forward
+from flan_tpu.sqpv.transform import sqpv_inverse as jax_sqpv_inverse
+from flan_tpu_torch import SQPV, Audio
+from flan_tpu_torch.convert import (audio_from_numpy, spv_from_numpy,
+                                    sqpv_from_numpy)
+from flan_tpu_torch.ops import build, sqpv_kernels
+from flan_tpu_torch.sqpv.transform import _cq_params, cq_geometry
+
+SR = 8000.0
+BPO = 6.0
+BAND = (100.0, 3000.0)
+
+
+def _np(a):
+    return np.array(a)
+
+
+def _signal(n=2000, ch=1):
+    rng = np.random.default_rng(7)
+    t = np.arange(n, dtype=np.float32) / SR
+    x = (0.4 * np.sin(2 * np.pi * 440.0 * t)
+         + 0.2 * np.sin(2 * np.pi * 1187.0 * t + 0.3)
+         + 0.01 * rng.standard_normal(n).astype(np.float32))
+    return np.ascontiguousarray(np.stack([x, -0.5 * x])[:ch],
+                                dtype=np.float32)
+
+
+def _tone(f0=440.0, n=3000, ch=1):
+    t = np.arange(n, dtype=np.float32) / SR
+    x = (0.5 * np.sin(2 * np.pi * f0 * t)).astype(np.float32)
+    return np.tile(x, (ch, 1))
+
+
+def _freq(pitch, positive):
+    return np.where(positive, 1.0, -1.0) * 2.0 ** pitch.astype(np.float64)
+
+
+def _fit_tone_snr(y, f0, lo=1000, hi=2500):
+    """SNR after fitting amplitude and phase (the inverse accumulates phase
+    from zero), as tests/test_sqpv_transform.py."""
+    t = np.arange(len(y), dtype=np.float64)[lo:hi] / SR
+    basis = np.stack([np.sin(2 * np.pi * f0 * t),
+                      np.cos(2 * np.pi * f0 * t)], 1)
+    coef, *_ = np.linalg.lstsq(basis, y[lo:hi], rcond=None)
+    fit = basis @ coef
+    err = y[lo:hi] - fit
+    return 10 * np.log10(fit @ fit / max(err @ err, 1e-20))
+
+
+@pytest.fixture(scope="module", params=[(1, 2000), (2, 1300)],
+                ids=["mono", "stereo-ragged"])
+def forward_case(request):
+    ch, n = request.param
+    x = _signal(n, ch)
+    xj = jnp.asarray(x)
+    scan = tuple(_np(a) for a in jax_sqpv_forward(xj, SR, BPO, BAND))
+    fused = tuple(_np(a) for a in sqpv_forward_fused(
+        xj, sample_rate=SR, bins_per_octave=BPO, bandwidth=BAND))
+    ours = tuple(a.numpy() for a in sqpv_kernels.sqpv_forward_ref(
+        torch.from_numpy(x), SR, BPO, BAND))
+    return x, scan, fused, ours
+
+
+def test_geometry_matches_flan_tpu():
+    ours, theirs = _cq_params(48000.0, 24.0, (16.0, 24000.0)), \
+        jax_cq_params(48000.0, 24.0, (16.0, 24000.0))
+    assert ours[0] == theirs[0] and ours[1] == theirs[1] == 254
+    assert np.array_equal(ours[2], theirs[2])
+    assert np.array_equal(ours[3], theirs[3])
+    geo = cq_geometry(48000.0, 24.0, (16.0, 24000.0))
+    # the issue's bench numbers: 102,382-sample period at 16 Hz, 121 odd
+    assert geo.periods[0] == 102382 and geo.w0 == 51193
+    assert int((geo.periods % 2 == 1).sum()) == 121
+
+
+def test_kernel_tables_are_bit_identical():
+    """The forward kernel's float32 twiddle tables are the fused TPU
+    kernel's (sqpv_pallas._cq_tables), bin for bin."""
+    geo = cq_geometry(SR, BPO, BAND)
+    theirs = _cq_tables(SR, BPO, BAND, 128)[4:]
+    t1, t2 = geo.twiddle_tables(128)
+    ours = [a.astype(np.float32) for a in (t1.real, t1.imag, t2.real,
+                                           t2.imag)]
+    assert all(np.array_equal(a, b[..., :geo.nbins])
+               for a, b in zip(ours, theirs))
+
+
+def test_forward_ref_has_odd_periods_in_play(forward_case):
+    periods = cq_geometry(SR, BPO, BAND).periods
+    assert (periods % 2 == 1).any()
+    x, (m_s, _, _), _, (mag, _, _) = forward_case
+    assert mag.shape == m_s.shape == (x.shape[0], x.shape[1],
+                                      len(periods))
+
+
+@pytest.mark.parametrize("jax_path", ["scan", "fused"])
+def test_forward_ref_matches_jax(forward_case, jax_path):
+    x, scan, fused, (mag, pitch, positive) = forward_case
+    want_m, want_p, want_s = scan if jax_path == "scan" else fused
+    assert mag.shape == want_m.shape and positive.dtype == np.bool_
+    scale = np.abs(want_m).max()
+    # readings: 1.0e-6 (scan), 9.0e-7 (fused, which carries per 128-frame
+    # tile); bound 5e-6
+    assert np.abs(mag - want_m).max() < 5e-6 * scale
+    # frequencies on bins above 1e-2 of the peak: readings 0.029 Hz (scan)
+    # and 0.055 Hz (fused); bound 0.1 Hz, the SPV tests' bound
+    live = want_m > 1e-2 * scale
+    assert live.any()
+    assert np.abs(_freq(pitch, positive) - _freq(want_p, want_s))[live].max() \
+        < 0.1
+    assert np.array_equal(positive[live], want_s[live])
+
+
+@pytest.mark.parametrize("planes_from", ["port", "jax"])
+def test_inverse_ref_matches_jax(forward_case, planes_from):
+    _, scan, _, ours = forward_case
+    planes = ours if planes_from == "port" else scan
+    want = _np(jax_sqpv_inverse(*(jnp.asarray(a) for a in planes), SR, BPO,
+                                BAND))
+    got = sqpv_kernels.sqpv_inverse_ref(
+        *(torch.from_numpy(a) for a in planes), SR, BPO, BAND).numpy()
+    assert got.shape == want.shape
+    # reading 9.0e-5 of the peak: the JAX side sums its mod-1 cycles in
+    # float32 blocks, the port in float64; bound 2e-4
+    assert np.abs(got - want).max() < 2e-4 * np.abs(want).max()
+
+
+def test_float64_plain_version_bounds_float32_drift():
+    """The plain versions compute in their input's dtype; float64 is the
+    reference the card checks measure float32 drift against."""
+    x = torch.from_numpy(_signal(1500))
+    m32, p32, s32 = sqpv_kernels.sqpv_forward_ref(x, SR, BPO, BAND)
+    m64, p64, s64 = sqpv_kernels.sqpv_forward_ref(x.double(), SR, BPO, BAND)
+    assert m64.dtype == p64.dtype == torch.float64 and s64.dtype == torch.bool
+    scale = m64.abs().max()
+    # readings 4.8e-7 (magnitude), 0.024 Hz (live bins) and 1.6e-5
+    # (inverse); bounds as above, and 5e-5 for the inverse
+    assert (m32 - m64).abs().max() < 5e-6 * scale
+    live = (m64 > 1e-2 * scale).numpy()
+    assert np.abs(_freq(p32.numpy(), s32.numpy())
+                  - _freq(p64.numpy(), s64.numpy()))[live].max() < 0.1
+    y32 = sqpv_kernels.sqpv_inverse_ref(m32, p32, s32, SR, BPO, BAND)
+    y64 = sqpv_kernels.sqpv_inverse_ref(m64, p64, s64, SR, BPO, BAND)
+    assert y64.dtype == torch.float64
+    assert (y32 - y64).abs().max() < 5e-5 * y64.abs().max()
+
+
+def test_short_chunks_change_nothing_but_rounding():
+    """A chunk of 100 frames, off every 128-frame block, still matches
+    (readings 5.3e-7 and 6.6e-7 of the peaks)."""
+    x = torch.from_numpy(_signal(1300, 2))
+    a = sqpv_kernels.sqpv_forward_ref(x, SR, BPO, BAND)
+    b = sqpv_kernels.sqpv_forward_ref(x, SR, BPO, BAND, chunk=100)
+    scale = a[0].abs().max()
+    assert (a[0] - b[0]).abs().max() < 2e-6 * scale
+    y = sqpv_kernels.sqpv_inverse_ref(*a, SR, BPO, BAND)
+    y100 = sqpv_kernels.sqpv_inverse_ref(*a, SR, BPO, BAND, chunk=100)
+    assert (y - y100).abs().max() < 3e-6 * y.abs().max()
+
+
+# ---- the class path and its algorithms against flan_tpu
+
+def _both(x, band=BAND, bpo=BPO):
+    jsq = flan_tpu.Audio.create_from_array(x, SR).convert_to_SQPV(band, bpo)
+    sq = Audio.create_from_array(x, SR, device="cpu").convert_to_SQPV(band,
+                                                                      bpo)
+    return jsq, sq
+
+
+def test_class_round_trip_matches_flan_tpu():
+    x = _signal(2500, 2)
+    jsq, sq = _both(x)
+    assert (sq.num_channels, sq.num_frames, sq.num_bins) == (
+        jsq.num_channels, jsq.num_frames, jsq.num_bins)
+    assert sq.bandwidth == jsq.bandwidth and sq.q == jsq.q
+    assert np.allclose(sq.bin_frequencies(), jsq.bin_frequencies())
+    assert sq.get_period(3) == jsq.get_period(3)
+    want = _np(jsq.convert_to_audio().data)
+    got = sq.convert_to_audio().to_numpy()
+    assert got.shape == want.shape == x.shape
+    # forward frequency differences integrate into phase: reading 9.8e-5 of
+    # the peak, bound 2e-4
+    assert np.abs(got - want).max() < 2e-4 * np.abs(want).max()
+
+
+def test_state_carries_across_from_flan_tpu():
+    x = _signal(2000, 1)
+    jsq = flan_tpu.Audio.create_from_array(x, SR).convert_to_SQPV(BAND, BPO)
+    sq = sqpv_from_numpy(_np(jsq.mag), _np(jsq.pitch), _np(jsq.positive),
+                         SR, BPO, BAND, device="cpu")
+    assert sq.positive.dtype == torch.bool and sq.device.type == "cpu"
+    assert sq.get_max_partial_magnitude() == pytest.approx(
+        jsq.get_max_partial_magnitude())
+    assert [a.shape for a in sq.to_numpy()] == [jsq.mag.shape] * 3
+    with pytest.raises(ValueError):
+        sqpv_from_numpy(np.zeros((1, 4, 3)), np.zeros((1, 4, 2)),
+                        np.ones((1, 4, 3), bool), SR, BPO, BAND,
+                        device="cpu")
+
+
+@pytest.fixture(scope="module")
+def carried():
+    """The same SQPV planes in both packages."""
+    x = _signal(2000, 2)
+    jsq = flan_tpu.Audio.create_from_array(x, SR).convert_to_SQPV(BAND, BPO)
+    sq = sqpv_from_numpy(_np(jsq.mag), _np(jsq.pitch), _np(jsq.positive),
+                         SR, BPO, BAND, device="cpu")
+    return jsq, sq
+
+
+@pytest.mark.parametrize("factor", [1.5, "callable"])
+def test_repitch_matches_flan_tpu(carried, factor):
+    jsq, sq = carried
+    if factor == "callable":
+        jf, tf = (lambda t, p: 1.0 + 0.5 * t), (lambda t, p: 1.0 + 0.5 * t)
+    else:
+        jf = tf = factor
+    jup, up = jsq.repitch(jf), sq.repitch(tf)
+    assert np.abs(up.pitch.numpy() - _np(jup.pitch)).max() < 1e-5
+    assert np.array_equal(up.mag.numpy(), _np(jup.mag))
+    want = _np(jup.convert_to_audio().data)
+    got = up.convert_to_audio().to_numpy()
+    # the inverse alone on one set of planes: readings 1.5e-4 (1.5x) and
+    # 9.9e-5 (callable), bound 3e-4
+    assert np.abs(got - want).max() < 3e-4 * np.abs(want).max()
+
+
+def test_modify_pitch_matches_flan_tpu(carried):
+    jsq, sq = carried
+    want = _np(jsq.modify_pitch(lambda t, p: p + 0.5 * t).pitch)
+    got = sq.modify_pitch(lambda t, p: p + 0.5 * t).pitch.numpy()
+    assert np.abs(got - want).max() < 1e-5          # reading 0
+    const = sq.modify_pitch(9.0).pitch
+    assert const.shape == sq.pitch.shape and bool((const == 9.0).all())
+
+
+@pytest.mark.parametrize("length,selector", [
+    (0.2, lambda t, p: 0.5 * t + 0.01),
+    (0.1, lambda t, p: t + 0.001 * (p - 8.0)),
+    (0.1, lambda t, p: t + 100.0)])
+def test_select_matches_flan_tpu(carried, length, selector):
+    jsq, sq = carried
+    jout, out = jsq.select(length, selector), sq.select(length, selector)
+    assert out.mag.shape == jout.mag.shape
+    assert np.allclose(out.mag.numpy(), _np(jout.mag), rtol=1e-6, atol=1e-9)
+    assert np.allclose(out.pitch.numpy(), _np(jout.pitch), atol=1e-6)
+    assert np.array_equal(out.positive.numpy(), _np(jout.positive))
+
+
+def test_mid_side_sqpv_and_lr_audio_match_flan_tpu():
+    x = _signal(2000, 2)
+    ja = flan_tpu.Audio.create_from_array(x, SR)
+    a = Audio.create_from_array(x, SR, device="cpu")
+    assert np.array_equal(a.convert_to_mid_side().to_numpy(),
+                          _np(ja.convert_to_mid_side().data))
+    back = a.convert_to_mid_side().convert_to_left_right().to_numpy()
+    assert np.abs(back - x).max() < 1e-6
+    jsq, sq = ja.convert_to_ms_SQPV(BAND, BPO), a.convert_to_ms_SQPV(BAND,
+                                                                      BPO)
+    scale = np.abs(_np(jsq.mag)).max()
+    # readings 9.9e-7 (magnitude) and 5.5e-5 (audio); bounds 5e-6, 1.5e-4
+    assert np.abs(sq.mag.numpy() - _np(jsq.mag)).max() < 5e-6 * scale
+    want = _np(jsq.convert_to_lr_audio().data)
+    got = sq.convert_to_lr_audio().to_numpy()
+    assert got.shape == want.shape == (2, 2000)
+    assert np.abs(got - want).max() < 1.5e-4 * np.abs(want).max()
+    mono = Audio.create_from_array(x[:1], SR, device="cpu")
+    assert np.array_equal(mono.convert_to_mid_side().to_numpy(), x[:1])
+
+
+def test_spv_methods_match_flan_tpu():
+    x = _signal(1500, 2)
+    ja = flan_tpu.Audio.create_from_array(x, SR)
+    jspv = ja.convert_to_ms_SPV(64)
+    spv = Audio.create_from_array(x, SR, device="cpu").convert_to_ms_SPV(64)
+    scale = np.abs(_np(jspv.mag)).max()
+    # reading 4.9e-7, bound the SPV tests' 1e-5
+    assert np.abs(spv.mag.numpy() - _np(jspv.mag)).max() < 1e-5 * scale
+    carried = spv_from_numpy(_np(jspv.mag), _np(jspv.freq), SR, device="cpu")
+    assert carried.copy().freq is carried.freq
+    for jmod, mod in ((jspv.repitch(1.5), carried.repitch(1.5)),
+                      (jspv.modify_frequency(lambda t, f: f + 10.0 * t),
+                       carried.modify_frequency(lambda t, f: f + 10.0 * t))):
+        assert np.abs(mod.freq.numpy() - _np(jmod.freq)).max() < 1e-4  # 0
+        want = _np(jmod.convert_to_lr_audio().data)
+        got = mod.convert_to_lr_audio().to_numpy()
+        assert got.shape == want.shape == x.shape
+        # the SPV inverse on one set of planes: readings 6.2e-5 and 8.0e-5
+        assert np.abs(got - want).max() < 2e-4 * np.abs(want).max()
+
+
+# ---- analytic oracles (tests/test_sqpv_transform.py)
+
+def test_pitch_plane_reads_true_pitch():
+    sq = Audio.create_from_array(_tone(), SR, device="cpu").convert_to_SQPV(
+        (200.0, 2000.0), 8.0)
+    m = sq.mag[0].numpy()
+    pk = int(m[1500].argmax())
+    assert abs(sq.bin_to_frequency(pk) - 440.0) < 440.0 * (2 ** (1 / 8) - 1)
+    # reading 5.2e-5; bound of tests/test_sqpv_transform.py
+    assert abs(float(sq.pitch[0, 1500, pk]) - np.log2(440.0)) < 1e-3
+    assert bool(sq.positive[0, 1500, pk])
+
+
+@pytest.mark.parametrize("factor,f_out,floor_db", [(1.0, 440.0, 40.0),
+                                                   (2.0, 880.0, 25.0)])
+def test_tone_round_trip_snr(factor, f_out, floor_db):
+    """Floors of tests/test_sqpv_transform.py; readings 96.1 and 65.7 dB."""
+    sq = Audio.create_from_array(_tone(n=4000), SR, device="cpu") \
+        .convert_to_SQPV((200.0, 2000.0), 8.0)
+    y = sq.repitch(factor).convert_to_audio().to_numpy()[0]
+    lo, hi = (1000, 2500) if factor == 1.0 else (1500, 3500)
+    assert _fit_tone_snr(y, f_out, lo, hi) > floor_db
+
+
+def test_null_objects_propagate():
+    null = Audio.create_null()
+    assert null.convert_to_SQPV(BAND, BPO).is_null()
+    assert null.convert_to_mid_side().is_null()
+    assert SQPV.create_null().repitch(2.0).is_null()
+    assert SQPV.create_null().select(1.0, lambda t, p: t).is_null()
+    assert SQPV.create_null().convert_to_audio().is_null()
+    assert flan_tpu_torch.SPV.create_null().repitch(2.0).is_null()
+    assert SQPV.create(2, 10, BPO, SR, BAND, device="cpu").num_bins == \
+        JaxSQPV.create(2, 10, BPO, SR, BAND).num_bins
+
+
+# ---- devices and dispatch, without a card
+
+@pytest.mark.parametrize("call", ["create_from_array", "load_from_file",
+                                  "audio_from_numpy", "sqpv_from_numpy",
+                                  "sqpv_create"])
+def test_host_data_goes_to_the_card_by_default(tmp_path, call):
+    """With no device argument host data goes to "cuda": where torch sees
+    a GPU the result lies there, and where it sees none the call raises as
+    torch raises, instead of carrying on quietly on the CPU."""
+    x = _signal(300)
+    path = str(tmp_path / "x.wav")
+    Audio.create_from_array(x, SR, device="cpu").save_to_file(path)
+    planes = (np.zeros((1, 8, 30), np.float32),) * 2 + (
+        np.ones((1, 8, 30), bool),)
+    make = {
+        "create_from_array": lambda: Audio.create_from_array(x, SR).data,
+        "load_from_file": lambda: Audio.load_from_file(path).data,
+        "audio_from_numpy": lambda: audio_from_numpy(x, SR).data,
+        "sqpv_from_numpy": lambda: sqpv_from_numpy(*planes, SR, BPO,
+                                                   BAND).mag,
+        "sqpv_create": lambda: SQPV.create(1, 8, BPO, SR, BAND).mag}[call]
+    if torch.cuda.is_available():
+        assert make().device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            make()
+    # a tensor keeps its own device
+    t = torch.from_numpy(x)
+    assert Audio.create_from_array(t, SR).device == t.device
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    sqpv_kernels.reset_launch_counts()
+    sq = Audio.create_from_array(_signal(300), SR, device="cpu") \
+        .convert_to_SQPV(BAND, BPO)
+    assert sq.convert_to_audio().data.shape == (1, 300)
+    assert sqpv_kernels.LAUNCHES == {"sqpv_forward": 0, "sqpv_inverse": 0}
+
+
+def test_other_devices_raise():
+    from flan_tpu_torch.sqpv.transform import sqpv_forward, sqpv_inverse
+    with pytest.raises(ValueError):
+        sqpv_forward(torch.zeros((1, 64), device="meta"), SR, BPO, BAND)
+    plane = torch.zeros((1, 8, 30), device="meta")
+    with pytest.raises(ValueError):
+        sqpv_inverse(plane, plane, plane.bool(), SR, BPO, BAND)
+
+
+def test_plain_sqrt_and_log2_are_correctly_rounded_on_the_cpu():
+    """stft.cpu_exact, which the plain versions take their sqrt and log2
+    from, in a fresh process whose intra-op worker threads have not run
+    either yet: torch's own float32 CPU versions were off there by up to
+    3e-4 relative in about one process in two (sqrt) and in five (log2),
+    which made the plain forward give two magnitudes for one input."""
+    code = (
+        "import numpy as np, torch\n"
+        "from flan_tpu_torch.ops.stft import cpu_exact\n"
+        "rng = np.random.default_rng(0)\n"
+        "w = torch.from_numpy(rng.random((1, 4096, 300), np.float32))\n"
+        "for _ in range(3):\n"
+        "    w = w * 1.0001 + 0.5\n"
+        "e = torch.from_numpy(rng.random((1, 696, 30), np.float32) * 1e-4"
+        " + 1e-6)\n"
+        "for fn, ref in ((torch.sqrt, np.sqrt), (torch.log2, np.log2)):\n"
+        "    got = cpu_exact(fn, e).numpy()\n"
+        "    want = ref(e.numpy().astype(np.float64)).astype(np.float32)\n"
+        "    assert (np.abs(got - want) <= np.spacing(np.abs(want))).all()\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=repo)
+    assert run.returncode == 0, run.stderr
+
+
+def test_kernel_library_lists_every_source():
+    names = [p.name for p in build.sources()]
+    assert names == ["spv_kernels.cu", "sqpv_kernels.cu"]
+    assert set(build.SIGNATURES) == {"flan_spv_forward", "flan_spv_inverse",
+                                     "flan_sqpv_forward",
+                                     "flan_sqpv_inverse"}
+
