@@ -13,7 +13,10 @@ toolkit (nvcc). It imports nothing of JAX. Phases:
   2. hold each kernel against its plain PyTorch version on the card: the
      SPV kernels over bin counts, channel counts and a ragged length; the
      SQPV kernels over bins per octave, bandwidths at 8 and 48 kHz,
-     channel counts, a ragged length and odd periods;
+     channel counts, a ragged length and odd periods; the three scan
+     kernels over lengths 1 to 1,000,003 and 1 to 3 channels, along the
+     comb's middle axis, and the linear scan's backward; the T3 probe on
+     its own inputs;
   3. drive the PV time-stretch class path at headline size (600 s stereo
      48 kHz, window 2048 / hop 128 / dft 4096, 2x) and check its output;
      time it once whole and once stage by stage;
@@ -28,11 +31,21 @@ toolkit (nvcc). It imports nothing of JAX. Phases:
      kernel against the plain versions on the same input, require the
      kernels' tone-fit SNR to reach the plain path's within 1 dB and the
      repitched tone to sit at 330 Hz on both paths, and time each kernel
-     against its plain version.
+     against its plain version;
+  6. drive the IIR filter and compressor class path at headline size
+     (600 s stereo 48 kHz: a swept 2-pole lowpass, a swept 1-pole
+     highpass, a constant 2-pole highpass on the FIR path, the
+     compressor), twice, then once stage by stage; check its output;
+     hold each scan kernel against its plain version on the planes the
+     path built, the kernel's error against the float64 plain run at most
+     twice the float32 plain run's; run the path at 10 s on the card and
+     on the CPU and compare; time each scan kernel and the probe against
+     their plain versions.
 
 The launch counters are zeroed just before each main path (phases 3 and 4
-together, then phase 5) and read just after it, before any launch made
-for a comparison. Every failed check raises, so the script exits nonzero
+together, then phase 5, then phase 6) and read just after it, before any
+launch made for a comparison; the probe's counter runs over all of them
+(it lies on no path). Every failed check raises, so the script exits nonzero
 without printing the result line. The line before the last is one JSON
 object describing the kernels; the last is the result line.
 """
@@ -71,8 +84,24 @@ SQPV_CASES = [(8000.0, 6.0, (100.0, 3000.0), 1, 16000),
 # 20); the byte bound is the larger for all four kernels.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# the scans count the sequential recurrence's arithmetic per element (an
+# FMA is 2); the probe its ~50 operations per output element
 OPS_PER_ELEMENT = {"spv_forward": 54, "spv_inverse": 25,
-                   "sqpv_forward": 100, "sqpv_inverse": 40}
+                   "sqpv_forward": 100, "sqpv_inverse": 40,
+                   "scan_linear": 2, "scan_max_affine": 3,
+                   "scan_affine2x2": 8, "probe": 50}
+SCANS = ("scan_linear", "scan_max_affine", "scan_affine2x2")
+# phase 2 scan cases: (channels, frames)
+SCAN_CASES = [(c, n) for n in (1, 100, 4097, 1_000_003) for c in (1, 2, 3)]
+# A scan kernel's largest error against the float64 plain run, as a share
+# of its peak, may be twice the float32 plain run's. The phase-2 cases add
+# this floor, for the short ones where both sit at rounding (1e-8 to 2e-7
+# read there); phase 6, at full length, is held to twice alone.
+SCAN_FLOOR = 1e-6
+TOL_PROBE = 1e-4    # probe kernel vs plain, modulo 1 (the floor and mod 1)
+FILTER_SECONDS = 600.0
+FILTER_CPU_SECONDS = 10.0
+TOL_FILTER_CPU = 1e-4   # the filter path, card vs CPU, times the peak
 
 
 def fail(msg: str):
@@ -283,6 +312,136 @@ def phase2_sqpv(torch, sqpv_kernels, cq_geometry, dev):
     return worst
 
 
+def scan_planes(kind: str, ch: int, n: int, seed: int, shared: bool):
+    """Float32 planes and start states of one scan kind, from a seed: decay
+    factors spread from 0.5 to 0.99999; with `shared`, the coefficient
+    planes are one row for all channels, as the filters pass them."""
+    rng = np.random.default_rng(seed)
+    rows = 1 if shared else ch
+    a = rng.uniform(0.5, 0.99999, (rows, n))
+    if kind == "scan_linear":
+        planes = (a, rng.standard_normal((ch, n)))
+    elif kind == "scan_max_affine":
+        m = rng.standard_normal((ch, n))
+        planes = (m, a, (1.0 - a) * m)
+    else:
+        th = rng.uniform(0.0, 0.2, (rows, n))
+        planes = (a * np.cos(th), -a * np.sin(th), a * np.sin(th),
+                  a * np.cos(th), rng.standard_normal((ch, n)),
+                  rng.standard_normal((ch, n)))
+    states = 2 if kind == "scan_affine2x2" else 1
+    y0 = rng.standard_normal((states, ch, 1))
+    return [np.asarray(p, np.float32) for p in planes] + list(
+        y0.astype(np.float32))
+
+
+def scan_calls(scan_kernels):
+    """name -> (kernel, plain version), both taking (*planes, *y0s)."""
+    return {"scan_linear": (scan_kernels.scan_linear,
+                            scan_kernels.linear_ref),
+            "scan_max_affine": (scan_kernels.scan_max_affine,
+                                scan_kernels.max_affine_ref),
+            "scan_affine2x2": (scan_kernels.scan_affine2x2,
+                               scan_kernels.affine2x2_ref)}
+
+
+def scan_errors(torch, kernel, plain, args) -> dict:
+    """One scan kernel against its plain version on the same float32
+    arguments: the largest errors of the kernel and of the float32 plain
+    run against the float64 plain run, as shares of its peak, and the
+    kernel's largest absolute difference from the float32 plain run."""
+    def stacked(y):
+        return torch.stack(y) if isinstance(y, tuple) else y
+    k = stacked(kernel(*args))
+    p32 = stacked(plain(*args))
+    p64 = stacked(plain(*(a.double() for a in args)))
+    torch.cuda.synchronize()
+    peak = float(p64.abs().max())
+    return {"err_kernel": float((k.double() - p64).abs().max()) / peak,
+            "err_plain": float((p32.double() - p64).abs().max()) / peak,
+            "abs_err": float((k - p32).abs().max()), "peak": peak,
+            "finite": bool(torch.isfinite(k).all())}
+
+
+def check_scan(e: dict, case: str, floor: float) -> None:
+    check(e["finite"] and e["err_kernel"] <= 2.0 * e["err_plain"] + floor,
+          f"{case}: kernel error {e['err_kernel']} of the peak against "
+          f"float64, plain {e['err_plain']}")
+
+
+def phase2_scans(torch, scan_kernels, scan, dev):
+    """The three scan kernels against their plain versions over lengths and
+    channel counts (shared coefficient rows on every other case), the
+    comb's middle axis, and the linear backward against autograd through
+    the plain version. Returns each kernel's largest absolute error."""
+    worst = {name: 0.0 for name in SCANS}
+    for name, (kernel, plain) in scan_calls(scan_kernels).items():
+        for i, (ch, n) in enumerate(SCAN_CASES):
+            args = [torch.from_numpy(a).to(dev) for a in
+                    scan_planes(name, ch, n, seed=i, shared=i % 2 == 1)]
+            e = scan_errors(torch, kernel, plain, args)
+            print(json.dumps({"phase": 2, "kernel": name, "channels": ch,
+                              "frames": n, **e}), flush=True)
+            check_scan(e, f"{name} C={ch} N={n}", SCAN_FLOOR)
+            worst[name] = max(worst[name], e["abs_err"])
+    rng = np.random.default_rng(7)
+    a, b = (torch.from_numpy(v.astype(np.float32)).to(dev) for v in (
+        rng.uniform(0.5, 0.999, (2, 100001, 24)),
+        rng.standard_normal((2, 100001, 24))))
+    args = [a.movedim(1, -1), b.movedim(1, -1), torch.zeros((2, 24, 1),
+                                                            device=dev)]
+    got = scan.linear_recurrence(a, b, axis=1).movedim(1, -1)
+    e = scan_errors(torch, lambda *_: got, scan_kernels.linear_ref, args)
+    print(json.dumps({"phase": 2, "kernel": "scan_linear",
+                      "case": "comb axis 1 of [2, 100001, 24]", **e}),
+          flush=True)
+    check_scan(e, "scan_linear along axis 1", SCAN_FLOOR)
+    # the backward: the reversed recurrence through the same kernel
+    a0 = rng.uniform(0.9, 0.999, (2, 200000)).astype(np.float32)
+    b0 = (rng.standard_normal((2, 200000)) * 0.1).astype(np.float32)
+    grads = []
+    for fn in (scan.linear_recurrence, scan_kernels.linear_ref):
+        a, b = (torch.from_numpy(v).to(dev).requires_grad_() for v in (a0, b0))
+        y0 = torch.tensor([[0.1], [-0.2]], device=dev, requires_grad=True)
+        y = fn(a, b, y0)
+        grads.append(torch.autograd.grad((y * y).sum(), (a, b, y0)))
+    err = max(float((g - w).abs().max() / w.abs().max())
+              for g, w in zip(*grads))
+    print(json.dumps({"phase": 2, "kernel": "scan_linear",
+                      "case": "backward [2, 200000]",
+                      "grad_err_rel": err}), flush=True)
+    # tests/test_pallas_scan.py's tolerance for T1/T2's gradient
+    check(err < 1e-3, f"linear scan backward: {err} of the peak")
+    x = torch.rand((1, 64), device=dev, requires_grad=True)
+    for name, call in (
+            ("scan_max_affine", lambda: scan.max_affine_recurrence(x, 0.5, x)),
+            ("scan_affine2x2",
+             lambda: scan.affine2x2_recurrence(0.5, 0.0, 0.0, 0.5, x, x))):
+        try:
+            call()
+        except RuntimeError as exc:
+            check("no backward" in str(exc), f"{name}: {exc}")
+        else:
+            fail(f"{name} returned a result without a gradient")
+    return worst
+
+
+def phase2_probe(torch, probe_kernels, dev) -> float:
+    """T3 against its plain version on main's inputs: equal modulo 1 (the
+    floor and mod 1 jump where rounding crosses an integer), and the
+    carried rows equal outright. Returns the largest distance modulo 1."""
+    x, w = (torch.from_numpy(a).to(dev) for a in probe_kernels.probe_inputs())
+    d = (probe_kernels.probe_cuda(x, w) - probe_kernels.probe_ref(x, w))
+    d = d.double()
+    err = float((d - d.round()).abs().max())
+    err_carry = float(d[:, -1].abs().max())
+    print(json.dumps({"phase": 2, "kernel": "probe", "err_mod1": err,
+                      "err_carried_rows": err_carry}), flush=True)
+    check(err < TOL_PROBE and err_carry < TOL_PROBE,
+          f"probe kernel vs plain: {err} modulo 1, {err_carry} carried")
+    return err
+
+
 def timed(torch, fn):
     """fn() and its wall milliseconds, synchronised on the card."""
     t0 = time.perf_counter()
@@ -434,7 +593,8 @@ def profile_launches(torch, calls: dict) -> dict:
             fn()
             torch.cuda.synchronize()
         split[name] = {
-            (re.findall(r"([A-Za-z_]\w*)(?:<[^()]*>)?\(", ev.key)
+            (re.findall(r"([A-Za-z_]\w*)(?:<[^()]*>)?\(",
+                        ev.key.replace("(anonymous namespace)::", ""))
              or [ev.key])[0]:
                 round(ev.device_time_total / max(ev.count, 1), 1)
             for ev in prof.key_averages()
@@ -543,6 +703,136 @@ def phase5_check(torch, sqpv_kernels, SQPV, x, sq, y, y_up, wall_k, peak_gb):
     return ref, {"sqpv_forward": e["mag_err"], "sqpv_inverse": err_o}
 
 
+def filter_stages(Audio, x, device):
+    """The phase-6 class path as (name, step) pairs: a swept 2-pole lowpass
+    (200 Hz -> 8 kHz over 600 s, two SVF stages), a swept 3rd-order 1-pole
+    highpass (a 1-pole and an SVF stage), a constant 2-pole highpass (the
+    FIR path, probed on the scans) and the compressor (max-affine and
+    linear scans over the [N] control signal)."""
+    return [
+        ("host_to_device",
+         lambda _: Audio.create_from_array(x, SR, device=device)),
+        ("lowpass_2pole_swept", lambda a: a.filter_2pole_lowpass(
+            lambda t: 200.0 * 40.0 ** (t / 600.0), 0.5, 2)),
+        ("highpass_1pole_swept", lambda a: a.filter_1pole_highpass(
+            lambda t: 30.0 + 0.05 * t, 3)),
+        ("highpass_2pole_fir", lambda a: a.filter_2pole_highpass(
+            60.0, 0.5, 2)),
+        ("compress", lambda a: a.compress(-18.0, 4.0, 0.005, 0.1, 6.0)),
+    ]
+
+
+def filter_path(Audio, x, device):
+    a = None
+    for _, step in filter_stages(Audio, x, device):
+        a = step(a)
+    return a
+
+
+def capture_scan_inputs(scan, n: int, run):
+    """run() with the scan kernels' wrappers, as ops/scan.py calls them,
+    wrapped to keep the arguments of the first call of each at length n (no
+    launch of their own). Returns run()'s result and name -> arguments."""
+    captured = {}
+    originals = [getattr(scan, name) for name in SCANS]
+
+    def recorder(name, fn):
+        def call(*args):
+            if name not in captured and args[0].shape[-1] == n:
+                captured[name] = args
+            return fn(*args)
+        return call
+
+    try:
+        for name, fn in zip(SCANS, originals):
+            setattr(scan, name, recorder(name, fn))
+        out = run()
+    finally:
+        for name, fn in zip(SCANS, originals):
+            setattr(scan, name, fn)
+    return out, captured
+
+
+def phase6_filters(torch, Audio, scan, scan_kernels, dev):
+    """The filter and compressor class path at headline size (600 s stereo
+    48 kHz): a first call (impulse-response probe and cuFFT plans
+    included), counted, then a second call, then one pass synchronised
+    after each stage, which keeps each scan kernel's full-length inputs.
+    Returns the output, the report and the captured inputs."""
+    x = stereo_signal(FILTER_SECONDS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    scan_kernels.reset_launch_counts()
+    out, ms_first = timed(torch, lambda: filter_path(Audio, x, dev))
+    launches = dict(scan_kernels.LAUNCHES)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del out
+    out, ms_second = timed(torch, lambda: filter_path(Audio, x, dev))
+    del out
+
+    def staged():
+        a, stages = None, {}
+        for name, step in filter_stages(Audio, x, dev):
+            a, stages[name] = timed(torch, lambda: step(a))
+        return a, stages
+
+    (out, stages), captured = capture_scan_inputs(scan, x.shape[1], staged)
+    report = {"phase": 6, "path": "filters_compress_600s_stereo_48k",
+              "wall_s_first": ms_first / 1e3, "wall_s_second": ms_second / 1e3,
+              "x_realtime_first": FILTER_SECONDS / (ms_first / 1e3),
+              "x_realtime_second": FILTER_SECONDS / (ms_second / 1e3),
+              "peak_alloc_gb": peak_gb, "frames": int(x.shape[1]),
+              "stages_ms": stages, "launches": launches}
+    return out, report, captured, launches
+
+
+def phase6_check(torch, Audio, scan_kernels, y, report, captured, dev):
+    """The path's output (length, finite, the 220/330 Hz tones); each scan
+    kernel against its plain version on the planes the path built, at
+    full length; the whole path at 10 s on the card against the CPU.
+    Returns each kernel's largest absolute error and its timing inputs."""
+    y_np = y.to_numpy()
+    n = report["frames"]
+    check(y_np.shape == (2, n), f"filter path output shape {y_np.shape}")
+    check(bool(np.isfinite(y_np).all()), "filter path output not finite")
+    mid = n // 2
+    hz = [dominant_hz(y_np[ch, mid:mid + int(SR)]) for ch in (0, 1)]
+    report["dominant_hz"] = hz
+    for got, want in zip(hz, (220.0, 330.0)):
+        check(abs(got - want) <= 2.0, f"filter path: dominant {got} Hz, "
+              f"want {want}")
+    errs = {}
+    for name, (kernel, plain) in scan_calls(scan_kernels).items():
+        check(name in captured, f"{name} was not called at full length")
+        e = scan_errors(torch, kernel, plain, captured[name])
+        report[name] = e
+        check_scan(e, f"{name} on the path's planes", 0.0)
+        errs[name] = e["abs_err"]
+    x10 = stereo_signal(FILTER_CPU_SECONDS)
+    want = filter_path(Audio, x10, "cpu").to_numpy()
+    got = filter_path(Audio, x10, dev).to_numpy()
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    report["card_vs_cpu_10s_err_rel"] = err
+    print(json.dumps(report), flush=True)
+    check(got.shape == want.shape and err < TOL_FILTER_CPU,
+          f"filter path on the card vs the CPU at 10 s: {err}")
+    return errs
+
+
+def scan_bytes(args, nplanes: int, nstates: int):
+    """(elements, required bytes) of one scan call: each plane read once (a
+    row shared by every row once) and each state written once."""
+    shape = np.broadcast_shapes(*(tuple(a.shape) for a in args[:nplanes]))
+    n, rows = shape[-1], math.prod(shape[:-1])
+    nbytes = 4 * rows * n * nstates
+    for p in args[:nplanes]:
+        shared = all(d == 1 or s == 0
+                     for d, s in zip(p.shape[:-1], p.stride()[:-1]))
+        nbytes += 4 * n * (1 if shared else rows)
+    return rows * n, nbytes
+
+
 def bound(name: str, elements: int, nbytes: int):
     """(bound_ms, bound_by) for `elements` frame-bin elements of work and
     `nbytes` of required traffic."""
@@ -563,7 +853,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from flan_tpu_torch import SQPV, Audio
-    from flan_tpu_torch.ops import build, spv_kernels, sqpv_kernels
+    from flan_tpu_torch.ops import (build, probe_kernels, scan, scan_kernels,
+                                    spv_kernels, sqpv_kernels)
     from flan_tpu_torch.sqpv.transform import cq_geometry
     dev = torch.device("cuda", 0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -583,9 +874,13 @@ def main() -> None:
     # phase 2: kernel against plain
     worst = phase2_kernel_vs_plain(torch, spv_kernels, dev)
     worst.update(phase2_sqpv(torch, sqpv_kernels, cq_geometry, dev))
+    worst.update(phase2_scans(torch, scan_kernels, scan, dev))
+    worst["probe"] = phase2_probe(torch, probe_kernels, dev)
 
-    # phases 3 and 4: the stretch and SPV main paths, counted
+    # phases 3 and 4: the stretch and SPV main paths, counted; the probe's
+    # count runs over every main path (it lies on none)
     spv_kernels.reset_launch_counts()
+    probe_kernels.reset_launch_counts()
     phase3_stretch(torch, Audio, dev)
     x, spv, y, wall_k = phase4_spv(torch, Audio, dev)
     launches = dict(spv_kernels.LAUNCHES)
@@ -621,7 +916,6 @@ def main() -> None:
     split.update(profile_launches(torch, {
         "sqpv_forward": lambda: sqpv_kernels.sqpv_forward_cuda(xq, *args),
         "sqpv_inverse": lambda: sqpv_kernels.sqpv_inverse_cuda(*ref, *args)}))
-    print(json.dumps({"profile_us_per_launch": split}), flush=True)
 
     # required traffic: x in and 8 bytes a frame-bin out (SPV forward), the
     # reverse (SPV inverse); x in and 9 bytes out (SQPV forward, whose work
@@ -637,15 +931,59 @@ def main() -> None:
                               4 * xq.shape[1] + 9 * n_sqpv),
         "sqpv_inverse": bound("sqpv_inverse", n_sqpv,
                               9 * n_sqpv + 4 * xq.shape[1])}
+    del ref, x, xq
+
+    # phase 6: the filter and compressor main path, counted
+    y6, report, captured, scan_launches = phase6_filters(
+        torch, Audio, scan, scan_kernels, dev)
+    launches.update(scan_launches)
+    launches["probe"] = probe_kernels.LAUNCHES["probe"]
+    for name in SCANS:
+        check(launches[name] > 0,
+              f"{name} kernel was not launched on the filter path")
+    errs.update(phase6_check(torch, Audio, scan_kernels, y6, report,
+                             captured, dev))
+    del y6
+    # the scans on the path's own planes; T3, on no path, on main's inputs
+    xp, wp = (torch.from_numpy(a).to(dev) for a in probe_kernels.probe_inputs())
+    calls = {"probe": (lambda: probe_kernels.probe_cuda(xp, wp),
+                       lambda: probe_kernels.probe_ref(xp, wp))}
+    for name, (k, p) in scan_calls(scan_kernels).items():
+        a = captured[name]
+        calls[name] = (lambda k=k, a=a: k(*a), lambda p=p, a=a: p(*a))
+        nplanes = len(a) - (2 if name == "scan_affine2x2" else 1)
+        bounds[name] = bound(name, *scan_bytes(a, nplanes, len(a) - nplanes))
+    # the probe reads w, and of x only row 0's first 128 columns per step
+    bounds["probe"] = bound("probe", xp.numel(), 4 * (
+        xp.numel() + wp.numel() + xp.shape[0] * xp.shape[1]))
+    times.update(time_kernels(torch, calls))
+    split.update(profile_launches(torch, {name: k for name, (k, _) in
+                                          calls.items()}))
+    del captured, calls
+    print(json.dumps({"profile_us_per_launch": split}), flush=True)
+
     source = {"spv": "flan_tpu_torch/csrc/spv_kernels.cu",
-              "sqpv": "flan_tpu_torch/csrc/sqpv_kernels.cu"}
+              "sqpv": "flan_tpu_torch/csrc/sqpv_kernels.cu",
+              "scan": "flan_tpu_torch/csrc/scan_kernels.cu",
+              "probe": "flan_tpu_torch/csrc/probe_kernels.cu"}
     replaces = {"spv_forward": "flan_tpu/ops/spv_pallas.py:93",
                 "spv_inverse": "flan_tpu/ops/spv_pallas.py:239",
                 "sqpv_forward": "flan_tpu/ops/sqpv_pallas.py:139",
-                "sqpv_inverse": "flan_tpu/ops/sqpv_pallas.py:336"}
+                "sqpv_inverse": "flan_tpu/ops/sqpv_pallas.py:336",
+                # T1 (tile totals) and T2 (apply) of one two-pass scan
+                "scan_linear": "tools/pallas_scan_experiment.py:64,117",
+                "scan_max_affine": "tools/pallas_scan_experiment.py:64,117",
+                "scan_affine2x2": "tools/pallas_scan_experiment.py:64,117",
+                "probe": "tools/probe_pallas_ops.py:20"}
+    path = {"spv_forward": "spv", "spv_inverse": "spv",
+            "sqpv_forward": "sqpv", "sqpv_inverse": "sqpv",
+            "scan_linear": "filters", "scan_max_affine": "filters",
+            "scan_affine2x2": "filters", "probe": None}
+    errs["probe"] = 0.0     # compared in phase 2 only
     kernels = [{"name": name, "route": "cuda",
                 "source": source[name.split("_")[0]],
-                "replaces": replaces[name], "launches": launches[name],
+                "replaces": replaces[name], "path": path[name],
+                "launches": launches[name],
                 "max_abs_err": max(worst[name], errs[name]),
                 "ms": times[name][0], "plain_ms": times[name][1],
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],

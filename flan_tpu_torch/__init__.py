@@ -14,15 +14,20 @@ The port covers:
 - the SQPV constant-Q round trip and its algorithms
   (Audio.convert_to_SQPV / convert_to_ms_SQPV -> SQPV.repitch /
   modify_pitch / select -> convert_to_audio / convert_to_lr_audio),
-  kernels B3 and B4.
+  kernels B3 and B4;
+- the IIR filter and dynamics path (Audio.filter_1pole_* /
+  filter_2pole_* / filter_comb / shift_frequency / halfband_* ->
+  compress / apply_adsr_envelope), whose recurrences run on the scan
+  kernels (counterparts of T1/T2); T3, the lowering probe, is a kernel on
+  no path (ops/probe_kernels.py).
 """
-from flan_tpu_torch.audio.audio import Audio
+from flan_tpu_torch.audio import Audio
 from flan_tpu_torch.core.audio_buffer import (AudioBuffer, AudioFormat,
                                               SndfileStrings)
 from flan_tpu_torch.core.pv_buffer import PVBuffer, PVFormat
 from flan_tpu_torch.func import interpolators
-from flan_tpu_torch.func.function import (Function, Function2d, as_function,
-                                          as_function2d)
+from flan_tpu_torch.func.function import (Function, Function2d, adsr,
+                                          as_function, as_function2d)
 from flan_tpu_torch.pv.pv import PV
 from flan_tpu_torch.spv.spv import SPV
 from flan_tpu_torch.sqpv.sqpv import SQPV
@@ -32,6 +37,6 @@ __version__ = "0.1.0"
 __all__ = [
     "Audio", "AudioBuffer", "AudioFormat", "SndfileStrings",
     "PV", "PVBuffer", "PVFormat", "SPV", "SQPV",
-    "Function", "Function2d", "as_function", "as_function2d",
+    "Function", "Function2d", "adsr", "as_function", "as_function2d",
     "interpolators",
 ]

@@ -1,4 +1,25 @@
-"""Time-domain entry point."""
+"""Time-domain entry point: binds the method groups onto Audio, as
+flan_tpu/audio/__init__.py does (each group a module of plain functions)."""
+from flan_tpu_torch.audio import filters as _filters
+from flan_tpu_torch.audio import volume as _volume
 from flan_tpu_torch.audio.audio import Audio
+
+
+def _bind(module, names):
+    for name in names:
+        setattr(Audio, name, getattr(module, name))
+
+
+_bind(_volume, ["compress", "apply_adsr_envelope", "apply_ar_envelope"])
+_bind(_filters, [
+    "filter_1pole_lowpass", "filter_1pole_highpass", "filter_1pole_split",
+    "filter_1pole_lowshelf", "filter_1pole_highshelf",
+    "filter_1pole_repeat_low", "filter_1pole_repeat_high",
+    "filter_2pole_lowpass", "filter_2pole_bandpass", "filter_2pole_highpass",
+    "filter_2pole_notch", "filter_2pole_split", "filter_2pole_lowshelf",
+    "filter_2pole_bandshelf", "filter_2pole_highshelf",
+    "filter_1pole_multinotch", "filter_2pole_multinotch", "filter_comb",
+    "halfband_modulate", "shift_frequency", "halfband_multiply",
+])
 
 __all__ = ["Audio"]

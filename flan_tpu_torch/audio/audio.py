@@ -3,9 +3,11 @@
 
 Audio is a frozen AudioBuffer; every method returns a new object on the
 same device as its input. Host data goes to the card unless the caller
-names a device (core/types.py DEFAULT_DEVICE). This slice carries the
-constructors, WAV file I/O, mid/side conversion and the conversions to PV,
-SPV and SQPV.
+names a device (core/types.py DEFAULT_DEVICE). This module carries the
+constructors, WAV file I/O, mid/side conversion, the conversions to PV,
+SPV and SQPV, the frame time grid and the basic volume methods;
+audio/__init__.py binds the filter and dynamics methods
+(audio/filters.py, audio/volume.py).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 
 from flan_tpu_torch.core.audio_buffer import AudioBuffer, SndfileStrings
 from flan_tpu_torch.core.types import DEFAULT_DEVICE
+from flan_tpu_torch.func.function import as_function
 from flan_tpu_torch.io.wav import read_wav, write_wav
 from flan_tpu_torch.ops import stft
 
@@ -132,3 +135,34 @@ class Audio(AudioBuffer):
     def convert_to_left_right(self) -> "Audio":
         """M/S -> L/R; self-inverse (reference AudioConversions.cpp:53-56)."""
         return self.convert_to_mid_side()
+
+    def time_grid(self) -> torch.Tensor:
+        """Each frame's time, arange(N) / sample_rate in float32 on the
+        audio's device, as the JAX package builds it: the float32 count is
+        exact up to 2^24 frames (349.5 s at 48 kHz) and rounds to even
+        frame numbers above that."""
+        n = self.num_frames
+        return stft.true_div(torch.arange(n, dtype=torch.float32,
+                                          device=self.device),
+                             self.sample_rate)
+
+    # =======================================================================
+    # Basic volume ops (more in audio/volume.py)
+    # =======================================================================
+    def invert_phase(self) -> "Audio":
+        """(reference AudioVolume.cpp)"""
+        return self._with(data=-self.data)
+
+    def modify_volume(self, gain) -> "Audio":
+        """output(t) = input(t) * gain(t) (reference AudioVolume.cpp:5)."""
+        g = as_function(gain)
+        if g.is_constant:
+            return self._with(data=self.data * g.constant_value)
+        return self._with(data=self.data * g(self.time_grid())[None, :])
+
+    def set_volume(self, level) -> "Audio":
+        """Normalize then scale by level (reference AudioVolume.cpp)."""
+        peak = torch.max(torch.abs(self.data))
+        normalized = self._with(
+            data=self.data / torch.where(peak > 0, peak, 1.0))
+        return normalized.modify_volume(level)

@@ -13,6 +13,8 @@ from typing import Callable, Union
 
 import torch
 
+from flan_tpu_torch.ops.stft import true_div
+
 FunctionLike = Union[float, int, "Function", Callable]
 
 
@@ -110,3 +112,35 @@ def as_function(f: FunctionLike) -> Function:
 
 def as_function2d(f) -> Function2d:
     return f if isinstance(f, Function2d) else Function2d(f)
+
+
+# --- ADSR (reference Function.h:281-300, Function.cpp) -----------------------
+def adsr(attack_time: float, decay_time: float, sustain_time: float,
+         release_time: float, sustain_level: float,
+         attack_exponent: float = 1.0, decay_exponent: float = 1.0,
+         release_exponent: float = 1.0) -> Function:
+    """ADSR envelope Function from 0 to 1 with power curves
+    (flan_tpu/func/function.py:279-307). The curve shapes are the
+    reference's (Function.cpp:21-29): decay pow(1 - x, dExp) * (1 - sLvl)
+    + sLvl, release pow(1 - x, rExp) * sLvl."""
+    a, d, s, r = attack_time, decay_time, sustain_time, release_time
+
+    def env(t):
+        t = torch.as_tensor(t, dtype=torch.float32)
+
+        def ramp(since, length):    # since: t minus the segment's start
+            return torch.clamp(true_div(since, max(length, 1e-20)), 0, 1)
+
+        attack = (torch.pow(ramp(t, a), attack_exponent) if a > 0
+                  else torch.ones_like(t))
+        decay = sustain_level + (1.0 - sustain_level) * torch.pow(
+            1.0 - ramp(t - a, d), decay_exponent)
+        release = sustain_level * torch.pow(1.0 - ramp(t - a - d - s, r),
+                                            release_exponent)
+        out = torch.where(t < a, attack,
+                          torch.where(t < a + d, decay,
+                                      torch.where(t < a + d + s,
+                                                  sustain_level, release)))
+        return torch.where((t < 0) | (t > a + d + s + r), 0.0, out)
+
+    return Function(env)

@@ -24,9 +24,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 TILE_FRAMES = 128       # frames per tile in every kernel (csrc/common.cuh)
 MAX_BINS = 2048         # 256 threads x 8 bins each in the epilogues
+PROBE_SHAPE = (128, 512)  # rows and columns of the probe (probe_kernels.cu)
 
 _p, _i, _ll, _d, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_double, ctypes.c_float)
+_lla = ctypes.POINTER(ctypes.c_longlong)   # a host array of int64
 # entry point -> argument types; every one returns a CUDA error code
 SIGNATURES = {
     "flan_spv_forward": [_p, _p, _p, _p, _p, _p, _p, _i, _ll, _i, _d, _p],
@@ -34,11 +36,16 @@ SIGNATURES = {
     "flan_sqpv_forward": [_p, _p, _p, _p, _p, _p, _p, _p, _i, _ll, _i, _i,
                           _f, _f, _d, _p],
     "flan_sqpv_inverse": [_p, _p, _p, _p, _p, _p, _i, _ll, _i, _d, _p],
+    "flan_scan": [_i, _lla, _lla, _lla, _p, _p, _p, _i, _ll, _p],
+    "flan_probe": [_p, _p, _p, _i, _p],
 }
-# functions of no argument that must return TILE_FRAMES or MAX_BINS; every
-# source takes both from csrc/common.cuh
+# functions of no argument that must return the constants the wrappers
+# size their tensors by (TILE_FRAMES and MAX_BINS from csrc/common.cuh,
+# the probe's shape from csrc/probe_kernels.cu)
 _LIMITS = {"flan_spv_tile_frames": TILE_FRAMES,
-           "flan_spv_max_bins": MAX_BINS}
+           "flan_spv_max_bins": MAX_BINS,
+           "flan_probe_rows": PROBE_SHAPE[0],
+           "flan_probe_cols": PROBE_SHAPE[1]}
 
 
 def sources() -> list[Path]:
@@ -109,6 +116,9 @@ def load_library() -> ctypes.CDLL:
         if fn() != want:
             raise RuntimeError(f"{name}() is {fn()} in csrc, {want} in "
                                "ops/build.py")
+    # elements per tile of a scan kind, which its wrapper sizes by
+    lib.flan_scan_tile.argtypes = [_i]
+    lib.flan_scan_tile.restype = ctypes.c_int
     return lib
 
 

@@ -1,0 +1,230 @@
+"""Linear-recurrence scans: Hopper kernels and plain versions.
+
+Counterpart of tools/pallas_scan_experiment.py (TPU kernels T1
+_compose_maps and T2 _apply_from) and of the recurrences of
+flan_tpu/ops/scan.py. One CUDA source, csrc/scan_kernels.cu flan_scan,
+holds the tile totals (T1's counterpart), the fold over tiles and the
+apply pass (T2's counterpart), instantiated for three families of maps
+along the last axis of [..., N]:
+
+  scan_linear      y = a y + b                       linear_ref
+  scan_max_affine  y = max(m, a y + c), a >= 0       max_affine_ref
+  scan_affine2x2   (s1, s2) = A (s1, s2) + (b1, b2)  affine2x2_ref
+
+The plain versions transcribe flan_tpu/ops/scan.py's tiled scan: a
+Hillis-Steele doubling scan within blocks of BLOCK = 4096 elements, then
+the same over the block totals (scan.py:30-97; not the lane-scan branch,
+which is off there). They compute in their inputs' dtype: float32 is what
+the kernels are held to, float64 a yardstick of how far float32 drifts.
+
+Dispatch by the tensors' device, and the linear scan's backward, live in
+ops/scan.py. The wrappers here take CUDA tensors only; the max-affine and
+2x2 wrappers raise on an input that requires grad, since a ctypes call
+returns no grad_fn. LAUNCHES counts each wrapper's kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from flan_tpu_torch.ops.build import load_library, raise_on
+
+BLOCK = 4096            # elements per block of the plain versions (as JAX)
+
+LAUNCHES = {"scan_linear": 0, "scan_max_affine": 0, "scan_affine2x2": 0}
+
+# name -> (kind in csrc, planes in, states out)
+_KINDS = {"scan_linear": (0, 2, 1), "scan_max_affine": (1, 3, 1),
+          "scan_affine2x2": (2, 6, 2)}
+
+# The max-affine identity is finite: decay products underflow to exactly 0
+# and 0 * -inf is NaN (flan_tpu/ops/scan.py:208-210).
+LINEAR_IDENTITY = (1.0, 0.0)
+MAX_AFFINE_IDENTITY = (-1e30, 1.0, 0.0)
+AFFINE2X2_IDENTITY = (1.0, 0.0, 0.0, 1.0, 0.0, 0.0)
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ------------------------------------------------------------ plain versions
+
+def combine_linear(l, r):
+    """y -> a y + b: l, then r."""
+    return l[0] * r[0], l[1] * r[0] + r[1]
+
+
+def combine_max_affine(l, r):
+    """y -> max(m, a y + c): l, then r (valid for a >= 0)."""
+    return (torch.maximum(r[0], r[1] * l[0] + r[2]), l[1] * r[1],
+            r[1] * l[2] + r[2])
+
+
+def combine_affine2x2(l, r):
+    """s -> A s + b with (a11, a12, a21, a22, b1, b2): l, then r, in the
+    operation order of scan.py:245-257 for k = 2."""
+    k = 2
+    al, bl, ar, br = l[:4], l[4:], r[:4], r[4:]
+    aa = tuple(ar[i * k] * al[j] + ar[i * k + 1] * al[k + j]
+               for i in range(k) for j in range(k))
+    bb = tuple(ar[i * k] * bl[0] + ar[i * k + 1] * bl[1] + br[i]
+               for i in range(k))
+    return aa + bb
+
+
+def _hillis_steele(combine, identity, leaves):
+    """Inclusive scan along the last axis by shift-and-combine doubling
+    (scan.py:30-54)."""
+    n = leaves[0].shape[-1]
+    d = 1
+    while d < n:
+        shifted = tuple(torch.nn.functional.pad(x[..., :n - d], (d, 0),
+                                                value=ident)
+                        for x, ident in zip(leaves, identity))
+        leaves = combine(shifted, leaves)
+        d *= 2
+    return tuple(leaves)
+
+
+def tiled_scan_ref(combine, identity, leaves):
+    """Inclusive scan of maps along the last axis in two levels: a doubling
+    scan within blocks of BLOCK, the same over the block totals, and each
+    block's exclusive prefix composed in (scan.py:57-97). leaves: tensors
+    of one shape [..., N]."""
+    n = leaves[0].shape[-1]
+    if n <= BLOCK:
+        return _hillis_steele(combine, identity, leaves)
+    nb = -(-n // BLOCK)
+    blocked = tuple(torch.nn.functional.pad(x, (0, nb * BLOCK - n),
+                                            value=ident).reshape(
+                        x.shape[:-1] + (nb, BLOCK))
+                    for x, ident in zip(leaves, identity))
+    inner = _hillis_steele(combine, identity, blocked)
+    totals = _hillis_steele(combine, identity,
+                            tuple(x[..., -1] for x in inner))
+    carry = tuple(torch.nn.functional.pad(x[..., :-1], (1, 0),
+                                          value=ident)[..., None]
+                  for x, ident in zip(totals, identity))
+    out = combine(carry, inner)
+    return tuple(x.reshape(x.shape[:-2] + (nb * BLOCK,))[..., :n]
+                 for x in out)
+
+
+def _full(planes):
+    shape = torch.broadcast_shapes(*(p.shape for p in planes))
+    return tuple(torch.broadcast_to(p, shape) for p in planes)
+
+
+def linear_maps_ref(a: torch.Tensor, b: torch.Tensor):
+    """(aa, bb): the prefix maps of y -> a y + b along the last axis, so
+    that y[n] = aa[n] y[-1] + bb[n] (scan.py:158-176)."""
+    return tiled_scan_ref(combine_linear, LINEAR_IDENTITY, _full((a, b)))
+
+
+def linear_ref(a: torch.Tensor, b: torch.Tensor, y0) -> torch.Tensor:
+    """y[n] = a[n] y[n-1] + b[n] along the last axis, y[-1] = y0
+    (scan.py:179-186)."""
+    aa, bb = linear_maps_ref(a, b)
+    return aa * y0 + bb
+
+
+def max_affine_ref(m, a, c, y0) -> torch.Tensor:
+    """y[n] = max(m[n], a[n] y[n-1] + c[n]) along the last axis, y[-1] =
+    y0, for a >= 0 (scan.py:189-220)."""
+    mm, aa, cc = tiled_scan_ref(combine_max_affine, MAX_AFFINE_IDENTITY,
+                                _full((m, a, c)))
+    return torch.maximum(mm, aa * y0 + cc)
+
+
+def affine2x2_ref(a11, a12, a21, a22, b1, b2, y01, y02):
+    """(s1, s2)[n] = A[n] (s1, s2)[n-1] + (b1, b2)[n] along the last axis
+    from (y01, y02) (scan.py:223-279 with k = 2)."""
+    aa = tiled_scan_ref(combine_affine2x2, AFFINE2X2_IDENTITY,
+                        _full((a11, a12, a21, a22, b1, b2)))
+    y0 = (y01, y02)
+    return tuple(aa[i * 2] * y0[0] + aa[i * 2 + 1] * y0[1] + aa[4 + i]
+                 for i in range(2))
+
+
+# ------------------------------------------------------------------ kernels
+
+def _row_plane(p: torch.Tensor, shape, rows: int, n: int):
+    """(tensor, row stride) of one plane broadcast to `shape`: a plane with
+    one row for all rows (a broadcast view included) is passed once with
+    stride 0."""
+    if all(d == 1 or s == 0 for d, s in zip(p.shape[:-1], p.stride()[:-1])):
+        row = p[(0,) * (p.ndim - 1)] if p.ndim > 1 else p
+        return row.expand(n).contiguous(), 0
+    return torch.broadcast_to(p, shape).reshape(rows, n).contiguous(), n
+
+
+def _launch(name: str, planes, y0s):
+    """Run scan `name` on float32 CUDA planes broadcastable to one shape
+    [..., N] from the start states y0s (tensors broadcastable to
+    [..., 1]); returns the states, each [..., N]."""
+    kind, nplanes, nstates = _KINDS[name]
+    assert len(planes) == nplanes and len(y0s) == nstates
+    shape = torch.broadcast_shapes(*(p.shape for p in planes))
+    if len(shape) == 0 or math.prod(shape) == 0:
+        raise ValueError(f"{name}: nothing to scan in shape {tuple(shape)}")
+    dev = planes[0].device
+    for p in planes:
+        if p.device != dev or dev.type != "cuda" or p.dtype != torch.float32:
+            raise ValueError(f"{name}: the planes must be float32 tensors on "
+                             f"one CUDA device, got {p.dtype} on {p.device}")
+    n = shape[-1]
+    rows = math.prod(shape[:-1])
+    lib = load_library()
+    ntiles = -(-n // lib.flan_scan_tile(kind))
+    with torch.cuda.device(dev):
+        keep = [_row_plane(p, shape, rows, n) for p in planes]
+        y0 = torch.stack([torch.broadcast_to(
+            torch.as_tensor(v, dtype=torch.float32, device=dev),
+            shape[:-1] + (1,)).reshape(rows) for v in y0s], dim=1)
+        outs = [torch.empty(shape, dtype=torch.float32, device=dev)
+                for _ in range(nstates)]
+        totals = torch.empty(rows * ntiles * nplanes, dtype=torch.float32,
+                             device=dev)
+        starts = torch.empty(rows * ntiles * nstates, dtype=torch.float32,
+                             device=dev)
+        arr = ctypes.c_longlong * 6
+        err = lib.flan_scan(
+            kind, arr(*(t.data_ptr() for t, _ in keep)),
+            arr(*(s for _, s in keep)), arr(*(o.data_ptr() for o in outs)),
+            y0.data_ptr(), totals.data_ptr(), starts.data_ptr(),
+            rows, n, torch.cuda.current_stream().cuda_stream)
+    raise_on(err, name)
+    LAUNCHES[name] += 1
+    return outs
+
+
+def _refuse_grad(name: str, tensors) -> None:
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward on the card yet (ROADMAP A.12): its "
+            "kernel would return a result without a gradient")
+
+
+def scan_linear(a, b, y0) -> torch.Tensor:
+    """The linear kernel on float32 CUDA tensors, no autograd."""
+    return _launch("scan_linear", (a, b), (y0,))[0]
+
+
+def scan_max_affine(m, a, c, y0) -> torch.Tensor:
+    """The max-affine kernel on float32 CUDA tensors. Requires a >= 0 (the
+    composition law fails otherwise); not checked, which would cost a
+    synchronisation."""
+    _refuse_grad("scan_max_affine", (m, a, c, y0))
+    return _launch("scan_max_affine", (m, a, c), (y0,))[0]
+
+
+def scan_affine2x2(a11, a12, a21, a22, b1, b2, y01, y02):
+    """The 2x2 matrix-affine kernel on float32 CUDA tensors."""
+    planes = (a11, a12, a21, a22, b1, b2)
+    _refuse_grad("scan_affine2x2", planes + (y01, y02))
+    return tuple(_launch("scan_affine2x2", planes, (y01, y02)))

@@ -10,7 +10,8 @@ import pytest
 import torch
 
 import flan_tpu_torch
-from flan_tpu_torch.ops import spv_kernels, sqpv_kernels
+from flan_tpu_torch.ops import (probe_kernels, scan, scan_kernels, spv_kernels,
+                                 sqpv_kernels)
 from flan_tpu_torch.sqpv.transform import sqpv_forward, sqpv_inverse
 
 SR = 48000.0
@@ -206,3 +207,170 @@ def test_sqpv_round_trip_runs_on_the_card(cuda_device):
     want, got = (a.to_numpy() for a in runs)
     assert runs[1].device.type == "cuda" and got.shape == want.shape
     assert np.abs(got - want).max() < 1e-3 * np.abs(want).max()
+
+
+# ------------------------------------------------- scans (T1/T2) and T3
+
+def _scan_planes(kind, ch, n, seed=11, shared_a=False):
+    """Float32 planes and start states of one scan kind: decay factors
+    spread from 0.5 to 0.99999, as the filters' and the compressor's."""
+    rng = np.random.default_rng(seed)
+    rows = 1 if shared_a else ch
+    a = rng.uniform(0.5, 0.99999, (rows, n)).astype(np.float32)
+    if kind == "scan_linear":
+        planes = (a, rng.standard_normal((ch, n)))
+    elif kind == "scan_max_affine":
+        m = rng.standard_normal((ch, n))
+        planes = (m, a, (1.0 - a) * m)
+    else:
+        theta = rng.uniform(0.0, 0.2, (rows, n))
+        planes = (a * np.cos(theta), -a * np.sin(theta), a * np.sin(theta),
+                  a * np.cos(theta), rng.standard_normal((ch, n)),
+                  rng.standard_normal((ch, n)))
+    y0 = rng.standard_normal((ch, 1, 2))
+    return ([np.asarray(p, np.float32) for p in planes],
+            [np.asarray(y0[..., i], np.float32) for i in range(2)])
+
+
+def _run_scan(kind, planes, y0s):
+    """(kernel, plain float32, plain float64) outputs of one scan kind."""
+    n_states = 2 if kind == "scan_affine2x2" else 1
+    y0s = y0s[:n_states]
+    kernel = {"scan_linear": scan_kernels.scan_linear,
+              "scan_max_affine": scan_kernels.scan_max_affine,
+              "scan_affine2x2": scan_kernels.scan_affine2x2}[kind]
+    plain = {"scan_linear": scan_kernels.linear_ref,
+             "scan_max_affine": scan_kernels.max_affine_ref,
+             "scan_affine2x2": scan_kernels.affine2x2_ref}[kind]
+    outs = []
+    for fn, dt in ((kernel, torch.float32), (plain, torch.float32),
+                   (plain, torch.float64)):
+        args = [torch.from_numpy(p).to("cuda", dt) for p in planes + y0s]
+        y = fn(*args)
+        outs.append(torch.stack(y) if isinstance(y, tuple) else y)
+    torch.cuda.synchronize()
+    return outs
+
+
+def _drift(k, p32, p64):
+    """The kernel's and the float32 plain version's largest error against
+    the float64 plain version, as shares of its peak."""
+    peak = p64.abs().max()
+    return (float((k.double() - p64).abs().max() / peak),
+            float((p32.double() - p64).abs().max() / peak))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["scan_linear", "scan_max_affine",
+                                  "scan_affine2x2"])
+@pytest.mark.parametrize("ch,n,shared", [(1, 1, False), (2, 100, True),
+                                         (3, 4097, False),
+                                         (2, 1_000_003, True)])
+def test_scan_kernels_match_plain(cuda_device, kind, ch, n, shared):
+    """Each scan kernel against its plain version: its error against the
+    float64 plain run at most twice the float32 plain run's, plus 1e-6 of
+    the peak for lengths where both sit at rounding (chip_smoke.py
+    phase 2 holds the same)."""
+    planes, y0s = _scan_planes(kind, ch, n, shared_a=shared)
+    before = scan_kernels.LAUNCHES[kind]
+    k, p32, p64 = _run_scan(kind, planes, y0s)
+    assert scan_kernels.LAUNCHES[kind] == before + 1
+    assert k.shape == p32.shape and bool(torch.isfinite(k).all())
+    err_k, err_p = _drift(k, p32, p64)
+    print(f"{kind} C={ch} N={n}: kernel {err_k:.3g}, plain {err_p:.3g}")
+    assert err_k <= 2.0 * err_p + 1e-6
+
+
+@pytest.mark.cuda
+def test_scan_along_a_middle_axis(cuda_device):
+    """The comb's layout: chains along axis 1 of [C, blocks, t]."""
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(rng.uniform(0.5, 0.999, (2, 3001, 7)).astype(
+        np.float32)).to(cuda_device)
+    b = torch.from_numpy(rng.standard_normal((2, 3001, 7)).astype(
+        np.float32)).to(cuda_device)
+    got = scan.linear_recurrence(a, b, axis=1)
+    want = scan_kernels.linear_ref(a.movedim(1, -1), b.movedim(1, -1),
+                                   0.0).movedim(-1, 1)
+    torch.cuda.synchronize()
+    assert got.shape == b.shape
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_linear_scan_gradient(cuda_device):
+    """The kernel path's backward (the reversed recurrence through the same
+    kernel) against autograd through the plain version on the card, at
+    tests/test_pallas_scan.py's tolerance."""
+    rng = np.random.default_rng(1)
+    a0 = rng.uniform(0.9, 0.999, (2, 5000)).astype(np.float32)
+    b0 = (rng.standard_normal((2, 5000)) * 0.1).astype(np.float32)
+    grads = []
+    for use_kernel in (True, False):
+        a = torch.from_numpy(a0).to(cuda_device).requires_grad_()
+        b = torch.from_numpy(b0).to(cuda_device).requires_grad_()
+        y0 = torch.tensor([[0.1], [-0.2]], device=cuda_device,
+                          requires_grad=True)
+        y = (scan.linear_recurrence(a, b, y0) if use_kernel
+             else scan_kernels.linear_ref(a, b, y0))
+        grads.append(torch.autograd.grad((y * y).sum(), (a, b, y0)))
+    for got, want in zip(*grads):
+        assert (got - want).abs().max() <= 1e-3 * max(
+            1.0, float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_scans_without_backward_refuse_grad(cuda_device):
+    x = torch.rand((1, 64), device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        scan.max_affine_recurrence(x, 0.5, x)
+    with pytest.raises(RuntimeError, match="no backward"):
+        scan.affine2x2_recurrence(0.5, 0.0, 0.0, 0.5, x, x)
+    with torch.no_grad():
+        scan.max_affine_recurrence(x, 0.5, x)
+
+
+@pytest.mark.cuda
+def test_probe_kernel_matches_plain(cuda_device):
+    """T3 against its plain version: outputs agree modulo 1 (the probe's
+    floor and mod 1 jump by 1 where rounding crosses an integer) within
+    1e-4; the plain version against the TPU kernel in interpret mode reads
+    9.5e-6 on the CPU (tests/test_torch_scan.py)."""
+    x, w = (torch.from_numpy(a).to(cuda_device)
+            for a in probe_kernels.probe_inputs())
+    before = probe_kernels.LAUNCHES["probe"]
+    got = probe_kernels.probe(x, w)
+    want = probe_kernels.probe_ref(x, w)
+    torch.cuda.synchronize()
+    assert probe_kernels.LAUNCHES["probe"] == before + 1
+    d = (got - want).double()
+    assert float((d - d.round()).abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_filter_path_runs_on_the_card(cuda_device):
+    """The filter and compressor class path on the card against the CPU:
+    swept (scan) and constant (FIR, probed on the scans) stages. Bound
+    1e-4 of the peak, as chip_smoke.py phase 6, whose 10 s run at 48 kHz
+    reads 4.0e-6 (H100)."""
+    x = _signal(20000, 2)
+
+    def path(device):
+        before = dict(scan_kernels.LAUNCHES)
+        out = (flan_tpu_torch.Audio.create_from_array(x, 8000.0,
+                                                      device=device)
+               .filter_2pole_lowpass(lambda t: 200.0 * 10.0 ** (t / 2.5),
+                                     0.5, 2)
+               .filter_1pole_highpass(lambda t: 30.0 + 20.0 * t, 3)
+               .filter_2pole_highpass(60.0, 0.5, 2)
+               .compress(-18.0, 4.0, 0.005, 0.1, 6.0))
+        return out, {k: scan_kernels.LAUNCHES[k] - before[k]
+                     for k in before}
+
+    (cpu, cpu_launches), (gpu, gpu_launches) = (path(d) for d in
+                                                ("cpu", cuda_device))
+    assert not any(cpu_launches.values())
+    assert all(gpu_launches.values()), gpu_launches
+    want, got = cpu.to_numpy(), gpu.to_numpy()
+    assert gpu.device.type == "cuda" and got.shape == want.shape
+    assert np.abs(got - want).max() < 1e-4 * np.abs(want).max()
