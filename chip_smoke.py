@@ -11,7 +11,8 @@ toolkit (nvcc). It imports nothing of JAX. Phases:
      process per source, all at once) and print each kernel's registers
      and spills;
   2. hold each kernel against its plain PyTorch version on the card: the
-     SPV kernels over bin counts, channel counts and a ragged length; the
+     SPV kernels over bin counts on the 16-byte and the scalar path,
+     channel counts, ragged and single-frame lengths and one of 83 s; the
      SQPV kernels over bins per octave, bandwidths at 8 and 48 kHz,
      channel counts, a ragged length and odd periods; the three scan
      kernels over lengths 1 to 1,000,003 and 1 to 3 channels, along the
@@ -47,7 +48,8 @@ together, then phase 5, then phase 6) and read just after it, before any
 launch made for a comparison; the probe's counter runs over all of them
 (it lies on no path). Every failed check raises, so the script exits nonzero
 without printing the result line. The line before the last is one JSON
-object describing the kernels; the last is the result line.
+object describing the kernels (share_of_bound is bound_ms / ms); the last is
+the result line.
 """
 import json
 import math
@@ -63,6 +65,22 @@ TOL_MAG = 1e-5      # kernel vs plain, times the magnitude peak
 TOL_INV = 1e-4      # kernel vs plain inverse, times the output peak
 TOL_STRETCH = 2e-4  # stretch on the card vs the CPU, times the peak
 SPV_SECONDS, SPV_BINS = 30.0, 512   # the SPV bench shape (mono, 48 kHz)
+# phase 2 SPV cases, (bins, channels, frames): bin counts on the 16-byte
+# path (multiples of 4) over two lengths, then the smallest bin counts, bin
+# counts just off a multiple of 4 (the scalar path beside the vector one),
+# a single frame, lengths around one 128-frame tile, three channels
+SPV_CASES = ([(b, c, n) for b in (16, 96, 128, 512, 1024) for c in (1, 2)
+              for n in (96000, 77777)] + [(2048, 1, 96000)] +
+             [(2, 1, 1), (2, 2, 300), (3, 3, 129), (510, 1, 20000),
+              (514, 3, 20000), (16, 3, 127), (512, 1, 129), (128, 3, 1)])
+# 83 s at 16 bins: 31,251 tiles, 123 chunks of the prefix over tiles. At
+# this length float32 summation orders sit further from float64 than
+# TOL_MAG: here the kernel's magnitudes read 5.65e-5 of the peak from the
+# float64 plain version's and the float32 plain version's 5.53e-5, 8.2e-6
+# apart (1.10e-5 apart on a tone in white noise of another seed; H100). So
+# this case holds the kernel's distance from float64 to twice the plain
+# one's.
+SPV_LONG_CASE = (16, 1, 4_000_003)
 # the SQPV bench shape (mono, 48 kHz; flan_tpu's bench.py bench_sqpv)
 SQPV_SECONDS, SQPV_BAND, SQPV_BPO = 10.0, (16.0, 24000.0), 24.0
 # SQPV kernel vs plain, times the peak: the readings grow with length, to
@@ -200,8 +218,11 @@ def forward_errors(mag, freq, ref_m, ref_f, m64, f64, period=None) -> dict:
             "drift_p": live_rms(ref_f, f64, live, period=period)}
 
 
-def check_forward(e: dict, tol_mag: float, case: str) -> None:
-    check(math.isfinite(e["mag_err"]) and e["mag_err"] < tol_mag * e["scale"],
+def check_forward(e: dict, tol_mag, case: str) -> None:
+    """The magnitude against the float32 plain version (unless tol_mag is
+    None: the caller holds it another way) and the frequency drift."""
+    check(math.isfinite(e["mag_err"]) and (
+        tol_mag is None or e["mag_err"] < tol_mag * e["scale"]),
           f"forward mag, {case}: {e['mag_err']} vs peak {e['scale']}")
     check(e["drift_k"] <= 2.0 * e["drift_p"] + 1e-4,
           f"forward freq, {case}: RMS drift kernel {e['drift_k']} Hz, "
@@ -220,10 +241,10 @@ def phase2_kernel_vs_plain(torch, spv_kernels, dev):
     version, RMS over bins above 1e-3 of the peak, may be at most twice the
     float32 plain version's own."""
     worst = {"spv_forward": 0.0, "spv_inverse": 0.0}
-    x_all = torch.from_numpy(stereo_signal(2.0, seed=1)).to(dev)
-    cases = [(b, c, n) for b in (16, 96, 128, 512, 1024) for c in (1, 2)
-             for n in (96000, 77777)] + [(2048, 1, 96000)]
-    for nbins, ch, n in cases:
+    long_x = stereo_signal(SPV_LONG_CASE[2] / SR + 1.0, seed=1)
+    x_all = torch.from_numpy(np.concatenate([long_x, long_x[:1] * 0.25])).to(
+        dev)
+    for nbins, ch, n in SPV_CASES + [SPV_LONG_CASE]:
         x = x_all[:ch, :n].contiguous()
         mag, freq = spv_kernels.spv_forward(x, nbins, SR)
         ref_m, ref_f = spv_kernels.spv_forward_ref(x, nbins, SR)
@@ -235,15 +256,27 @@ def phase2_kernel_vs_plain(torch, spv_kernels, dev):
         live = m64 > 1e-3 * e["scale"]
         peak = float(ref_out.abs().max())
         err_o = float((out - ref_out).abs().max())
+        # both float32 magnitudes against the float64 plain version
+        mag_k64, mag_p64 = (float((m.double() - m64).abs().max())
+                            for m in (mag, ref_m))
         print(json.dumps({
             "phase": 2, "bins": nbins, "channels": ch, "frames": n,
             "mag_err_rel": e["mag_err"] / e["scale"],
-            "freq_err_hz_max": float((freq - ref_f)[live].abs().max()),
+            "mag_err_rel_f64_kernel": mag_k64 / e["scale"],
+            "mag_err_rel_f64_plain": mag_p64 / e["scale"],
+            "freq_err_hz_max": (float((freq - ref_f)[live].abs().max())
+                                if bool(live.any()) else 0.0),
             "freq_drift_hz_rms_kernel": e["drift_k"],
             "freq_drift_hz_rms_plain": e["drift_p"],
-            "inv_err_rel": err_o / peak}), flush=True)
+            "inv_err_rel": err_o / max(peak, 1e-30)}), flush=True)
         case = f"B={nbins} C={ch} N={n}"
-        check_forward(e, TOL_MAG, case)
+        if (nbins, ch, n) == SPV_LONG_CASE:
+            check(mag_k64 <= 2.0 * mag_p64,
+                  f"forward mag, {case}: {mag_k64} from float64, plain "
+                  f"{mag_p64}, peak {e['scale']}")
+            check_forward(e, None, case)
+        else:
+            check_forward(e, TOL_MAG, case)
         check(math.isfinite(err_o) and err_o < TOL_INV * peak,
               f"inverse, {case}: {err_o} vs peak {peak}")
         worst["spv_forward"] = max(worst["spv_forward"], e["mag_err"])
@@ -987,6 +1020,7 @@ def main() -> None:
                 "max_abs_err": max(worst[name], errs[name]),
                 "ms": times[name][0], "plain_ms": times[name][1],
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                "share_of_bound": bounds[name][0] / times[name][0],
                 # no single PyTorch call computes any of these functions
                 "library_ms": None}
                for name in replaces]

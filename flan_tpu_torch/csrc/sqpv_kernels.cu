@@ -385,7 +385,9 @@ int flan_sqpv_forward(const float* x, const float* tables, const float* bin_f,
 }
 
 // mag, pitch [C, N, B] float; positive [C, N, B] bytes; tw [2, B] (re, im);
-// tot scratch [C, ceil(N / kTile), B]; out [C, N].
+// tot scratch of C * (ntiles + nchunks) * B floats, ntiles = ceil(N /
+// kTile), nchunks = ceil(ntiles / kScanChunk): the tile totals [C, ntiles,
+// B], then the prefix's chunk totals; out [C, N].
 int flan_sqpv_inverse(const float* mag, const float* pitch,
                       const unsigned char* positive, const float* tw,
                       float* tot, float* out, int channels, long long n,
@@ -400,9 +402,7 @@ int flan_sqpv_inverse(const float* mag, const float* pitch,
   const float sr = (float)sample_rate;
   sqpv_inv_tile_totals<<<grid, threads, 0, s>>>(pitch, positive, tot, n,
                                                 nbins, ntiles, sr);
-  exclusive_scan_tiles<true>
-      <<<dim3((nbins + 31) / 32, channels, 1), dim3(32, kScanSegments), 0, s>>>(
-          tot, tot, ntiles, nbins);
+  launch_tile_prefix<SumMod1>(tot, tot, 1, channels, ntiles, nbins, s);
 #define FLAN_INV(K)                                                         \
   sqpv_inv_epilogue<K><<<grid, threads, 0, s>>>(mag, pitch, positive, tw,   \
                                                 tot, out, n, nbins, ntiles, \

@@ -24,6 +24,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 TILE_FRAMES = 128       # frames per tile in every kernel (csrc/common.cuh)
 MAX_BINS = 2048         # 256 threads x 8 bins each in the epilogues
+SCAN_CHUNK_TILES = 256  # tiles per block of the prefix over tiles
 PROBE_SHAPE = (128, 512)  # rows and columns of the probe (probe_kernels.cu)
 
 _p, _i, _ll, _d, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -40,10 +41,11 @@ SIGNATURES = {
     "flan_probe": [_p, _p, _p, _i, _p],
 }
 # functions of no argument that must return the constants the wrappers
-# size their tensors by (TILE_FRAMES and MAX_BINS from csrc/common.cuh,
-# the probe's shape from csrc/probe_kernels.cu)
+# size their tensors by (TILE_FRAMES, MAX_BINS and SCAN_CHUNK_TILES from
+# csrc/common.cuh, the probe's shape from csrc/probe_kernels.cu)
 _LIMITS = {"flan_spv_tile_frames": TILE_FRAMES,
            "flan_spv_max_bins": MAX_BINS,
+           "flan_scan_chunk_tiles": SCAN_CHUNK_TILES,
            "flan_probe_rows": PROBE_SHAPE[0],
            "flan_probe_cols": PROBE_SHAPE[1]}
 
@@ -120,6 +122,17 @@ def load_library() -> ctypes.CDLL:
     lib.flan_scan_tile.argtypes = [_i]
     lib.flan_scan_tile.restype = ctypes.c_int
     return lib
+
+
+def tile_scratch(channels: int, frames: int, nbins: int, device,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """An uninitialised scratch plane for tile totals and their prefix,
+    flat: the totals [channels, ntiles, nbins] of the tiles of TILE_FRAMES
+    frames, then [channels, nchunks, nbins] for the chunks of
+    SCAN_CHUNK_TILES tiles (the prefix's second level, csrc/common.cuh)."""
+    ntiles = -(-frames // TILE_FRAMES)
+    rows = ntiles + -(-ntiles // SCAN_CHUNK_TILES)
+    return torch.empty(channels * rows * nbins, dtype=dtype, device=device)
 
 
 def check_cuda(t: torch.Tensor, name: str, ndim: int,

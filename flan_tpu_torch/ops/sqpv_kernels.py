@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from flan_tpu_torch.ops.build import (MAX_BINS, TILE_FRAMES, check_cuda,
-                                      load_library, raise_on)
+                                      load_library, raise_on, tile_scratch)
 from flan_tpu_torch.ops.fastmath import atan2 as _fast_atan2
 from flan_tpu_torch.ops.spv_kernels import cumsum_blocked
 from flan_tpu_torch.ops.stft import (_wrap_radians, cpu_exact,
@@ -246,13 +246,11 @@ def sqpv_inverse_cuda(mag: torch.Tensor, pitch: torch.Tensor,
     if nb != geo.nbins:
         raise ValueError(f"planes have {nb} bins, the geometry {geo.nbins}")
     lib = load_library()
-    ntiles = -(-n // TILE_FRAMES)
     with torch.cuda.device(mag.device):
         tw = _device_consts(sample_rate, bins_per_octave, bandwidth,
                             mag.device)[3]
         out = torch.empty((c, n), dtype=torch.float32, device=mag.device)
-        tot = torch.empty((c, ntiles, nb), dtype=torch.float32,
-                          device=mag.device)
+        tot = tile_scratch(c, n, nb, mag.device)
         err = lib.flan_sqpv_inverse(
             mag.data_ptr(), pitch.data_ptr(), positive.data_ptr(),
             tw.data_ptr(), tot.data_ptr(), out.data_ptr(), c, n, nb,

@@ -4,8 +4,11 @@ The plain versions (spv_forward_ref / spv_inverse_ref) are held against
 the JAX scan path and against the Pallas kernels in interpret mode, with
 the tolerances of tests/test_spv_pallas.py, and against the compiled
 reference's sliding-DFT goldens at B=16 (tests/test_algo_golden.py:
-153-190). tests/test_torch_cuda.py holds the CUDA kernels to the plain
-versions on the card.
+153-190). Where the CUDA kernels round differently from the plain versions
+(fixed-point cycles, a half-turn cosine, a hoisted scale, reciprocals),
+PyTorch emulations of exactly that arithmetic are held against the plain
+versions in float32 and float64. tests/test_torch_cuda.py holds the CUDA
+kernels to the plain versions on the card.
 """
 import os
 import subprocess
@@ -147,6 +150,107 @@ def test_sdft_inverse_golden():
     ref_inv = np.fromfile(os.path.join(FIXDIR, "sdft_inv.f32"), dtype="<f4")
     assert inv.shape == ref_inv.shape
     np.testing.assert_allclose(inv, ref_inv, atol=2e-3)
+
+
+# ---- the kernels' own roundings, emulated on the CPU
+
+def _emulation_signal(n, sr):
+    rng = np.random.default_rng(7)
+    t = np.arange(n, dtype=np.float32) / np.float32(sr)
+    x = (0.4 * np.sin(2 * np.pi * 440.0 * t)
+         + 0.2 * np.sin(2 * np.pi * 1187.0 * t + 0.3)
+         + 0.01 * rng.standard_normal(n).astype(np.float32))
+    return torch.from_numpy(np.ascontiguousarray(x[None], dtype=np.float32))
+
+
+# (sample rate, bins, frames): the short cases, then 30 s at 48 kHz, which
+# shows what accumulates over 1.44 M frames
+EMULATION_CASES = [(8000.0, b, n) for b in (16, 96, 128)
+                   for n in (2000, 2049)] + [(48000.0, 16, 1_440_000)]
+
+
+@pytest.fixture(scope="module", params=EMULATION_CASES,
+                ids=lambda c: f"sr{int(c[0])}-B{c[1]}-N{c[2]}")
+def emulation_case(request):
+    sr, nbins, n = request.param
+    x = _emulation_signal(n, sr)
+    ref32 = spv_kernels.spv_forward_ref(x, nbins, sr)
+    ref64 = spv_kernels.spv_forward_ref(x.double(), nbins, sr)
+    return sr, nbins, n, x, ref32, ref64
+
+
+def test_forward_emulation_matches_plain(emulation_case):
+    """The forward kernel's cheaper roundings (hoisted stencil scale,
+    reciprocal in atan2 and in the phase wrap) against the plain version.
+    Readings: magnitude 1.7e-7 of the peak at B=96 (2B no power of two), 0
+    elsewhere; frequency on live bins 1.2e-3 Hz at 8 kHz, 7.8e-3 Hz at 48
+    kHz over 1.44 M frames; against float64 the emulation's magnitude error
+    is 5.0e-7 where the plain version's is 4.5e-7, and the frequency RMS
+    equal to three digits (76.2 Hz on the long case's weak bins)."""
+    sr, nbins, n, x, (m32, f32), (m64, f64) = emulation_case
+    mag, freq = spv_kernels.spv_forward_emulated(x, nbins, sr)
+    scale = float(m64.abs().max())
+    live = m64 > 1e-3 * scale
+    assert float((mag - m32).abs().max()) < 1e-6 * scale
+    assert float((freq - f32)[live].abs().max()) < (0.01 if n < 10000
+                                                    else 0.05)
+    err_e = float((mag.double() - m64).abs().max())
+    err_p = float((m32.double() - m64).abs().max())
+    assert err_e <= 1.25 * err_p + 1e-7 * scale
+
+    def rms(a):
+        return float((a.double() - f64)[live].pow(2).mean().sqrt())
+    assert rms(freq) <= 1.1 * rms(f32) + 1e-4
+
+
+def test_inverse_emulation_matches_plain(emulation_case):
+    """The inverse kernel's fixed-point cycles and half-turn cosine against
+    the plain version on the plain float32 planes. Readings, as shares of
+    the output's peak: 3.4e-7 to 4.2e-7 from the float32 plain version and
+    3.0e-7 to 4.9e-7 from the float64 one on the short cases; over 1.44 M
+    frames 9.6e-6 from float32, which is the float32 version's own distance
+    from float64 (9.3e-6): the emulation stays at 2.2e-6 from float64."""
+    sr, nbins, n, _, (m32, f32), _ = emulation_case
+    got = spv_kernels.spv_inverse_emulated(m32, f32, sr)
+    y32 = spv_kernels.spv_inverse_ref(m32, f32, sr)
+    y64 = spv_kernels.spv_inverse_ref(m32.double(), f32.double(), sr)
+    assert got.dtype == torch.float32 and got.shape == y32.shape
+    peak = float(y64.abs().max())
+    err32 = float((got - y32).abs().max())
+    err64 = float((got.double() - y64).abs().max())
+    plain64 = float((y32.double() - y64).abs().max())
+    short = n < 10000
+    assert err32 < (2e-6 if short else 3e-5) * peak
+    assert err64 < (2e-6 if short else 1e-5) * peak
+    if not short:
+        assert err64 < plain64
+
+
+@pytest.mark.parametrize("freq,want", [
+    (0.0, 0), (2000.0, 2 ** 30), (-2000.0, -2 ** 30),
+    (8000.0, 0), (10000.0, 2 ** 30), (-6000.0, 2 ** 30),
+    (4000.0, 2 ** 31 - 1),          # +0.5 saturates one unit short
+    (-4000.0, -2 ** 31), (1.0, 536871), (8001.0, 536871)])
+def test_cycle_increments_fixed_point(freq, want):
+    """frac(freq / sr) * 2^32 as a signed 32-bit value, whole cycles
+    dropped; 1 Hz at 8 kHz is 2^32 / 8000 = 536870.9."""
+    got = spv_kernels.cycle_increments_fixed(torch.tensor([freq]), SR)
+    # the float32 quotient 8001 / 8000 holds 2^-23 cycles: 512 units
+    assert abs(int(got[0]) - want) <= (0 if freq != 8001.0 else 512)
+
+
+def test_fixed_point_cycles_associate_exactly():
+    """Any split of the frames gives the same cycles: the sum modulo 2^32
+    of two halves' sums is the whole sum, which float32 mod-1 sums do not
+    give."""
+    rng = np.random.default_rng(3)
+    freq = torch.from_numpy(rng.uniform(-4000.0, 12000.0, (1, 4096, 8))
+                            .astype(np.float32))
+    inc = spv_kernels.cycle_increments_fixed(freq, SR)
+    whole = inc.sum(dim=1) & 0xFFFFFFFF
+    halves = ((inc[:, :1000].sum(dim=1) & 0xFFFFFFFF)
+              + (inc[:, 1000:].sum(dim=1) & 0xFFFFFFFF)) & 0xFFFFFFFF
+    assert torch.equal(whole, halves)
 
 
 # ---- dispatch and build, without a card
