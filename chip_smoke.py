@@ -2,9 +2,16 @@
 """Smoke test of flan_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --time-calls [--package DIR]
 
 Runs from the root of a checkout and needs one CUDA card and the CUDA
-toolkit (nvcc). It imports nothing of JAX. Phases:
+toolkit (nvcc). It imports nothing of JAX. With --time-calls it only builds
+the library, drives the filter path and times the scan kernels and the SQPV
+forward as phases 5 and 6 do (time_kernels, the profiler per launch and
+inside the path); with --package DIR it takes flan_tpu_torch from DIR, so
+that another commit's kernels are timed by this script's yardstick (`git
+archive COMMIT flan_tpu_torch | tar -x -C build/parent`, then --package
+build/parent). Phases:
 
   0. print the card's name and power limit; fail without a CUDA card;
   1. build the kernel library from flan_tpu_torch/csrc with nvcc (one
@@ -14,10 +21,14 @@ toolkit (nvcc). It imports nothing of JAX. Phases:
      SPV kernels over bin counts on the 16-byte and the scalar path,
      channel counts, ragged and single-frame lengths and one of 83 s; the
      SQPV kernels over bins per octave, bandwidths at 8 and 48 kHz,
-     channel counts, a ragged length and odd periods; the three scan
-     kernels over lengths 1 to 1,000,003 and 1 to 3 channels, along the
-     comb's middle axis, and the linear scan's backward; the T3 probe on
-     its own inputs;
+     channel counts, a ragged length, odd periods, bin counts that are odd,
+     a multiple of 4 and above one block's 256, and a signal shorter than
+     a tile; the three scan kernels over lengths 1 to 1,000,003 (around one
+     tile and around one look-back window of tiles) and 1 to 64 rows, with
+     no, some and all planes shared by the rows, along the comb's middle
+     axis, the linear scan's backward, and three calls on 64 rows for the
+     same bits (tests/test_torch_cuda.py runs the wider grid, to 2^25 + 3);
+     the T3 probe on its own inputs;
   3. drive the PV time-stretch class path at headline size (600 s stereo
      48 kHz, window 2048 / hop 128 / dft 4096, 2x) and check its output;
      time it once whole and once stage by stage;
@@ -31,15 +42,17 @@ toolkit (nvcc). It imports nothing of JAX. Phases:
      which runs both SQPV kernels; then hold its planes and the inverse
      kernel against the plain versions on the same input, require the
      kernels' tone-fit SNR to reach the plain path's within 1 dB and the
-     repitched tone to sit at 330 Hz on both paths, and time each kernel
-     against its plain version;
+     repitched tone to sit at 330 Hz on both paths and three calls of the
+     forward kernel to give the same bits, and time each kernel against
+     its plain version;
   6. drive the IIR filter and compressor class path at headline size
      (600 s stereo 48 kHz: a swept 2-pole lowpass, a swept 1-pole
      highpass, a constant 2-pole highpass on the FIR path, the
      compressor), twice, then once stage by stage; check its output;
      hold each scan kernel against its plain version on the planes the
      path built, the kernel's error against the float64 plain run at most
-     twice the float32 plain run's; run the path at 10 s on the card and
+     twice the float32 plain run's, and three calls to give the same bits;
+     run the path at 10 s on the card and
      on the CPU and compare; time each scan kernel and the probe against
      their plain versions.
 
@@ -48,13 +61,17 @@ together, then phase 5, then phase 6) and read just after it, before any
 launch made for a comparison; the probe's counter runs over all of them
 (it lies on no path). Every failed check raises, so the script exits nonzero
 without printing the result line. The line before the last is one JSON
-object describing the kernels (share_of_bound is bound_ms / ms); the last is
-the result line.
+object describing the kernels (share_of_bound is bound_ms / ms; time_kernels
+says what ms, ms_after_plain and ms_behind_work are); the last is the result
+line.
 """
+import argparse
+import functools
 import json
 import math
 import re
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -94,7 +111,12 @@ SQPV_CASES = [(8000.0, 6.0, (100.0, 3000.0), 1, 16000),
               (8000.0, 24.0, (100.0, 3000.0), 1, 16000),
               (48000.0, 6.0, (16.0, 24000.0), 2, 96000),
               (48000.0, 12.0, (16.0, 24000.0), 1, 77777),
-              (48000.0, 24.0, (16.0, 24000.0), 2, 96000)]
+              (48000.0, 24.0, (16.0, 24000.0), 2, 96000),
+              # 24 bins (a multiple of 4); 59 bins (odd) and a signal
+              # shorter than one 128-frame tile; 507 bins (two blocks of bins)
+              (8000.0, 6.0, (100.0, 1600.0), 2, 5000),
+              (8000.0, 12.0, (100.0, 3000.0), 1, 100),
+              (48000.0, 48.0, (16.0, 24000.0), 1, 30000)]
 # The least time of a kernel: the larger of its bytes over the card's
 # memory rate and its operations over the float32 rate outside the tensor
 # cores (H100 SXM data sheet). Operations per element are counted from the
@@ -109,8 +131,17 @@ OPS_PER_ELEMENT = {"spv_forward": 54, "spv_inverse": 25,
                    "scan_linear": 2, "scan_max_affine": 3,
                    "scan_affine2x2": 8, "probe": 50}
 SCANS = ("scan_linear", "scan_max_affine", "scan_affine2x2")
-# phase 2 scan cases: (channels, frames)
-SCAN_CASES = [(c, n) for n in (1, 100, 4097, 1_000_003) for c in (1, 2, 3)]
+# phase 2 scan cases, (rows, frames), with frames also given in tiles of
+# the kind's T elements and look-back windows of W = 256 tiles: one
+# element, around one tile, around one window, and long rows
+SCAN_CASES = [(1, 1), (2, 100), (3, 4097), (1, "T-1"), (2, "T"), (3, "T+1"),
+              (64, "T+1"), (1, "W-1"), (2, "W"), (5, "W+1"), (2, 1_000_003)]
+# which planes one row shares with the others, in turns over the cases:
+# none, the coefficients (as the filters pass them), all
+SCAN_SHARING = (False, True, "all")
+# rows and frames of the same-bits case of phase 2: the blocks of many rows
+# wait on one look-back window at once
+SCAN_MANY_ROWS = (64, 100_003)
 # A scan kernel's largest error against the float64 plain run, as a share
 # of its peak, may be twice the float32 plain run's. The phase-2 cases add
 # this floor, for the short ones where both sit at rounding (1e-8 to 2e-7
@@ -143,10 +174,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+@functools.lru_cache(maxsize=None)
 def stereo_signal(seconds: float, seed: int = 0,
                   sr: float = SR) -> np.ndarray:
     """0.4-amplitude sines at 220 and 330 Hz plus 0.1 white noise, from a
-    seed (the JAX package's bench signal)."""
+    seed (the JAX package's bench signal). Kept per argument set: phases 3
+    and 6 take the same 600 s, seconds of host time to make; callers only
+    read it."""
     n = int(seconds * sr)
     rng = np.random.default_rng(seed)
     t = np.arange(n, dtype=np.float32) / np.float32(sr)
@@ -345,27 +379,38 @@ def phase2_sqpv(torch, sqpv_kernels, cq_geometry, dev):
     return worst
 
 
-def scan_planes(kind: str, ch: int, n: int, seed: int, shared: bool):
+def scan_planes(kind: str, ch: int, n: int, seed: int, shared):
     """Float32 planes and start states of one scan kind, from a seed: decay
     factors spread from 0.5 to 0.99999; with `shared`, the coefficient
-    planes are one row for all channels, as the filters pass them."""
+    planes are one row for all channels, as the filters pass them; with
+    "all", every plane is (the caller expands them to ch rows, and the
+    rows differ by their start states alone)."""
     rng = np.random.default_rng(seed)
     rows = 1 if shared else ch
+    own = 1 if shared == "all" else ch
     a = rng.uniform(0.5, 0.99999, (rows, n))
     if kind == "scan_linear":
-        planes = (a, rng.standard_normal((ch, n)))
+        planes = (a, rng.standard_normal((own, n)))
     elif kind == "scan_max_affine":
-        m = rng.standard_normal((ch, n))
+        m = rng.standard_normal((own, n))
         planes = (m, a, (1.0 - a) * m)
     else:
         th = rng.uniform(0.0, 0.2, (rows, n))
         planes = (a * np.cos(th), -a * np.sin(th), a * np.sin(th),
-                  a * np.cos(th), rng.standard_normal((ch, n)),
-                  rng.standard_normal((ch, n)))
+                  a * np.cos(th), rng.standard_normal((own, n)),
+                  rng.standard_normal((own, n)))
     states = 2 if kind == "scan_affine2x2" else 1
     y0 = rng.standard_normal((states, ch, 1))
     return [np.asarray(p, np.float32) for p in planes] + list(
         y0.astype(np.float32))
+
+
+def scan_frames(n, tile: int, window: int) -> int:
+    """A phase-2 case's frames: a number, or "T", "W" (window * tile)
+    with an offset."""
+    if isinstance(n, int):
+        return n
+    return {"T": tile, "W": window * tile}[n[0]] + int(n[1:] or 0)
 
 
 def scan_calls(scan_kernels):
@@ -396,27 +441,60 @@ def scan_errors(torch, kernel, plain, args) -> dict:
             "finite": bool(torch.isfinite(k).all())}
 
 
+def check_same_bits(torch, call, case: str) -> None:
+    """Three calls of a kernel on the same tensors give the same bits: the
+    kernels fix their order of summation, as the JAX package's do."""
+    def flat(y):
+        return y if isinstance(y, tuple) else (y,)
+    first = flat(call())
+    for _ in range(2):
+        again = flat(call())
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(first, again)),
+              f"{case}: two calls on the same input differ")
+
+
 def check_scan(e: dict, case: str, floor: float) -> None:
     check(e["finite"] and e["err_kernel"] <= 2.0 * e["err_plain"] + floor,
           f"{case}: kernel error {e['err_kernel']} of the peak against "
           f"float64, plain {e['err_plain']}")
 
 
-def phase2_scans(torch, scan_kernels, scan, dev):
+def scan_args(torch, name: str, ch: int, n: int, seed: int, shared, dev):
+    """scan_planes on the card; with "all", one row of every plane expanded
+    to ch rows, beside ch start states."""
+    args = [torch.from_numpy(a).to(dev) for a in
+            scan_planes(name, ch, n, seed=seed, shared=shared)]
+    if shared == "all":
+        args = [a.expand(ch, n) if a.shape[-1] == n else a for a in args]
+    return args
+
+
+def phase2_scans(torch, lib, scan_kernels, scan, dev):
     """The three scan kernels against their plain versions over lengths and
-    channel counts (shared coefficient rows on every other case), the
-    comb's middle axis, and the linear backward against autograd through
-    the plain version. Returns each kernel's largest absolute error."""
+    row counts (no, the coefficient and all planes shared, in turns), three
+    calls on many rows for the same bits, the comb's middle axis, and the
+    linear backward against autograd through the plain version. lib is the
+    kernel library, which names each kind's tile and the window. Returns
+    each kernel's largest absolute error."""
     worst = {name: 0.0 for name in SCANS}
-    for name, (kernel, plain) in scan_calls(scan_kernels).items():
-        for i, (ch, n) in enumerate(SCAN_CASES):
-            args = [torch.from_numpy(a).to(dev) for a in
-                    scan_planes(name, ch, n, seed=i, shared=i % 2 == 1)]
+    for kind, (name, (kernel, plain)) in enumerate(
+            scan_calls(scan_kernels).items()):
+        for i, (ch, frames) in enumerate(SCAN_CASES):
+            n = scan_frames(frames, lib.flan_scan_tile(kind),
+                            lib.flan_scan_window_tiles())
+            shared = SCAN_SHARING[i % 3]
+            args = scan_args(torch, name, ch, n, i, shared, dev)
             e = scan_errors(torch, kernel, plain, args)
             print(json.dumps({"phase": 2, "kernel": name, "channels": ch,
-                              "frames": n, **e}), flush=True)
-            check_scan(e, f"{name} C={ch} N={n}", SCAN_FLOOR)
+                              "frames": n, "shared": shared, **e}),
+                  flush=True)
+            check_scan(e, f"{name} C={ch} N={n} shared={shared}", SCAN_FLOOR)
             worst[name] = max(worst[name], e["abs_err"])
+            del args
+        args = scan_args(torch, name, *SCAN_MANY_ROWS, 0, "all", dev)
+        check_same_bits(torch, lambda: kernel(*args),
+                        f"{name} on {SCAN_MANY_ROWS[0]} rows")
     rng = np.random.default_rng(7)
     a, b = (torch.from_numpy(v.astype(np.float32)).to(dev) for v in (
         rng.uniform(0.5, 0.999, (2, 100001, 24)),
@@ -597,33 +675,70 @@ def phase4_check(torch, spv_kernels, x, spv, y, wall_k):
     return m, f, {"spv_forward": e["mag_err"], "spv_inverse": err_o}
 
 
+KERNEL_REPS = 10    # launches per timed turn of a kernel
+FILLER_FLOATS = 1 << 26     # 256 MB: five times the card's L2
+
+
+def behind_work_ms(torch, fn, filler, reps: int = 5) -> float:
+    """Median milliseconds of one call of fn that is queued behind other
+    work: four passes over `filler` keep the card busy while the host
+    prepares the call, and leave nothing of the call's inputs in L2."""
+    readings = []
+    for _ in range(reps):
+        for _ in range(4):
+            filler.mul_(1.0)
+        readings.append(cuda_ms(torch, fn, 1))
+    return float(np.median(readings))
+
+
 def time_kernels(torch, pairs: dict) -> dict:
-    """Each kernel and its plain version, in turns plain, kernel, kernel,
-    plain (one plain call, three kernel calls per turn) after a warm-up.
-    pairs maps a name to (kernel call, plain call)."""
+    """name -> {"ms", "ms_after_plain", "ms_behind_work", "plain_ms"} for
+    pairs of (kernel call, plain call), in turns plain, kernel, kernel,
+    plain after a launch of the kernel (the plain versions have run at
+    these shapes in the checks before), by CUDA events:
+
+    ms_after_plain  the mean of two turns of three launches that start
+                    right after the plain version's call, with the card
+                    idle: the host's time to prepare a call is part of it
+                    (0.15-0.3 ms a call of a scan wrapper, H100 host), and
+                    so are the first, slower launches after the plain
+                    version. The only reading up to commit 9ad48d3;
+    ms              the mean of two turns of KERNEL_REPS launches after one
+                    launch that is not timed: the steady rate of calls;
+    ms_behind_work  one call at a time behind other work on the stream
+                    (behind_work_ms): what a path that keeps the card busy
+                    pays for the call, cold caches included."""
+    filler = torch.empty(FILLER_FLOATS, device="cuda")
     times = {}
     for name, (kernel, plain) in pairs.items():
-        kernel(), plain()
+        kernel()
         p1 = cuda_ms(torch, plain, 1)
-        k1 = cuda_ms(torch, kernel, 3)
-        k2 = cuda_ms(torch, kernel, 3)
+        a1 = cuda_ms(torch, kernel, 3)
+        a2 = cuda_ms(torch, kernel, 3)
+        kernel()
+        k1 = cuda_ms(torch, kernel, KERNEL_REPS)
+        k2 = cuda_ms(torch, kernel, KERNEL_REPS)
         p2 = cuda_ms(torch, plain, 1)
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        times[name] = {"ms": (k1 + k2) / 2, "ms_after_plain": (a1 + a2) / 2,
+                       "ms_behind_work": behind_work_ms(torch, kernel, filler),
+                       "plain_ms": (p1 + p2) / 2}
     return times
 
 
 def profile_launches(torch, calls: dict) -> dict:
-    """Device microseconds of every CUDA kernel that one call of each
-    entry in `calls` launches, from torch.profiler, keyed by call and then
-    by the kernel's function name. The profiler is information, not a
-    check: where it records no device time the result is empty."""
+    """Device microseconds per launch of every CUDA kernel that a call of
+    each entry in `calls` launches (the mean over three calls), from
+    torch.profiler, keyed by call and then by the kernel's function name.
+    The profiler is information, not a check: where it records no device
+    time the result is empty."""
     from torch.profiler import ProfilerActivity, profile
     split = {}
     for name, fn in calls.items():
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(3):
+                fn()
             torch.cuda.synchronize()
         split[name] = {
             (re.findall(r"([A-Za-z_]\w*)(?:<[^()]*>)?\(",
@@ -633,6 +748,25 @@ def profile_launches(torch, calls: dict) -> dict:
             for ev in prof.key_averages()
             if ev.device_time_total > 0}
     return split
+
+
+def profile_scans_in_path(torch, run) -> dict:
+    """The scan kernels' launches inside one run() of a path, from
+    torch.profiler: kernel name with its map -> launches and mean device
+    microseconds per launch. What the path pays for them, between its other
+    work."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    found = {}
+    for ev in prof.key_averages():
+        key = ev.key.replace("(anonymous namespace)::", "")
+        if "scan_" in key and ev.device_time_total > 0:
+            found[key.split("(")[0].replace("void ", "")] = {
+                "launches": ev.count,
+                "us_per_launch": round(ev.device_time_total / ev.count, 1)}
+    return found
 
 
 def tone_snr_db(y: np.ndarray, f0: float, lo: int, hi: int) -> float:
@@ -687,6 +821,8 @@ def phase5_check(torch, sqpv_kernels, SQPV, x, sq, y, y_up, wall_k, peak_gb):
     e = sqpv_errors(torch, (sq.mag, sq.pitch, sq.positive), ref, ref64,
                     SR)
     del ref64
+    check_same_bits(torch, lambda: sqpv_kernels.sqpv_forward_cuda(x, *args),
+                    "SQPV forward, bench shape")
     out = sqpv_kernels.sqpv_inverse_cuda(*ref, *args)
     up = SQPV(*ref, sample_rate=SR, bins_per_octave=SQPV_BPO,
               bandwidth=SQPV_BAND).repitch(1.5)
@@ -789,9 +925,11 @@ def capture_scan_inputs(scan, n: int, run):
 def phase6_filters(torch, Audio, scan, scan_kernels, dev):
     """The filter and compressor class path at headline size (600 s stereo
     48 kHz): a first call (impulse-response probe and cuFFT plans
-    included), counted, then a second call, then one pass synchronised
-    after each stage, which keeps each scan kernel's full-length inputs.
-    Returns the output, the report and the captured inputs."""
+    included), counted, then a second call, a third under the profiler for
+    the scan kernels' device time inside the path, then one pass
+    synchronised after each stage, which keeps each scan kernel's
+    full-length inputs. Returns the output, the report, the captured inputs
+    and the launch counts."""
     x = stereo_signal(FILTER_SECONDS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -803,6 +941,8 @@ def phase6_filters(torch, Audio, scan, scan_kernels, dev):
     del out
     out, ms_second = timed(torch, lambda: filter_path(Audio, x, dev))
     del out
+    in_path = profile_scans_in_path(torch,
+                                    lambda: filter_path(Audio, x, dev))
 
     def staged():
         a, stages = None, {}
@@ -816,7 +956,8 @@ def phase6_filters(torch, Audio, scan, scan_kernels, dev):
               "x_realtime_first": FILTER_SECONDS / (ms_first / 1e3),
               "x_realtime_second": FILTER_SECONDS / (ms_second / 1e3),
               "peak_alloc_gb": peak_gb, "frames": int(x.shape[1]),
-              "stages_ms": stages, "launches": launches}
+              "stages_ms": stages, "launches": launches,
+              "scans_in_path": in_path}
     return out, report, captured, launches
 
 
@@ -841,6 +982,8 @@ def phase6_check(torch, Audio, scan_kernels, y, report, captured, dev):
         e = scan_errors(torch, kernel, plain, captured[name])
         report[name] = e
         check_scan(e, f"{name} on the path's planes", 0.0)
+        check_same_bits(torch, lambda: kernel(*captured[name]),
+                        f"{name} on the path's planes")
         errs[name] = e["abs_err"]
     x10 = stereo_signal(FILTER_CPU_SECONDS)
     want = filter_path(Audio, x10, "cpu").to_numpy()
@@ -875,8 +1018,10 @@ def bound(name: str, elements: int, nbytes: int):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def main() -> None:
-    # phase 0: the card
+def start(package):
+    """Phases 0 and 1: the card, torch, the port (from `package` if given)
+    and its kernel library. Returns the card's line, torch, the device and
+    the library."""
     card = card_line()
     print(f"card: {card}", flush=True)
     import torch
@@ -885,36 +1030,100 @@ def main() -> None:
     # full float32 on the card: TF32 would change the plain versions' sums
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from flan_tpu_torch import SQPV, Audio
-    from flan_tpu_torch.ops import (build, probe_kernels, scan, scan_kernels,
-                                    spv_kernels, sqpv_kernels)
-    from flan_tpu_torch.sqpv.transform import cq_geometry
-    dev = torch.device("cuda", 0)
+    if package is not None:
+        sys.path.insert(0, package)
+    from flan_tpu_torch.ops import build
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
-
-    # phase 1: build
     t0 = time.perf_counter()
     path, log = build.build_library()
-    build.load_library()
-    print(f"phase 1: built {path.name} in {time.perf_counter() - t0:.2f} s",
+    lib = build.load_library()
+    print(f"phase 1: built {path} in {time.perf_counter() - t0:.2f} s",
           flush=True)
     for line in log.splitlines():
         if ("registers" in line or "spill" in line or "Compiling" in line
                 or line.endswith(".cu:")):
             print(f"  nvcc: {line.strip()}", flush=True)
+    return card, torch, torch.device("cuda", 0), lib
+
+
+def time_calls(package) -> None:
+    """The --time-calls mode: the scan kernels on the filter path's planes
+    and the SQPV forward at its bench shape, timed as phases 5 and 6 time
+    them, and nothing else."""
+    card, torch, dev, _ = start(package)
+    from flan_tpu_torch import Audio
+    from flan_tpu_torch.ops import scan, scan_kernels, sqpv_kernels
+    xq = torch.from_numpy(stereo_signal(SQPV_SECONDS)[:1]).to(dev)
+    args = (SR, SQPV_BPO, SQPV_BAND)
+    calls = {"sqpv_forward": (
+        lambda: sqpv_kernels.sqpv_forward_cuda(xq, *args),
+        lambda: sqpv_kernels.sqpv_forward_ref(xq, *args))}
+    calls["sqpv_forward"][1]()      # the plain version's first use
+    times = time_kernels(torch, calls)
+    split = profile_launches(torch, {"sqpv_forward": calls["sqpv_forward"][0]})
+    _, report, captured, _ = phase6_filters(torch, Audio, scan, scan_kernels,
+                                            dev)
+    calls = {name: (lambda k=k, a=captured[name]: k(*a),
+                    lambda p=p, a=captured[name]: p(*a))
+             for name, (k, p) in scan_calls(scan_kernels).items()}
+    for _, plain in calls.values():
+        plain()
+    times.update(time_kernels(torch, calls))
+    split.update(profile_launches(torch, {n: k for n, (k, _) in
+                                          calls.items()}))
+    print(f"card: {card}", flush=True)
+    print(json.dumps({"package": package or ".", "call_times": times,
+                      "profile_us_per_launch": split,
+                      "scans_in_path": report["scans_in_path"],
+                      "filter_path_ms_second": report["wall_s_second"] * 1e3,
+                      "filter_stages_ms": report["stages_ms"]}), flush=True)
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(
+        description="Smoke test of flan_tpu_torch on one NVIDIA GPU.")
+    parser.add_argument("--time-calls", action="store_true",
+                        help="only time the scan kernels and the SQPV forward")
+    parser.add_argument("--package", metavar="DIR", default=None,
+                        help="with --time-calls: take flan_tpu_torch from DIR")
+    opts = parser.parse_args()
+    if opts.package is not None and not opts.time_calls:
+        parser.error("--package goes with --time-calls")
+    if opts.time_calls:
+        return time_calls(opts.package)
+    seconds = {}    # wall seconds per phase
+    t_phase = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        seconds[name] = round(now - t_phase, 2)
+        t_phase = now
+
+    # phases 0 and 1: the card, the build
+    card, torch, dev, lib = start(None)
+    from flan_tpu_torch import SQPV, Audio
+    from flan_tpu_torch.ops import (probe_kernels, scan, scan_kernels,
+                                    spv_kernels, sqpv_kernels)
+    from flan_tpu_torch.sqpv.transform import cq_geometry
+    phase_done("0-1 card, imports, build")
 
     # phase 2: kernel against plain
     worst = phase2_kernel_vs_plain(torch, spv_kernels, dev)
+    phase_done("2 spv cases")
     worst.update(phase2_sqpv(torch, sqpv_kernels, cq_geometry, dev))
-    worst.update(phase2_scans(torch, scan_kernels, scan, dev))
+    phase_done("2 sqpv cases")
+    worst.update(phase2_scans(torch, lib, scan_kernels, scan, dev))
     worst["probe"] = phase2_probe(torch, probe_kernels, dev)
+    phase_done("2 scan cases, probe")
 
     # phases 3 and 4: the stretch and SPV main paths, counted; the probe's
     # count runs over every main path (it lies on none)
     spv_kernels.reset_launch_counts()
     probe_kernels.reset_launch_counts()
     phase3_stretch(torch, Audio, dev)
+    phase_done("3 stretch")
     x, spv, y, wall_k = phase4_spv(torch, Audio, dev)
     launches = dict(spv_kernels.LAUNCHES)
     # phase 5: the SQPV main path, counted
@@ -935,6 +1144,7 @@ def main() -> None:
         "spv_forward": lambda: spv_kernels.spv_forward(x, SPV_BINS, SR),
         "spv_inverse": lambda: spv_kernels.spv_inverse(m, f, SR)})
     del m, f
+    phase_done("4 spv path, checks, timing")
     ref, errs_q = phase5_check(torch, sqpv_kernels, SQPV, xq, sq, yq, yq_up,
                                wall_q, peak_q)
     errs.update(errs_q)
@@ -965,6 +1175,7 @@ def main() -> None:
         "sqpv_inverse": bound("sqpv_inverse", n_sqpv,
                               9 * n_sqpv + 4 * xq.shape[1])}
     del ref, x, xq
+    phase_done("5 sqpv path, checks, timing")
 
     # phase 6: the filter and compressor main path, counted
     y6, report, captured, scan_launches = phase6_filters(
@@ -993,7 +1204,10 @@ def main() -> None:
     split.update(profile_launches(torch, {name: k for name, (k, _) in
                                           calls.items()}))
     del captured, calls
+    phase_done("6 filter path, checks, timing")
     print(json.dumps({"profile_us_per_launch": split}), flush=True)
+    print(json.dumps({"phase_seconds": seconds,
+                      "seconds": round(sum(seconds.values()), 1)}), flush=True)
 
     source = {"spv": "flan_tpu_torch/csrc/spv_kernels.cu",
               "sqpv": "flan_tpu_torch/csrc/sqpv_kernels.cu",
@@ -1018,9 +1232,9 @@ def main() -> None:
                 "replaces": replaces[name], "path": path[name],
                 "launches": launches[name],
                 "max_abs_err": max(worst[name], errs[name]),
-                "ms": times[name][0], "plain_ms": times[name][1],
+                **times[name],
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-                "share_of_bound": bounds[name][0] / times[name][0],
+                "share_of_bound": bounds[name][0] / times[name]["ms"],
                 # no single PyTorch call computes any of these functions
                 "library_ms": None}
                for name in replaces]

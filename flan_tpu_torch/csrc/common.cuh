@@ -15,6 +15,7 @@ constexpr int kTile = 128;        // frames per tile
 constexpr int kMaxThreads = 256;  // threads per epilogue block
 constexpr int kMaxBinsPerThread = 8;
 constexpr float kTwoPi = 6.28318530717958647692f;
+constexpr float kInvTwoPi = 0.15915494309189533577f;
 
 // atan(z) ~= z * P(z^2) on [0, 1]: the coefficients of
 // flan_tpu/ops/fastmath.py, evaluated in the same order.

@@ -16,35 +16,66 @@
 // Bound: memory. Each element is read once per plane and written once per
 // state: 12 bytes for linear, 16 for max_affine and 32 for affine2x2 when
 // every plane is a full [rows, N] tensor (a plane that is one row shared by
-// all rows is read once). The arithmetic is a few FMAs per element.
+// all rows is read once). The arithmetic is a few FMAs per element. So the
+// design moves each byte once: T1/T2's two passes (the chains' total maps,
+// then a rerun from each start state) are one launch here, a scan with
+// decoupled look-back (Merrill and Garland 2016) whose order of composition
+// is fixed, so that a call gives the same bits every time.
 //
-// Design. T1/T2 gave each of 8192 lanes one contiguous segment and advanced
-// time along the leading axis after a full transpose. Here one row is split
-// along time into tiles of kThreads * kPerThread elements, so one long row
-// (the compressor's control signal is a single row of N samples) still fills
-// the card, and nothing is transposed or padded:
-//   1. tile totals (T1's counterpart): a block loads its tile coalesced into
-//      shared memory (consecutive threads take consecutive elements, the
-//      ragged last tile filled with the identity map), each thread composes
-//      a run of kPerThread consecutive elements in registers, and a block
-//      scan of the maps (warp shuffles, then the 8 warp totals) gives the
-//      tile's total map;
-//   2. fold: one block per row composes its tiles' totals in time order
-//      (each thread a run of tiles, then a block scan) and applies them to
-//      the row's start state y0, writing each tile's start state;
-//   3. apply (T2's counterpart): a block reloads its tile, rebuilds each
-//      thread's exclusive prefix map by the same block scan, applies it to
-//      the tile's start state, reruns the recurrence over the thread's run
-//      into shared memory, and stores the states coalesced.
+// Design. One row is split along time into tiles of kThreads * kPerThread
+// elements, so one long row (the compressor's control signal is a single
+// row of N samples) still fills the card, and nothing is transposed or
+// padded. One block per (tile, row):
+//   1. it takes a ticket from a counter, and the ticket names its tile:
+//      tile = ticket / rows, row = ticket % rows. Every tile a block will
+//      wait for has a smaller ticket, so its block is running or done
+//      (blockIdx promises no such order), and the rows of one tile run
+//      together, so a plane shared by the rows (row stride 0) comes from
+//      device memory once and from L2 for the other rows;
+//   2. it loads its tile coalesced into shared memory by asynchronous
+//      copies (the ragged last tile filled with the identity map); each
+//      thread composes its run of
+//      kPerThread consecutive elements in registers, and a block scan of
+//      the maps (warp shuffles, then the 8 warp totals) gives each
+//      thread's exclusive prefix and the tile's total map;
+//   3. it publishes the total map in the tile's descriptor. A descriptor
+//      word is 64 bits, a float beside a flag, stored at once: a reader
+//      that sees the flag has the float, with no fence (the scratch is
+//      zeroed on the stream before the launch);
+//   4. look-back, in a fixed order. Tiles are grouped in windows of
+//      kWindow = kThreads. Tile k = w * kWindow + r composes the totals of
+//      the r tiles before it in its window, one per thread, by a fixed tree
+//      (shuffles, then the warp totals in order), and applies the result to
+//      the state at the window's start. That state is published by the
+//      window's first tile, which composes all kWindow totals of the window
+//      before it and applies them to that window's start state: a chain of
+//      N / (kWindow * tile) hops, each a poll and one map application,
+//      which runs ahead of the streaming. What a tile composes depends on
+//      its index alone, never on which blocks happened to be done;
+//   5. it applies each thread's exclusive prefix to the tile's start state,
+//      reruns the recurrence over the thread's run into shared memory, and
+//      stores the states coalesced.
 // A plane may be one row shared by every row (row stride 0), so a
 // coefficient computed once per frame is never broadcast in memory.
+//
+// What holds it (PERF.md has the readings): a block waits 2 to 4
+// microseconds in step 4, two trips to L2 and a reduction, since the tile
+// just before it finishes when it does. To keep the memory busy meanwhile a
+// multiprocessor must hold some 200 KB of tiles in flight. So the tiles
+// are large (16 elements a thread for the one-state maps, 8 for the 2x2),
+// they wait in shared memory and not in registers (the asynchronous
+// copies), and __launch_bounds__ asks for as many blocks as the shared
+// memory holds. The 2x2 map is bound by its arithmetic besides: a block
+// scan and a look-back reduction of 6-float maps, 20 operations a
+// composition.
 //
 // The max_affine identity is m = -1e30, not -inf: decay products underflow
 // to 0 and 0 * -inf is NaN (flan_tpu/ops/scan.py:208-210). Its composition
 // law holds only for a >= 0.
 //
-// The entry point launches on the stream it is given and returns
-// cudaGetLastError(); it allocates nothing and does not synchronise.
+// The entry point zeroes the scratch and launches on the stream it is
+// given and returns cudaGetLastError(); it allocates nothing and does not
+// synchronise.
 
 #include "common.cuh"
 
@@ -54,6 +85,9 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxPlanes = 6;
 constexpr int kMaxStates = 2;
+constexpr int kWindow = kThreads;  // tiles per look-back window
+
+typedef unsigned long long Word;   // a float (low half) beside its flag
 
 struct ScanArgs {
   const float* in[kMaxPlanes];
@@ -62,10 +96,12 @@ struct ScanArgs {
 };
 
 // Each family: kMap components (the element map is its planes, in order),
-// kState state components, the identity, the composition "l, then r", and
-// the application of a map to a state.
+// kState state components, kPerThread elements of a tile per thread and
+// kBlocks blocks a multiprocessor is to hold (their tiles fill its shared
+// memory; the compiler keeps the registers within that), the identity, the
+// composition "l, then r", and the application of a map to a state.
 struct Linear {
-  static constexpr int kMap = 2, kState = 1, kPerThread = 8;
+  static constexpr int kMap = 2, kState = 1, kPerThread = 16, kBlocks = 5;
   __device__ static float identity(int p) { return p == 0 ? 1.f : 0.f; }
   __device__ static void compose(const float* l, const float* r, float* o) {
     o[0] = l[0] * r[0];
@@ -77,7 +113,7 @@ struct Linear {
 };
 
 struct MaxAffine {
-  static constexpr int kMap = 3, kState = 1, kPerThread = 8;
+  static constexpr int kMap = 3, kState = 1, kPerThread = 16, kBlocks = 4;
   __device__ static float identity(int p) {
     return p == 0 ? -1e30f : (p == 1 ? 1.f : 0.f);
   }
@@ -93,7 +129,7 @@ struct MaxAffine {
 
 // (a11, a12, a21, a22, b1, b2)
 struct Affine2x2 {
-  static constexpr int kMap = 6, kState = 2, kPerThread = 4;
+  static constexpr int kMap = 6, kState = 2, kPerThread = 8, kBlocks = 4;
   __device__ static float identity(int p) {
     return (p == 0 || p == 3) ? 1.f : 0.f;
   }
@@ -118,6 +154,7 @@ struct Tile {
   // one padding float per 32, so a thread's run of kPerThread elements and
   // the coalesced rows both fall on distinct banks
   static constexpr int kPitch = kLen + kLen / 32;
+  static constexpr int kBytes = Op::kMap * kPitch * (int)sizeof(float);
 };
 
 __device__ __forceinline__ int padded(int i) { return i + (i >> 5); }
@@ -137,8 +174,9 @@ __device__ __forceinline__ void compose_into(float* acc, const float* r) {
 }
 
 // Block-wide scan of the threads' maps in thread order: `ex` becomes the
-// composition of the maps of all earlier threads and `total` that of all
-// threads. warp_tot is kWarps * kMap floats of shared memory.
+// composition of the maps of all earlier threads and, in the last warp,
+// `total` that of all threads. warp_tot is kWarps * kMap floats of shared
+// memory.
 template <class Op>
 __device__ void block_scan(const float* mine, float* ex, float* total,
                            float* warp_tot) {
@@ -170,34 +208,44 @@ __device__ void block_scan(const float* mine, float* ex, float* total,
   }
   __syncthreads();
   float pre[Op::kMap];
-  set_identity<Op>(total);
-  for (int w = 0; w < kWarps; ++w) {
-    if (w == warp) {
-#pragma unroll
-      for (int p = 0; p < Op::kMap; ++p) pre[p] = total[p];
-    }
-    compose_into<Op>(total, warp_tot + w * Op::kMap);
-  }
+  set_identity<Op>(pre);
+  for (int w = 0; w < warp; ++w) compose_into<Op>(pre, warp_tot + w * Op::kMap);
   Op::compose(pre, lane_ex, ex);
+  Op::compose(pre, warp_tot + warp * Op::kMap, total);
   __syncthreads();  // warp_tot may be reused after this
 }
 
 // The block's tile of every plane into shared memory, coalesced; elements
-// past N are the identity map.
+// past N are the identity map. The copies are asynchronous (cp.async, 4
+// bytes each: the padded rows admit no wider one), so a tile in flight
+// holds shared memory and no registers: how many bytes a multiprocessor
+// keeps in flight is what bounds this kernel, since each block waits some
+// microseconds on its look-back. The caller waits with copies_done().
 template <class Op>
 __device__ void load_tile(const ScanArgs& args, long long row, long long base,
                           long long n, float* sm) {
 #pragma unroll
   for (int p = 0; p < Op::kMap; ++p) {
-    const float* src = args.in[p] + row * args.stride[p];
-    const float ident = Op::identity(p);
-#pragma unroll
+    const float* src = args.in[p] + row * args.stride[p] + base;
+    float* dst = sm + p * Tile<Op>::kPitch;
+#pragma unroll 4
     for (int k = 0; k < Op::kPerThread; ++k) {
       const int i = threadIdx.x + k * kThreads;
-      const long long g = base + i;
-      sm[p * Tile<Op>::kPitch + padded(i)] = g < n ? __ldg(src + g) : ident;
+      if (base + i < n) {
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                         (unsigned)__cvta_generic_to_shared(dst + padded(i))),
+                     "l"(src + i));
+      } else {
+        dst[padded(i)] = Op::identity(p);
+      }
     }
   }
+  asm volatile("cp.async.commit_group;");
+}
+
+__device__ __forceinline__ void copies_done() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  __syncthreads();
 }
 
 // The map of element i of the tile in shared memory.
@@ -220,73 +268,134 @@ __device__ void compose_run(const float* sm, float* m) {
   }
 }
 
-// Pass 1: totals[row, tile, :] = the tile's composed map.
+// ----------------------------------------------------------- descriptors
+
+__device__ __forceinline__ void publish(Word* p, float v) {
+  *reinterpret_cast<volatile Word*>(p) = (1ull << 32) | __float_as_uint(v);
+}
+
+// Spin until all K words at p carry their flag; every round issues the K
+// loads together.
+template <int K>
+__device__ __forceinline__ void poll(const Word* p, float* v) {
+  const volatile Word* q = reinterpret_cast<const volatile Word*>(p);
+  bool ready;
+  do {
+    Word w[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) w[k] = q[k];
+    ready = true;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      ready = ready && (w[k] >> 32) != 0;
+      v[k] = __uint_as_float((unsigned)w[k]);
+    }
+  } while (!ready);
+}
+
+// The threads' maps composed in thread order by a fixed tree: pairs of
+// lanes at distance 1, 2, ... 16, then the warp totals in order. Thread 0
+// returns with the result in v; warp_tot is kWarps * kMap floats.
 template <class Op>
-__global__ void __launch_bounds__(kThreads)
-scan_tile_totals(ScanArgs args, float* __restrict__ totals, long long n,
-                 int ntiles) {
-  __shared__ float sm[Op::kMap * Tile<Op>::kPitch];
-  __shared__ float warp_tot[kWarps * Op::kMap];
-  const long long blk = blockIdx.x;
-  const long long row = blk / ntiles;
-  const long long base = (blk % ntiles) * Tile<Op>::kLen;
-  load_tile<Op>(args, row, base, n, sm);
+__device__ void block_reduce(float* v, float* warp_tot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    float other[Op::kMap];
+#pragma unroll
+    for (int p = 0; p < Op::kMap; ++p)
+      other[p] = __shfl_down_sync(0xffffffffu, v[p], d);
+    if ((lane & (2 * d - 1)) == 0) compose_into<Op>(v, other);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int p = 0; p < Op::kMap; ++p) warp_tot[warp * Op::kMap + p] = v[p];
+  }
   __syncthreads();
-  float m[Op::kMap], ex[Op::kMap], total[Op::kMap];
-  compose_run<Op>(sm, m);
-  block_scan<Op>(m, ex, total, warp_tot);
   if (threadIdx.x == 0) {
-#pragma unroll
-    for (int p = 0; p < Op::kMap; ++p) totals[blk * Op::kMap + p] = total[p];
+    for (int w = 1; w < kWarps; ++w)
+      compose_into<Op>(v, warp_tot + w * Op::kMap);
   }
 }
 
-// Pass 2, one block per row: starts[row, tile, :] = the state before the
-// tile, folding the tile totals in time order from y0[row, :].
-template <class Op>
-__global__ void __launch_bounds__(kThreads)
-scan_fold(const float* __restrict__ totals, const float* __restrict__ y0,
-          float* __restrict__ starts, int ntiles) {
-  __shared__ float warp_tot[kWarps * Op::kMap];
-  const long long row = blockIdx.x;
-  const int per = (ntiles + kThreads - 1) / kThreads;
-  const int k0 = min((int)threadIdx.x * per, ntiles);
-  const int k1 = min(k0 + per, ntiles);
-  const float* tot = totals + row * ntiles * Op::kMap;
-  float m[Op::kMap], ex[Op::kMap], total[Op::kMap];
-  set_identity<Op>(m);
-  for (int k = k0; k < k1; ++k) compose_into<Op>(m, tot + k * Op::kMap);
-  block_scan<Op>(m, ex, total, warp_tot);
-  float s[Op::kState];
-#pragma unroll
-  for (int q = 0; q < Op::kState; ++q) s[q] = y0[row * Op::kState + q];
-  Op::apply(ex, s);
-  for (int k = k0; k < k1; ++k) {
-#pragma unroll
-    for (int q = 0; q < Op::kState; ++q)
-      starts[(row * ntiles + k) * Op::kState + q] = s[q];
-    Op::apply(tot + k * Op::kMap, s);
-  }
+// Scratch, in words: the ticket counter; the tiles' total maps
+// [rows, ntiles, kMap]; the windows' start states [rows, nwindows, kState]
+// (window 0 starts from y0 and its entry is unused).
+__host__ __device__ inline long long windows_of(long long ntiles) {
+  return (ntiles + kWindow - 1) / kWindow;
 }
 
-// Pass 3: rerun each tile from its start state and write the states.
 template <class Op>
-__global__ void __launch_bounds__(kThreads)
-scan_apply(ScanArgs args, const float* __restrict__ starts, long long n,
-           int ntiles) {
-  __shared__ float sm[Op::kMap * Tile<Op>::kPitch];
+long long scratch_words(long long rows, long long ntiles) {
+  return 1 + rows * ntiles * Op::kMap + rows * windows_of(ntiles) * Op::kState;
+}
+
+template <class Op>
+__global__ void __launch_bounds__(kThreads, Op::kBlocks)
+scan_one_pass(ScanArgs args, const float* __restrict__ y0, Word* scratch,
+              long long n, int ntiles, int rows) {
+  extern __shared__ float sm[];      // Tile<Op>::kBytes: the tile's planes
   __shared__ float warp_tot[kWarps * Op::kMap];
-  const long long blk = blockIdx.x;
-  const long long row = blk / ntiles;
-  const long long base = (blk % ntiles) * Tile<Op>::kLen;
-  load_tile<Op>(args, row, base, n, sm);
+  __shared__ float start[Op::kState];
+  __shared__ unsigned ticket_sm;
+  if (threadIdx.x == 0)
+    ticket_sm = atomicAdd(reinterpret_cast<unsigned*>(scratch), 1u);
   __syncthreads();
+  const int tile = (int)(ticket_sm / (unsigned)rows);
+  const long long row = ticket_sm - (unsigned)tile * (unsigned)rows;
+  const long long base = (long long)tile * Tile<Op>::kLen;
+  Word* totals = scratch + 1;
+  Word* states = totals + (long long)rows * ntiles * Op::kMap;
+
+  load_tile<Op>(args, row, base, n, sm);
+  copies_done();
   float m[Op::kMap], ex[Op::kMap], total[Op::kMap];
   compose_run<Op>(sm, m);
   block_scan<Op>(m, ex, total, warp_tot);
+#pragma unroll
+  for (int p = 0; p < Op::kMap; ++p)
+    if (threadIdx.x == kThreads - 1 - p)
+      publish(totals + (row * ntiles + tile) * Op::kMap + p, total[p]);
+
+  // look-back: the first tile of a window takes the whole window before
+  // it, every other tile the tiles of its own window before it
+  const int window = tile / kWindow, r = tile - window * kWindow;
+  const bool first = r == 0 && window > 0;
+  const int from = first ? window - 1 : window;     // the window composed
+  const int count = first ? kWindow : r;            // and how many tiles
+  if (count > 0) {
+    float before[Op::kMap];
+    if ((int)threadIdx.x < count)
+      poll<Op::kMap>(totals + (row * ntiles + (long long)from * kWindow +
+                               threadIdx.x) * Op::kMap, before);
+    else
+      set_identity<Op>(before);
+    block_reduce<Op>(before, warp_tot);
+    if (threadIdx.x == 0) {
+      Word* at = states + row * windows_of(ntiles) * Op::kState;
+      float s[Op::kState];
+      if (from == 0) {
+#pragma unroll
+        for (int q = 0; q < Op::kState; ++q) s[q] = y0[row * Op::kState + q];
+      } else {
+        poll<Op::kState>(at + (long long)from * Op::kState, s);
+      }
+      Op::apply(before, s);
+#pragma unroll
+      for (int q = 0; q < Op::kState; ++q) {
+        if (first) publish(at + (long long)window * Op::kState + q, s[q]);
+        start[q] = s[q];
+      }
+    }
+  } else if (threadIdx.x == 0) {
+#pragma unroll
+    for (int q = 0; q < Op::kState; ++q) start[q] = y0[row * Op::kState + q];
+  }
+  __syncthreads();
+
   float s[Op::kState];
 #pragma unroll
-  for (int q = 0; q < Op::kState; ++q) s[q] = starts[blk * Op::kState + q];
+  for (int q = 0; q < Op::kState; ++q) s[q] = start[q];
   Op::apply(ex, s);
   // state q overwrites plane q of the element just read: only this thread
   // reads its run
@@ -304,7 +413,7 @@ scan_apply(ScanArgs args, const float* __restrict__ starts, long long n,
 #pragma unroll
   for (int q = 0; q < Op::kState; ++q) {
     float* dst = args.out[q] + row * n;
-#pragma unroll
+#pragma unroll 4
     for (int k = 0; k < Op::kPerThread; ++k) {
       const int i = threadIdx.x + k * kThreads;
       const long long g = base + i;
@@ -314,16 +423,27 @@ scan_apply(ScanArgs args, const float* __restrict__ starts, long long n,
 }
 
 template <class Op>
-int launch(const ScanArgs& args, const float* y0, float* totals,
-           float* starts, int rows, long long n, cudaStream_t s) {
-  const long long ntiles = (n + Tile<Op>::kLen - 1) / Tile<Op>::kLen;
+long long tiles_of(long long n) {
+  return (n + Tile<Op>::kLen - 1) / Tile<Op>::kLen;
+}
+
+template <class Op>
+int launch(const ScanArgs& args, const float* y0, Word* scratch, int rows,
+           long long n, cudaStream_t s) {
+  const long long ntiles = tiles_of<Op>(n);
   const long long blocks = rows * ntiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  scan_tile_totals<Op><<<(unsigned)blocks, kThreads, 0, s>>>(args, totals, n,
-                                                             (int)ntiles);
-  scan_fold<Op><<<rows, kThreads, 0, s>>>(totals, y0, starts, (int)ntiles);
-  scan_apply<Op><<<(unsigned)blocks, kThreads, 0, s>>>(args, starts, n,
-                                                       (int)ntiles);
+  const cudaError_t zeroed = cudaMemsetAsync(
+      scratch, 0, sizeof(Word) * scratch_words<Op>(rows, ntiles), s);
+  if (zeroed != cudaSuccess) return (int)zeroed;
+  // a tile is more than the 48 KB a block may use without asking (asked
+  // on every call: the attribute belongs to the current device)
+  const cudaError_t allowed = cudaFuncSetAttribute(
+      scan_one_pass<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Tile<Op>::kBytes);
+  if (allowed != cudaSuccess) return (int)allowed;
+  scan_one_pass<Op><<<(unsigned)blocks, kThreads, Tile<Op>::kBytes, s>>>(
+      args, y0, scratch, n, (int)ntiles, rows);
   return (int)cudaGetLastError();
 }
 
@@ -331,8 +451,8 @@ int launch(const ScanArgs& args, const float* y0, float* totals,
 
 extern "C" {
 
-// Elements per tile of each kind (0 linear, 1 max_affine, 2 affine2x2):
-// the wrapper sizes the scratch from it.
+// Elements per tile of each kind (0 linear, 1 max_affine, 2 affine2x2) and
+// tiles per look-back window: the wrappers check their constants by them.
 int flan_scan_tile(int kind) {
   switch (kind) {
     case 0: return Tile<Linear>::kLen;
@@ -342,16 +462,30 @@ int flan_scan_tile(int kind) {
   }
 }
 
+int flan_scan_window_tiles() { return kWindow; }
+
+// Bytes of scratch one call of flan_scan needs; 0 for a bad kind.
+long long flan_scan_scratch_bytes(int kind, int rows, long long n) {
+  switch (kind) {
+    case 0: return 8 * scratch_words<Linear>(rows, tiles_of<Linear>(n));
+    case 1: return 8 * scratch_words<MaxAffine>(rows, tiles_of<MaxAffine>(n));
+    case 2: return 8 * scratch_words<Affine2x2>(rows, tiles_of<Affine2x2>(n));
+    default: return 0;
+  }
+}
+
 // kind 0 linear, 1 max_affine, 2 affine2x2. in_ptrs, in_strides: host
 // arrays of the kind's planes (2, 3 or 6) as device addresses and row
 // strides (0 or n); out_ptrs: its 1 or 2 outputs [rows, n]. y0 [rows, kState];
-// totals scratch [rows, ntiles, kMap]; starts scratch [rows, ntiles, kState],
-// ntiles = ceil(n / flan_scan_tile(kind)). All float32 on the stream's
-// device.
+// scratch: flan_scan_scratch_bytes(kind, rows, n) bytes, 8-byte aligned. All
+// float32 on the stream's device.
 int flan_scan(int kind, const long long* in_ptrs, const long long* in_strides,
-              const long long* out_ptrs, const float* y0, float* totals,
-              float* starts, int rows, long long n, void* stream) {
-  if (kind < 0 || kind > 2 || rows < 1 || n < 1)
+              const long long* out_ptrs, const float* y0, void* scratch,
+              int rows, long long n, void* stream) {
+  // a descriptor word is one 64-bit store and load: the scratch must be
+  // aligned to it
+  if (kind < 0 || kind > 2 || rows < 1 || n < 1 ||
+      reinterpret_cast<unsigned long long>(scratch) % sizeof(Word) != 0)
     return (int)cudaErrorInvalidValue;
   const int planes = kind == 0 ? 2 : (kind == 1 ? 3 : 6);
   ScanArgs args = {};
@@ -362,10 +496,11 @@ int flan_scan(int kind, const long long* in_ptrs, const long long* in_strides,
   for (int q = 0; q < (kind == 2 ? 2 : 1); ++q)
     args.out[q] = reinterpret_cast<float*>(out_ptrs[q]);
   cudaStream_t s = (cudaStream_t)stream;
+  Word* w = reinterpret_cast<Word*>(scratch);
   switch (kind) {
-    case 0: return launch<Linear>(args, y0, totals, starts, rows, n, s);
-    case 1: return launch<MaxAffine>(args, y0, totals, starts, rows, n, s);
-    default: return launch<Affine2x2>(args, y0, totals, starts, rows, n, s);
+    case 0: return launch<Linear>(args, y0, w, rows, n, s);
+    case 1: return launch<MaxAffine>(args, y0, w, rows, n, s);
+    default: return launch<Affine2x2>(args, y0, w, rows, n, s);
   }
 }
 

@@ -87,8 +87,6 @@
 
 namespace {
 
-constexpr float kInvTwoPi = 0.15915494309189533577f;
-
 // VEC adjacent floats at p: one 16-byte access for VEC == 4. The streaming
 // forms are for the planes, read or written once; the plain load is for
 // the twiddle table and the carries.

@@ -28,23 +28,51 @@
 // itself, toward-zero truncation quirk included (AudioSQPV.cpp:100-103: an
 // odd-period bin reads x[0] once on each side), so u is never stored.
 // Bins are independent (the hann runs across the three lines of one bin),
-// so one thread owns one bin and lanes run along bins: the plane stores
-// coalesce and the x gathers are scattered, served by L1/L2 as each
-// thread's reads walk forward one sample per frame. Three launches:
+// so one thread owns one bin and a block of 256 threads a run of frames of
+// up to 256 bins: whole rows of the planes for a constant-Q bin count.
+// What held the first version (one part of its source taken out at a time,
+// PERF.md): the instructions of the frame loop (~170 a frame-bin), twelve
+// table floats a frame-bin from L2, two gathers a frame that miss L1 once a
+// multiprocessor runs thousands of them, stores in rows of B floats that
+// start on no 32-byte sector (and single bytes), and a carry on 6 blocks.
+// What this version does about each:
+//   - the frame loop runs in batches of 8 frames: each thread first loads
+//     its 8 + 8 samples of x (the same one or two sectors, whatever L1
+//     keeps), then computes 8 frames from registers with 32-bit indices;
+//   - within a tile the running sum is rotated by the host tables t1 = a^-i
+//     and t2 = a^(i+1) (float64 on the host, stored float32). t1[i+1] is
+//     the conjugate of t2[i] bit for bit, so only t2 is stored and a thread
+//     carries it into the next frame: 6 table floats a frame-bin in the
+//     epilogue and in the totals, not 12 and 6, laid out so that they are
+//     three 8-byte loads from one pointer;
+//   - the phase's division and the wrap's are the card's fast ones (they
+//     feed no accumulator); the magnitude keeps sqrtf, with which the
+//     epilogue measured 10% faster than with sqrt.approx (PERF.md); the
+//     running sums, the carry and the comb operand keep their arithmetic;
+//   - a block of 256 threads holds whole rows of a constant-Q bin count
+//     (the first version's 128 left every row to two blocks), so a frame's
+//     stores fill whole sectors but the row's first and last. Staging
+//     batches of rows in shared memory for 16-byte stores was measured and
+//     bought nothing on top of that (PERF.md), so each thread stores its
+//     own values, streaming;
+//   - the carry over tiles C_{k+1} = a^128 (C_k + S_k) is cut into chunks
+//     of kCarryChunk tiles with the host's powers a^(128 i), as the real
+//     sums of the other kernels are (common.cuh).
+// Four launches:
 //   1. tile totals S_k = sum_i a^-i u[t0+i] per 128-frame tile, line, bin;
-//   2. the carry C_{k+1} = a^128 (C_k + S_k), sequential over tiles, one
-//      thread per (channel, line, bin) chain, in place over the totals;
-//      a^128 is the last row of the host table t2 = a^(i+1), so the carry
-//      is the value the epilogue computes at the tile's last frame;
-//   3. the epilogue re-runs each tile from C_k with the host tables
-//      t1 = a^-i and t2 = a^(i+1) (float64 on the host, stored float32),
-//      combines the lines 0.5 F_0 - 0.25 (F_-1 + F_+1), takes the polar
-//      form and the phase-difference frequency, and writes pitch =
-//      log2(max(|f|, 1e-12)) and positive = f >= 0 for the frames of the
-//      output. The previous frame's phase at a tile start comes from the
-//      carry C_k, which is the frame before it. Warm-up tiles are skipped.
+//   2. the carry within each chunk from 0, in place over the totals: L_k,
+//      and each chunk's carry out D_q, one thread per (bin, chunk, line);
+//   3. the carry over chunks X_{q+1} = a^(128 m) X_q + D_q, in place over
+//      D, one thread per (channel, line, bin) chain of N / (128 m) steps;
+//   4. the epilogue forms C_k = a^(128 i) X_q + L_k (k = q m + i), re-runs
+//      the tile from it, combines the lines 0.5 F_0 - 0.25 (F_-1 + F_+1),
+//      takes the polar form and the phase-difference frequency, and writes
+//      pitch = log2(max(|f|, 1e-12)) and positive = f >= 0 for the frames
+//      of the output. The previous frame's phase at a tile start comes from
+//      C_k, which is the frame before it. Warm-up tiles are skipped.
+// Every order of operations is fixed: a call gives the same bits each time.
 //
-// Inverse: B2's design. Tile totals of the mod-1 cycle increments
+// Inverse: B2's first design. Tile totals of the mod-1 cycle increments
 // frac(+-2^pitch / sr) (true division), a mod-1 prefix over tiles, and an
 // epilogue that keeps each bin's cycles reduced mod 1 every frame and
 // reduces sum_b mag * Re(e^{2 pi i cycles} tw_b) per frame across the block.
@@ -55,13 +83,17 @@
 // Every entry point launches on the stream it is given and returns
 // cudaGetLastError(); it allocates nothing and does not synchronise.
 
+#include <stdint.h>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kLines = 3;          // twiddle lines j = -1, 0, +1
-constexpr int kBinsPerBlock = 128; // forward: one bin per thread
-constexpr int kCarryBatch = 32;    // tile totals in flight per carry thread
+constexpr int kFwdThreads = 256;   // forward: one bin per thread
+constexpr int kBatch = 8;          // frames per batch of the forward loops
+constexpr int kCarryChunk = 32;    // tiles per chunk of the forward's carry
+constexpr int kCarryBatch = 32;    // chunk totals in flight per chain
 
 // Per-bin constants of the forward, read once per thread.
 struct BinConsts {
@@ -91,64 +123,113 @@ __device__ __forceinline__ BinConsts load_bin(const float* __restrict__ bin_f,
   return k;
 }
 
-// The comb operand u[t] of one bin, rounded as the plain version rounds it:
-// ((fr * x_new - x_old) * scale, (fi * x_new) * scale), plus x[0] times the
-// quirk coefficient at the quirk frames. The _rn intrinsics keep nvcc from
-// contracting these steps into FMAs.
-__device__ __forceinline__ void comb_operand(
-    const float* __restrict__ xc, long long t, long long n, int w0,
-    const BinConsts& k, float fr, float fi, float x0, float* ure,
-    float* uim) {
-  const long long i_new = t - w0 + k.off_p, i_old = t - w0 - k.off_m;
-  const float xn = (i_new >= 0 && i_new < n) ? __ldg(xc + i_new) : 0.f;
-  const float xo = (i_old >= 0 && i_old < n) ? __ldg(xc + i_old) : 0.f;
+// One bin's walk over one tile: where its two reads of x start, and the
+// tile rows of its quirk frames (-1: not in this tile).
+struct TileWalk {
+  long long s_new, s_old;   // x index of row 0's new and old sample
+  int i_new, i_old;
+};
+
+__device__ __forceinline__ TileWalk tile_walk(const BinConsts& k, long long t0,
+                                              int w0) {
+  TileWalk w;
+  w.s_new = t0 - w0 + k.off_p;
+  w.s_old = t0 - w0 - k.off_m;
+  const long long dn = k.t_new - t0, dk = k.t_old - t0;
+  w.i_new = (k.t_new >= 0 && dn >= 0 && dn < kTile) ? (int)dn : -1;
+  w.i_old = (k.t_old >= 0 && dk >= 0 && dk < kTile) ? (int)dk : -1;
+  return w;
+}
+
+// kBatch consecutive samples of x from index s on, zero outside [0, n).
+__device__ __forceinline__ void load_batch(const float* __restrict__ xc,
+                                           long long s, long long n,
+                                           float (&v)[kBatch]) {
+  if (s >= 0 && s + kBatch <= n) {
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) v[j] = __ldg(xc + s + j);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      v[j] = (s + j >= 0 && s + j < n) ? __ldg(xc + s + j) : 0.f;
+  }
+}
+
+// The comb operand u of one bin at tile row i, rounded as the plain version
+// rounds it: ((fr * x_new - x_old) * scale, (fi * x_new) * scale), plus x[0]
+// times the quirk coefficient at the quirk rows. The _rn intrinsics keep
+// nvcc from contracting these steps into FMAs.
+__device__ __forceinline__ void comb_operand(float xn, float xo, int i,
+                                             const TileWalk& w,
+                                             const BinConsts& k, float fr,
+                                             float fi, float x0, float* ure,
+                                             float* uim) {
   float re = __fmul_rn(__fsub_rn(__fmul_rn(fr, xn), xo), k.scale);
   float im = __fmul_rn(__fmul_rn(fi, xn), k.scale);
-  if (t == k.t_new) {
+  if (i == w.i_new) {
     re = __fadd_rn(re, __fmul_rn(x0, k.q_new_re));
     im = __fadd_rn(im, __fmul_rn(x0, k.q_new_im));
   }
-  if (t == k.t_old) re = __fadd_rn(re, __fmul_rn(x0, k.q_old_re));
+  if (i == w.i_old) re = __fadd_rn(re, __fmul_rn(x0, k.q_old_re));
   *ure = re;
   *uim = im;
 }
 
-// tables: [4][kLines][kTile][nbins] = t1_re, t1_im, t2_re, t2_im
-__device__ __forceinline__ float table(const float* __restrict__ tables,
-                                       int which, int line, int i, int b,
-                                       int nbins) {
-  return __ldg(tables + ((long long)(which * kLines + line) * kTile + i) *
-                            nbins + b);
+// t2: [kTile][nbins][kLines] pairs (re, im) of a^(i+1), so that the six
+// floats of one row and bin lie together: three 8-byte loads from one
+// pointer, which moves by a row a frame.
+__device__ __forceinline__ const float2* t2_row(const float* t2, int i, int b,
+                                                int nbins) {
+  return reinterpret_cast<const float2*>(t2) +
+         ((long long)i * nbins + b) * kLines;
+}
+__device__ __forceinline__ float2 t2_line(const float2* row, int l) {
+  return __ldg(row + l);
 }
 
 // ---------------------------------------------------------------- forward
 
 // tot: [C][ntiles][2 * kLines][nbins], rows re of the lines then im.
-__global__ void __launch_bounds__(kBinsPerBlock)
+__global__ void __launch_bounds__(kFwdThreads)
 sqpv_fwd_tile_totals(const float* __restrict__ x,
-                     const float* __restrict__ tables,
+                     const float* __restrict__ t2,
                      const float* __restrict__ bin_f,
                      const int* __restrict__ bin_i, float* __restrict__ tot,
                      long long n, int nbins, int ntiles, int w0, float fr,
                      float fi) {
   const int tile = blockIdx.x, c = blockIdx.z;
-  const int b = blockIdx.y * kBinsPerBlock + threadIdx.x;
+  const int b = blockIdx.y * kFwdThreads + threadIdx.x;
   if (b >= nbins) return;
   const BinConsts k = load_bin(bin_f, bin_i, b, nbins);
   const float* xc = x + (long long)c * n;
   const float x0 = xc[0];
   const long long t0 = (long long)tile * kTile;
   const int rows = (int)min((long long)kTile, w0 + n - t0);
+  const TileWalk w = tile_walk(k, t0, w0);
   float sre[kLines] = {0.f, 0.f, 0.f}, sim[kLines] = {0.f, 0.f, 0.f};
-  for (int i = 0; i < rows; ++i) {
-    float ure, uim;
-    comb_operand(xc, t0 + i, n, w0, k, fr, fi, x0, &ure, &uim);
+  // a^-i, carried from the row before: a^0, then conj(t2[i - 1])
+  float wr[kLines] = {1.f, 1.f, 1.f}, wi[kLines] = {0.f, 0.f, 0.f};
+  const float2* tp = t2_row(t2, 0, b, nbins);
+  for (int i0 = 0; i0 < rows; i0 += kBatch) {
+    float xn[kBatch], xo[kBatch];
+    load_batch(xc, w.s_new + i0, n, xn);
+    load_batch(xc, w.s_old + i0, n, xo);
 #pragma unroll
-    for (int l = 0; l < kLines; ++l) {
-      const float wr = table(tables, 0, l, i, b, nbins);
-      const float wi = table(tables, 1, l, i, b, nbins);
-      sre[l] += ure * wr - uim * wi;
-      sim[l] += ure * wi + uim * wr;
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = i0 + j;
+      if (i < rows) {
+        float ure, uim;
+        comb_operand(xn[j], xo[j], i, w, k, fr, fi, x0, &ure, &uim);
+#pragma unroll
+        for (int l = 0; l < kLines; ++l) {
+          sre[l] += ure * wr[l] - uim * wi[l];
+          sim[l] += ure * wi[l] + uim * wr[l];
+          const float2 w2 = t2_line(tp, l);
+          wr[l] = w2.x;
+          wi[l] = -w2.y;
+        }
+        tp += kLines * nbins;
+      }
     }
   }
   float* out = tot + ((long long)c * ntiles + tile) * 2 * kLines * nbins + b;
@@ -159,38 +240,90 @@ sqpv_fwd_tile_totals(const float* __restrict__ x,
   }
 }
 
-// In place over tot: the totals S_k become the carries C_k, with C_0 = 0
-// and C_{k+1} = a^128 (C_k + S_k). One thread per (channel, line, bin).
-__global__ void __launch_bounds__(kBinsPerBlock)
-sqpv_fwd_carry(const float* __restrict__ tables, float* tot, int nbins,
-               int ntiles) {
-  const int b = blockIdx.x * kBinsPerBlock + threadIdx.x;
+// apow: [2][kLines][kCarryChunk + 1][nbins] = re, im of a^(128 i).
+__device__ __forceinline__ void load_apow(const float* __restrict__ apow,
+                                          int l, int i, int b, int nbins,
+                                          float* re, float* im) {
+  const long long at = ((long long)l * (kCarryChunk + 1) + i) * nbins + b;
+  *re = __ldg(apow + at);
+  *im = __ldg(apow + at + (long long)kLines * (kCarryChunk + 1) * nbins);
+}
+
+// In place over tot: within each chunk of kCarryChunk tiles the totals S
+// become the carries from 0, L_0 = 0 and L_{i+1} = a^128 (L_i + S_i); the
+// carry out of the chunk goes to chunks [C][nchunks][2 * kLines][nbins].
+// One thread per (bin, chunk, line and channel).
+__global__ void __launch_bounds__(kFwdThreads)
+sqpv_fwd_carry_local(const float* __restrict__ apow, float* tot,
+                     float* __restrict__ chunks, int nbins, int ntiles,
+                     int nchunks) {
+  const int b = blockIdx.y * kFwdThreads + threadIdx.x;
+  const int q = blockIdx.x, l = blockIdx.z % kLines, c = blockIdx.z / kLines;
+  if (b >= nbins) return;
+  float ar, ai;
+  load_apow(apow, l, 1, b, nbins, &ar, &ai);
+  const long long stride = 2LL * kLines * nbins;
+  const int k0 = q * kCarryChunk;
+  const int cnt = min(kCarryChunk, ntiles - k0);
+  float* pre = tot + ((long long)c * ntiles + k0) * stride + l * nbins + b;
+  float* pim = pre + kLines * nbins;
+  float sr[kCarryChunk], si[kCarryChunk];
+#pragma unroll
+  for (int j = 0; j < kCarryChunk; ++j) {
+    if (j < cnt) {
+      sr[j] = pre[j * stride];
+      si[j] = pim[j * stride];
+    }
+  }
+  float cre = 0.f, cim = 0.f;
+#pragma unroll
+  for (int j = 0; j < kCarryChunk; ++j) {
+    if (j < cnt) {
+      pre[j * stride] = cre;
+      pim[j * stride] = cim;
+      const float zr = cre + sr[j], zi = cim + si[j];
+      cre = zr * ar - zi * ai;
+      cim = zr * ai + zi * ar;
+    }
+  }
+  float* out = chunks + ((long long)c * nchunks + q) * stride + l * nbins + b;
+  out[0] = cre;
+  out[kLines * nbins] = cim;
+}
+
+// In place over chunks: the carries out D_q become the carries into the
+// chunks, X_0 = 0 and X_{q+1} = a^(128 m) X_q + D_q, m = kCarryChunk. One
+// thread per (channel, line, bin) chain.
+__global__ void __launch_bounds__(kFwdThreads)
+sqpv_fwd_carry_chunks(const float* __restrict__ apow, float* chunks,
+                      int nbins, int nchunks) {
+  const int b = blockIdx.x * kFwdThreads + threadIdx.x;
   const int l = blockIdx.y, c = blockIdx.z;
   if (b >= nbins) return;
-  const float ar = table(tables, 2, l, kTile - 1, b, nbins);
-  const float ai = table(tables, 3, l, kTile - 1, b, nbins);
+  float ar, ai;
+  load_apow(apow, l, kCarryChunk, b, nbins, &ar, &ai);
   const long long stride = 2LL * kLines * nbins;
-  float* pre = tot + (long long)c * ntiles * stride + l * nbins + b;
+  float* pre = chunks + (long long)c * nchunks * stride + l * nbins + b;
   float* pim = pre + kLines * nbins;
   float cre = 0.f, cim = 0.f;
-  for (int k0 = 0; k0 < ntiles; k0 += kCarryBatch) {
-    const int cnt = min(kCarryBatch, ntiles - k0);
-    float sr[kCarryBatch], si[kCarryBatch];
+  for (int q0 = 0; q0 < nchunks; q0 += kCarryBatch) {
+    const int cnt = min(kCarryBatch, nchunks - q0);
+    float dr[kCarryBatch], di[kCarryBatch];
 #pragma unroll
     for (int j = 0; j < kCarryBatch; ++j) {
       if (j < cnt) {
-        sr[j] = pre[(k0 + j) * stride];
-        si[j] = pim[(k0 + j) * stride];
+        dr[j] = pre[(q0 + j) * stride];
+        di[j] = pim[(q0 + j) * stride];
       }
     }
 #pragma unroll
     for (int j = 0; j < kCarryBatch; ++j) {
       if (j < cnt) {
-        pre[(k0 + j) * stride] = cre;
-        pim[(k0 + j) * stride] = cim;
-        const float zr = cre + sr[j], zi = cim + si[j];
-        cre = zr * ar - zi * ai;
-        cim = zr * ai + zi * ar;
+        pre[(q0 + j) * stride] = cre;
+        pim[(q0 + j) * stride] = cim;
+        const float zr = cre * ar - cim * ai, zi = cre * ai + cim * ar;
+        cre = zr + dr[j];
+        cim = zi + di[j];
       }
     }
   }
@@ -202,70 +335,95 @@ __device__ __forceinline__ float hann_lines(const float* f) {
   return 0.5f * f[1] - 0.25f * (f[0] + f[2]);
 }
 
-__global__ void __launch_bounds__(kBinsPerBlock)
-sqpv_fwd_epilogue(const float* __restrict__ x,
-                  const float* __restrict__ tables,
+__global__ void __launch_bounds__(kFwdThreads)
+sqpv_fwd_epilogue(const float* __restrict__ x, const float* __restrict__ t2,
+                  const float* __restrict__ apow,
                   const float* __restrict__ bin_f,
                   const int* __restrict__ bin_i,
-                  const float* __restrict__ carry, float* __restrict__ mag,
+                  const float* __restrict__ local,
+                  const float* __restrict__ chunks, float* __restrict__ mag,
                   float* __restrict__ pitch,
                   unsigned char* __restrict__ positive, long long n,
-                  int nbins, int ntiles, int w0, float fr, float fi,
-                  float hz_per_radian) {
+                  int nbins, int ntiles, int nchunks, int w0, float fr,
+                  float fi, float hz_per_radian) {
   const int tile = blockIdx.x, c = blockIdx.z;
-  const int b = blockIdx.y * kBinsPerBlock + threadIdx.x;
+  const int b = blockIdx.y * kFwdThreads + threadIdx.x;
   const long long t0 = (long long)tile * kTile;
   if (b >= nbins || t0 + kTile <= w0) return;  // warm-up tiles emit nothing
   const BinConsts k = load_bin(bin_f, bin_i, b, nbins);
   const float* xc = x + (long long)c * n;
   const float x0 = xc[0];
   const int rows = (int)min((long long)kTile, w0 + n - t0);
+  const TileWalk w = tile_walk(k, t0, w0);
 
-  const float* cp = carry + ((long long)c * ntiles + tile) * 2 * kLines * nbins
-                    + b;
+  // C_k = a^(128 i) X_q + L_k for tile k = q * kCarryChunk + i
+  const int q = tile / kCarryChunk;
+  const long long stride = 2LL * kLines * nbins;
+  const float* lp = local + ((long long)c * ntiles + tile) * stride + b;
+  const float* xp = chunks + ((long long)c * nchunks + q) * stride + b;
   float cre[kLines], cim[kLines], run_re[kLines], run_im[kLines];
+  float wr[kLines], wi[kLines];
 #pragma unroll
   for (int l = 0; l < kLines; ++l) {
-    cre[l] = cp[l * nbins];
-    cim[l] = cp[(kLines + l) * nbins];
+    float pr, pi;
+    load_apow(apow, l, tile - q * kCarryChunk, b, nbins, &pr, &pi);
+    const float xr = xp[l * nbins], xi = xp[(kLines + l) * nbins];
+    cre[l] = (xr * pr - xi * pi) + lp[l * nbins];
+    cim[l] = (xr * pi + xi * pr) + lp[(kLines + l) * nbins];
     run_re[l] = 0.f;
     run_im[l] = 0.f;
+    wr[l] = 1.f;
+    wi[l] = 0.f;
   }
   // the frame before the tile is F = C_k, on every line
-  float prev = atan2_poly(hann_lines(cim), hann_lines(cre));
-  const long long out0 = (long long)c * n - w0;  // frame t -> row out0 + t
+  float prev = atan2_poly_fast(hann_lines(cim), hann_lines(cre));
+  const long long row0 = (long long)c * n + t0 - w0;  // tile row i -> row0 + i
+  const float2* tp = t2_row(t2, 0, b, nbins);
+  float* mp = mag + row0 * nbins + b;          // tile row 0 of each plane
+  float* pp = pitch + row0 * nbins + b;
+  unsigned char* sp = positive + row0 * nbins + b;
 
-  for (int i = 0; i < rows; ++i) {
-    const long long t = t0 + i;
-    float ure, uim;
-    comb_operand(xc, t, n, w0, k, fr, fi, x0, &ure, &uim);
-    float fre[kLines], fim[kLines];
+  for (int i0 = 0; i0 < rows; i0 += kBatch) {
+    float xn[kBatch], xo[kBatch];
+    load_batch(xc, w.s_new + i0, n, xn);
+    load_batch(xc, w.s_old + i0, n, xo);
+    // rows from lo on are frames of the output
+    const int lo = (int)max(0LL, min((long long)kBatch, w0 - t0 - i0));
 #pragma unroll
-    for (int l = 0; l < kLines; ++l) {
-      const float w1r = table(tables, 0, l, i, b, nbins);
-      const float w1i = table(tables, 1, l, i, b, nbins);
-      run_re[l] += ure * w1r - uim * w1i;
-      run_im[l] += ure * w1i + uim * w1r;
-      const float sre = cre[l] + run_re[l], sim = cim[l] + run_im[l];
-      const float w2r = table(tables, 2, l, i, b, nbins);
-      const float w2i = table(tables, 3, l, i, b, nbins);
-      fre[l] = sre * w2r - sim * w2i;
-      fim[l] = sre * w2i + sim * w2r;
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = i0 + j;
+      if (i < rows) {
+        float ure, uim;
+        comb_operand(xn[j], xo[j], i, w, k, fr, fi, x0, &ure, &uim);
+        float fre[kLines], fim[kLines];
+#pragma unroll
+        for (int l = 0; l < kLines; ++l) {
+          run_re[l] += ure * wr[l] - uim * wi[l];
+          run_im[l] += ure * wi[l] + uim * wr[l];
+          const float sre = cre[l] + run_re[l], sim = cim[l] + run_im[l];
+          const float2 w2 = t2_line(tp, l);
+          fre[l] = sre * w2.x - sim * w2.y;
+          fim[l] = sre * w2.y + sim * w2.x;
+          wr[l] = w2.x;      // a^-(i+1) = conj(a^(i+1))
+          wi[l] = -w2.y;
+        }
+        tp += kLines * nbins;
+        const float hre = hann_lines(fre), him = hann_lines(fim);
+        const float phase = atan2_poly_fast(him, hre);
+        if (j >= lo) {
+          // wrapped phase difference -> frequency (transform.py:197-202),
+          // round-half-even as jnp.round
+          float d = phase - prev - k.expected;
+          d = d - kTwoPi * rintf(d * kInvTwoPi);
+          const float f = k.bin_hz + d * hz_per_radian;
+          const long long at = (long long)i * nbins;
+          __stcs(mp + at, sqrtf(hre * hre + him * him));
+          __stcs(pp + at, log2f(fmaxf(fabsf(f), 1e-12f)));
+          __stcs(sp + at, (unsigned char)(f >= 0.f));
+        }
+        prev = phase;
+      }
     }
-    const float hre = hann_lines(fre), him = hann_lines(fim);
-    const float phase = atan2_poly(him, hre);
-    if (t >= w0) {
-      // wrapped phase difference -> frequency (transform.py:197-202),
-      // round-half-even as jnp.round
-      float d = phase - prev - k.expected;
-      d = d - kTwoPi * rintf(d / kTwoPi);
-      const float f = k.bin_hz + d * hz_per_radian;
-      const long long at = (out0 + t) * nbins + b;
-      mag[at] = sqrtf(hre * hre + him * him);
-      pitch[at] = log2f(fmaxf(fabsf(f), 1e-12f));
-      positive[at] = f >= 0.f;
-    }
-    prev = phase;
   }
 }
 
@@ -357,30 +515,42 @@ sqpv_inv_epilogue(const float* __restrict__ mag,
 
 extern "C" {
 
-// x [C, N]; tables [4, 3, kTile, B]; bin_f [6, B] float; bin_i [4, B] int;
-// tot scratch [C, ceil((w0 + N) / kTile), 6, B]; mag, pitch [C, N, B]
-// float; positive [C, N, B] bytes. Contiguous, on the stream's device.
-int flan_sqpv_forward(const float* x, const float* tables, const float* bin_f,
-                      const int* bin_i, float* tot, float* mag, float* pitch,
-                      unsigned char* positive, int channels, long long n,
-                      int nbins, int w0, float fr, float fi,
-                      double sample_rate, void* stream) {
+// Tiles per chunk of the forward's carry: the wrapper sizes the powers
+// table and the scratch by it.
+int flan_sqpv_carry_chunk() { return kCarryChunk; }
+
+// x [C, N]; t2 [kTile, B, 3, 2] (re, im of a^(i+1), 8-byte aligned); apow [2, 3,
+// kCarryChunk + 1, B] (re, im of a^(128 i)); bin_f [6, B] float; bin_i
+// [4, B] int; tot scratch: [C, ntiles, 6, B] then [C, nchunks, 6, B]
+// floats, ntiles = ceil((w0 + N) / kTile), nchunks = ceil(ntiles /
+// kCarryChunk); mag, pitch [C, N, B] float and positive [C, N, B] bytes.
+// Contiguous, on the stream's device.
+int flan_sqpv_forward(const float* x, const float* t2, const float* apow,
+                      const float* bin_f, const int* bin_i, float* tot,
+                      float* mag, float* pitch, unsigned char* positive,
+                      int channels, long long n, int nbins, int w0, float fr,
+                      float fi, double sample_rate, void* stream) {
   if (channels < 1 || n < 1 || nbins < 1 || w0 < 0 ||
-      nbins > kMaxThreads * kMaxBinsPerThread)
+      nbins > kMaxThreads * kMaxBinsPerThread || (uintptr_t)t2 % 8 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int ntiles = (int)((w0 + n + kTile - 1) / kTile);
-  const int bin_blocks = (nbins + kBinsPerBlock - 1) / kBinsPerBlock;
+  const int nchunks = (ntiles + kCarryChunk - 1) / kCarryChunk;
+  const int bin_blocks = (nbins + kFwdThreads - 1) / kFwdThreads;
+  float* chunks = tot + (long long)channels * ntiles * 2 * kLines * nbins;
   const dim3 grid(ntiles, bin_blocks, channels);
-  sqpv_fwd_tile_totals<<<grid, kBinsPerBlock, 0, s>>>(
-      x, tables, bin_f, bin_i, tot, n, nbins, ntiles, w0, fr, fi);
-  sqpv_fwd_carry<<<dim3(bin_blocks, kLines, channels), kBinsPerBlock, 0, s>>>(
-      tables, tot, nbins, ntiles);
+  sqpv_fwd_tile_totals<<<grid, kFwdThreads, 0, s>>>(
+      x, t2, bin_f, bin_i, tot, n, nbins, ntiles, w0, fr, fi);
+  sqpv_fwd_carry_local<<<dim3(nchunks, bin_blocks, channels * kLines),
+                         kFwdThreads, 0, s>>>(apow, tot, chunks, nbins,
+                                              ntiles, nchunks);
+  sqpv_fwd_carry_chunks<<<dim3(bin_blocks, kLines, channels), kFwdThreads, 0,
+                          s>>>(apow, chunks, nbins, nchunks);
   const float hz_per_radian =
       (float)(sample_rate / (2.0 * 3.14159265358979323846));
-  sqpv_fwd_epilogue<<<grid, kBinsPerBlock, 0, s>>>(
-      x, tables, bin_f, bin_i, tot, mag, pitch, positive, n, nbins, ntiles,
-      w0, fr, fi, hz_per_radian);
+  sqpv_fwd_epilogue<<<grid, kFwdThreads, 0, s>>>(
+      x, t2, apow, bin_f, bin_i, tot, chunks, mag, pitch, positive, n, nbins,
+      ntiles, nchunks, w0, fr, fi, hz_per_radian);
   return (int)cudaGetLastError();
 }
 

@@ -25,6 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 TILE_FRAMES = 128       # frames per tile in every kernel (csrc/common.cuh)
 MAX_BINS = 2048         # 256 threads x 8 bins each in the epilogues
 SCAN_CHUNK_TILES = 256  # tiles per block of the prefix over tiles
+SQPV_CARRY_CHUNK = 32   # tiles per chunk of the SQPV forward's carry
 PROBE_SHAPE = (128, 512)  # rows and columns of the probe (probe_kernels.cu)
 
 _p, _i, _ll, _d, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -34,18 +35,20 @@ _lla = ctypes.POINTER(ctypes.c_longlong)   # a host array of int64
 SIGNATURES = {
     "flan_spv_forward": [_p, _p, _p, _p, _p, _p, _p, _i, _ll, _i, _d, _p],
     "flan_spv_inverse": [_p, _p, _p, _p, _i, _ll, _i, _d, _p],
-    "flan_sqpv_forward": [_p, _p, _p, _p, _p, _p, _p, _p, _i, _ll, _i, _i,
-                          _f, _f, _d, _p],
+    "flan_sqpv_forward": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _ll, _i,
+                          _i, _f, _f, _d, _p],
     "flan_sqpv_inverse": [_p, _p, _p, _p, _p, _p, _i, _ll, _i, _d, _p],
-    "flan_scan": [_i, _lla, _lla, _lla, _p, _p, _p, _i, _ll, _p],
+    "flan_scan": [_i, _lla, _lla, _lla, _p, _p, _i, _ll, _p],
     "flan_probe": [_p, _p, _p, _i, _p],
 }
 # functions of no argument that must return the constants the wrappers
 # size their tensors by (TILE_FRAMES, MAX_BINS and SCAN_CHUNK_TILES from
-# csrc/common.cuh, the probe's shape from csrc/probe_kernels.cu)
+# csrc/common.cuh, the SQPV carry's chunk from csrc/sqpv_kernels.cu, the
+# probe's shape from csrc/probe_kernels.cu)
 _LIMITS = {"flan_spv_tile_frames": TILE_FRAMES,
            "flan_spv_max_bins": MAX_BINS,
            "flan_scan_chunk_tiles": SCAN_CHUNK_TILES,
+           "flan_sqpv_carry_chunk": SQPV_CARRY_CHUNK,
            "flan_probe_rows": PROBE_SHAPE[0],
            "flan_probe_cols": PROBE_SHAPE[1]}
 
@@ -118,9 +121,14 @@ def load_library() -> ctypes.CDLL:
         if fn() != want:
             raise RuntimeError(f"{name}() is {fn()} in csrc, {want} in "
                                "ops/build.py")
-    # elements per tile of a scan kind, which its wrapper sizes by
+    # the scans size nothing on the host: elements per tile of a kind, tiles
+    # per look-back window (for tests at their boundaries), and the bytes of
+    # scratch one call needs: (kind, rows, n)
     lib.flan_scan_tile.argtypes = [_i]
     lib.flan_scan_tile.restype = ctypes.c_int
+    lib.flan_scan_window_tiles.restype = ctypes.c_int
+    lib.flan_scan_scratch_bytes.argtypes = [_i, _i, _ll]
+    lib.flan_scan_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 

@@ -3,9 +3,10 @@
 Counterpart of tools/pallas_scan_experiment.py (TPU kernels T1
 _compose_maps and T2 _apply_from) and of the recurrences of
 flan_tpu/ops/scan.py. One CUDA source, csrc/scan_kernels.cu flan_scan,
-holds the tile totals (T1's counterpart), the fold over tiles and the
-apply pass (T2's counterpart), instantiated for three families of maps
-along the last axis of [..., N]:
+runs T1's and T2's work in one launch (each tile's total map, a look-back
+over the tiles before it in a fixed order, the rerun from the tile's
+start state), instantiated for three families of maps along the last axis
+of [..., N]:
 
   scan_linear      y = a y + b                       linear_ref
   scan_max_affine  y = max(m, a y + c), a >= 0       max_affine_ref
@@ -179,7 +180,6 @@ def _launch(name: str, planes, y0s):
     n = shape[-1]
     rows = math.prod(shape[:-1])
     lib = load_library()
-    ntiles = -(-n // lib.flan_scan_tile(kind))
     with torch.cuda.device(dev):
         keep = [_row_plane(p, shape, rows, n) for p in planes]
         y0 = torch.stack([torch.broadcast_to(
@@ -187,16 +187,16 @@ def _launch(name: str, planes, y0s):
             shape[:-1] + (1,)).reshape(rows) for v in y0s], dim=1)
         outs = [torch.empty(shape, dtype=torch.float32, device=dev)
                 for _ in range(nstates)]
-        totals = torch.empty(rows * ntiles * nplanes, dtype=torch.float32,
-                             device=dev)
-        starts = torch.empty(rows * ntiles * nstates, dtype=torch.float32,
-                             device=dev)
+        # the ticket counter and the look-back descriptors: the entry point
+        # zeroes them on the stream
+        scratch = torch.empty(lib.flan_scan_scratch_bytes(kind, rows, n) // 8,
+                              dtype=torch.int64, device=dev)
         arr = ctypes.c_longlong * 6
         err = lib.flan_scan(
             kind, arr(*(t.data_ptr() for t, _ in keep)),
             arr(*(s for _, s in keep)), arr(*(o.data_ptr() for o in outs)),
-            y0.data_ptr(), totals.data_ptr(), starts.data_ptr(),
-            rows, n, torch.cuda.current_stream().cuda_stream)
+            y0.data_ptr(), scratch.data_ptr(), rows, n,
+            torch.cuda.current_stream().cuda_stream)
     raise_on(err, name)
     LAUNCHES[name] += 1
     return outs

@@ -1,23 +1,29 @@
-"""What holds the SPV kernels: time each launch with one part taken out.
+"""What holds the hand-written kernels: time each launch with one part taken
+out.
 
-    python -m flan_tpu_torch.ops.spv_variants [--first-version CSRC_DIR]
+    python -m flan_tpu_torch.ops.spv_variants [--source spv scan sqpv]
+                                              [--first-version CSRC_DIR]
 
-Needs one CUDA card and nvcc. Copies csrc/spv_kernels.cu and common.cuh,
-applies one textual substitution set per variant (stores removed, table
-loads replaced by constants, cheap roundings put back to IEEE ones, ...),
-builds each copy into build/flan_tpu_torch/variants/ and prints the card's
-name and power limit, then per variant the device microseconds of every
-launch of one forward and one inverse call at the SPV bench shape (30 s mono
-48 kHz, 512 bins), from torch.profiler. A variant computes something else
-than the kernel does: only its times mean anything.
+Needs one CUDA card and nvcc. For each source named (all three by default:
+csrc/spv_kernels.cu, scan_kernels.cu, sqpv_kernels.cu) it copies the source
+and common.cuh, applies one textual substitution set per variant (stores
+removed, table loads or gathers replaced by constants, cheap roundings put
+back to IEEE ones, ...), builds each copy into
+build/flan_tpu_torch/variants/ and prints the card's name and power limit,
+then per variant the device microseconds of every launch, from
+torch.profiler: one forward and one inverse call at the SPV bench shape
+(30 s mono 48 kHz, 512 bins); one call of each scan map on planes of the
+filter path's shapes at 600 s stereo 48 kHz (2x2: 4 planes shared by the
+channels; linear: a shared; max-affine: one row); one SQPV forward at its
+bench shape (10 s mono 48 kHz, 16-24000 Hz, 24 bins per octave). A variant
+computes something else than the kernel does: only its times mean anything.
 
-With --first-version the source is read from CSRC_DIR instead, which must
-hold the first version of the kernels (commit 9089281: `git archive 9089281
-flan_tpu_torch/csrc | tar -x -C build/first`, then pass
-build/first/flan_tpu_torch/csrc), and that version's variants are applied;
-this is the diagnosis the redesign started from. A substitution whose text
-is not found exactly once fails: the variants follow the source they were
-written for.
+With --first-version the sources are read from CSRC_DIR instead, which must
+hold the version a redesign started from, and the variants written for that
+version are applied (ops/spv_variants_first.py, which names the commits):
+the diagnosis each redesign started from. A substitution whose text is not
+found as often as expected (once, unless it says otherwise) fails: the
+variants follow the source they were written for.
 """
 from __future__ import annotations
 
@@ -34,11 +40,14 @@ import torch
 from flan_tpu_torch.ops import build
 
 SECONDS, SR, NBINS = 30.0, 48000.0, 512
+SCAN_FRAMES, SCAN_ROWS = 28_800_000, 2      # 600 s stereo at 48 kHz
+SQPV_SECONDS, SQPV_BAND, SQPV_BPO = 10.0, (16.0, 24000.0), 24.0
 
-# variant -> [(file, old, new)]; file is "cu" or "cuh"
+# variant -> [(file, old, new[, count])]; file is "cu" or "cuh", count how
+# often old must occur (1 unless given)
 _STORES = """        store_vec_streaming<VEC>(out_mag + b0[k], m);
         store_vec_streaming<VEC>(out_freq + b0[k], f);"""
-VARIANTS = {
+SPV_VARIANTS = {
     "as_shipped": [],
     "forward_no_stores": [
         ("cu", _STORES, "        for (int j = 0; j < VEC; ++j) "
@@ -74,126 +83,194 @@ VARIANTS = {
          "  const float q = freq * (1.f / sr);")],
 }
 
-_FIRST_STORES = """          out_mag[(long long)i * nbins + b] = sqrtf(energy);
-          out_freq[(long long)i * nbins + b] = binf[k] + d * hz_per_radian;"""
-_FIRST_FAST_MATH = [
-    ("cu", "0.25f * (2.f * fre[b] - left_re - right_re) / two_b_f;",
-     "(0.25f / two_b_f) * (2.f * fre[b] - left_re - right_re);"),
-    ("cu", "0.25f * (2.f * fim[b] - left_im - right_im) / two_b_f;",
-     "(0.25f / two_b_f) * (2.f * fim[b] - left_im - right_im);"),
-    ("cu", "d = d - kTwoPi * rintf(d / kTwoPi);",
-     "d = d - kTwoPi * rintf(d * 0.15915494309189535f);"),
-    ("cuh", "atan_poly(lo / fmaxf(hi, 1e-37f))",
-     "atan_poly(lo * __frcp_rn(fmaxf(hi, 1e-37f)))")]
-_FIRST_NO_STORES = [
-    ("cu", _FIRST_STORES,
-     "          sink += sqrtf(energy) + (binf[k] + d * hz_per_radian);"),
-    ("cu", "  int row_cur = 0;                       // (t0 + i) mod 2B",
-     "  float sink = 0.f;\n  int row_cur = 0;"),
-    ("cu", "    row_cur = row_next;\n    if (++row_next == two_b) row_next = 0;"
-     "\n  }\n}",
-     "    row_cur = row_next;\n    if (++row_next == two_b) row_next = 0;\n  }\n"
-     "  if (sink == 123.456f) out_mag[threadIdx.x] = sink;\n}")]
-_FIRST_CONSTANT_TABLE = [
-    ("cu", "          lre[k] += d * tw_re[(long long)row_cur * nbins + b];",
-     "          lre[k] += d * 0.6f;"),
-    ("cu", "          lim[k] += d * tw_im[(long long)row_cur * nbins + b];",
-     "          lim[k] += d * 0.8f;"),
-    ("cu", "        const float wr = tw_re[(long long)row_next * nbins + b];",
-     "        const float wr = 0.6f + 1e-9f * row_next;"),
-    ("cu", "        const float wi = tw_im[(long long)row_next * nbins + b];",
-     "        const float wi = 0.8f;")]
-_FIRST_NO_BARRIER = [
-    ("cu", "    __syncthreads();\n#pragma unroll\n    for (int k = 0; k < K; ++k)"
-     " {\n      const int b = threadIdx.x + k * blockDim.x;\n      if (b < nbins)"
-     " {\n        // 3-tap",
-     "#pragma unroll\n    for (int k = 0; k < K; ++k) {\n      const int b = "
-     "threadIdx.x + k * blockDim.x;\n      if (b < nbins) {\n        // 3-tap")]
-_FIRST_NO_COSINE = [("cu", "mag[at] * cosf(cycles * kTwoPi);",
-                     "mag[at] * (cycles * kTwoPi);")]
-_FIRST_FLOOR_MOD = [
-    ("cuh", "  float r = fmodf(x, 1.f);\n  if (r < 0.f) r += 1.f;\n  return r;",
-     "  return x - floorf(x);")]
-_FIRST_RECIPROCAL = [
-    ("cu", "fr[(long long)i * nbins + b] / sample_rate",
-     "fr[(long long)i * nbins + b] * (1.f / sample_rate)"),
-    ("cu", "freq[at] / sample_rate", "freq[at] * (1.f / sample_rate)")]
-_FIRST_NO_SHUFFLES = [
-    ("cu", "      acc += __shfl_xor_sync(0xffffffffu, acc, off);",
-     "      if (off == 77) acc += __shfl_xor_sync(0xffffffffu, acc, off);")]
-FIRST_VERSION_VARIANTS = {
+# ---- the scan: one pass with look-back
+_SCAN_FILL = """  for (int p = 0; p < Op::kMap; ++p)
+    for (int k = 0; k < Op::kPerThread; ++k) {
+      const int i = threadIdx.x + k * kThreads;
+      sm[p * Tile<Op>::kPitch + padded(i)] =
+          0.999f * Op::identity(p) + 1e-9f * (float)i;
+    }
+"""
+_SCAN_LOAD = "  load_tile<Op>(args, row, base, n, sm);\n  copies_done();\n"
+_SCAN_HALF_TILES = [("cu", "kState = 2, kPerThread = 8,",
+                     "kState = 2, kPerThread = 4,"),
+                    ("cu", "kPerThread = 16,", "kPerThread = 8,", 2)]
+SCAN_VARIANTS = {
     "as_shipped": [],
-    "forward_no_stores": _FIRST_NO_STORES,
-    "forward_pass_through": "pass_through",
-    "forward_constant_table": _FIRST_CONSTANT_TABLE,
-    "forward_no_barrier": _FIRST_NO_BARRIER,
-    "forward_fast_math": _FIRST_FAST_MATH,
-    "forward_pass_through_constant_table": "pass_through+table",
-    "forward_no_stores_fast_math": _FIRST_NO_STORES + _FIRST_FAST_MATH,
-    "inverse_no_cosine": _FIRST_NO_COSINE,
-    "inverse_cospif": [("cu", "mag[at] * cosf(cycles * kTwoPi);",
-                        "mag[at] * cospif(2.f * cycles);")],
-    "inverse_floor_mod": _FIRST_FLOOR_MOD,
-    "inverse_reciprocal": _FIRST_RECIPROCAL,
-    "inverse_no_shuffles": _FIRST_NO_SHUFFLES,
-    "inverse_all": (_FIRST_NO_COSINE + _FIRST_FLOOR_MOD + _FIRST_RECIPROCAL
-                    + _FIRST_NO_SHUFFLES),
+    "no_look_back": [
+        ("cu", "  const int count = first ? kWindow : r;",
+         "  const int count = 0 * (first ? kWindow : r);")],
+    "no_stores": [
+        ("cu", "      if (g < n) dst[g] = sm[q * Tile<Op>::kPitch + padded(i)];",
+         "      if (g < n && sm[q * Tile<Op>::kPitch + padded(i)] == 123.456f)"
+         " dst[g] = 0.f;")],
+    "no_reads": [("cu", _SCAN_LOAD, _SCAN_FILL + "  __syncthreads();\n")],
+    "no_reads_no_stores_no_look_back": [
+        ("cu", _SCAN_LOAD, _SCAN_FILL + "  __syncthreads();\n"),
+        ("cu", "      if (g < n) dst[g] = sm[q * Tile<Op>::kPitch + padded(i)];",
+         "      if (g < n && sm[q * Tile<Op>::kPitch + padded(i)] == 123.456f)"
+         " dst[g] = 0.f;"),
+        ("cu", "  const int count = first ? kWindow : r;",
+         "  const int count = 0 * (first ? kWindow : r);")],
+    "row_major_tickets": [
+        ("cu", "  const int tile = (int)(ticket_sm / (unsigned)rows);\n"
+         "  const long long row = ticket_sm - (unsigned)tile * (unsigned)rows;",
+         "  const long long row = ticket_sm / (unsigned)ntiles;\n"
+         "  const int tile = (int)(ticket_sm - (unsigned)row * "
+         "(unsigned)ntiles);")],
+    "half_tiles": _SCAN_HALF_TILES,
 }
 
-
-def _first_pass_through(cu: str) -> str:
-    """The first version's epilogue with everything after the rotation
-    replaced by a store of the rotated sums."""
-    a = cu.index("        const bool first = b == 0, last = b == nbins - 1;")
-    end = "        prev[k] = phase;"
-    return cu[:a] + """        if (i >= 0) {
-          out_mag[(long long)i * nbins + b] = fre[b];
-          out_freq[(long long)i * nbins + b] =
-              fim[b] + prev[k] + expected[k] + binf[k] + two_b_f;
-        }
-""" + cu[cu.index(end) + len(end):]
-
+# ---- B3: tile totals, a chunked carry, an epilogue of whole rows
+_SQPV_CONSTANT_TABLE = [
+    ("cu", "  return __ldg(row + l);",
+     "  return make_float2(0.6f + 1e-9f * (float)l, 0.8f + 0.f * row[0].x);")]
+_SQPV_NO_GATHERS = [
+    ("cu", "    for (int j = 0; j < kBatch; ++j) v[j] = __ldg(xc + s + j);",
+     "    for (int j = 0; j < kBatch; ++j) v[j] = 0.25f + 1e-9f * "
+     "(float)(s + j);"),
+    ("cu", "(s + j >= 0 && s + j < n) ? __ldg(xc + s + j) : 0.f;",
+     "(s + j >= 0 && s + j < n) ? 0.125f + 1e-9f * (float)(s + j) : 0.f;")]
+_SQPV_PASS_THROUGH = [
+    ("cu", "        const float phase = atan2_poly_fast(him, hre);",
+     "        const float phase = him + hre;"),
+    ("cu", "          d = d - kTwoPi * rintf(d * kInvTwoPi);\n", ""),
+    ("cu", "__stcs(mp + at, sqrtf(hre * hre + him * him));",
+     "__stcs(mp + at, hre * hre + him * him);"),
+    ("cu", "__stcs(pp + at, log2f(fmaxf(fabsf(f), 1e-12f)));",
+     "__stcs(pp + at, f);")]
+_SQPV_NO_STORES = [
+    ("cu", "  unsigned char* sp = positive + row0 * nbins + b;\n",
+     "  unsigned char* sp = positive + row0 * nbins + b;\n"
+     "  float sink = 0.f;\n"),
+    ("cu", "          __stcs(mp + at, ", "          sink += (float)at + ("),
+    ("cu", "          __stcs(pp + at, ", "          sink += ("),
+    ("cu", "          __stcs(sp + at, ", "          sink += (float)("),
+    ("cu", "        prev = phase;\n      }\n    }\n  }\n}",
+     "        prev = phase;\n      }\n    }\n  }\n"
+     "  if (sink == 123.456f) mp[0] = sink + (float)(sp - positive) + pp[0];"
+     "\n}")]
+SQPV_VARIANTS = {
+    "as_shipped": [],
+    "forward_no_stores": _SQPV_NO_STORES,
+    # the store side: without the byte plane, with it alone, with plain
+    # instead of streaming stores, and with rows of 256 (the tool gives that
+    # variant planes of 256 bins a row, so that every row starts on 1 KB)
+    "forward_no_byte_stores": _SQPV_NO_STORES[:1] + _SQPV_NO_STORES[3:],
+    "forward_only_byte_stores": _SQPV_NO_STORES[:3] + _SQPV_NO_STORES[4:],
+    "forward_plain_stores": [("cu", "__stcs(mp + at, ", "*(mp + at) = ("),
+                             ("cu", "__stcs(pp + at, ", "*(pp + at) = ("),
+                             ("cu", "__stcs(sp + at, ", "*(sp + at) = (")],
+    "forward_rows_of_256": [
+        ("cu", "  float* mp = mag + row0 * nbins + b;",
+         "  float* mp = mag + row0 * 256 + b;"),
+        ("cu", "  float* pp = pitch + row0 * nbins + b;",
+         "  float* pp = pitch + row0 * 256 + b;"),
+        ("cu", "  unsigned char* sp = positive + row0 * nbins + b;",
+         "  unsigned char* sp = positive + row0 * 256 + b;"),
+        ("cu", "          const long long at = (long long)i * nbins;",
+         "          const long long at = (long long)i * 256;")],
+    # every store into the planes' first 16 MB, which stay in L2: what is
+    # left is the multiprocessors' side of the stores
+    "forward_stores_stay_in_l2": [
+        ("cu", "          const long long at = (long long)i * nbins;",
+         "          const long long at = (long long)i * nbins - "
+         "(row0 / 4096) * 4096 * nbins;")],
+    "forward_totals_3_blocks": [
+        ("cu", "  sqpv_fwd_tile_totals<<<grid, kFwdThreads, 0, s>>>(",
+         "  cudaFuncSetAttribute(sqpv_fwd_tile_totals, "
+         "cudaFuncAttributeMaxDynamicSharedMemorySize, 72 * 1024);\n"
+         "  sqpv_fwd_tile_totals<<<grid, kFwdThreads, 72 * 1024, s>>>(")],
+    "forward_3_blocks": [
+        ("cu", "  sqpv_fwd_epilogue<<<grid, kFwdThreads, 0, s>>>(",
+         "  cudaFuncSetAttribute(sqpv_fwd_epilogue, "
+         "cudaFuncAttributeMaxDynamicSharedMemorySize, 72 * 1024);\n"
+         "  sqpv_fwd_epilogue<<<grid, kFwdThreads, 72 * 1024, s>>>(")],
+    "forward_5_blocks": [
+        ("cu", "__global__ void __launch_bounds__(kFwdThreads)\n"
+         "sqpv_fwd_epilogue(",
+         "__global__ void __launch_bounds__(kFwdThreads, 5)\n"
+         "sqpv_fwd_epilogue(")],
+    "forward_batches_of_4": [("cu", "constexpr int kBatch = 8;",
+                              "constexpr int kBatch = 4;")],
+    "forward_batches_of_16": [("cu", "constexpr int kBatch = 8;",
+                               "constexpr int kBatch = 16;")],
+    "forward_constant_table": _SQPV_CONSTANT_TABLE,
+    "forward_no_gathers": _SQPV_NO_GATHERS,
+    "forward_ieee_atan2": [
+        ("cu", "        const float phase = atan2_poly_fast(him, hre);",
+         "        const float phase = atan2_poly(him, hre);")],
+    "forward_ieee_wrap": [("cu", "rintf(d * kInvTwoPi)",
+                           "rintf(d / kTwoPi)")],
+    "forward_fast_sqrt": [
+        ("cu", "__stcs(mp + at, sqrtf(hre * hre + him * him));",
+         "__stcs(mp + at, sqrt_approx(hre * hre + him * him));")],
+    "forward_ieee_math": [
+        ("cu", "        const float phase = atan2_poly_fast(him, hre);",
+         "        const float phase = atan2_poly(him, hre);"),
+        ("cu", "rintf(d * kInvTwoPi)", "rintf(d / kTwoPi)")],
+    "forward_pass_through": _SQPV_PASS_THROUGH,
+    "forward_constant_table_no_gathers": (_SQPV_CONSTANT_TABLE
+                                          + _SQPV_NO_GATHERS),
+    "forward_constant_table_no_gathers_pass_through": (
+        _SQPV_CONSTANT_TABLE + _SQPV_NO_GATHERS + _SQPV_PASS_THROUGH),
+    "forward_constant_table_no_gathers_pass_through_no_stores": (
+        _SQPV_CONSTANT_TABLE + _SQPV_NO_GATHERS + _SQPV_PASS_THROUGH
+        + _SQPV_NO_STORES),
+}
 
 def apply_variant(texts: dict, edits) -> dict:
+    """texts with every edit applied: (file, old, new[, count]) replaces a
+    text, (file, function) rewrites the file's text."""
     texts = dict(texts)
-    if isinstance(edits, str):
-        texts["cu"] = _first_pass_through(texts["cu"])
-        edits = _FIRST_CONSTANT_TABLE if edits.endswith("+table") else []
-    for which, old, new in edits:
-        if texts[which].count(old) != 1:
-            raise ValueError(f"substitution not found exactly once: {old!r}")
+    for which, old, *rest in edits:
+        if callable(old):
+            texts[which] = old(texts[which])
+            continue
+        new, *count = rest
+        if texts[which].count(old) != (count[0] if count else 1):
+            raise ValueError(f"substitution not found as often as expected: "
+                             f"{old!r}")
         texts[which] = texts[which].replace(old, new)
     return texts
 
 
-def build_variants(csrc: Path, variants: dict) -> dict:
-    """name -> ctypes library, every variant compiled at once."""
+def build_variants(csrc: Path, source: str, variants: dict,
+                   signatures: dict) -> dict:
+    """name -> ctypes library of csrc/<source>_kernels.cu, every variant
+    compiled at once."""
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME is None:
         raise RuntimeError("nvcc not found")
-    texts = {"cu": (csrc / "spv_kernels.cu").read_text(),
+    cu = f"{source}_kernels.cu"
+    texts = {"cu": (csrc / cu).read_text(),
              "cuh": (csrc / "common.cuh").read_text()}
+    # every substitution before the first compiler starts: a variant that
+    # no longer fits its source fails here
+    edited = {name: apply_variant(texts, edits)
+              for name, edits in variants.items()}
     procs = {}
-    for name, edits in variants.items():
-        d = build.BUILD_DIR / "variants" / name
+    for name, out in edited.items():
+        d = build.BUILD_DIR / "variants" / source / name
         d.mkdir(parents=True, exist_ok=True)
-        out = apply_variant(texts, edits)
-        (d / "spv_kernels.cu").write_text(out["cu"])
+        (d / cu).write_text(out["cu"])
         (d / "common.cuh").write_text(out["cuh"])
         flags = [f for f in build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
         procs[name] = subprocess.Popen(
             [str(Path(CUDA_HOME) / "bin" / "nvcc"), *flags, "-shared", "-o",
-             str(d / "lib.so"), str(d / "spv_kernels.cu")],
+             str(d / "lib.so"), str(d / cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     logs = {name: proc.communicate()[0] for name, proc in procs.items()}
     libs = {}
     for name, proc in procs.items():
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{logs[name]}")
-        lib = ctypes.CDLL(str(build.BUILD_DIR / "variants" / name / "lib.so"))
-        for fn in ("flan_spv_forward", "flan_spv_inverse"):
-            getattr(lib, fn).argtypes = build.SIGNATURES[fn]
-            getattr(lib, fn).restype = ctypes.c_int
+        lib = ctypes.CDLL(str(build.BUILD_DIR / "variants" / source / name
+                              / "lib.so"))
+        for fn, argtypes in signatures.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     return libs
 
@@ -212,20 +289,12 @@ def launch_times(fn) -> dict:
             for ev in prof.key_averages() if ev.device_time_total > 0}
 
 
-def main() -> None:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--first-version", type=Path, default=None,
-                        metavar="CSRC_DIR")
-    args = parser.parse_args()
-    if not torch.cuda.is_available():
-        sys.exit("spv_variants: needs a CUDA card")
-    first = args.first_version is not None
-    libs = build_variants(args.first_version if first else build.CSRC,
-                          FIRST_VERSION_VARIANTS if first else VARIANTS)
-    print("card:", subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip(), flush=True)
+def report(source: str, name: str, times: dict) -> None:
+    print(json.dumps({"source": source, "variant": name,
+                      "us_per_launch": times}), flush=True)
 
+
+def bench_spv(libs: dict, first) -> None:
     from flan_tpu_torch.ops import spv_kernels
     dev = torch.device("cuda", 0)
     n = int(SECONDS * SR)
@@ -264,8 +333,127 @@ def main() -> None:
             times["forward"] = launch_times(forward)
         if not name.startswith("forward"):
             times["inverse"] = launch_times(inverse)
-        print(json.dumps({"variant": name, "us_per_launch": times}),
-              flush=True)
+        report("spv", name, times)
+
+
+def scan_bench_planes(dev) -> dict:
+    """kind -> (planes as (tensor, row stride), rows): random decays and
+    inputs of the filter path's shapes, made on the card."""
+    n, rows = SCAN_FRAMES, SCAN_ROWS
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(r, lo=0.0, hi=1.0):
+        return torch.empty((r, n), device=dev).uniform_(lo, hi, generator=gen)
+
+    a = rand(1, 0.5, 0.99999)
+    th = rand(1, 0.0, 0.2)
+    return {
+        0: ([(a, 0), (rand(rows, -1.0), n)], rows),
+        1: ([(rand(1, -1.0), n), (a, n), (rand(1, -0.01, 0.01), n)], 1),
+        2: ([(a * th.cos(), 0), (-a * th.sin(), 0), (a * th.sin(), 0),
+             (a * th.cos(), 0), (rand(rows, -1.0), n), (rand(rows, -1.0), n)],
+            rows)}
+
+
+def bench_scan(libs: dict, first) -> None:
+    dev = torch.device("cuda", 0)
+    n = SCAN_FRAMES
+    cases = scan_bench_planes(dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    arr = ctypes.c_longlong * 6
+    for name, lib in libs.items():
+        if not first:
+            lib.flan_scan_scratch_bytes.argtypes = [build._i, build._i,
+                                                    build._ll]
+            lib.flan_scan_scratch_bytes.restype = ctypes.c_longlong
+        times = {}
+        for kind, (planes, rows) in cases.items():
+            states = 2 if kind == 2 else 1
+            outs = [torch.empty((rows, n), device=dev) for _ in range(states)]
+            y0 = torch.zeros((rows, states), device=dev)
+            if first:
+                scratch = first.scan_scratch(lib, kind, rows, n, len(planes),
+                                             states, dev)
+            else:
+                scratch = [torch.empty(
+                    lib.flan_scan_scratch_bytes(kind, rows, n) // 8,
+                    dtype=torch.int64, device=dev)]
+
+            def call():
+                build.raise_on(lib.flan_scan(
+                    kind, arr(*(t.data_ptr() for t, _ in planes)),
+                    arr(*(s for _, s in planes)),
+                    arr(*(o.data_ptr() for o in outs)), y0.data_ptr(),
+                    *(s.data_ptr() for s in scratch), rows, n, stream), name)
+
+            times[("linear", "max_affine", "affine2x2")[kind]] = \
+                launch_times(call)
+            del outs, scratch
+        report("scan", name, times)
+
+
+def bench_sqpv(libs: dict, first) -> None:
+    from flan_tpu_torch.ops import sqpv_kernels
+    from flan_tpu_torch.sqpv.transform import cq_geometry
+    dev = torch.device("cuda", 0)
+    n = int(SQPV_SECONDS * SR)
+    rng = np.random.default_rng(0)
+    t = np.arange(n, dtype=np.float32) / np.float32(SR)
+    x = torch.from_numpy((0.4 * np.sin(2 * np.pi * 220.0 * t) + 0.1 *
+                          rng.standard_normal(n)).astype(np.float32)[None]
+                         ).to(dev)
+    geo = cq_geometry(SR, SQPV_BPO, SQPV_BAND)
+    nb, w0 = geo.nbins, geo.w0
+    fr, fi = np.float32(geo.fiddle.real), np.float32(geo.fiddle.imag)
+    # room for rows of 256 bins, which one variant writes
+    mag = torch.empty((1, n, max(nb, 256)), device=dev)
+    pitch = torch.empty_like(mag)
+    positive = torch.empty(mag.shape, dtype=torch.bool, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    if first:
+        consts, tot = first.sqpv_forward_consts(geo, n, dev)
+    else:
+        consts = sqpv_kernels.forward_consts(SR, SQPV_BPO, SQPV_BAND, dev)
+        tot = sqpv_kernels.forward_scratch(1, n, geo, dev)
+    for name, lib in libs.items():
+        def forward():
+            build.raise_on(lib.flan_sqpv_forward(
+                x.data_ptr(), *(c.data_ptr() for c in consts), tot.data_ptr(),
+                mag.data_ptr(), pitch.data_ptr(), positive.data_ptr(), 1, n,
+                nb, w0, float(fr), float(fi), float(SR), stream), name)
+
+        report("sqpv", name, {"forward": launch_times(forward)})
+
+
+SOURCES = {
+    "spv": (SPV_VARIANTS, bench_spv),
+    "scan": (SCAN_VARIANTS, bench_scan),
+    "sqpv": (SQPV_VARIANTS, bench_sqpv),
+}
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--source", nargs="+", choices=sorted(SOURCES),
+                        default=sorted(SOURCES))
+    parser.add_argument("--first-version", type=Path, default=None,
+                        metavar="CSRC_DIR")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("spv_variants: needs a CUDA card")
+    first = None    # the module of the first versions' sets, if asked for
+    if args.first_version is not None:
+        from flan_tpu_torch.ops import spv_variants_first as first
+    print("card:", subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip(), flush=True)
+    for source in args.source:
+        variants, bench = SOURCES[source]
+        libs = build_variants(
+            args.first_version if first else build.CSRC, source,
+            first.VARIANTS[source] if first else variants,
+            {**build.SIGNATURES, **(first.SIGNATURES if first else {})})
+        bench(libs, first)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,244 @@
+"""Substitution sets for the kernel sources that a redesign started from.
+
+ops/spv_variants.py --first-version CSRC_DIR applies these instead of its
+own: they fit csrc/spv_kernels.cu of commit 9089281 (before B1 and B2 were
+redesigned) and csrc/scan_kernels.cu and csrc/sqpv_kernels.cu of commit
+9ad48d3 (the scan in three launches with blocks numbered row-major; B3 as
+tile totals, a sequential carry and an epilogue that read every table entry
+from L2), and no later source: `git archive COMMIT flan_tpu_torch/csrc | tar
+-x -C build/first` brings those back. Beside the sets stand the entry
+points, scratch and constants of those sources where today's differ.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from flan_tpu_torch.ops import build
+
+
+# ---- B1 and B2 before their redesign (commit 9089281)
+def _pass_through(cu: str) -> str:
+    """The first version's SPV epilogue with everything after the rotation
+    replaced by a store of the rotated sums."""
+    a = cu.index("        const bool first = b == 0, last = b == nbins - 1;")
+    end = "        prev[k] = phase;"
+    return cu[:a] + """        if (i >= 0) {
+          out_mag[(long long)i * nbins + b] = fre[b];
+          out_freq[(long long)i * nbins + b] =
+              fim[b] + prev[k] + expected[k] + binf[k] + two_b_f;
+        }
+""" + cu[cu.index(end) + len(end):]
+
+
+_FIRST_STORES = """          out_mag[(long long)i * nbins + b] = sqrtf(energy);
+          out_freq[(long long)i * nbins + b] = binf[k] + d * hz_per_radian;"""
+_FIRST_FAST_MATH = [
+    ("cu", "0.25f * (2.f * fre[b] - left_re - right_re) / two_b_f;",
+     "(0.25f / two_b_f) * (2.f * fre[b] - left_re - right_re);"),
+    ("cu", "0.25f * (2.f * fim[b] - left_im - right_im) / two_b_f;",
+     "(0.25f / two_b_f) * (2.f * fim[b] - left_im - right_im);"),
+    ("cu", "d = d - kTwoPi * rintf(d / kTwoPi);",
+     "d = d - kTwoPi * rintf(d * 0.15915494309189535f);"),
+    ("cuh", "atan_poly(lo / fmaxf(hi, 1e-37f))",
+     "atan_poly(lo * __frcp_rn(fmaxf(hi, 1e-37f)))")]
+_FIRST_NO_STORES = [
+    ("cu", _FIRST_STORES,
+     "          sink += sqrtf(energy) + (binf[k] + d * hz_per_radian);"),
+    ("cu", "  int row_cur = 0;                       // (t0 + i) mod 2B",
+     "  float sink = 0.f;\n  int row_cur = 0;"),
+    ("cu", "    row_cur = row_next;\n    if (++row_next == two_b) row_next = 0;"
+     "\n  }\n}",
+     "    row_cur = row_next;\n    if (++row_next == two_b) row_next = 0;\n  }\n"
+     "  if (sink == 123.456f) out_mag[threadIdx.x] = sink;\n}")]
+_FIRST_CONSTANT_TABLE = [
+    ("cu", "          lre[k] += d * tw_re[(long long)row_cur * nbins + b];",
+     "          lre[k] += d * 0.6f;"),
+    ("cu", "          lim[k] += d * tw_im[(long long)row_cur * nbins + b];",
+     "          lim[k] += d * 0.8f;"),
+    ("cu", "        const float wr = tw_re[(long long)row_next * nbins + b];",
+     "        const float wr = 0.6f + 1e-9f * row_next;"),
+    ("cu", "        const float wi = tw_im[(long long)row_next * nbins + b];",
+     "        const float wi = 0.8f;")]
+_FIRST_NO_BARRIER = [
+    ("cu", "    __syncthreads();\n#pragma unroll\n    for (int k = 0; k < K; ++k)"
+     " {\n      const int b = threadIdx.x + k * blockDim.x;\n      if (b < nbins)"
+     " {\n        // 3-tap",
+     "#pragma unroll\n    for (int k = 0; k < K; ++k) {\n      const int b = "
+     "threadIdx.x + k * blockDim.x;\n      if (b < nbins) {\n        // 3-tap")]
+_FIRST_NO_COSINE = [("cu", "mag[at] * cosf(cycles * kTwoPi);",
+                     "mag[at] * (cycles * kTwoPi);")]
+_FIRST_FLOOR_MOD = [
+    ("cuh", "  float r = fmodf(x, 1.f);\n  if (r < 0.f) r += 1.f;\n  return r;",
+     "  return x - floorf(x);")]
+_FIRST_RECIPROCAL = [
+    ("cu", "fr[(long long)i * nbins + b] / sample_rate",
+     "fr[(long long)i * nbins + b] * (1.f / sample_rate)"),
+    ("cu", "freq[at] / sample_rate", "freq[at] * (1.f / sample_rate)")]
+_FIRST_NO_SHUFFLES = [
+    ("cu", "      acc += __shfl_xor_sync(0xffffffffu, acc, off);",
+     "      if (off == 77) acc += __shfl_xor_sync(0xffffffffu, acc, off);")]
+SPV_FIRST_VARIANTS = {
+    "as_shipped": [],
+    "forward_no_stores": _FIRST_NO_STORES,
+    "forward_pass_through": [("cu", _pass_through)],
+    "forward_constant_table": _FIRST_CONSTANT_TABLE,
+    "forward_no_barrier": _FIRST_NO_BARRIER,
+    "forward_fast_math": _FIRST_FAST_MATH,
+    "forward_pass_through_constant_table": ([("cu", _pass_through)]
+                                            + _FIRST_CONSTANT_TABLE),
+    "forward_no_stores_fast_math": _FIRST_NO_STORES + _FIRST_FAST_MATH,
+    "inverse_no_cosine": _FIRST_NO_COSINE,
+    "inverse_cospif": [("cu", "mag[at] * cosf(cycles * kTwoPi);",
+                        "mag[at] * cospif(2.f * cycles);")],
+    "inverse_floor_mod": _FIRST_FLOOR_MOD,
+    "inverse_reciprocal": _FIRST_RECIPROCAL,
+    "inverse_no_shuffles": _FIRST_NO_SHUFFLES,
+    "inverse_all": (_FIRST_NO_COSINE + _FIRST_FLOOR_MOD + _FIRST_RECIPROCAL
+                    + _FIRST_NO_SHUFFLES),
+}
+
+# ---- the scans as they stood before their redesign (commit 9ad48d3): three
+# launches, blocks numbered row-major
+_SCAN_FIRST_LOAD = "  load_tile<Op>(args, row, base, n, sm);\n"
+_SCAN_FIRST_FILL = """  for (int p = 0; p < Op::kMap; ++p)
+    for (int k = 0; k < Op::kPerThread; ++k) {
+      const int i = threadIdx.x + k * kThreads;
+      sm[p * Tile<Op>::kPitch + padded(i)] =
+          0.999f * Op::identity(p) + 1e-9f * (float)i;
+    }
+"""
+_SCAN_FIRST_APPLY_HEAD = (
+    _SCAN_FIRST_LOAD + "  __syncthreads();\n"
+    "  float m[Op::kMap], ex[Op::kMap], total[Op::kMap];\n"
+    "  compose_run<Op>(sm, m);\n"
+    "  block_scan<Op>(m, ex, total, warp_tot);\n"
+    "  float s[Op::kState];\n#pragma unroll\n"
+    "  for (int q = 0; q < Op::kState; ++q) s[q] = starts[")
+SCAN_FIRST_VARIANTS = {
+    "as_shipped": [],
+    "apply_no_stores": [
+        ("cu", "      if (g < n) dst[g] = sm[q * Tile<Op>::kPitch + padded(i)];",
+         "      if (g < n && sm[q * Tile<Op>::kPitch + padded(i)] == 123.456f)"
+         " dst[g] = 0.f;")],
+    "apply_no_second_read": [
+        ("cu", _SCAN_FIRST_APPLY_HEAD,
+         _SCAN_FIRST_APPLY_HEAD.replace(_SCAN_FIRST_LOAD, _SCAN_FIRST_FILL))],
+    "no_reads": [("cu", _SCAN_FIRST_LOAD, _SCAN_FIRST_FILL, 2)],
+    "tile_major_blocks": [
+        ("cu", "  const long long blk = blockIdx.x;\n"
+         "  const long long row = blk / ntiles;\n"
+         "  const long long base = (blk % ntiles) * Tile<Op>::kLen;",
+         "  const long long nrows = gridDim.x / ntiles;\n"
+         "  const long long row = blockIdx.x % nrows;\n"
+         "  const long long blk = row * ntiles + blockIdx.x / nrows;\n"
+         "  const long long base = (blockIdx.x / nrows) * Tile<Op>::kLen;", 2)],
+}
+
+# ---- B3 as it stood before its redesign (commit 9ad48d3): tile totals, a
+# sequential carry, an epilogue, every table entry read from L2
+_SQPV_FIRST_STORES = """      mag[at] = sqrtf(hre * hre + him * him);
+      pitch[at] = log2f(fmaxf(fabsf(f), 1e-12f));
+      positive[at] = f >= 0.f;"""
+_SQPV_FIRST_SINK = [
+    ("cu", "  const long long out0 = (long long)c * n - w0;  "
+     "// frame t -> row out0 + t",
+     "  const long long out0 = (long long)c * n - w0;\n  float sink = 0.f;"),
+    ("cu", "    prev = phase;\n  }\n}",
+     "    prev = phase;\n  }\n  if (sink == 123.456f) mag[threadIdx.x] = sink;"
+     "\n}")]
+_SQPV_FIRST_NO_STORES = _SQPV_FIRST_SINK + [
+    ("cu", _SQPV_FIRST_STORES,
+     "      sink += sqrtf(hre * hre + him * him) + log2f(fmaxf(fabsf(f), "
+     "1e-12f)) + (f >= 0.f ? 1.f : 0.f) + (float)(at & 1);")]
+_SQPV_FIRST_CONSTANT_TABLE = [
+    ("cu", "  return __ldg(tables + ((long long)(which * kLines + line) * "
+     "kTile + i) *\n                            nbins + b);",
+     "  return (which & 1) ? 0.8f : 0.6f + 1e-9f * (float)(i + line);")]
+_SQPV_FIRST_NO_GATHERS = [
+    ("cu", "(i_new >= 0 && i_new < n) ? __ldg(xc + i_new) : 0.f;",
+     "(i_new >= 0 && i_new < n) ? 0.25f + 1e-9f * (float)i_new : 0.f;"),
+    ("cu", "(i_old >= 0 && i_old < n) ? __ldg(xc + i_old) : 0.f;",
+     "(i_old >= 0 && i_old < n) ? 0.125f + 1e-9f * (float)i_old : 0.f;")]
+_SQPV_FIRST_FAST_MATH = [
+    ("cu", "    const float phase = atan2_poly(him, hre);",
+     "    const float phase = atan2_poly_fast(him, hre);"),
+    ("cu", "rintf(d / kTwoPi)", "rintf(d * 0.15915494309189535f)"),
+    ("cu", "mag[at] = sqrtf(hre * hre + him * him);",
+     "{ float r_; asm(\"sqrt.approx.ftz.f32 %0, %1;\" : \"=f\"(r_) : "
+     "\"f\"(hre * hre + him * him)); mag[at] = r_; }")]
+_SQPV_FIRST_PASS_THROUGH = [
+    ("cu", "    const float phase = atan2_poly(him, hre);",
+     "    const float phase = him + hre;"),
+    ("cu", "      d = d - kTwoPi * rintf(d / kTwoPi);\n", ""),
+    ("cu", "mag[at] = sqrtf(hre * hre + him * him);",
+     "mag[at] = hre * hre + him * him;"),
+    ("cu", "pitch[at] = log2f(fmaxf(fabsf(f), 1e-12f));", "pitch[at] = f;")]
+SQPV_FIRST_VARIANTS = {
+    "as_shipped": [],
+    "forward_no_stores": _SQPV_FIRST_NO_STORES,
+    "forward_constant_table": _SQPV_FIRST_CONSTANT_TABLE,
+    "forward_no_gathers": _SQPV_FIRST_NO_GATHERS,
+    "forward_fast_math": _SQPV_FIRST_FAST_MATH,
+    "forward_pass_through": _SQPV_FIRST_PASS_THROUGH,
+    "forward_constant_table_no_gathers": (_SQPV_FIRST_CONSTANT_TABLE
+                                          + _SQPV_FIRST_NO_GATHERS),
+    "forward_constant_table_no_gathers_pass_through": (
+        _SQPV_FIRST_CONSTANT_TABLE + _SQPV_FIRST_NO_GATHERS
+        + _SQPV_FIRST_PASS_THROUGH),
+    # the store side alone, without the byte plane and with only it
+    "forward_stores_only_no_bytes": (
+        _SQPV_FIRST_CONSTANT_TABLE + _SQPV_FIRST_NO_GATHERS
+        + _SQPV_FIRST_PASS_THROUGH + _SQPV_FIRST_SINK + [
+            ("cu", "      positive[at] = f >= 0.f;",
+             "      sink += f >= 0.f ? 1.f : 0.f;")]),
+    "forward_stores_only_bytes": (
+        _SQPV_FIRST_CONSTANT_TABLE + _SQPV_FIRST_NO_GATHERS
+        + _SQPV_FIRST_SINK + [
+            ("cu", "    const float phase = atan2_poly(him, hre);",
+             "    const float phase = him + hre;"),
+            ("cu", "      d = d - kTwoPi * rintf(d / kTwoPi);\n", ""),
+            ("cu", "      mag[at] = sqrtf(hre * hre + him * him);\n"
+             "      pitch[at] = log2f(fmaxf(fabsf(f), 1e-12f));\n",
+             "      sink += hre * hre + him * him + f;\n")]),
+}
+
+_p, _i, _ll, _d, _f, _lla = (build._p, build._i, build._ll, build._d,
+                             build._f, build._lla)
+# the entry points of commit 9ad48d3, where they differ from ops/build.py's
+SIGNATURES = {
+    "flan_scan": [_i, _lla, _lla, _lla, _p, _p, _p, _i, _ll, _p],
+    "flan_sqpv_forward": [_p, _p, _p, _p, _p, _p, _p, _p, _i, _ll, _i, _i,
+                          _f, _f, _d, _p],
+}
+
+
+def scan_scratch(lib, kind: int, rows: int, n: int, nplanes: int,
+                 nstates: int, dev) -> list:
+    """The scratch planes of commit 9ad48d3's flan_scan: the tiles' total
+    maps and their start states."""
+    ntiles = -(-n // lib.flan_scan_tile(kind))
+    return [torch.empty(rows * ntiles * nplanes, device=dev),
+            torch.empty(rows * ntiles * nstates, device=dev)]
+
+
+def sqpv_forward_consts(geo, frames: int, dev) -> tuple:
+    """(constants, scratch) of commit 9ad48d3's flan_sqpv_forward: the four
+    tables [4, 3, 128, B], the float and int rows per bin, the tile totals."""
+    t1, t2 = geo.twiddle_tables(build.TILE_FRAMES)
+    tables = torch.from_numpy(np.stack(
+        [t1.real, t1.imag, t2.real, t2.imag]).astype(np.float32)).to(dev)
+    bin_freq, expected = geo.bin_frequencies(np.float32)
+    bin_f = torch.from_numpy(np.stack(
+        [geo.scale.astype(np.float32),
+         *(a.astype(np.float32) for a in geo.quirk_coefficients),
+         bin_freq, expected])).to(dev)
+    bin_i = torch.from_numpy(np.stack(
+        [geo.off_p, geo.off_m, geo.t_new, geo.t_old]).astype(np.int32)).to(dev)
+    ntiles = -(-(geo.w0 + frames) // build.TILE_FRAMES)
+    return ((tables, bin_f, bin_i),
+            torch.empty((1, ntiles, 6, geo.nbins), device=dev))
+
+
+VARIANTS = {"spv": SPV_FIRST_VARIANTS, "scan": SCAN_FIRST_VARIANTS,
+            "sqpv": SQPV_FIRST_VARIANTS}

@@ -33,8 +33,9 @@ import math
 import numpy as np
 import torch
 
-from flan_tpu_torch.ops.build import (MAX_BINS, TILE_FRAMES, check_cuda,
-                                      load_library, raise_on, tile_scratch)
+from flan_tpu_torch.ops.build import (MAX_BINS, SQPV_CARRY_CHUNK, TILE_FRAMES,
+                                      check_cuda, load_library, raise_on,
+                                      tile_scratch)
 from flan_tpu_torch.ops.fastmath import atan2 as _fast_atan2
 from flan_tpu_torch.ops.spv_kernels import cumsum_blocked
 from flan_tpu_torch.ops.stft import (_wrap_radians, cpu_exact,
@@ -169,27 +170,58 @@ def sqpv_inverse_ref(mag: torch.Tensor, pitch: torch.Tensor,
 
 # ------------------------------------------------------------------ kernels
 
+def carry_powers_np(geo, chunk: int = SQPV_CARRY_CHUNK) -> np.ndarray:
+    """a^(TILE_FRAMES i) for i in [0, chunk], per line: complex128
+    [3, chunk + 1, B]. Row 1 is the carry's factor over one tile (equal to
+    the last row of t2), row `chunk` its factor over one chunk of tiles."""
+    jv = np.array([-1.0, 0.0, 1.0])
+    theta = 2.0 * np.pi * (geo.q + jv[:, None]) / geo.periods[None, :]
+    steps = float(TILE_FRAMES) * np.arange(chunk + 1, dtype=np.float64)
+    return np.exp(1j * steps[None, :, None] * theta[:, None, :])
+
+
 @functools.lru_cache(maxsize=8)
-def _device_consts(sample_rate, bins_per_octave, bandwidth,
+def forward_consts(sample_rate, bins_per_octave, bandwidth,
                    device: torch.device):
-    """The forward's tables [4, 3, 128, B] (t1 re, im, t2 re, im), float
-    per-bin rows [6, B] (scale, quirk + re, + im, - re, bin Hz, expected)
-    and int rows [4, B] (P, M, quirk frames + and -), and the inverse's
-    twiddle [2, B], on `device`; all float32 from the float64 geometry."""
+    """The forward kernel's constants on `device`, float32 from the float64
+    geometry: t2 [128, B, 3, 2] (re, im of a^(i+1) per row, bin and line;
+    t1 = a^-i is its conjugate one row up, bit for bit), the
+    carry's powers [2, 3, SQPV_CARRY_CHUNK + 1, B], the float per-bin rows
+    [6, B] (scale, quirk + re, + im, - re, bin Hz, expected) and the int
+    rows [4, B] (P, M, quirk frames + and -)."""
     geo = cq_geometry(sample_rate, bins_per_octave, bandwidth)
     f32 = np.float32
-    tables = np.stack(_twiddles(sample_rate, bins_per_octave, bandwidth,
-                                TILE_FRAMES, f32))
+    t2 = np.stack(_twiddles(sample_rate, bins_per_octave, bandwidth,
+                            TILE_FRAMES, f32)[2:]).transpose(2, 3, 1, 0)
+    apow = carry_powers_np(geo)
+    apow = np.stack([apow.real, apow.imag]).astype(f32)
     bin_freq, expected = geo.bin_frequencies(f32)
     bin_f = np.stack([geo.scale.astype(f32),
                       *(a.astype(f32) for a in geo.quirk_coefficients),
                       bin_freq, expected])
     bin_i = np.stack([geo.off_p, geo.off_m, geo.t_new, geo.t_old]).astype(
         np.int32)
-    tw = geo.synthesis_twiddle
-    tw = np.stack([tw.real, tw.imag]).astype(f32)
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                 for a in (tables, bin_f, bin_i, tw))
+                 for a in (t2, apow, bin_f, bin_i))
+
+
+def forward_scratch(channels: int, frames: int, geo, device) -> torch.Tensor:
+    """The forward kernel's uninitialised scratch: the tile totals
+    [C, ntiles, 6, B] over the timeline of w0 + frames, then the carries of
+    the chunks of SQPV_CARRY_CHUNK tiles [C, nchunks, 6, B]."""
+    ntiles = -(-(geo.w0 + frames) // TILE_FRAMES)
+    nchunks = -(-ntiles // SQPV_CARRY_CHUNK)
+    return torch.empty(channels * (ntiles + nchunks) * 6 * geo.nbins,
+                       dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=8)
+def _synthesis_twiddle(sample_rate, bins_per_octave, bandwidth,
+                       device: torch.device) -> torch.Tensor:
+    """The inverse's twiddle [2, B] (re, im) on `device`, float32."""
+    tw = cq_geometry(sample_rate, bins_per_octave, bandwidth).synthesis_twiddle
+    return torch.from_numpy(np.stack([tw.real, tw.imag]).astype(
+        np.float32)).to(device)
 
 
 def _check_geometry(geo) -> None:
@@ -207,21 +239,18 @@ def sqpv_forward_cuda(x: torch.Tensor, sample_rate: float,
     lib = load_library()
     c, n = x.shape
     nb = geo.nbins
-    ntiles = -(-(geo.w0 + n) // TILE_FRAMES)
     fr, fi = np.float32(geo.fiddle.real), np.float32(geo.fiddle.imag)
     with torch.cuda.device(x.device):
-        tables, bin_f, bin_i, _ = _device_consts(
-            sample_rate, bins_per_octave, bandwidth, x.device)
+        consts = forward_consts(sample_rate, bins_per_octave, bandwidth,
+                                x.device)
         mag = torch.empty((c, n, nb), dtype=torch.float32, device=x.device)
         pitch = torch.empty_like(mag)
         positive = torch.empty((c, n, nb), dtype=torch.bool, device=x.device)
-        tot = torch.empty((c, ntiles, 6, nb), dtype=torch.float32,
-                          device=x.device)
+        tot = forward_scratch(c, n, geo, x.device)
         err = lib.flan_sqpv_forward(
-            x.data_ptr(), tables.data_ptr(), bin_f.data_ptr(),
-            bin_i.data_ptr(), tot.data_ptr(), mag.data_ptr(),
-            pitch.data_ptr(), positive.data_ptr(), c, n, nb, geo.w0,
-            float(fr), float(fi), float(sample_rate),
+            x.data_ptr(), *(t.data_ptr() for t in consts), tot.data_ptr(),
+            mag.data_ptr(), pitch.data_ptr(), positive.data_ptr(), c, n, nb,
+            geo.w0, float(fr), float(fi), float(sample_rate),
             torch.cuda.current_stream().cuda_stream)
     raise_on(err, "sqpv_forward")
     LAUNCHES["sqpv_forward"] += 1
@@ -247,8 +276,8 @@ def sqpv_inverse_cuda(mag: torch.Tensor, pitch: torch.Tensor,
         raise ValueError(f"planes have {nb} bins, the geometry {geo.nbins}")
     lib = load_library()
     with torch.cuda.device(mag.device):
-        tw = _device_consts(sample_rate, bins_per_octave, bandwidth,
-                            mag.device)[3]
+        tw = _synthesis_twiddle(sample_rate, bins_per_octave, bandwidth,
+                                mag.device)
         out = torch.empty((c, n), dtype=torch.float32, device=mag.device)
         tot = tile_scratch(c, n, nb, mag.device)
         err = lib.flan_sqpv_inverse(

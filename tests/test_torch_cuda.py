@@ -10,8 +10,8 @@ import pytest
 import torch
 
 import flan_tpu_torch
-from flan_tpu_torch.ops import (probe_kernels, scan, scan_kernels, spv_kernels,
-                                 sqpv_kernels)
+from flan_tpu_torch.ops import (build, probe_kernels, scan, scan_kernels,
+                                 spv_kernels, sqpv_kernels)
 from flan_tpu_torch.sqpv.transform import sqpv_forward, sqpv_inverse
 
 SR = 48000.0
@@ -235,12 +235,29 @@ def test_sqpv_kernels_match_plain(cuda_device, sr, bpo, band, ch, n):
 @pytest.mark.parametrize("bpo,band,ch,n", [
     (6.0, (1150.0, 1250.0), 1, 3000),      # one bin, at the 1187 Hz tone
     (6.0, (100.0, 3000.0), 1, 100),        # shorter than a tile
-    (8.0, (200.0, 2000.0), 3, 1300)])      # three channels, odd periods
+    (8.0, (200.0, 2000.0), 3, 1300),       # three channels, odd periods
+    (6.0, (100.0, 1600.0), 2, 5000),       # 24 bins: a multiple of 4
+    (12.0, (100.0, 3000.0), 1, 127),       # 59 bins: odd; one frame short
+    (12.0, (100.0, 3000.0), 2, 4097),      # a carry chunk of 32 tiles + 1
+    (64.0, (100.0, 3900.0), 1, 3000)])     # 339 bins: two blocks of bins
 def test_sqpv_kernels_edge_shapes(cuda_device, bpo, band, ch, n):
     x = torch.from_numpy(np.tile(_signal(n, 1), (ch, 1)) *
                          np.float32([[1.0], [-0.5], [0.25]][:ch])).to(
         cuda_device)
     _sqpv_checks(x.contiguous(), 8000.0, bpo, band)
+
+
+@pytest.mark.cuda
+def test_sqpv_forward_gives_the_same_bits_every_call(cuda_device):
+    """B3 at the bench shape (10 s mono 48 kHz, 254 bins): every order of
+    summation is fixed, so three calls agree bit for bit."""
+    x = torch.from_numpy(_signal(480000, 1)).to(cuda_device)
+    args = (SR, 24.0, (16.0, 24000.0))
+    first = sqpv_forward(x, *args)
+    for _ in range(2):
+        again = sqpv_forward(x, *args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.cuda
@@ -275,27 +292,31 @@ def test_sqpv_round_trip_runs_on_the_card(cuda_device):
 
 def _scan_planes(kind, ch, n, seed=11, shared_a=False):
     """Float32 planes and start states of one scan kind: decay factors
-    spread from 0.5 to 0.99999, as the filters' and the compressor's."""
+    spread from 0.5 to 0.99999, as the filters' and the compressor's. With
+    shared_a the coefficient planes are one row for all rows; with "all"
+    every plane is (_run_scan expands them; the start states differ)."""
     rng = np.random.default_rng(seed)
     rows = 1 if shared_a else ch
+    own = 1 if shared_a == "all" else ch
     a = rng.uniform(0.5, 0.99999, (rows, n)).astype(np.float32)
     if kind == "scan_linear":
-        planes = (a, rng.standard_normal((ch, n)))
+        planes = (a, rng.standard_normal((own, n)))
     elif kind == "scan_max_affine":
-        m = rng.standard_normal((ch, n))
+        m = rng.standard_normal((own, n))
         planes = (m, a, (1.0 - a) * m)
     else:
         theta = rng.uniform(0.0, 0.2, (rows, n))
         planes = (a * np.cos(theta), -a * np.sin(theta), a * np.sin(theta),
-                  a * np.cos(theta), rng.standard_normal((ch, n)),
-                  rng.standard_normal((ch, n)))
+                  a * np.cos(theta), rng.standard_normal((own, n)),
+                  rng.standard_normal((own, n)))
     y0 = rng.standard_normal((ch, 1, 2))
     return ([np.asarray(p, np.float32) for p in planes],
             [np.asarray(y0[..., i], np.float32) for i in range(2)])
 
 
-def _run_scan(kind, planes, y0s):
-    """(kernel, plain float32, plain float64) outputs of one scan kind."""
+def _run_scan(kind, planes, y0s, rows=None):
+    """(kernel, plain float32, plain float64) outputs of one scan kind; with
+    `rows`, every plane is expanded to that many rows on the card."""
     n_states = 2 if kind == "scan_affine2x2" else 1
     y0s = y0s[:n_states]
     kernel = {"scan_linear": scan_kernels.scan_linear,
@@ -307,7 +328,10 @@ def _run_scan(kind, planes, y0s):
     outs = []
     for fn, dt in ((kernel, torch.float32), (plain, torch.float32),
                    (plain, torch.float64)):
-        args = [torch.from_numpy(p).to("cuda", dt) for p in planes + y0s]
+        args = [torch.from_numpy(p).to("cuda", dt) for p in planes]
+        if rows is not None:
+            args = [a.expand(rows, a.shape[-1]) for a in args]
+        args += [torch.from_numpy(v).to("cuda", dt) for v in y0s]
         y = fn(*args)
         outs.append(torch.stack(y) if isinstance(y, tuple) else y)
     torch.cuda.synchronize()
@@ -341,6 +365,60 @@ def test_scan_kernels_match_plain(cuda_device, kind, ch, n, shared):
     err_k, err_p = _drift(k, p32, p64)
     print(f"{kind} C={ch} N={n}: kernel {err_k:.3g}, plain {err_p:.3g}")
     assert err_k <= 2.0 * err_p + 1e-6
+
+
+_KINDS = ["scan_linear", "scan_max_affine", "scan_affine2x2"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", _KINDS)
+@pytest.mark.parametrize("ch,frames,shared", [
+    (1, "T-1", False), (2, "T", True), (3, "T+1", "all"), (5, "T+1", True),
+    (64, "T+1", False), (64, 100_003, "all"), (1, "W-1", False),
+    (2, "W", True), (3, "W+1", "all"), (5, "W+1", False),
+    (1, 2 ** 25 + 3, False)])
+def test_scan_kernels_around_tiles_and_windows(cuda_device, kind, ch, frames,
+                                               shared):
+    """Lengths around one tile (T elements) and one look-back window of
+    W = 256 tiles, 1 to 64 rows, with no, the coefficient and all planes
+    shared by the rows; the bound of test_scan_kernels_match_plain."""
+    lib = build.load_library()
+    tile = lib.flan_scan_tile(_KINDS.index(kind))
+    n = frames if isinstance(frames, int) else (
+        {"T": tile, "W": lib.flan_scan_window_tiles() * tile}[frames[0]]
+        + int(frames[1:] or 0))
+    planes, y0s = _scan_planes(kind, ch, n, shared_a=shared)
+    k, p32, p64 = _run_scan(kind, planes, y0s,
+                            rows=ch if shared == "all" else None)
+    assert k.shape == p32.shape and bool(torch.isfinite(k).all())
+    err_k, err_p = _drift(k, p32, p64)
+    print(f"{kind} C={ch} N={n} shared={shared}: kernel {err_k:.3g}, "
+          f"plain {err_p:.3g}")
+    assert err_k <= 2.0 * err_p + 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", _KINDS)
+@pytest.mark.parametrize("rows,n", [(None, 28_800_000), (64, 100_003)])
+def test_scan_kernels_give_the_same_bits_every_call(cuda_device, kind, rows,
+                                                    n):
+    """The filter path's shapes at 600 s stereo 48 kHz (the compressor's
+    max-affine scan is one row), and 64 short rows, where the blocks of many
+    rows wait on one window at once: the look-back composes by tile index,
+    so three calls agree bit for bit."""
+    ch = rows or (1 if kind == "scan_max_affine" else 2)
+    planes, y0s = _scan_planes(kind, ch, n, shared_a=True)
+    n_states = 2 if kind == "scan_affine2x2" else 1
+    kernel = getattr(scan_kernels, kind)
+    args = [torch.from_numpy(p).to(cuda_device) for p in
+            planes + y0s[:n_states]]
+    first = kernel(*args)
+    for _ in range(2):
+        again = kernel(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.stack(list(first) if isinstance(
+            first, tuple) else [first]), torch.stack(list(again) if isinstance(
+                again, tuple) else [again]))
 
 
 @pytest.mark.cuda
