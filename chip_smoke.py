@@ -7,11 +7,11 @@
 Runs from the root of a checkout and needs one CUDA card and the CUDA
 toolkit (nvcc). It imports nothing of JAX. With --time-calls it only builds
 the library, drives the filter path and times the scan kernels and the SQPV
-forward as phases 5 and 6 do (time_kernels, the profiler per launch and
-inside the path); with --package DIR it takes flan_tpu_torch from DIR, so
-that another commit's kernels are timed by this script's yardstick (`git
-archive COMMIT flan_tpu_torch | tar -x -C build/parent`, then --package
-build/parent). Phases:
+forward and inverse as phases 5 and 6 do (time_kernels, the profiler per
+launch and inside the path); with --package DIR it takes flan_tpu_torch
+from DIR, so that another commit's kernels are timed by this script's
+yardstick (`git archive COMMIT flan_tpu_torch | tar -x -C build/parent`,
+then --package build/parent). Phases:
 
   0. print the card's name and power limit; fail without a CUDA card;
   1. build the kernel library from flan_tpu_torch/csrc with nvcc (one
@@ -42,8 +42,8 @@ build/parent). Phases:
      which runs both SQPV kernels; then hold its planes and the inverse
      kernel against the plain versions on the same input, require the
      kernels' tone-fit SNR to reach the plain path's within 1 dB and the
-     repitched tone to sit at 330 Hz on both paths and three calls of the
-     forward kernel to give the same bits, and time each kernel against
+     repitched tone to sit at 330 Hz on both paths and three calls of
+     each SQPV kernel to give the same bits, and time each kernel against
      its plain version;
   6. drive the IIR filter and compressor class path at headline size
      (600 s stereo 48 kHz: a swept 2-pole lowpass, a swept 1-pole
@@ -823,6 +823,8 @@ def phase5_check(torch, sqpv_kernels, SQPV, x, sq, y, y_up, wall_k, peak_gb):
     del ref64
     check_same_bits(torch, lambda: sqpv_kernels.sqpv_forward_cuda(x, *args),
                     "SQPV forward, bench shape")
+    check_same_bits(torch, lambda: sqpv_kernels.sqpv_inverse_cuda(*ref, *args),
+                    "SQPV inverse, bench shape")
     out = sqpv_kernels.sqpv_inverse_cuda(*ref, *args)
     up = SQPV(*ref, sample_rate=SR, bins_per_octave=SQPV_BPO,
               bandwidth=SQPV_BAND).repitch(1.5)
@@ -1049,19 +1051,24 @@ def start(package):
 
 def time_calls(package) -> None:
     """The --time-calls mode: the scan kernels on the filter path's planes
-    and the SQPV forward at its bench shape, timed as phases 5 and 6 time
-    them, and nothing else."""
+    and the SQPV forward and inverse at their bench shape, timed as phases
+    5 and 6 time them, and nothing else."""
     card, torch, dev, _ = start(package)
     from flan_tpu_torch import Audio
     from flan_tpu_torch.ops import scan, scan_kernels, sqpv_kernels
     xq = torch.from_numpy(stereo_signal(SQPV_SECONDS)[:1]).to(dev)
     args = (SR, SQPV_BPO, SQPV_BAND)
+    planes = sqpv_kernels.sqpv_forward_ref(xq, *args)
     calls = {"sqpv_forward": (
         lambda: sqpv_kernels.sqpv_forward_cuda(xq, *args),
-        lambda: sqpv_kernels.sqpv_forward_ref(xq, *args))}
-    calls["sqpv_forward"][1]()      # the plain version's first use
+        lambda: sqpv_kernels.sqpv_forward_ref(xq, *args)),
+        "sqpv_inverse": (
+        lambda: sqpv_kernels.sqpv_inverse_cuda(*planes, *args),
+        lambda: sqpv_kernels.sqpv_inverse_ref(*planes, *args))}
+    calls["sqpv_inverse"][1]()      # the plain versions' first use
     times = time_kernels(torch, calls)
-    split = profile_launches(torch, {"sqpv_forward": calls["sqpv_forward"][0]})
+    split = profile_launches(torch, {n: k for n, (k, _) in calls.items()})
+    del planes, calls
     _, report, captured, _ = phase6_filters(torch, Audio, scan, scan_kernels,
                                             dev)
     calls = {name: (lambda k=k, a=captured[name]: k(*a),
@@ -1084,7 +1091,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(
         description="Smoke test of flan_tpu_torch on one NVIDIA GPU.")
     parser.add_argument("--time-calls", action="store_true",
-                        help="only time the scan kernels and the SQPV forward")
+                        help="only time the scan and SQPV kernels")
     parser.add_argument("--package", metavar="DIR", default=None,
                         help="with --time-calls: take flan_tpu_torch from DIR")
     opts = parser.parse_args()

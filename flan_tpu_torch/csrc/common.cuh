@@ -1,9 +1,8 @@
 // Device helpers shared by the kernels of flan_tpu_torch/csrc: the
 // polynomial atan2 of flan_tpu/ops/fastmath.py, mod 1, the exclusive prefix
-// over tiles (shared by the SPV kernels and the SQPV inverse), and the
-// epilogue block shape. Everything sits in an anonymous
-// namespace, so each .cu file that includes it gets its own copy and the
-// files link into one library without clashing.
+// over tiles (of the SPV kernels), and the epilogue block shape. Everything
+// sits in an anonymous namespace, so each .cu file that includes it gets its
+// own copy and the files link into one library without clashing.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -61,16 +60,12 @@ __device__ __forceinline__ float atan2_poly_fast(float y, float x) {
   return y < 0.f ? -at : at;
 }
 
-// The three sums a prefix over tiles can run in: plain float32 (running
-// complex sums), float32 cycles kept in [0, 1) after every step, and cycles
-// as 32-bit fixed point, which wrap by themselves and associate exactly.
+// The two sums a prefix over tiles can run in: plain float32 (running
+// complex sums) and cycles as 32-bit fixed point, which wrap by themselves
+// and associate exactly.
 struct SumF32 {
   typedef float T;
   static __device__ __forceinline__ T add(T a, T b) { return a + b; }
-};
-struct SumMod1 {
-  typedef float T;
-  static __device__ __forceinline__ T add(T a, T b) { return mod1(a + b); }
 };
 struct SumU32 {
   typedef unsigned T;

@@ -72,13 +72,60 @@
 //      C_k, which is the frame before it. Warm-up tiles are skipped.
 // Every order of operations is fixed: a call gives the same bits each time.
 //
-// Inverse: B2's first design. Tile totals of the mod-1 cycle increments
-// frac(+-2^pitch / sr) (true division), a mod-1 prefix over tiles, and an
-// epilogue that keeps each bin's cycles reduced mod 1 every frame and
-// reduces sum_b mag * Re(e^{2 pi i cycles} tw_b) per frame across the block.
+// Inverse: one launch, reading each plane once. What held the first
+// version (one part of its source taken out at a time, PERF.md): a
+// tile-totals launch that read pitch and sign a second time, float32 cycles
+// reduced by fmodf three times a frame-bin, full-range sincosf, one-float
+// and one-byte loads, and a warp reduction every frame. Here:
+//   - cycles are 32-bit fixed point, as in B2: a frame-bin's increment is
+//     frac(2^pitch / sr) * 2^32 from exp2f and a true division (it feeds an
+//     accumulator), negated as an integer where the sign is negative, so
+//     sums wrap by themselves and associate exactly;
+//   - the synthesis twiddle e^{2 pi i Q / N_b} is folded into each bin's
+//     starting cycles as a 32-bit offset (host, float64):
+//     Re(e^{2 pi i c} tw_b) = cos(2 pi (c + Q / N_b)). A 32-bit phase turns
+//     into float32 half turns with 24 bits (9.4e-8 rad at most where the
+//     cosine moves);
+//   - one block per tile of T frames and one channel takes a ticket, and the
+//     ticket names its tile, tile-major, so that every tile it waits for is
+//     running or done. It stages the tile's three planes (each one
+//     contiguous run of T * B elements) flat into shared memory with 16-byte
+//     cp.async copies that bypass L1, whatever the run's alignment (no
+//     table is left in L2 for the planes to evict: the twiddle is 4 bytes
+//     a bin, read once a block): the staging area is shifted to the run's
+//     address modulo 16, and the ragged bytes at its two ends are copied
+//     one by one. T is as many frames, a multiple of 4 and at most 128, as
+//     fill kInvStageBytes (28 frames of 254 bins: 3 blocks a multiprocessor);
+//   - each thread turns its bins' pitch and sign into increments in place
+//     and sums them: the tile's aggregate per bin, which it publishes at
+//     once for the tiles after it (decoupled look-back, Merrill and Garland
+//     2016). A descriptor per tile and bin is a 64-bit word, the u32 sum
+//     beside a flag (1 aggregate, 2 inclusive prefix), stored at once, so a
+//     reader that sees the flag has the sum, with no fence (a fence before
+//     a status per tile waits for the magnitudes' copies in flight: 1191
+//     us). The sums associate exactly, so whichever descriptors a
+//     look-back finds ready, the prefix has the same bits;
+//   - the look-back waits on tiles that started just before, so it comes
+//     after the work that needs no prefix: each bin's cycles within the
+//     tile, and mag * cos and mag * sin of them (sincospif of the phase as
+//     a signed fraction of a half turn), in place of the magnitude and the
+//     increment. Then the prefix, this tile's inclusive prefix, and the
+//     cosine and sine of each bin's cycles before the tile (prefix plus the
+//     twiddle's offset) once a tile;
+//   - cos(before + local) = cos before * cos local - sin before * sin
+//     local is summed across the thread's bins, then across each warp four
+//     frames at a time by B2's transposing butterfly (6 shuffles for 4
+//     frames), then across warps once per tile, in a fixed order.
+// What holds it (PERF.md): 722 us a launch at 1 x 480 k x 254, 491 without
+// the look-back, against a 330 us bound. Tiles start ~35 a microsecond and
+// a trip to L2 takes about one, so the nearest inclusive prefix lies many
+// tiles back and each bin sums that many aggregates (8 bytes a tile and
+// bin): the look-back reads its 8 words at a time (one at a time: 1038 us),
+// and one warp finds the range by polling 32 tiles at once. Where it runs
+// (before or after the sines and cosines) and how tiles are sized (64 KB
+// staged, 3 blocks a multiprocessor; 96 KB, 2 blocks: 756) move it little.
 // The frequency is decoded from pitch and sign in the kernel, so no
-// frequency plane is built. Sine and cosine are sincosf (not the fast
-// intrinsics) of cycles * 2 pi, as the plain version's torch.cos/torch.sin.
+// frequency plane is built.
 //
 // Every entry point launches on the stream it is given and returns
 // cudaGetLastError(); it allocates nothing and does not synchronise.
@@ -429,78 +476,275 @@ sqpv_fwd_epilogue(const float* __restrict__ x, const float* __restrict__ t2,
 
 // ---------------------------------------------------------------- inverse
 
-// frac(+-2^pitch / sr): one frame's cycle increment, decoded from the planes
-__device__ __forceinline__ float cycle_increment(float p, unsigned char pos,
-                                                 float sample_rate) {
-  const float f = exp2f(p);
-  return mod1((pos ? f : -f) / sample_rate);
+constexpr int kInvMaxFrames = 128;          // frames per tile at most
+constexpr int kInvStageBytes = 64 * 1024;   // bytes of the planes staged
+
+// Frames per tile of the inverse for nbins bins: a multiple of 4 (the
+// epilogue takes four frames a turn) whose 9 bytes a frame-bin fit
+// kInvStageBytes, from 4 to kInvMaxFrames.
+__host__ __device__ inline int inv_tile_frames(int nbins) {
+  const int t = kInvStageBytes / (9 * nbins) / 4 * 4;
+  return t < 4 ? 4 : (t > kInvMaxFrames ? kInvMaxFrames : t);
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-sqpv_inv_tile_totals(const float* __restrict__ pitch,
-                     const unsigned char* __restrict__ positive,
-                     float* __restrict__ tot, long long n, int nbins,
-                     int ntiles, float sample_rate) {
-  const int tile = blockIdx.x, c = blockIdx.y;
-  const long long t0 = (long long)tile * kTile;
-  const int rows = (int)min((long long)kTile, n - t0);
-  const long long base = ((long long)c * n + t0) * nbins;
-  const long long out = ((long long)c * ntiles + tile) * nbins;
-  for (int b = threadIdx.x; b < nbins; b += blockDim.x) {
-    float s = 0.f;
-    for (int i = 0; i < rows; ++i) {
-      const long long at = base + (long long)i * nbins + b;
-      s = mod1(s + cycle_increment(pitch[at], positive[at], sample_rate));
+// Shared memory of one staged plane of `bytes`: 16 bytes of room for the
+// shift to the plane's address modulo 16, rounded up to 16.
+__host__ __device__ inline int stage_room(int bytes) {
+  return (bytes + 15) / 16 * 16 + 16;
+}
+
+__host__ __device__ inline int inv_stage_bytes(int frames, int nbins) {
+  return 2 * stage_room(4 * frames * nbins) + stage_room(frames * nbins);
+}
+
+// The `bytes` bytes at src into shared memory from room on, at the same
+// address modulo 16: 16-byte asynchronous copies that bypass L1, the ragged
+// ends byte by byte. Returns where src[0] lands. The caller commits and
+// waits.
+__device__ __forceinline__ char* stage(const void* src, int bytes,
+                                       char* room) {
+  const char* g = static_cast<const char*>(src);
+  const int shift = (int)((uintptr_t)g & 15);
+  char* dst = room + shift;
+  const int head = min(bytes, (16 - shift) & 15);
+  const int body = (bytes - head) & ~15;
+  const int tail = bytes - head - body;
+  for (int i = head + 16 * (int)threadIdx.x; i < head + body;
+       i += 16 * (int)blockDim.x)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                     (unsigned)__cvta_generic_to_shared(dst + i)),
+                 "l"(g + i));
+  // fewer than 16 bytes at each end, one thread a byte
+  const int t = threadIdx.x;
+  if (t < head) {
+    dst[t] = g[t];
+  } else if (t < head + tail) {
+    const int i = body + t;
+    dst[i] = g[i];
+  }
+  return dst;
+}
+
+// frac(+-2^pitch / sr) as 32-bit fixed point. q - rint(q) is exact in
+// float32 and lies in [-0.5, 0.5]; times 2^32 it converts to a 64-bit
+// integer exactly where it is one (half a cycle is 2^31, not saturated),
+// and its low 32 bits are the increment. A negative frequency's increment
+// is the negation, exactly.
+__device__ __forceinline__ unsigned cycle_increment(float p, unsigned char pos,
+                                                    float sample_rate) {
+  const float q = exp2f(p) / sample_rate;
+  const unsigned u =
+      (unsigned)__float2ll_rn((q - rintf(q)) * 4294967296.f);
+  return pos ? u : 0u - u;
+}
+
+// sin and cos of 2 pi cycles / 2^32
+__device__ __forceinline__ void sincos_cycles(unsigned cycles, float* sn,
+                                              float* cs) {
+  sincospif((float)(int)cycles * 4.656612873077392578125e-10f, sn, cs);
+}
+
+typedef unsigned long long Word;   // a u32 sum (low half) beside its flag
+constexpr unsigned kAggregate = 1, kInclusive = 2;
+
+__device__ __forceinline__ void publish(Word* p, unsigned flag, unsigned v) {
+  *reinterpret_cast<volatile Word*>(p) = ((Word)flag << 32) | v;
+}
+
+// Warp 0 walks back from the tile before `tile` to the nearest tile whose
+// bin-0 descriptor holds its inclusive prefix, with every tile between
+// holding at least its aggregate, reading the descriptors of 32 tiles at
+// once: desc0 points at this tile's descriptor of bin 0, and the tiles lie
+// nbins words apart. Returns that tile's index (tile 0 publishes its
+// inclusive prefix at once, so there is one).
+__device__ __forceinline__ int look_back_tiles(const Word* desc0, int tile,
+                                               int nbins) {
+  const volatile Word* q = reinterpret_cast<const volatile Word*>(desc0);
+  const int lane = threadIdx.x & 31;
+  int nearest = tile - 1;            // the nearest tile not yet passed
+  while (true) {
+    const int k = nearest - lane;
+    const unsigned flag =
+        k >= 0 ? (unsigned)(q[(long long)(k - tile) * nbins] >> 32)
+               : kInclusive;
+    const unsigned incl = __ballot_sync(0xffffffffu, flag == kInclusive);
+    const unsigned zero = __ballot_sync(0xffffffffu, flag == 0);
+    if (incl != 0) {
+      const int first = __ffs(incl) - 1;
+      const unsigned upto = first == 31 ? 0xffffffffu : (2u << first) - 1u;
+      if ((zero & upto) == 0) return nearest - first;
+    } else if (zero == 0) {
+      nearest -= 32;                 // 32 aggregates: walk on
     }
-    tot[out + b] = s;
   }
 }
 
+// One bin's prefix over the tiles before `tile`: its aggregates back to
+// tile `found` and that tile's inclusive prefix, read kGather words at a
+// time (desc points at this tile's descriptor of the bin). A word that is
+// not yet what the walk found is read again; one that already holds its
+// tile's inclusive prefix ends the sum there.
+constexpr int kGather = 8;
+
+__device__ __forceinline__ unsigned gather_prefix(const Word* desc, int tile,
+                                                  int found, int nbins) {
+  const volatile Word* q = reinterpret_cast<const volatile Word*>(desc);
+  unsigned sum = 0;
+  int k = tile - 1;                  // the nearest tile not yet summed
+  while (true) {
+    Word w[kGather];
+#pragma unroll
+    for (int j = 0; j < kGather; ++j)
+      w[j] = k - j >= found ? q[(long long)(k - j - tile) * nbins] : 0ull;
+#pragma unroll
+    for (int j = 0; j < kGather; ++j) {
+      const unsigned flag = (unsigned)(w[j] >> 32);
+      if (flag == 0 || (k == found && flag != kInclusive)) break;
+      sum += (unsigned)w[j];
+      if (flag == kInclusive) return sum;
+      --k;
+    }
+  }
+}
+
+// One block per (tile, channel), named by a ticket. Thread t owns bins t,
+// t + blockDim, ... (K of them). scratch: the ticket counter, then the
+// descriptors [C][ntiles][nbins], zeroed before the launch.
 template <int K>
 __global__ void __launch_bounds__(kMaxThreads)
-sqpv_inv_epilogue(const float* __restrict__ mag,
+sqpv_inv_one_pass(const float* __restrict__ mag,
                   const float* __restrict__ pitch,
                   const unsigned char* __restrict__ positive,
-                  const float* __restrict__ tw, const float* __restrict__ carry,
-                  float* __restrict__ out, long long n, int nbins, int ntiles,
-                  float sample_rate) {
-  __shared__ float partial[kMaxThreads / 32][kTile];
-  const int tile = blockIdx.x, c = blockIdx.y;
+                  const unsigned* __restrict__ offset, Word* scratch,
+                  float* __restrict__ out, long long n, int nbins,
+                  int frames, int ntiles, int channels, float sample_rate) {
+  extern __shared__ uint4 staged[];
+  __shared__ float partial[kMaxThreads / 32][kInvMaxFrames];
+  __shared__ unsigned ticket_sm;
+  __shared__ int found_sm;
+  if (threadIdx.x == 0)
+    ticket_sm = atomicAdd(reinterpret_cast<unsigned*>(scratch), 1u);
+  __syncthreads();
+  const int tile = (int)(ticket_sm / (unsigned)channels);
+  const int c = (int)(ticket_sm - (unsigned)tile * (unsigned)channels);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long t0 = (long long)tile * kTile;
-  const int rows = (int)min((long long)kTile, n - t0);
-  const long long base = ((long long)c * n + t0) * nbins;
-  const long long cbase = ((long long)c * ntiles + tile) * nbins;
+  const long long t0 = (long long)tile * frames;
+  const int rows = (int)min((long long)frames, n - t0);
+  const long long first = ((long long)c * n + t0) * nbins;
+  const int count = rows * nbins;
 
-  float cyc0[K], run[K], twr[K], twi[K];
+  // pitch and sign first, then the magnitudes, which stay in flight
+  // through the increments
+  char* room = reinterpret_cast<char*>(staged);
+  const int room_f = stage_room(4 * frames * nbins);
+  float* sp = reinterpret_cast<float*>(
+      stage(pitch + first, 4 * count, room));
+  const unsigned char* ss = reinterpret_cast<const unsigned char*>(
+      stage(positive + first, count, room + room_f));
+  asm volatile("cp.async.commit_group;");
+  float* sm = reinterpret_cast<float*>(
+      stage(mag + first, 4 * count, room + room_f +
+            stage_room(frames * nbins)));
+  asm volatile("cp.async.commit_group;");
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+  __syncthreads();
+
+  // the increments, in place of the pitch, and each bin's aggregate, which
+  // the tiles after this one wait for
+  unsigned* inc = reinterpret_cast<unsigned*>(sp);
+  unsigned total[K];
+  Word* desc = scratch + 1 + ((long long)c * ntiles + tile) * nbins;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int b = threadIdx.x + k * blockDim.x;
-    const bool on = b < nbins;
-    cyc0[k] = on ? carry[cbase + b] : 0.f;
-    twr[k] = on ? tw[b] : 0.f;
-    twi[k] = on ? tw[nbins + b] : 0.f;
-    run[k] = 0.f;
+    total[k] = 0;
+    if (b < nbins) {
+#pragma unroll 4
+      for (int i = 0; i < rows; ++i) {
+        const int at = i * nbins + b;
+        const unsigned u = cycle_increment(sp[at], ss[at], sample_rate);
+        inc[at] = u;
+        total[k] += u;
+      }
+      publish(desc + b, tile == 0 ? kInclusive : kAggregate, total[k]);
+    }
   }
-  for (int i = 0; i < rows; ++i) {
-    float acc = 0.f;
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  __syncthreads();
+
+  // mag cos and mag sin of the cycles within the tile, in place of the
+  // magnitude and the increment, while the tiles before publish
+  float* xs = sm;
+  float* ys = sp;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int b = threadIdx.x + k * blockDim.x;
-      if (b < nbins) {
-        const long long at = base + (long long)i * nbins + b;
-        run[k] = mod1(run[k] +
-                      cycle_increment(pitch[at], positive[at], sample_rate));
-        const float cycles = mod1(run[k] + cyc0[k]);
+  for (int k = 0; k < K; ++k) {
+    const int b = threadIdx.x + k * blockDim.x;
+    if (b < nbins) {
+      unsigned local = 0;
+#pragma unroll 4
+      for (int i = 0; i < rows; ++i) {
+        const int at = i * nbins + b;
+        local += inc[at];
         float sn, cs;
-        sincosf(cycles * kTwoPi, &sn, &cs);
-        acc += mag[at] * (cs * twr[k] - sn * twi[k]);
+        sincos_cycles(local, &sn, &cs);
+        const float m = sm[at];
+        xs[at] = m * cs;
+        ys[at] = m * sn;
       }
     }
+  }
+  // each bin's cycles before the tile: its prefix over the tiles before and
+  // its twiddle; this tile's inclusive prefix for the tiles after
+  if (tile > 0) {
+    if (warp == 0) {
+      const int found = look_back_tiles(desc, tile, nbins);
+      if (lane == 0) found_sm = found;
+    }
+    __syncthreads();
+  }
+  float cc[K], sc[K];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) partial[warp][i] = acc;
+  for (int k = 0; k < K; ++k) {
+    const int b = threadIdx.x + k * blockDim.x;
+    unsigned before = 0;
+    if (b < nbins && tile > 0) {
+      before = gather_prefix(desc + b, tile, found_sm, nbins);
+      publish(desc + b, kInclusive, before + total[k]);
+    }
+    sincos_cycles(before + (b < nbins ? offset[b] : 0u), &sc[k], &cc[k]);
+  }
+
+  // cos(carry + local) = cos carry cos local - sin carry sin local, summed
+  // over the thread's bins, then across each warp four frames at a time by
+  // a transposing butterfly (spv_kernels.cu inv_epilogue): lane 8 * f ends
+  // with frame f; each thread reads only what it wrote above
+  const bool hi16 = lane & 16, hi8 = lane & 8;
+  for (int i0 = 0; i0 < rows; i0 += 4) {
+    float acc[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      acc[u] = 0.f;
+      if (i0 + u < rows) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int b = threadIdx.x + k * blockDim.x;
+          if (b < nbins) {
+            const int at = (i0 + u) * nbins + b;
+            acc[u] += cc[k] * xs[at] - sc[k] * ys[at];
+          }
+        }
+      }
+    }
+    const float send0 = hi16 ? acc[0] : acc[2], send1 = hi16 ? acc[1] : acc[3];
+    float keep0 = hi16 ? acc[2] : acc[0], keep1 = hi16 ? acc[3] : acc[1];
+    keep0 += __shfl_xor_sync(0xffffffffu, send0, 16);
+    keep1 += __shfl_xor_sync(0xffffffffu, send1, 16);
+    float v = hi8 ? keep1 : keep0;
+    v += __shfl_xor_sync(0xffffffffu, hi8 ? keep0 : keep1, 8);
+#pragma unroll
+    for (int off = 4; off > 0; off >>= 1)
+      v += __shfl_xor_sync(0xffffffffu, v, off);
+    if ((lane & 7) == 0) partial[warp][i0 + (lane >> 3)] = v;
   }
   __syncthreads();
   const int nwarps = blockDim.x >> 5;
@@ -509,6 +753,11 @@ sqpv_inv_epilogue(const float* __restrict__ mag,
     for (int w = 0; w < nwarps; ++w) s += partial[w][i];
     out[(long long)c * n + t0 + i] = s;
   }
+}
+
+long long inv_tiles(int channels, long long n, int nbins) {
+  const long long frames = inv_tile_frames(nbins);
+  return channels * ((n + frames - 1) / frames);
 }
 
 }  // namespace
@@ -554,29 +803,53 @@ int flan_sqpv_forward(const float* x, const float* t2, const float* apow,
   return (int)cudaGetLastError();
 }
 
-// mag, pitch [C, N, B] float; positive [C, N, B] bytes; tw [2, B] (re, im);
-// tot scratch of C * (ntiles + nchunks) * B floats, ntiles = ceil(N /
-// kTile), nchunks = ceil(ntiles / kScanChunk): the tile totals [C, ntiles,
-// B], then the prefix's chunk totals; out [C, N].
+// Frames per tile of the inverse for `nbins` bins (ops/sqpv_kernels.py
+// mirrors it for the CPU emulation of the tests).
+int flan_sqpv_inverse_tile_frames(int nbins) {
+  return inv_tile_frames(nbins);
+}
+
+// Bytes of scratch one call of flan_sqpv_inverse needs.
+long long flan_sqpv_inverse_scratch_bytes(int channels, long long n,
+                                          int nbins) {
+  return (long long)sizeof(Word) * (1 + inv_tiles(channels, n, nbins) * nbins);
+}
+
+// mag, pitch [C, N, B] float; positive [C, N, B] bytes; offset [B] u32, each
+// bin's starting cycles (its synthesis twiddle's angle); scratch:
+// flan_sqpv_inverse_scratch_bytes(C, N, B) bytes, 8-byte aligned (a
+// descriptor word is one 64-bit store and load), zeroed here on the stream;
+// out [C, N].
 int flan_sqpv_inverse(const float* mag, const float* pitch,
-                      const unsigned char* positive, const float* tw,
-                      float* tot, float* out, int channels, long long n,
+                      const unsigned char* positive, const unsigned* offset,
+                      void* scratch, float* out, int channels, long long n,
                       int nbins, double sample_rate, void* stream) {
   int k, threads;
   if (channels < 1 || n < 1 || nbins < 1 ||
-      !epilogue_shape(nbins, &k, &threads))
+      !epilogue_shape(nbins, &k, &threads) ||
+      reinterpret_cast<uintptr_t>(scratch) % sizeof(Word) != 0)
     return (int)cudaErrorInvalidValue;
+  const int frames = inv_tile_frames(nbins);
+  const long long tiles = inv_tiles(channels, n, nbins);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int ntiles = (int)((n + kTile - 1) / kTile);
-  const dim3 grid(ntiles, channels);
+  const cudaError_t zeroed = cudaMemsetAsync(
+      scratch, 0, flan_sqpv_inverse_scratch_bytes(channels, n, nbins), s);
+  if (zeroed != cudaSuccess) return (int)zeroed;
+  const int smem = inv_stage_bytes(frames, nbins);
   const float sr = (float)sample_rate;
-  sqpv_inv_tile_totals<<<grid, threads, 0, s>>>(pitch, positive, tot, n,
-                                                nbins, ntiles, sr);
-  launch_tile_prefix<SumMod1>(tot, tot, 1, channels, ntiles, nbins, s);
+  const int ntiles = (int)(tiles / channels);
+  cudaError_t allowed = cudaSuccess;
+  // the staged planes are more than the 48 KB a block may use without
+  // asking (asked on every call: the attribute belongs to the device)
 #define FLAN_INV(K)                                                         \
-  sqpv_inv_epilogue<K><<<grid, threads, 0, s>>>(mag, pitch, positive, tw,   \
-                                                tot, out, n, nbins, ntiles, \
-                                                sr)
+  allowed = cudaFuncSetAttribute(                                           \
+      sqpv_inv_one_pass<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,    \
+      smem);                                                                \
+  if (allowed == cudaSuccess)                                               \
+    sqpv_inv_one_pass<K><<<(unsigned)tiles, threads, smem, s>>>(            \
+        mag, pitch, positive, offset, static_cast<Word*>(scratch), out, n,  \
+        nbins, frames, ntiles, channels, sr)
   switch (k) {
     case 1: FLAN_INV(1); break;
     case 2: FLAN_INV(2); break;
@@ -584,6 +857,7 @@ int flan_sqpv_inverse(const float* mag, const float* pitch,
     default: FLAN_INV(8); break;
   }
 #undef FLAN_INV
+  if (allowed != cudaSuccess) return (int)allowed;
   return (int)cudaGetLastError();
 }
 

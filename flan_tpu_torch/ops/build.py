@@ -121,14 +121,20 @@ def load_library() -> ctypes.CDLL:
         if fn() != want:
             raise RuntimeError(f"{name}() is {fn()} in csrc, {want} in "
                                "ops/build.py")
-    # the scans size nothing on the host: elements per tile of a kind, tiles
-    # per look-back window (for tests at their boundaries), and the bytes of
-    # scratch one call needs: (kind, rows, n)
+    # the scans and the SQPV inverse size nothing on the host: elements per
+    # tile of a kind, tiles per look-back window (for tests at their
+    # boundaries), and the bytes of scratch one call needs: (kind, rows, n)
     lib.flan_scan_tile.argtypes = [_i]
     lib.flan_scan_tile.restype = ctypes.c_int
     lib.flan_scan_window_tiles.restype = ctypes.c_int
     lib.flan_scan_scratch_bytes.argtypes = [_i, _i, _ll]
     lib.flan_scan_scratch_bytes.restype = ctypes.c_longlong
+    # the SQPV inverse's scratch: (channels, frames, bins); its frames per
+    # tile: (bins)
+    lib.flan_sqpv_inverse_scratch_bytes.argtypes = [_i, _ll, _i]
+    lib.flan_sqpv_inverse_scratch_bytes.restype = ctypes.c_longlong
+    lib.flan_sqpv_inverse_tile_frames.argtypes = [_i]
+    lib.flan_sqpv_inverse_tile_frames.restype = ctypes.c_int
     return lib
 
 

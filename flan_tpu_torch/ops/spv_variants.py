@@ -2,7 +2,8 @@
 out.
 
     python -m flan_tpu_torch.ops.spv_variants [--source spv scan sqpv]
-                                              [--first-version CSRC_DIR]
+                                              [--first-version COMMIT CSRC_DIR]
+                                              [--variants NAME ...]
 
 Needs one CUDA card and nvcc. For each source named (all three by default:
 csrc/spv_kernels.cu, scan_kernels.cu, sqpv_kernels.cu) it copies the source
@@ -14,14 +15,16 @@ then per variant the device microseconds of every launch, from
 torch.profiler: one forward and one inverse call at the SPV bench shape
 (30 s mono 48 kHz, 512 bins); one call of each scan map on planes of the
 filter path's shapes at 600 s stereo 48 kHz (2x2: 4 planes shared by the
-channels; linear: a shared; max-affine: one row); one SQPV forward at its
-bench shape (10 s mono 48 kHz, 16-24000 Hz, 24 bins per octave). A variant
-computes something else than the kernel does: only its times mean anything.
+channels; linear: a shared; max-affine: one row); one SQPV forward and one
+inverse at their bench shape (10 s mono 48 kHz, 16-24000 Hz, 24 bins per
+octave; a variant named forward_* runs only the forward, inverse_* only the
+inverse, on the planes of the unchanged source). A variant computes
+something else than the kernel does: only its times mean anything.
 
 With --first-version the sources are read from CSRC_DIR instead, which must
-hold the version a redesign started from, and the variants written for that
-version are applied (ops/spv_variants_first.py, which names the commits):
-the diagnosis each redesign started from. A substitution whose text is not
+hold commit COMMIT's, and the variants written for that commit are applied
+(ops/spv_variants_first.py VERSIONS), for the sources it has sets for: the
+diagnosis each redesign started from. A substitution whose text is not
 found as often as expected (once, unless it says otherwise) fails: the
 variants follow the source they were written for.
 """
@@ -150,6 +153,25 @@ _SQPV_NO_STORES = [
      "        prev = phase;\n      }\n    }\n  }\n"
      "  if (sink == 123.456f) mp[0] = sink + (float)(sp - positive) + pp[0];"
      "\n}")]
+_B4_NO_SINCOS = [
+    ("cu", "  sincospif((float)(int)cycles * 4.656612873077392578125e-10f, "
+     "sn, cs);",
+     "  *sn = *cs = (float)(int)cycles * 4.656612873077392578125e-10f;")]
+
+
+def _look_back_first(cu: str) -> str:
+    """B4 with its look-back moved before the pass of sines and cosines."""
+    a = cu.index("  // mag cos and mag sin of the cycles within the tile")
+    b = cu.index("  // each bin's cycles before the tile: its prefix")
+    c = cu.index("  // cos(carry + local) = cos carry cos local")
+    return cu[:a] + cu[b:c] + cu[a:b] + cu[c:]
+
+
+_B4_NO_INCREMENT_MATH = [
+    ("cu", "  const float q = exp2f(p) / sample_rate;\n"
+     "  const unsigned u =\n"
+     "      (unsigned)__float2ll_rn((q - rintf(q)) * 4294967296.f);",
+     "  const unsigned u = __float_as_uint(p) + (unsigned)sample_rate;")]
 SQPV_VARIANTS = {
     "as_shipped": [],
     "forward_no_stores": _SQPV_NO_STORES,
@@ -204,7 +226,8 @@ SQPV_VARIANTS = {
                            "rintf(d / kTwoPi)")],
     "forward_fast_sqrt": [
         ("cu", "__stcs(mp + at, sqrtf(hre * hre + him * him));",
-         "__stcs(mp + at, sqrt_approx(hre * hre + him * him));")],
+         "{ float r_; asm(\"sqrt.approx.ftz.f32 %0, %1;\" : \"=f\"(r_) : "
+         "\"f\"(hre * hre + him * him)); __stcs(mp + at, r_); }")],
     "forward_ieee_math": [
         ("cu", "        const float phase = atan2_poly_fast(him, hre);",
          "        const float phase = atan2_poly(him, hre);"),
@@ -217,6 +240,26 @@ SQPV_VARIANTS = {
     "forward_constant_table_no_gathers_pass_through_no_stores": (
         _SQPV_CONSTANT_TABLE + _SQPV_NO_GATHERS + _SQPV_PASS_THROUGH
         + _SQPV_NO_STORES),
+    # B4, one pass: the staged bytes per block (tile frames: 64 KB holds 28
+    # frames of 254 bins, 3 blocks a multiprocessor), the look-back (none,
+    # or before the sines and cosines), the sines and cosines, the
+    # increments' math
+    **{f"inverse_stage_{kb}k": [
+        ("cu", "constexpr int kInvStageBytes = 64 * 1024;",
+         f"constexpr int kInvStageBytes = {kb} * 1024;")]
+       for kb in (32, 48, 96, 144)},
+    "inverse_no_look_back": [
+        ("cu", "      const int found = look_back_tiles(desc, tile, nbins);",
+         "      const int found = tile - 1;"),
+        ("cu", "      before = gather_prefix(desc + b, tile, found_sm, nbins);",
+         "      before = 0u * found_sm;")],
+    "inverse_gather_1": [("cu", "constexpr int kGather = 8;",
+                          "constexpr int kGather = 1;")],
+    "inverse_no_sincos": _B4_NO_SINCOS,
+    "inverse_no_increment_math": _B4_NO_INCREMENT_MATH,
+    "inverse_loads_only": _B4_NO_SINCOS + _B4_NO_INCREMENT_MATH,
+    # the look-back right after the increments, before the sines and cosines
+    "inverse_look_back_first": [("cu", _look_back_first)],
 }
 
 def apply_variant(texts: dict, edits) -> dict:
@@ -392,6 +435,27 @@ def bench_scan(libs: dict, first) -> None:
         report("scan", name, times)
 
 
+def sqpv_inverse_call(lib, planes, out, geo, stream):
+    """A call of this tree's SQPV inverse entry point on planes [1, N, B]."""
+    from flan_tpu_torch.ops import sqpv_kernels
+    _, n, nb = planes[0].shape
+    dev = planes[0].device
+    offsets = sqpv_kernels.inverse_offsets(
+        geo.sample_rate, SQPV_BPO, SQPV_BAND, dev)
+    lib.flan_sqpv_inverse_scratch_bytes.argtypes = [build._i, build._ll,
+                                                    build._i]
+    lib.flan_sqpv_inverse_scratch_bytes.restype = ctypes.c_longlong
+    scratch = torch.empty(lib.flan_sqpv_inverse_scratch_bytes(1, n, nb) // 8,
+                          dtype=torch.int64, device=dev)
+
+    def call():
+        build.raise_on(lib.flan_sqpv_inverse(
+            *(t.data_ptr() for t in planes), offsets.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), 1, n, nb,
+            float(geo.sample_rate), stream), "sqpv_inverse")
+    return call
+
+
 def bench_sqpv(libs: dict, first) -> None:
     from flan_tpu_torch.ops import sqpv_kernels
     from flan_tpu_torch.sqpv.transform import cq_geometry
@@ -409,12 +473,16 @@ def bench_sqpv(libs: dict, first) -> None:
     mag = torch.empty((1, n, max(nb, 256)), device=dev)
     pitch = torch.empty_like(mag)
     positive = torch.empty(mag.shape, dtype=torch.bool, device=dev)
+    out = torch.empty((1, n), device=dev)
     stream = torch.cuda.current_stream().cuda_stream
-    if first:
+    if first and first.sqpv_forward_consts:
         consts, tot = first.sqpv_forward_consts(geo, n, dev)
     else:
         consts = sqpv_kernels.forward_consts(SR, SQPV_BPO, SQPV_BAND, dev)
         tot = sqpv_kernels.forward_scratch(1, n, geo, dev)
+    inverse_call = (first.sqpv_inverse_call if first and
+                    first.sqpv_inverse_call else sqpv_inverse_call)
+    planes = None
     for name, lib in libs.items():
         def forward():
             build.raise_on(lib.flan_sqpv_forward(
@@ -422,7 +490,18 @@ def bench_sqpv(libs: dict, first) -> None:
                 mag.data_ptr(), pitch.data_ptr(), positive.data_ptr(), 1, n,
                 nb, w0, float(fr), float(fi), float(SR), stream), name)
 
-        report("sqpv", name, {"forward": launch_times(forward)})
+        if planes is None:      # the unchanged source's planes feed inverses
+            forward()
+            torch.cuda.synchronize()
+            planes = tuple(p.flatten()[:n * nb].view(1, n, nb).clone()
+                           for p in (mag, pitch, positive))
+        times = {}
+        if not name.startswith("inverse"):
+            times["forward"] = launch_times(forward)
+        if not name.startswith("forward"):
+            times["inverse"] = launch_times(
+                inverse_call(lib, planes, out, geo, stream))
+        report("sqpv", name, times)
 
 
 SOURCES = {
@@ -435,24 +514,33 @@ SOURCES = {
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--source", nargs="+", choices=sorted(SOURCES),
-                        default=sorted(SOURCES))
-    parser.add_argument("--first-version", type=Path, default=None,
-                        metavar="CSRC_DIR")
+                        default=None)
+    parser.add_argument("--first-version", nargs=2, default=None,
+                        metavar=("COMMIT", "CSRC_DIR"))
+    parser.add_argument("--variants", nargs="+", default=None,
+                        metavar="NAME", help="only these (and as_shipped)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("spv_variants: needs a CUDA card")
-    first = None    # the module of the first versions' sets, if asked for
+    first = None    # the first version's sets and hooks, if asked for
+    csrc = build.CSRC
     if args.first_version is not None:
-        from flan_tpu_torch.ops import spv_variants_first as first
+        from flan_tpu_torch.ops import spv_variants_first
+        first = spv_variants_first.VERSIONS[args.first_version[0]]
+        csrc = Path(args.first_version[1])
+    sources = args.source or sorted(first.variants if first else SOURCES)
     print("card:", subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip(), flush=True)
-    for source in args.source:
+    for source in sources:
         variants, bench = SOURCES[source]
+        variants = first.variants[source] if first else variants
+        if args.variants:
+            variants = {name: edits for name, edits in variants.items()
+                        if name == "as_shipped" or name in args.variants}
         libs = build_variants(
-            args.first_version if first else build.CSRC, source,
-            first.VARIANTS[source] if first else variants,
-            {**build.SIGNATURES, **(first.SIGNATURES if first else {})})
+            csrc, source, variants,
+            {**build.SIGNATURES, **(first.signatures if first else {})})
         bench(libs, first)
 
 

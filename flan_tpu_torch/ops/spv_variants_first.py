@@ -1,15 +1,21 @@
 """Substitution sets for the kernel sources that a redesign started from.
 
-ops/spv_variants.py --first-version CSRC_DIR applies these instead of its
-own: they fit csrc/spv_kernels.cu of commit 9089281 (before B1 and B2 were
-redesigned) and csrc/scan_kernels.cu and csrc/sqpv_kernels.cu of commit
-9ad48d3 (the scan in three launches with blocks numbered row-major; B3 as
-tile totals, a sequential carry and an epilogue that read every table entry
-from L2), and no later source: `git archive COMMIT flan_tpu_torch/csrc | tar
--x -C build/first` brings those back. Beside the sets stand the entry
-points, scratch and constants of those sources where today's differ.
+ops/spv_variants.py --first-version COMMIT CSRC_DIR applies the sets of
+VERSIONS[COMMIT] instead of its own. They fit these sources and no later
+one: csrc/spv_kernels.cu of commit 9089281 (before B1 and B2 were
+redesigned); csrc/scan_kernels.cu and csrc/sqpv_kernels.cu of commit 9ad48d3
+(the scan in three launches with blocks numbered row-major; B3 as tile
+totals, a sequential carry and an epilogue that read every table entry from
+L2); csrc/sqpv_kernels.cu of commit 91765eb (B4 as tile totals of float32
+mod-1 cycles, a prefix over tiles and an epilogue with sincosf and a
+reduction across the block every frame). `git archive COMMIT
+flan_tpu_torch/csrc | tar -x -C build/first` brings a source back. Beside
+the sets stand the entry points, scratch and constants of those sources
+where today's differ.
 """
 from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -203,14 +209,60 @@ SQPV_FIRST_VARIANTS = {
              "      sink += hre * hre + him * him + f;\n")]),
 }
 
+# ---- B4 as it stood before its redesign (commit 91765eb): float32 cycles
+# reduced by fmodf, a tile-totals launch that reads pitch and sign a second
+# time, sincosf, a warp reduction every frame
+_B4_INCREMENT = ("  const float f = exp2f(p);\n"
+                 "  return mod1((pos ? f : -f) / sample_rate);")
+_B4_EPILOGUE_SUM = """        run[k] = mod1(run[k] +
+                      cycle_increment(pitch[at], positive[at], sample_rate));
+        const float cycles = mod1(run[k] + cyc0[k]);
+        float sn, cs;
+        sincosf(cycles * kTwoPi, &sn, &cs);
+        acc += mag[at] * (cs * twr[k] - sn * twi[k]);"""
+_B4_NO_TOTALS = [
+    ("cu", "  sqpv_inv_tile_totals<<<grid, threads, 0, s>>>(pitch, positive, "
+     "tot, n,\n                                                nbins, "
+     "ntiles, sr);\n", "")]
+_B4_NO_SINCOS = [("cu", "        sincosf(cycles * kTwoPi, &sn, &cs);",
+                  "        sn = cycles;\n        cs = cycles * kTwoPi;")]
+_B4_LOADS_ONLY = [
+    ("cu", _B4_INCREMENT, "  return p + (float)pos + 0.f * sample_rate;"),
+    ("cu", "      s = mod1(s + cycle_increment(pitch[at], positive[at], "
+     "sample_rate));",
+     "      s += cycle_increment(pitch[at], positive[at], sample_rate);"),
+    ("cu", _B4_EPILOGUE_SUM,
+     "        acc += mag[at] + cycle_increment(pitch[at], positive[at], "
+     "sample_rate);")]
+SQPV_INVERSE_FIRST_VARIANTS = {
+    "as_shipped": [],
+    "inverse_no_totals": _B4_NO_TOTALS,
+    "inverse_no_fmod": _FIRST_FLOOR_MOD,
+    "inverse_no_sincos": _B4_NO_SINCOS,
+    "inverse_no_reduction": _FIRST_NO_SHUFFLES,
+    "inverse_loads_only": _B4_LOADS_ONLY + _FIRST_NO_SHUFFLES,
+    "inverse_no_division": [
+        ("cu", "  return mod1((pos ? f : -f) / sample_rate);",
+         "  return mod1((pos ? f : -f) * (1.f / sample_rate));")],
+    "inverse_no_exp2": [("cu", "  const float f = exp2f(p);",
+                         "  const float f = p;")],
+    "inverse_no_totals_no_fmod_no_sincos": (_B4_NO_TOTALS + _FIRST_FLOOR_MOD
+                                            + _B4_NO_SINCOS),
+    "inverse_no_totals_loads_only": (_B4_NO_TOTALS + _B4_LOADS_ONLY
+                                     + _FIRST_NO_SHUFFLES),
+}
+
 _p, _i, _ll, _d, _f, _lla = (build._p, build._i, build._ll, build._d,
                              build._f, build._lla)
 # the entry points of commit 9ad48d3, where they differ from ops/build.py's
-SIGNATURES = {
+SIGNATURES_9AD48D3 = {
     "flan_scan": [_i, _lla, _lla, _lla, _p, _p, _p, _i, _ll, _p],
     "flan_sqpv_forward": [_p, _p, _p, _p, _p, _p, _p, _p, _i, _ll, _i, _i,
                           _f, _f, _d, _p],
 }
+# the SQPV inverse of commits 9ad48d3 and 91765eb: mag, pitch, positive, the
+# twiddle [2, B], the tile-totals scratch, out, C, N, B, sr, stream
+_SQPV_INVERSE_FIRST = [_p, _p, _p, _p, _p, _p, _i, _ll, _i, _d, _p]
 
 
 def scan_scratch(lib, kind: int, rows: int, n: int, nplanes: int,
@@ -240,5 +292,43 @@ def sqpv_forward_consts(geo, frames: int, dev) -> tuple:
             torch.empty((1, ntiles, 6, geo.nbins), device=dev))
 
 
-VARIANTS = {"spv": SPV_FIRST_VARIANTS, "scan": SCAN_FIRST_VARIANTS,
-            "sqpv": SQPV_FIRST_VARIANTS}
+def sqpv_inverse_call(lib, planes, out, geo, stream):
+    """A call of the SQPV inverse of commits 9ad48d3 and 91765eb on planes
+    [1, N, B]: the float32 twiddle [2, B] and a tile-totals scratch."""
+    _, n, nb = planes[0].shape
+    dev = planes[0].device
+    tw = geo.synthesis_twiddle
+    tw = torch.from_numpy(np.stack([tw.real, tw.imag]).astype(
+        np.float32)).to(dev)
+    tot = build.tile_scratch(1, n, nb, dev)
+
+    def call():
+        build.raise_on(lib.flan_sqpv_inverse(
+            *(t.data_ptr() for t in planes), tw.data_ptr(), tot.data_ptr(),
+            out.data_ptr(), 1, n, nb, float(geo.sample_rate), stream),
+            "sqpv_inverse")
+    return call
+
+
+class Version(NamedTuple):
+    """The substitution sets of one commit's sources (source -> variant ->
+    edits), its entry points where they differ from ops/build.py's, and the
+    hooks that build its arguments where they differ from today's."""
+    variants: dict
+    signatures: dict = {}
+    scan_scratch: Optional[Callable] = None
+    sqpv_forward_consts: Optional[Callable] = None
+    sqpv_inverse_call: Optional[Callable] = None
+
+
+VERSIONS = {
+    "9089281": Version({"spv": SPV_FIRST_VARIANTS}),
+    "9ad48d3": Version({"scan": SCAN_FIRST_VARIANTS,
+                        "sqpv": SQPV_FIRST_VARIANTS},
+                       {**SIGNATURES_9AD48D3,
+                        "flan_sqpv_inverse": _SQPV_INVERSE_FIRST},
+                       scan_scratch, sqpv_forward_consts, sqpv_inverse_call),
+    "91765eb": Version({"sqpv": SQPV_INVERSE_FIRST_VARIANTS},
+                       {"flan_sqpv_inverse": _SQPV_INVERSE_FIRST},
+                       sqpv_inverse_call=sqpv_inverse_call),
+}

@@ -16,10 +16,13 @@ kernel and has a plain PyTorch version beside it:
 
 Both kernels are memory-bound: the forward writes mag and pitch (float32)
 and positive (bool) planes [C, N, B], 9 bytes an element; the inverse
-reads as many. The design is described in the CUDA source. The TPU path's
-bin padding to 128, tile batching, prefix modes and staging split existed
-for Mosaic and are not carried over: the kernels take 1 <= B <= 2048, any
-N, and read x directly instead of a staged comb plane.
+reads as many, once. The design is described in the CUDA source; the
+inverse kernel's cycles are 32-bit fixed point and its twiddle is folded
+into each bin's starting cycles (inverse_offsets), so its roundings differ
+from the plain version's: tests/test_torch_sqpv.py emulates them. The TPU
+path's bin padding to 128, tile batching, prefix modes and staging split
+existed for Mosaic and are not carried over: the kernels take 1 <= B <=
+2048, any N, and read x directly instead of a staged comb plane.
 
 The public transforms (sqpv/transform.py) dispatch by device: a CPU
 tensor goes to the plain version, a CUDA tensor to the kernel or the call
@@ -34,8 +37,7 @@ import numpy as np
 import torch
 
 from flan_tpu_torch.ops.build import (MAX_BINS, SQPV_CARRY_CHUNK, TILE_FRAMES,
-                                      check_cuda, load_library, raise_on,
-                                      tile_scratch)
+                                      check_cuda, load_library, raise_on)
 from flan_tpu_torch.ops.fastmath import atan2 as _fast_atan2
 from flan_tpu_torch.ops.spv_kernels import cumsum_blocked
 from flan_tpu_torch.ops.stft import (_wrap_radians, cpu_exact,
@@ -215,13 +217,31 @@ def forward_scratch(channels: int, frames: int, geo, device) -> torch.Tensor:
                        dtype=torch.float32, device=device)
 
 
+INVERSE_STAGE_BYTES = 64 * 1024   # kInvStageBytes of csrc/sqpv_kernels.cu
+
+
+def inverse_tile_frames(nbins: int) -> int:
+    """Frames per tile of the inverse kernel for nbins bins, as
+    flan_sqpv_inverse_tile_frames computes them: a multiple of 4 whose 9
+    bytes a frame-bin fit INVERSE_STAGE_BYTES, from 4 to 128."""
+    return min(max(INVERSE_STAGE_BYTES // (9 * nbins) // 4 * 4, 4), 128)
+
+
+def inverse_offsets_np(geo) -> np.ndarray:
+    """Each bin's synthesis twiddle e^{2 pi i Q / N_b} as the inverse kernel
+    takes it: the angle Q / N_b in cycles, as 32-bit fixed point (rounded to
+    2^-32 cycles in float64), the bin's starting cycles. uint32 [B]."""
+    cycles = np.mod(geo.q / geo.periods.astype(np.float64), 1.0)
+    return (np.round(cycles * 2.0 ** 32).astype(np.int64)
+            % 2 ** 32).astype(np.uint32)
+
+
 @functools.lru_cache(maxsize=8)
-def _synthesis_twiddle(sample_rate, bins_per_octave, bandwidth,
-                       device: torch.device) -> torch.Tensor:
-    """The inverse's twiddle [2, B] (re, im) on `device`, float32."""
-    tw = cq_geometry(sample_rate, bins_per_octave, bandwidth).synthesis_twiddle
-    return torch.from_numpy(np.stack([tw.real, tw.imag]).astype(
-        np.float32)).to(device)
+def inverse_offsets(sample_rate, bins_per_octave, bandwidth,
+                    device: torch.device) -> torch.Tensor:
+    """inverse_offsets_np on `device`, its bits as int32 [B]."""
+    geo = cq_geometry(sample_rate, bins_per_octave, bandwidth)
+    return torch.from_numpy(inverse_offsets_np(geo).view(np.int32)).to(device)
 
 
 def _check_geometry(geo) -> None:
@@ -276,13 +296,15 @@ def sqpv_inverse_cuda(mag: torch.Tensor, pitch: torch.Tensor,
         raise ValueError(f"planes have {nb} bins, the geometry {geo.nbins}")
     lib = load_library()
     with torch.cuda.device(mag.device):
-        tw = _synthesis_twiddle(sample_rate, bins_per_octave, bandwidth,
-                                mag.device)
+        offsets = inverse_offsets(sample_rate, bins_per_octave, bandwidth,
+                                  mag.device)
         out = torch.empty((c, n), dtype=torch.float32, device=mag.device)
-        tot = tile_scratch(c, n, nb, mag.device)
+        # the ticket counter and the look-back's descriptors, 8-byte words
+        scratch = torch.empty(lib.flan_sqpv_inverse_scratch_bytes(c, n, nb)
+                              // 8, dtype=torch.int64, device=mag.device)
         err = lib.flan_sqpv_inverse(
             mag.data_ptr(), pitch.data_ptr(), positive.data_ptr(),
-            tw.data_ptr(), tot.data_ptr(), out.data_ptr(), c, n, nb,
+            offsets.data_ptr(), scratch.data_ptr(), out.data_ptr(), c, n, nb,
             float(sample_rate), torch.cuda.current_stream().cuda_stream)
     raise_on(err, "sqpv_inverse")
     LAUNCHES["sqpv_inverse"] += 1

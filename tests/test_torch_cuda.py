@@ -225,7 +225,9 @@ def _sqpv_checks(x, sr, bpo, band, tol_mag=2e-5, tol_inv=2e-4):
     (8000.0, 6.0, (100.0, 3000.0), 1, 16000),
     (8000.0, 12.0, (100.0, 3000.0), 2, 12345),
     (48000.0, 24.0, (16.0, 24000.0), 1, 96000),
-    (48000.0, 12.0, (16.0, 24000.0), 2, 50001)])
+    (48000.0, 12.0, (16.0, 24000.0), 2, 50001),
+    # 507 bins: tiles of 12 frames, two bins a thread in the inverse
+    (48000.0, 48.0, (16.0, 24000.0), 1, 30000)])
 def test_sqpv_kernels_match_plain(cuda_device, sr, bpo, band, ch, n):
     x = torch.from_numpy(_signal(n, ch)).to(cuda_device)
     _sqpv_checks(x, sr, bpo, band)
@@ -258,6 +260,119 @@ def test_sqpv_forward_gives_the_same_bits_every_call(cuda_device):
         again = sqpv_forward(x, *args)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+BENCH_SQPV = (SR, 24.0, (16.0, 24000.0))   # 254 bins
+
+
+def _random_planes(ch, n, device, seed=3, nbins=254):
+    """SQPV planes of random magnitudes, pitches of 16 Hz to 24 kHz and
+    signs, made on the card from a seed."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = (ch, n, nbins)
+    mag = torch.rand(shape, device=device, generator=gen)
+    pitch = torch.empty(shape, device=device).uniform_(4.0, 14.55,
+                                                       generator=gen)
+    positive = torch.rand(shape, device=device, generator=gen) < 0.7
+    return mag, pitch, positive
+
+
+@pytest.mark.cuda
+def test_sqpv_inverse_is_as_accurate_as_the_plain_version(cuda_device):
+    """B4's error against a float64 plain run on the same planes is at most
+    the float32 plain run's: its cycles are 32-bit fixed point (exact sums)
+    where the plain version's are float64 sums of float32 increments cast
+    back to float32. Both float32 runs decode each frame's increment with
+    float32 exp2 and division, whose rounding integrates over the frames and
+    sets most of both errors (1.6518e-4 and 1.6516e-4 of a 0.493 peak at
+    these 2 s, H100); what is left differs by the order of the sum over
+    bins, so the kernel's may exceed the plain run's by 1e-6 of the peak."""
+    x = torch.from_numpy(_signal(96000, 1)).to(cuda_device)
+    planes = sqpv_kernels.sqpv_forward_ref(x, *BENCH_SQPV)
+    out = sqpv_inverse(*planes, *BENCH_SQPV)
+    y32 = sqpv_kernels.sqpv_inverse_ref(*planes, *BENCH_SQPV)
+    y64 = sqpv_kernels.sqpv_inverse_ref(planes[0].double(),
+                                        planes[1].double(), planes[2],
+                                        *BENCH_SQPV)
+    torch.cuda.synchronize()
+    err_k = float((out.double() - y64).abs().max())
+    err_p = float((y32.double() - y64).abs().max())
+    peak = float(y64.abs().max())
+    print(f"from float64: kernel {err_k:.5g}, plain {err_p:.5g}, peak "
+          f"{peak:.3g}")
+    assert err_k <= err_p + 1e-6 * peak
+
+
+@pytest.mark.cuda
+def test_sqpv_inverse_gives_the_same_bits_every_call(cuda_device):
+    """Stereo at 10 s of 48 kHz, 254 bins: 34,286 tiles whose blocks wait
+    on each other in the look-back, in whatever order they run; the sums
+    over tiles are exact and the sum over bins runs in a fixed order, so
+    three calls agree bit for bit."""
+    planes = _random_planes(2, 480000, cuda_device)
+    first = sqpv_inverse(*planes, *BENCH_SQPV)
+    for _ in range(2):
+        again = sqpv_inverse(*planes, *BENCH_SQPV)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
+    assert bool(torch.isfinite(first).all())
+
+
+@pytest.mark.cuda
+def test_sqpv_inverse_takes_unaligned_planes(cuda_device):
+    """Planes that start 1 element past a 16-byte boundary (4 bytes for the
+    floats, 1 for the signs) stage through the same shared memory shifted:
+    the same bits as aligned planes."""
+    planes = _random_planes(2, 3001, cuda_device, nbins=59)
+    band = (100.0, 3000.0)
+    shifted = []
+    for p in planes:
+        flat = torch.empty(p.numel() + 1, dtype=p.dtype, device=cuda_device)
+        view = flat[1:].view_as(p)
+        view.copy_(p)
+        shifted.append(view)
+    assert all(v.data_ptr() % 16 != 0 for v in shifted)
+    want = sqpv_inverse(*planes, 8000.0, 12.0, band)
+    got = sqpv_inverse(*shifted, 8000.0, 12.0, band)
+    ref = sqpv_kernels.sqpv_inverse_ref(*planes, 8000.0, 12.0, band)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert (got - ref).abs().max() <= 2e-4 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_sqpv_inverse_refuses_a_misaligned_scratch(cuda_device):
+    """A descriptor word of the look-back is one 64-bit store and load, so
+    flan_sqpv_inverse refuses a scratch that is not 8-byte aligned
+    (cudaErrorInvalidValue) and launches nothing."""
+    lib = build.load_library()
+    mag, pitch, positive = _random_planes(1, 1000, cuda_device)
+    offsets = sqpv_kernels.inverse_offsets(*BENCH_SQPV, cuda_device)
+    nbytes = lib.flan_sqpv_inverse_scratch_bytes(1, 1000, 254)
+    assert nbytes > 8
+    scratch = torch.zeros(nbytes // 8 + 1, dtype=torch.int64,
+                          device=cuda_device)
+    out = torch.zeros((1, 1000), device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (mag.data_ptr(), pitch.data_ptr(), positive.data_ptr(),
+            offsets.data_ptr())
+    tail = (out.data_ptr(), 1, 1000, 254, SR, stream)
+    assert lib.flan_sqpv_inverse(*args, scratch.data_ptr() + 4, *tail) == 1
+    torch.cuda.synchronize()
+    assert not bool((out != 0).any())
+    assert lib.flan_sqpv_inverse(*args, scratch.data_ptr() + 8, *tail) == 0
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all()) and bool((out != 0).any())
+
+
+@pytest.mark.cuda
+def test_sqpv_inverse_tile_frames_match_the_library(cuda_device):
+    """ops/sqpv_kernels.py's mirror of the kernel's frames per tile, which
+    the CPU emulation of tests/test_torch_sqpv.py tiles by."""
+    lib = build.load_library()
+    for nbins in (1, 24, 59, 254, 339, 507, 1024, 2048):
+        assert lib.flan_sqpv_inverse_tile_frames(nbins) == \
+            sqpv_kernels.inverse_tile_frames(nbins)
 
 
 @pytest.mark.cuda

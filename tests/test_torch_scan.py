@@ -504,21 +504,30 @@ def test_variants_fit_the_kernel_sources():
 
 def test_first_version_variants_are_well_formed():
     """The sets kept for the sources a redesign started from
-    (ops/spv_variants_first.py) fit no source of this tree, so only their
-    form is checked here: every edit is (file, old, new[, count]) or
-    (file, function) on "cu" or "cuh", and each source has its set."""
+    (ops/spv_variants_first.py VERSIONS, by commit) fit no source of this
+    tree, so only their form is checked here: every edit is (file, old,
+    new[, count]) or (file, function) on "cu" or "cuh", every set names a
+    source of the tool and has its as_shipped, and every source has one."""
     from flan_tpu_torch.ops import spv_variants, spv_variants_first
-    assert set(spv_variants_first.VARIANTS) == set(spv_variants.SOURCES)
-    for variants in spv_variants_first.VARIANTS.values():
-        assert variants["as_shipped"] == []
-        for edits in variants.values():
-            for which, old, *rest in edits:
-                assert which in ("cu", "cuh")
-                if callable(old):
-                    assert not rest
-                else:
-                    assert isinstance(old, str) and isinstance(rest[0], str)
-                    assert len(rest) == 1 or isinstance(rest[1], int)
+    versions = spv_variants_first.VERSIONS
+    assert set(versions) == {"9089281", "9ad48d3", "91765eb"}
+    assert {src for v in versions.values() for src in v.variants} == set(
+        spv_variants.SOURCES)
+    for version in versions.values():
+        for source, variants in version.variants.items():
+            assert source in spv_variants.SOURCES
+            assert variants["as_shipped"] == []
+            for edits in variants.values():
+                for which, old, *rest in edits:
+                    assert which in ("cu", "cuh")
+                    if callable(old):
+                        assert not rest
+                    else:
+                        assert isinstance(old, str) and isinstance(rest[0],
+                                                                   str)
+                        assert len(rest) == 1 or isinstance(rest[1], int)
+    # the SQPV inverse of 91765eb is timed with its own entry point
+    assert versions["91765eb"].sqpv_inverse_call is not None
     texts = {"cu": "a b a", "cuh": ""}
     assert spv_variants.apply_variant(
         texts, [("cu", "a", "c", 2), ("cu", str.upper)])["cu"] == "C B C"

@@ -9,6 +9,7 @@ kernels to the plain versions on the card. Inputs are made with numpy from
 a seed and handed to both packages; every tolerance names the reading it
 was set from (CPU).
 """
+import math
 import os
 import subprocess
 import sys
@@ -29,6 +30,7 @@ from flan_tpu_torch import SQPV, Audio
 from flan_tpu_torch.convert import (audio_from_numpy, spv_from_numpy,
                                     sqpv_from_numpy)
 from flan_tpu_torch.ops import build, sqpv_kernels
+from flan_tpu_torch.ops.stft import true_div
 from flan_tpu_torch.sqpv.transform import _cq_params, cq_geometry
 
 SR = 8000.0
@@ -551,3 +553,139 @@ def test_chunked_carry_is_the_sequential_carry(sr, bpo, band, tiles):
     err_chunked = float((got32.to(torch.complex128) - want).abs().max())
     err_seq = float((seq32.to(torch.complex128) - want).abs().max())
     assert err_chunked <= 2.0 * err_seq + 1e-6 * peak
+
+
+# ------------------------------------ the arithmetic of the redesigned B4
+
+def increments_fixed(pitch: torch.Tensor, positive: torch.Tensor,
+                     sample_rate: float) -> torch.Tensor:
+    """The inverse kernel's cycle increments (csrc/sqpv_kernels.cu
+    cycle_increment): q = 2^pitch / sr in float32 (true division), q -
+    round(q) (exact, in [-0.5, 0.5]), times 2^32, rounded half to even into
+    an integer modulo 2^32 (half a cycle is 2^31), negated modulo 2^32
+    where the sign is negative. int64 holding the u32 values."""
+    q = true_div(torch.exp2(pitch.to(torch.float32)), sample_rate)
+    r = (q - torch.round(q)).double() * 2.0 ** 32
+    u = torch.round(r).to(torch.int64) % 2 ** 32
+    return torch.where(positive, u, (-u) % 2 ** 32)
+
+
+def _sincos_half_turns(cycles: torch.Tensor):
+    """(sin, cos) of 2 pi cycles / 2^32 as the kernel takes them: the u32
+    cycles as a signed fraction of a half turn rounded to float32, then
+    sincospif, here correctly rounded (the card's is within 1 ulp)."""
+    signed = (cycles + 2 ** 31) % 2 ** 32 - 2 ** 31
+    half = (signed.to(torch.float32) * 2.0 ** -31).double() * math.pi
+    return torch.sin(half).float(), torch.cos(half).float()
+
+
+def sqpv_inverse_emulated(mag, pitch, positive, sample_rate, bins_per_octave,
+                          bandwidth) -> torch.Tensor:
+    """The inverse kernel's arithmetic in PyTorch, float32 out, for the CPU
+    tests: fixed-point increments summed modulo 2^32 (exact in any order),
+    the twiddle folded into each bin's starting cycles, and per tile of
+    sqpv_kernels.inverse_tile_frames(B) frames mag cos and mag sin of the
+    cycles within the tile, combined with the cosine and sine of the cycles
+    before it: cos(before + local) = cos before cos local - sin before sin
+    local, summed over the bins."""
+    geo = cq_geometry(sample_rate, bins_per_octave, bandwidth)
+    c, n, b = mag.shape
+    frames = sqpv_kernels.inverse_tile_frames(b)
+    whole = torch.cumsum(increments_fixed(pitch, positive, sample_rate), 1)
+    start = torch.arange(n) // frames * frames
+    before = torch.cat([torch.zeros((c, 1, b), dtype=torch.int64), whole],
+                       1)[:, start]
+    offset = torch.from_numpy(
+        sqpv_kernels.inverse_offsets_np(geo).astype(np.int64))
+    s_in, c_in = _sincos_half_turns((whole - before) % 2 ** 32)
+    s_be, c_be = _sincos_half_turns((before + offset) % 2 ** 32)
+    m = mag.to(torch.float32)
+    return torch.sum(c_be * (m * c_in) - s_be * (m * s_in), dim=-1)
+
+
+def test_inverse_tile_frames():
+    """Frames per tile of the inverse: a multiple of 4 whose 9 bytes a
+    frame-bin fit 64 KB, from 4 to 128 (the card test holds the library to
+    the same numbers)."""
+    assert [sqpv_kernels.inverse_tile_frames(b) for b in
+            (1, 59, 254, 507, 2048)] == [128, 120, 28, 12, 4]
+
+
+@pytest.mark.parametrize("sr,bpo,band", _GEOMETRIES)
+def test_inverse_offsets_are_the_synthesis_twiddle(sr, bpo, band):
+    """Each bin's starting cycles, 32-bit fixed point, are the angle of its
+    synthesis twiddle e^{2 pi i Q / N_b} to 2^-33 cycles."""
+    geo = cq_geometry(sr, bpo, band)
+    off = sqpv_kernels.inverse_offsets_np(geo).astype(np.float64)
+    got = np.exp(2j * np.pi * off / 2.0 ** 32)
+    assert off.dtype == np.float64 and got.shape == (geo.nbins,)
+    assert np.abs(got - geo.synthesis_twiddle).max() < 2 * np.pi * 2.0 ** -32
+
+
+def test_fixed_point_increments_of_signed_frequencies():
+    """+-2^p at sr 8192, where every q is exact: a quarter cycle, half a
+    cycle (2^31 for either sign, not saturated), whole cycles (0), a tiny
+    one, and their negatives (the two's complement, modulo 2^32)."""
+    pitch = torch.tensor([[[11.0, 12.0, 14.0, -10.0, 12.5]]])
+    pos = torch.ones_like(pitch, dtype=torch.bool)
+    up = increments_fixed(pitch, pos, 8192.0)[0, 0].tolist()
+    down = increments_fixed(pitch, ~pos, 8192.0)[0, 0].tolist()
+    q = 2.0 ** 12.5 / 8192.0
+    q32 = float(np.float32(np.float32(2.0 ** 12.5) / np.float32(8192.0)))
+    want = round((q32 - round(q32)) * 2.0 ** 32) % 2 ** 32
+    assert abs(q32 - q) < 1e-6
+    assert up == [2 ** 30, 2 ** 31, 0, 2 ** 9, want]
+    assert down == [3 * 2 ** 30, 2 ** 31, 0, 2 ** 32 - 2 ** 9,
+                    (2 ** 32 - want) % 2 ** 32]
+
+
+@pytest.mark.parametrize("frames", [4, 12, 28, 128, 1000])
+def test_fixed_point_sums_associate_exactly(frames):
+    """Tile totals chained by a prefix over tiles give every frame's cycles
+    bit for bit as the whole running sum does, whatever the tile: what lets
+    the kernel's look-back add whichever tiles are ready."""
+    rng = np.random.default_rng(frames)
+    pitch = torch.from_numpy(rng.uniform(4.0, 14.5, (2, 3001, 7)).astype(
+        np.float32))
+    pos = torch.from_numpy(rng.random((2, 3001, 7)) < 0.6)
+    inc = increments_fixed(pitch, pos, 48000.0)
+    whole = torch.cumsum(inc, 1) % 2 ** 32
+    chained, carry = [], torch.zeros((2, 1, 7), dtype=torch.int64)
+    for t0 in range(0, 3001, frames):
+        part = inc[:, t0:t0 + frames]
+        chained.append((carry + torch.cumsum(part, 1)) % 2 ** 32)
+        carry = (carry + part.sum(1, keepdim=True)) % 2 ** 32
+    assert torch.equal(torch.cat(chained, 1), whole)
+
+
+@pytest.mark.parametrize("planes_from", ["port", "jax"])
+def test_inverse_emulation_matches_plain_and_flan_tpu(forward_case,
+                                                     planes_from):
+    """The redesigned inverse kernel's arithmetic against the plain version
+    and flan_tpu's inverse on the same planes, and against a float64 plain
+    run: no further from it than the float32 plain run. Readings, as shares
+    of the peak: 3.3e-7 to 3.6e-7 from the plain version (bound 1e-5, the
+    SPV emulation's), 3.3e-5 to 9.0e-5 from flan_tpu, whose mod-1 cycle
+    sums are float32 blocks (bound 2e-4, test_inverse_ref_matches_jax's);
+    from float64 1.9e-6 to 3.1e-6, the plain run 1.9e-6 to 3.1e-6."""
+    _, scan, _, ours = forward_case
+    planes = [torch.from_numpy(a) for a in
+              (ours if planes_from == "port" else scan)]
+    got = sqpv_inverse_emulated(*planes, SR, BPO, BAND)
+    plain = sqpv_kernels.sqpv_inverse_ref(*planes, SR, BPO, BAND)
+    p64 = sqpv_kernels.sqpv_inverse_ref(planes[0].double(),
+                                        planes[1].double(), planes[2], SR,
+                                        BPO, BAND)
+    want = torch.from_numpy(_np(jax_sqpv_inverse(
+        *(jnp.asarray(a.numpy()) for a in planes), SR, BPO, BAND)))
+    peak = float(p64.abs().max())
+    err_plain = float((got - plain).abs().max()) / peak
+    err_jax = float((got - want).abs().max()) / peak
+    err_k64 = float((got.double() - p64).abs().max()) / peak
+    err_p64 = float((plain.double() - p64).abs().max()) / peak
+    print(f"{planes_from}: plain {err_plain:.3g}, jax {err_jax:.3g}, "
+          f"from float64 emulation {err_k64:.3g} plain {err_p64:.3g}")
+    assert got.shape == plain.shape and got.dtype == torch.float32
+    assert err_plain < 1e-5
+    assert err_jax < 2e-4
+    assert err_k64 <= err_p64
