@@ -54,11 +54,21 @@ then --package build/parent). Phases:
      twice the float32 plain run's, and three calls to give the same bits;
      run the path at 10 s on the card and
      on the CPU and compare; time each scan kernel and the probe against
-     their plain versions.
+     their plain versions;
+  7. drive the streamed pipelines at headline size: the 2x stretch of
+     phase 3's signal from a host array (twice), held against phase 3's
+     class-path output, its length, tones and peak device memory (gated
+     at the design's bound); the chunk-size sweep; kernel time per stage
+     of the chunk loop and launches per chunk (torch.profiler); the 1.5x
+     repitch (tones at 1.5 (f + bin width)) and a morph at 600 s, both
+     held to their class forms at 60 s; then resonate and perturb on a
+     60 s stereo PV: their scans' launches, each scan call against the
+     float64 plain run and for the same bits, the methods on the card
+     against the CPU at 2 s, the scans timed in this regime.
 
 The launch counters are zeroed just before each main path (phases 3 and 4
-together, then phase 5, then phase 6) and read just after it, before any
-launch made for a comparison; the probe's counter runs over all of them
+together, then phase 5, then phase 6, then resonate and perturb in phase
+7) and read just after it, before any launch made for a comparison; the probe's counter runs over all of them
 (it lies on no path). Every failed check raises, so the script exits nonzero
 without printing the result line. The line before the last is one JSON
 object describing the kernels (share_of_bound is bound_ms / ms; time_kernels
@@ -83,11 +93,14 @@ TOL_INV = 1e-4      # kernel vs plain inverse, times the output peak
 TOL_STRETCH = 2e-4  # stretch on the card vs the CPU, times the peak
 SPV_SECONDS, SPV_BINS = 30.0, 512   # the SPV bench shape (mono, 48 kHz)
 # phase 2 SPV cases, (bins, channels, frames): bin counts on the 16-byte
-# path (multiples of 4) over two lengths, then the smallest bin counts, bin
-# counts just off a multiple of 4 (the scalar path beside the vector one),
-# a single frame, lengths around one 128-frame tile, three channels
+# path (multiples of 4) over two lengths (two channels at the first only:
+# the plain runs on the host set this phase's time), then the smallest bin
+# counts, bin counts just off a multiple of 4 (the scalar path beside the
+# vector one), a single frame, lengths around one 128-frame tile, three
+# channels
 SPV_CASES = ([(b, c, n) for b in (16, 96, 128, 512, 1024) for c in (1, 2)
-              for n in (96000, 77777)] + [(2048, 1, 96000)] +
+              for n in (96000, 77777) if (c, n) != (2, 77777)]
+             + [(2048, 1, 96000)] +
              [(2, 1, 1), (2, 2, 300), (3, 3, 129), (510, 1, 20000),
               (514, 3, 20000), (16, 3, 127), (512, 1, 129), (128, 3, 1)])
 # 83 s at 16 bins: 31,251 tiles, 123 chunks of the prefix over tiles. At
@@ -151,6 +164,35 @@ TOL_PROBE = 1e-4    # probe kernel vs plain, modulo 1 (the floor and mod 1)
 FILTER_SECONDS = 600.0
 FILTER_CPU_SECONDS = 10.0
 TOL_FILTER_CPU = 1e-4   # the filter path, card vs CPU, times the peak
+# phase 7: the streamed pipelines at 600 s; resonate and perturb on a 60 s
+# PV; repitch and morph against their class forms at 60 s
+STREAM_SECONDS = 600.0
+ALGO_SECONDS = 60.0
+# streamed vs class path on the card, times the peak. The stretch: the
+# bound tests/test_torch_pipelines.py holds them to on the CPU (1.6e-7 read
+# at chunks of 16 and 64 frames, 0 at 2048, and 0 at 60 s 48 kHz). Repitch
+# and morph: the identity remap writes (m f) / m, an ulp off f, which the
+# phase integrates; read on the CPU at 60 s 48 kHz: 6.8e-4 and 2.2e-4
+TOL_STREAM_CLASS = 1e-5
+TOL_IDENTITY_CLASS = 2e-3
+# float32 [n_in, channels, chunk, bins] planes the streamed chunk loop may
+# hold at once beyond its input and output (the design's bound; the
+# complex spectra count twice, the float64 cycles twice)
+STREAM_CHUNK_PLANES = 48
+STREAM_CHUNK_SWEEP = (256, 512, 1024, 2048, 4096, 8192)
+RESONATE_SECONDS = 0.5
+
+
+def RESONATE_DECAY(t, f):
+    """Per-bin decay, 0.95 at 0 Hz to 0.19 at 24 kHz, for phase 7."""
+    return 0.05 + 0.9 / (1.0 + f / 4000.0)
+
+
+PERTURB_STD = (0.05, 0.5)   # magnitude and frequency std of phase 7
+# resonate and perturb on the card vs the CPU at 2 s, times the peak; and
+# the share of resonate's frequency cells that may follow another frame
+TOL_ALGO_CPU = 1e-4
+TOL_RESONATE_CELLS = 1e-3
 
 
 def fail(msg: str):
@@ -563,7 +605,8 @@ def timed(torch, fn):
 
 def phase3_stretch(torch, Audio, dev):
     """PV time-stretch class path: on a small input against the same path
-    on the CPU, then at headline size, whole and stage by stage."""
+    on the CPU, then at headline size, whole and stage by stage. Returns
+    the headline output (host) and the whole call's wall seconds."""
     hop = 128
 
     # the size the CPU tests hold the port to the JAX package at
@@ -614,6 +657,7 @@ def phase3_stretch(torch, Audio, dev):
         got = dominant_hz(y[ch, mid:mid + int(SR)])
         check(abs(got - want) <= 2.0,
               f"stretch channel {ch}: dominant {got} Hz, want {want}")
+    return y, wall_ms / 1e3
 
 
 def phase4_spv(torch, Audio, dev):
@@ -900,17 +944,19 @@ def filter_path(Audio, x, device):
     return a
 
 
-def capture_scan_inputs(scan, n: int, run):
+def capture_scan_calls(scan, run, keep):
     """run() with the scan kernels' wrappers, as ops/scan.py calls them,
-    wrapped to keep the arguments of the first call of each at length n (no
-    launch of their own). Returns run()'s result and name -> arguments."""
-    captured = {}
+    wrapped to keep the arguments of each call that keep(name, args, kept)
+    accepts, `kept` being that scan's calls kept so far (no launch of their
+    own). Returns run()'s result and name -> the kept argument tuples, in
+    call order."""
+    captured = {name: [] for name in SCANS}
     originals = [getattr(scan, name) for name in SCANS]
 
     def recorder(name, fn):
         def call(*args):
-            if name not in captured and args[0].shape[-1] == n:
-                captured[name] = args
+            if keep(name, args, captured[name]):
+                captured[name].append(args)
             return fn(*args)
         return call
 
@@ -952,7 +998,11 @@ def phase6_filters(torch, Audio, scan, scan_kernels, dev):
             a, stages[name] = timed(torch, lambda: step(a))
         return a, stages
 
-    (out, stages), captured = capture_scan_inputs(scan, x.shape[1], staged)
+    # the first call of each scan at full length
+    (out, stages), calls = capture_scan_calls(
+        scan, staged, lambda name, args, kept: not kept
+        and args[0].shape[-1] == x.shape[1])
+    captured = {name: kept[0] for name, kept in calls.items() if kept}
     report = {"phase": 6, "path": "filters_compress_600s_stereo_48k",
               "wall_s_first": ms_first / 1e3, "wall_s_second": ms_second / 1e3,
               "x_realtime_first": FILTER_SECONDS / (ms_first / 1e3),
@@ -998,16 +1048,290 @@ def phase6_check(torch, Audio, scan_kernels, y, report, captured, dev):
     return errs
 
 
+def stream_peak_bound(n_in: int, ch: int, out_samples: int, chunk: int,
+                      nbins: int) -> int:
+    """The design's bound on the streamed pipeline's device memory above
+    its input, in bytes: the float32 output and STREAM_CHUNK_PLANES float32
+    planes of [n_in, channels, chunk, bins], whatever the file's length."""
+    return 4 * (ch * out_samples
+                + STREAM_CHUNK_PLANES * n_in * ch * chunk * nbins)
+
+
+STREAM_STAGES = ("_analysis", "_remap", "_synthesis", "_overlap_add")
+
+
+def stream_stages(torch, streamed, run) -> dict:
+    """Where one run() of a streamed pipeline spends the card's time, from
+    torch.profiler: the stage functions of pipelines/streamed.py wrapped
+    in record_function ranges for the run (no launch of their own), each
+    stage's kernel milliseconds and calls; all kernels' milliseconds,
+    launches and the wall milliseconds of the run, host clock, synchronised
+    (kernel time over wall is the card's busy share). Information, not a
+    check."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    originals = {name: getattr(streamed, name) for name in STREAM_STAGES}
+
+    def ranged(name, fn):
+        def call(*args, **kwargs):
+            with record_function("streamed" + name):
+                return fn(*args, **kwargs)
+        return call
+
+    try:
+        for name, fn in originals.items():
+            setattr(streamed, name, ranged(name, fn))
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall_ms = timed(torch, run)
+    finally:
+        for name, fn in originals.items():
+            setattr(streamed, name, fn)
+    stages = {"streamed" + name: {"kernel_ms": 0.0, "calls": 0}
+              for name in STREAM_STAGES}
+    kernel_us, launches = 0.0, 0
+    for ev in prof.events():
+        on_card = str(ev.device_type).endswith("CUDA")
+        if ev.name in stages and not on_card:
+            stages[ev.name]["kernel_ms"] += ev.device_time_total / 1e3
+            stages[ev.name]["calls"] += 1
+        elif on_card and not ev.name.startswith("streamed"):
+            kernel_us += ev.device_time_total
+            launches += 1
+    return {"stages": stages, "kernel_ms": kernel_us / 1e3,
+            "launches": launches, "wall_ms": wall_ms,
+            "busy_share": kernel_us / 1e3 / wall_ms}
+
+
+def phase7_streamed(torch, Audio, pipelines, dev, y_class, wall_class):
+    """The streamed pipelines at headline size (600 s stereo 48 kHz,
+    window 2048 / hop 128 / dft 4096): the 2x stretch from host data
+    (first and second call, peak memory above the input), held against
+    phase 3's class-path output; the sweep of chunk sizes; launches per
+    chunk; the 1.5x repitch and a morph at 600 s; repitch and morph
+    against their class forms at 60 s. Returns the report."""
+    x = stereo_signal(STREAM_SECONDS)
+    report = {"phase": 7, "path": "streamed_stretch_2x_600s_stereo_48k",
+              "chunk_out": pipelines.streamed.DEFAULT_CHUNK_OUT}
+    xd = torch.from_numpy(x).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    y, ms_first = timed(torch, lambda: pipelines.pv_stretch_pipeline(
+        xd, 2.0, sample_rate=SR))
+    peak = torch.cuda.max_memory_allocated() - base
+    del y
+    y, ms_second = timed(torch, lambda: pipelines.pv_stretch_pipeline(
+        x, 2.0, sample_rate=SR))
+    y_np = y.cpu().numpy()
+    del y
+    bound = stream_peak_bound(1, 2, y_np.shape[1], report["chunk_out"],
+                              4096 // 2 + 1)
+    err = float(np.abs(y_np - y_class).max() / np.abs(y_class).max()) \
+        if y_np.shape == y_class.shape else math.inf
+    mid = y_np.shape[1] // 2
+    hz = [dominant_hz(y_np[ch, mid:mid + int(SR)]) for ch in (0, 1)]
+    report.update({
+        "wall_s_first": ms_first / 1e3, "wall_s_second": ms_second / 1e3,
+        "x_realtime_second": STREAM_SECONDS / (ms_second / 1e3),
+        "class_path_wall_s": wall_class,
+        "class_path_x_realtime": STREAM_SECONDS / wall_class,
+        "peak_alloc_gb_above_input": peak / 1e9,
+        "peak_bound_gb": bound / 1e9,
+        "out_frames": int(y_np.shape[1]), "vs_class_err_rel": err,
+        "dominant_hz": hz})
+    print(json.dumps(report), flush=True)
+    check(y_np.shape == y_class.shape,
+          f"streamed stretch {y_np.shape}, class path {y_class.shape}")
+    check(bool(np.isfinite(y_np).all()), "streamed stretch not finite")
+    check(err <= TOL_STREAM_CLASS,
+          f"streamed stretch vs the class path: {err} of the peak")
+    for got, want in zip(hz, (220.0, 330.0)):
+        check(abs(got - want) <= 2.0, f"streamed stretch: dominant {got} "
+              f"Hz, want {want}")
+    check(peak <= bound, f"streamed stretch peak {peak / 1e9} GB above the "
+          f"input, bound {bound / 1e9} GB")
+    del y_np
+
+    # the chunk size: wall and peak of a second call at each
+    sweep = {}
+    for chunk in STREAM_CHUNK_SWEEP:
+        pipelines.pv_stretch_pipeline(xd[:, :int(SR)], 2.0, sample_rate=SR,
+                                      chunk_out=chunk)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        y, ms = timed(torch, lambda: pipelines.pv_stretch_pipeline(
+            xd, 2.0, sample_rate=SR, chunk_out=chunk))
+        sweep[chunk] = {"wall_s": ms / 1e3, "peak_alloc_gb_above_input":
+                        (torch.cuda.max_memory_allocated() - base) / 1e9}
+        del y
+    stages = stream_stages(torch, pipelines.streamed, lambda: (
+        pipelines.pv_stretch_pipeline(xd, 2.0, sample_rate=SR)))
+    chunks = math.ceil(2 * (x.shape[1] // 128 + 1) / report["chunk_out"])
+    report_r = {"phase": 7, "chunk_sweep_600s": sweep,
+                "stages_600s": stages, "chunks_600s": chunks,
+                "launches_per_chunk": stages["launches"] / chunks}
+
+    # repitch 1.5x and a morph at 600 s
+    y, ms_rep = timed(torch, lambda: pipelines.pv_repitch_pipeline(
+        xd, 1.5, sample_rate=SR))
+    y_np = y.cpu().numpy()
+    del y
+    hz_rep = [dominant_hz(y_np[ch, mid // 2:mid // 2 + int(SR)])
+              for ch in (0, 1)]
+    # the identity map keeps num_hops = N // hop + 1 frames
+    shape = (2, (x.shape[1] // 128 + 1) * 128)
+    check(y_np.shape == shape and bool(np.isfinite(y_np).all()),
+          f"streamed repitch {y_np.shape}, not finite or not {shape}")
+    del y_np
+    other = xd.flip(0)      # the channels swapped: 330 Hz, then 220 Hz
+    y, ms_morph = timed(torch, lambda: pipelines.pv_morph_pipeline(
+        xd, other, 0.75, sample_rate=SR))
+    y_np = y.cpu().numpy()
+    del y
+    check(y_np.shape == shape and bool(np.isfinite(y_np).all()),
+          f"streamed morph {y_np.shape}, not finite or not {shape}")
+    del y_np
+    report_r.update({"repitch_1p5_600s_wall_s": ms_rep / 1e3,
+                     "repitch_x_realtime": STREAM_SECONDS / (ms_rep / 1e3),
+                     "repitch_dominant_hz": hz_rep,
+                     "morph_600s_wall_s": ms_morph / 1e3,
+                     "morph_x_realtime": STREAM_SECONDS / (ms_morph / 1e3)})
+    del xd, other
+
+    # repitch and morph against their class forms at 60 s
+    x60 = torch.from_numpy(stereo_signal(ALGO_SECONDS)).to(dev)
+    b60 = x60.flip(0)
+    amount = lambda t, f: torch.clamp(t / ALGO_SECONDS, 0.0, 1.0)  # noqa
+    pv = Audio.create_from_array(x60, SR).convert_to_PV(2048, 128, 4096)
+    pv_b = Audio.create_from_array(b60, SR).convert_to_PV(2048, 128, 4096)
+    pairs = {
+        "repitch": (pipelines.pv_repitch_pipeline(x60, 1.5, sample_rate=SR),
+                    pv.repitch(1.5).convert_to_audio().data),
+        "morph": (pipelines.pv_morph_pipeline(x60, b60, amount,
+                                              sample_rate=SR),
+                  pv.replace_amplitudes(pv_b, amount).convert_to_audio().data)}
+    del pv, pv_b
+    for name, (got, want) in pairs.items():
+        e = float((got - want).abs().max() / want.abs().max()) \
+            if got.shape == want.shape else math.inf
+        report_r[f"{name}_60s_vs_class_err_rel"] = e
+    print(json.dumps(report_r), flush=True)
+    # the PV repitch writes factor * (f + bin_width), the reference's
+    # +1-bin offset (PVModify.cpp:263-268, 287-302; golden-tested): 220 Hz
+    # lands at 347.6 Hz, 330 at 512.6, not at 330 and 495
+    for ch, tone in enumerate((220.0, 330.0)):
+        want = 1.5 * (tone + SR / 4096)
+        check(abs(hz_rep[ch] - want) <= TOL_REPITCH_HZ,
+              f"streamed repitch 1.5x channel {ch}: {hz_rep[ch]} Hz, "
+              f"want {want}")
+    for name in pairs:
+        e = report_r[f"{name}_60s_vs_class_err_rel"]
+        check(e <= TOL_IDENTITY_CLASS,
+              f"streamed {name} vs its class form at 60 s: {e}")
+    report.update(report_r)
+    return report
+
+
+def phase7_algorithms(torch, Audio, scan, scan_kernels, dev):
+    """resonate and perturb on a 60 s stereo PV (48 kHz, window 2048 / hop
+    128 / dft 4096): their scans' launches, counted from zero, then each
+    scan call held to the float64 plain run on its own planes (error at
+    most twice the float32 plain run's), three calls for the same bits, the
+    whole methods on the card against the CPU at 2 s. Returns the launch
+    counts, each kernel's largest absolute difference from its float32
+    plain run, and the captured calls (case -> (kernel, arguments))."""
+    pv = Audio.create_from_array(stereo_signal(ALGO_SECONDS), SR,
+                                 device=dev).convert_to_PV(2048, 128, 4096)
+    torch.cuda.synchronize()
+    scan_kernels.reset_launch_counts()
+    (res, per), captured = capture_scan_calls(scan, lambda: (
+        pv.resonate(RESONATE_SECONDS, RESONATE_DECAY),
+        pv.perturb(PERTURB_STD, seed=3)), lambda name, args, kept: True)
+    torch.cuda.synchronize()
+    launches = {"scan_linear": scan_kernels.LAUNCHES["scan_linear"],
+                "scan_max_affine": scan_kernels.LAUNCHES["scan_max_affine"]}
+    report = {"phase": 7, "path": "pv_resonate_perturb_60s_stereo_48k",
+              "frames": pv.num_frames, "bins": pv.num_bins,
+              "launches": launches}
+    check(launches["scan_max_affine"] >= 1 and launches["scan_linear"] >= 2,
+          f"resonate / perturb launched the scans {launches}")
+    check(all(bool(torch.isfinite(t).all()) for t in
+              (res.mag, res.freq, per.mag, per.freq)),
+          "resonate / perturb output not finite")
+    check(res.num_frames == pv.num_frames + math.ceil(
+        RESONATE_SECONDS * pv.analysis_rate) and per.mag.shape ==
+        pv.mag.shape, f"resonate {tuple(res.mag.shape)}, perturb "
+        f"{tuple(per.mag.shape)}")
+    del res, per, pv
+    calls = {"resonate_max_affine": ("scan_max_affine",
+                                     captured["scan_max_affine"][0]),
+             "perturb_linear_frames": ("scan_linear",
+                                       captured["scan_linear"][0]),
+             "perturb_linear_bins": ("scan_linear",
+                                     captured["scan_linear"][1])}
+    kernels = scan_calls(scan_kernels)
+    errs = dict.fromkeys(launches, 0.0)
+    for case, (name, args) in calls.items():
+        kernel, plain = kernels[name]
+        shape = torch.broadcast_shapes(*(a.shape for a in args[:-1]))
+        e = scan_errors(torch, kernel, plain, args)
+        e["rows"], e["length"] = math.prod(shape[:-1]), shape[-1]
+        report[case] = e
+        check_scan(e, f"{case} on the method's planes", 0.0)
+        check_same_bits(torch, lambda: kernel(*args), case)
+        errs[name] = max(errs[name], e["abs_err"])
+
+    # the methods on the card against the CPU at 2 s
+    small = Audio.create_from_array(stereo_signal(2.0), SR, device="cpu") \
+        .convert_to_PV(2048, 128, 4096)
+    on_card = type(small)(mag=small.mag.to(dev), freq=small.freq.to(dev),
+                          sample_rate=SR, hop_size=128, window_size=2048)
+    for name, run in (("resonate", lambda p: p.resonate(RESONATE_SECONDS,
+                                                        RESONATE_DECAY)),
+                      ("perturb", None)):
+        if run is None:
+            # the same noise on both devices
+            from flan_tpu_torch.pv.algorithms import _perturb_planes
+            g = torch.Generator().manual_seed(5)
+            na = torch.randn((small.num_frames, small.num_bins), generator=g)
+            nm = torch.randn((2, small.num_frames), generator=g)
+            run = lambda p: _perturb_planes(  # noqa: E731
+                p, PERTURB_STD, 0.99, na.to(p.device), nm.to(p.device))
+        want, got = run(small), run(on_card)
+        d = {key: (getattr(got, key).cpu() - getattr(want, key)).abs()
+             for key in ("mag", "freq")}
+        report[f"{name}_2s_vs_cpu"] = {
+            "mag_err_rel": float(d["mag"].max() / want.mag.abs().max()),
+            "freq_err_rel": float(d["freq"].max() / want.freq.abs().max()),
+            "freq_cells_off": float((d["freq"] > 1e-3).double().mean())}
+    print(json.dumps(report), flush=True)
+    for name in ("resonate", "perturb"):
+        e = report[f"{name}_2s_vs_cpu"]
+        check(e["mag_err_rel"] <= TOL_ALGO_CPU,
+              f"{name} on the card vs the CPU at 2 s: {e}")
+    # perturb's frequencies move by sums; resonate's follow the last frame
+    # whose input won, which a rounding can hand to a neighbour
+    e_p, e_r = report["perturb_2s_vs_cpu"], report["resonate_2s_vs_cpu"]
+    check(e_p["freq_err_rel"] <= TOL_ALGO_CPU,
+          f"perturb frequencies on the card vs the CPU: {e_p}")
+    check(e_r["freq_cells_off"] <= TOL_RESONATE_CELLS,
+          f"resonate frequencies on the card vs the CPU: {e_r}")
+    return launches, errs, calls
+
+
 def scan_bytes(args, nplanes: int, nstates: int):
     """(elements, required bytes) of one scan call: each plane read once (a
-    row shared by every row once) and each state written once."""
+    plane broadcast over rows, as a row shared by every row or a decay
+    plane shared by the channels, counts its own elements once) and each
+    state written once."""
     shape = np.broadcast_shapes(*(tuple(a.shape) for a in args[:nplanes]))
     n, rows = shape[-1], math.prod(shape[:-1])
     nbytes = 4 * rows * n * nstates
     for p in args[:nplanes]:
-        shared = all(d == 1 or s == 0
-                     for d, s in zip(p.shape[:-1], p.stride()[:-1]))
-        nbytes += 4 * n * (1 if shared else rows)
+        nbytes += 4 * math.prod(d for d, s in zip(p.shape, p.stride())
+                                if s != 0)
     return rows * n, nbytes
 
 
@@ -1110,7 +1434,7 @@ def main() -> None:
 
     # phases 0 and 1: the card, the build
     card, torch, dev, lib = start(None)
-    from flan_tpu_torch import SQPV, Audio
+    from flan_tpu_torch import SQPV, Audio, pipelines
     from flan_tpu_torch.ops import (probe_kernels, scan, scan_kernels,
                                     spv_kernels, sqpv_kernels)
     from flan_tpu_torch.sqpv.transform import cq_geometry
@@ -1129,7 +1453,7 @@ def main() -> None:
     # count runs over every main path (it lies on none)
     spv_kernels.reset_launch_counts()
     probe_kernels.reset_launch_counts()
-    phase3_stretch(torch, Audio, dev)
+    y_class, wall_class = phase3_stretch(torch, Audio, dev)
     phase_done("3 stretch")
     x, spv, y, wall_k = phase4_spv(torch, Audio, dev)
     launches = dict(spv_kernels.LAUNCHES)
@@ -1212,6 +1536,40 @@ def main() -> None:
                                           calls.items()}))
     del captured, calls
     phase_done("6 filter path, checks, timing")
+
+    # phase 7: the streamed pipelines; resonate and perturb, counted
+    phase7_streamed(torch, Audio, pipelines, dev, y_class, wall_class)
+    del y_class
+    phase_done("7 streamed pipelines")
+    algo_launches, algo_errs, calls7 = phase7_algorithms(
+        torch, Audio, scan, scan_kernels, dev)
+    by_path = {name: {"filters": launches[name],
+                      "pv_algorithms": algo_launches[name]}
+               for name in algo_launches}
+    for name, count in algo_launches.items():
+        launches[name] += count
+        errs[name] = max(errs[name], algo_errs[name])
+    # the scans in the methods' regime: timed, profiled with the copies of
+    # their callers, bounded
+    regime = {}
+    calls_kind = {case: name for case, (name, _) in calls7.items()}
+    for case, (name, a) in calls7.items():
+        k, p = scan_calls(scan_kernels)[name]
+        regime[case] = time_kernels(torch, {case: (
+            lambda k=k, a=a: k(*a), lambda p=p, a=a: p(*a))})[case]
+        # device time per launch of the kernel and of the wrapper's copies
+        split.update(profile_launches(torch, {case: lambda k=k, a=a: k(*a)}))
+        nplanes = len(a) - 1
+        regime[case]["bound_ms"], regime[case]["bound_by"] = bound(
+            name, *scan_bytes(a, nplanes, 1))
+    pv60 = Audio.create_from_array(stereo_signal(ALGO_SECONDS), SR,
+                                   device=dev).convert_to_PV(2048, 128, 4096)
+    split.update(profile_launches(torch, {
+        "resonate": lambda: pv60.resonate(RESONATE_SECONDS, RESONATE_DECAY),
+        "perturb": lambda: pv60.perturb(PERTURB_STD, seed=3)}))
+    del pv60, calls7
+    print(json.dumps({"phase": 7, "scans_in_regime": regime}), flush=True)
+    phase_done("7 resonate, perturb, checks, timing")
     print(json.dumps({"profile_us_per_launch": split}), flush=True)
     print(json.dumps({"phase_seconds": seconds,
                       "seconds": round(sum(seconds.values()), 1)}), flush=True)
@@ -1231,7 +1589,8 @@ def main() -> None:
                 "probe": "tools/probe_pallas_ops.py:20"}
     path = {"spv_forward": "spv", "spv_inverse": "spv",
             "sqpv_forward": "sqpv", "sqpv_inverse": "sqpv",
-            "scan_linear": "filters", "scan_max_affine": "filters",
+            "scan_linear": "filters, pv_algorithms",
+            "scan_max_affine": "filters, pv_algorithms",
             "scan_affine2x2": "filters", "probe": None}
     errs["probe"] = 0.0     # compared in phase 2 only
     kernels = [{"name": name, "route": "cuda",
@@ -1245,6 +1604,11 @@ def main() -> None:
                 # no single PyTorch call computes any of these functions
                 "library_ms": None}
                for name in replaces]
+    for entry in kernels:
+        if entry["name"] in by_path:
+            entry["launches_by_path"] = by_path[entry["name"]]
+            entry["regimes"] = {case: t for case, t in regime.items()
+                                if calls_kind[case] == entry["name"]}
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

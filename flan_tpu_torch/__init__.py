@@ -7,7 +7,15 @@ the JAX package flan_tpu stays the reference the port is tested against.
 
 The port covers:
 - the phase-vocoder time-stretch class path (Audio.load_from_file ->
-  convert_to_PV -> PV.stretch -> convert_to_audio);
+  convert_to_PV -> PV.stretch -> convert_to_audio) and the rest of the PV
+  class: .flan files, frame utilities, repitch and modify_frequency, and
+  the algorithms of pv/algorithms.py (select, freeze, replace / subtract
+  amplitudes, synthesize, octaves and harmonics, shape, n loudest
+  partials, resonate and perturb, whose recurrences run on the scan
+  kernels);
+- the streamed pipelines, audio -> audio in O(chunk) device memory:
+  pv_stretch_pipeline (the headline 2x stretch), pv_repitch_pipeline,
+  pv_morph_pipeline and streamed_pv_process (pipelines/);
 - the SPV round trip and its algorithms (Audio.convert_to_SPV /
   convert_to_ms_SPV -> SPV.repitch / modify_frequency ->
   convert_to_audio / convert_to_lr_audio), kernels B1 and B2;
@@ -28,7 +36,10 @@ from flan_tpu_torch.core.pv_buffer import PVBuffer, PVFormat
 from flan_tpu_torch.func import interpolators
 from flan_tpu_torch.func.function import (Function, Function2d, adsr,
                                           as_function, as_function2d)
-from flan_tpu_torch.pv.pv import PV
+from flan_tpu_torch.pipelines import (pv_morph_pipeline, pv_repitch_pipeline,
+                                      pv_stretch_pipeline,
+                                      streamed_pv_process)
+from flan_tpu_torch.pv import PV
 from flan_tpu_torch.spv.spv import SPV
 from flan_tpu_torch.sqpv.sqpv import SQPV
 
@@ -38,5 +49,6 @@ __all__ = [
     "Audio", "AudioBuffer", "AudioFormat", "SndfileStrings",
     "PV", "PVBuffer", "PVFormat", "SPV", "SQPV",
     "Function", "Function2d", "adsr", "as_function", "as_function2d",
-    "interpolators",
+    "interpolators", "pv_stretch_pipeline", "pv_repitch_pipeline",
+    "pv_morph_pipeline", "streamed_pv_process",
 ]

@@ -84,6 +84,16 @@ class Audio(AudioBuffer):
         return PV(mag=mag, freq=freq, sample_rate=float(self.sample_rate),
                   hop_size=hop, window_size=window_size)
 
+    def convert_to_ms_PV(self, window_size: int = 2048, hop: int = 128,
+                         dft_size: int = 4096):
+        """Mid/side first, then PV (reference AudioPV.cpp:80-84); a null PV
+        for anything but two channels."""
+        from flan_tpu_torch.pv.pv import PV
+        if self.num_channels != 2:
+            return PV.create_null()
+        return self.convert_to_mid_side().convert_to_PV(window_size, hop,
+                                                        dft_size)
+
     def convert_to_SPV(self, dft_size: int = 1024):
         """Sliding-DFT phase vocoder (reference Conversions/AudioSPV.cpp).
         dft_size is the bin count, as in the reference's call convention."""

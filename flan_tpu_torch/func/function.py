@@ -18,7 +18,9 @@ from flan_tpu_torch.ops.stft import true_div
 FunctionLike = Union[float, int, "Function", Callable]
 
 
-def _broadcast_f32(out, shape, device) -> torch.Tensor:
+def broadcast_f32(out, shape, device) -> torch.Tensor:
+    """A Function's output (a tensor or a number) as a float32 tensor of
+    `shape` on `device` (a broadcast view where it can be)."""
     out = torch.as_tensor(out, dtype=torch.float32, device=device)
     return torch.broadcast_to(out, shape)
 
@@ -58,7 +60,7 @@ class Function:
             return self._const
         grid = torch.arange(start, end, dtype=torch.float32,
                             device=device) * period
-        return _broadcast_f32(self._fn(grid), grid.shape, device)
+        return broadcast_f32(self._fn(grid), grid.shape, device)
 
 
 class Function2d:
@@ -103,7 +105,7 @@ class Function2d:
                          device=device)[:, None] * frame_period
         f = torch.arange(num_bins, dtype=torch.float32,
                          device=device)[None, :] * bin_width
-        return _broadcast_f32(self._fn(t, f), (num_frames, num_bins), device)
+        return broadcast_f32(self._fn(t, f), (num_frames, num_bins), device)
 
 
 def as_function(f: FunctionLike) -> Function:

@@ -22,3 +22,9 @@ def hann_window_np(window_size: int) -> np.ndarray:
 def hann_window(window_size: int, device=None) -> torch.Tensor:
     """Symmetric hann window of length window_size, float32 on `device`."""
     return torch.from_numpy(hann_window_np(window_size)).to(device)
+
+
+def hann(x: torch.Tensor) -> torch.Tensor:
+    """The hann window function on [0, 1]: 0.5 (1 - cos(2 pi x))
+    (flan_tpu/ops/windows.py:11)."""
+    return 0.5 * (1.0 - torch.cos(2.0 * np.pi * x))

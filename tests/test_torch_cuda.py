@@ -629,3 +629,149 @@ def test_filter_path_runs_on_the_card(cuda_device):
     want, got = cpu.to_numpy(), gpu.to_numpy()
     assert gpu.device.type == "cuda" and got.shape == want.shape
     assert np.abs(got - want).max() < 1e-4 * np.abs(want).max()
+
+
+# ------------------------- the PV algorithms' scans and the streamed paths
+
+def _regime_planes(case, frames, bins, seed=13):
+    """The planes `resonate` and `perturb` hand to ops/scan.py, float32 on
+    the card: (function, arguments, keyword arguments, scan axis)."""
+    rng = np.random.default_rng(seed)
+    dev = "cuda"
+    if case == "resonate":
+        m = torch.from_numpy(rng.random((2, frames, bins)).astype(
+            np.float32) * 100.0).to(dev)
+        m[:, frames // 2:] = 0.0          # the tail the method appends
+        a = torch.from_numpy(rng.uniform(0.2, 0.999, (frames, bins)).astype(
+            np.float32)).to(dev)          # one plane for both channels
+        return scan.max_affine_recurrence, (m, a, 0.0), {}, 1
+    accel = torch.from_numpy(rng.standard_normal((frames, bins)).astype(
+        np.float32) * 0.025).to(dev)
+    if case == "perturb_frames":
+        return (scan.linear_recurrence, (0.99, 0.99 * accel),
+                {"y0": accel[0]}, 0)
+    return (scan.linear_recurrence, (0.99, 0.99 * accel),
+            {"y0": accel[:, 0:1]}, 1)
+
+
+def _regime_plain(fn, args, kw, axis, dtype):
+    """The plain version of the same call, the scan axis moved last."""
+    full = [torch.broadcast_to(torch.as_tensor(a, device="cuda"),
+                               args[-1].shape if fn is scan.linear_recurrence
+                               else args[0].shape).to(dtype)
+            for a in args]
+    moved = [t.movedim(axis, -1) for t in full]
+    if fn is scan.max_affine_recurrence:
+        y = scan_kernels.max_affine_ref(moved[0], moved[1], moved[2], 0.0)
+    else:
+        y0 = torch.as_tensor(kw["y0"], device="cuda").to(dtype)
+        y0 = (y0[:, None] if axis == 0 else y0)
+        y = scan_kernels.linear_ref(moved[0], moved[1], y0)
+    return y.movedim(-1, axis)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,frames,bins", [
+    ("resonate", 3001, 257), ("resonate", 1000, 2049),
+    ("perturb_frames", 1000, 2049), ("perturb_frames", 22501, 129),
+    ("perturb_bins", 3000, 2049), ("perturb_bins", 22501, 257)])
+def test_scans_in_the_pv_algorithm_regime(cuda_device, case, frames, bins):
+    """The linear and max-affine kernels where resonate and perturb put
+    them: hundreds to thousands of rows shorter than one tile, a scan axis
+    that is not the last (the wrapper copies the moved view), a decay plane
+    shared by the channels, a start state per row. Each against its plain
+    version (error against float64 at most twice the float32 plain run's
+    plus 1e-6 of the peak), the same bits on three calls."""
+    fn, args, kw, axis = _regime_planes(case, frames, bins)
+    kind = ("scan_max_affine" if fn is scan.max_affine_recurrence
+            else "scan_linear")
+    before = scan_kernels.LAUNCHES[kind]
+    got = fn(*args, axis=axis, **kw)
+    assert scan_kernels.LAUNCHES[kind] == before + 1
+    p32 = _regime_plain(fn, args, kw, axis, torch.float32)
+    p64 = _regime_plain(fn, args, kw, axis, torch.float64)
+    torch.cuda.synchronize()
+    assert got.shape == p32.shape and bool(torch.isfinite(got).all())
+    err_k, err_p = _drift(got, p32, p64)
+    print(f"{case} {frames}x{bins}: kernel {err_k:.3g}, plain {err_p:.3g}")
+    assert err_k <= 2.0 * err_p + 1e-6
+    for _ in range(2):
+        again = fn(*args, axis=axis, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+
+
+def _tone_pv(seconds, device, sr=8000.0):
+    x = _signal(int(seconds * sr), 2)
+    return flan_tpu_torch.Audio.create_from_array(
+        x, sr, device=device).convert_to_PV(512, 64, 512)
+
+
+@pytest.mark.cuda
+def test_resonate_and_perturb_run_on_the_card(cuda_device):
+    """resonate and perturb on the card, through the scan kernels, against
+    the CPU on the same PV and (perturb) the same noise. Magnitudes within
+    1e-4 of the peak; resonate's frequencies follow the last frame whose
+    input won, which a rounding may hand to a neighbouring frame, so at
+    most 1e-3 of its cells may differ (chip_smoke.py phase 7 holds 2 s at
+    48 kHz to the same)."""
+    from flan_tpu_torch.pv.algorithms import _perturb_planes
+    cpu = _tone_pv(1.5, "cpu")
+    gpu = _tone_pv(1.5, cuda_device)
+    before = dict(scan_kernels.LAUNCHES)
+    decay = lambda t, f: 0.05 + 0.9 / (1.0 + f / 1000.0)  # noqa: E731
+    res = [p.resonate(0.2, decay) for p in (cpu, gpu)]
+    g = torch.Generator().manual_seed(2)
+    na = torch.randn((cpu.num_frames, cpu.num_bins), generator=g)
+    nm = torch.randn((2, cpu.num_frames), generator=g)
+    per = [_perturb_planes(p, (0.05, 0.5), 0.99, na.to(p.device),
+                           nm.to(p.device)) for p in (cpu, gpu)]
+    torch.cuda.synchronize()
+    assert scan_kernels.LAUNCHES["scan_max_affine"] \
+        == before["scan_max_affine"] + 1
+    assert scan_kernels.LAUNCHES["scan_linear"] == before["scan_linear"] + 2
+    for want, got in (res, per):
+        assert got.device.type == "cuda" and got.mag.shape == want.mag.shape
+        assert (got.mag.cpu() - want.mag).abs().max() \
+            <= 1e-4 * want.mag.abs().max()
+    d = (per[1].freq.cpu() - per[0].freq).abs()
+    assert d.max() <= 1e-4 * per[0].freq.abs().max()
+    off = ((res[1].freq.cpu() - res[0].freq).abs() > 1e-3).double().mean()
+    assert off <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["stretch_2", "stretch_1.5", "stretch_var",
+                                  "repitch_1.5", "repitch_var", "morph"])
+def test_streamed_pipelines_run_on_the_card(cuda_device, path):
+    """The streamed pipelines on the card against the CPU at the size the
+    CPU tests hold them to the JAX package (sr 8000, window 512, hop 64,
+    dft 512, chunks of 32 frames): cuFFT against pocketfft, integrated into
+    phase by the inverse, as test_stretch_runs_on_the_card. Read 2.7e-6 to
+    8.9e-6 of the peak (H100); bound 1e-4."""
+    from flan_tpu_torch import pipelines
+    x = _signal(6000, 2)
+    kw = dict(window_size=512, hop=64, dft_size=512, sample_rate=8000.0,
+              chunk_out=32)
+    run = {
+        "stretch_2": lambda d: pipelines.pv_stretch_pipeline(x, 2.0,
+                                                             device=d, **kw),
+        "stretch_1.5": lambda d: pipelines.pv_stretch_pipeline(
+            x, 1.5, device=d, **kw),
+        "stretch_var": lambda d: pipelines.pv_stretch_pipeline(
+            x, lambda t: 1.0 + 0.5 * t, device=d, **kw),
+        "repitch_1.5": lambda d: pipelines.pv_repitch_pipeline(
+            x, 1.5, device=d, **kw),
+        "repitch_var": lambda d: pipelines.pv_repitch_pipeline(
+            x, lambda t, f: 1.25 + 0.25 * (t > 0.3), device=d, **kw),
+        "morph": lambda d: pipelines.pv_morph_pipeline(
+            x, x[::-1, :4000], lambda t, f: torch.clamp(t / 0.5, 0.0, 1.0),
+            device=d, **kw)}[path]
+    want = run("cpu").numpy()
+    got = run(cuda_device)
+    assert got.device.type == "cuda"
+    got = got.cpu().numpy()
+    assert got.shape == want.shape
+    err = np.abs(got - want).max() / np.abs(want).max()
+    print(f"{path}: card vs CPU {err:.3g} of the peak")
+    assert err < 1e-4
