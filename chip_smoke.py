@@ -26,7 +26,7 @@ then --package build/parent). Phases:
      a tile; the three scan kernels over lengths 1 to 1,000,003 (around one
      tile and around one look-back window of tiles) and 1 to 64 rows, with
      no, some and all planes shared by the rows, along the comb's middle
-     axis, the linear scan's backward, and three calls on 64 rows for the
+     axis, the three scans' backwards, and three calls on 64 rows for the
      same bits (tests/test_torch_cuda.py runs the wider grid, to 2^25 + 3);
      the T3 probe on its own inputs;
   3. drive the PV time-stretch class path at headline size (600 s stereo
@@ -64,11 +64,26 @@ then --package build/parent). Phases:
      held to their class forms at 60 s; then resonate and perturb on a
      60 s stereo PV: their scans' launches, each scan call against the
      float64 plain run and for the same bits, the methods on the card
-     against the CPU at 2 s, the scans timed in this regime.
+     against the CPU at 2 s, the scans timed in this regime;
+  8. hold the k x k scan kernel against its plain version over k = 1, 3,
+     4, 8 (the one pass) and 12 (in time order), lengths 1 to 1,000,003
+     around one tile and one look-back window, 1 to 8 rows, A shared and
+     not, three calls for the same bits; drive the multinotch filters at
+     headline size (a swept 1-pole of order 4, k = 4; a swept 2-pole of
+     order 4, k = 8; a constant 2-pole of order 2 on the FIR path, probed
+     on the k x k kernel), the swept comb at 600 s and the saturator
+     multinotch (1-pole and 2-pole, order 2) at 10 s, counted, each held
+     to the CPU (at 10 s; the saturator over 2000 frames); hold the
+     sequential kernels to their plain loops on the card and ask three
+     calls for the same bits; take the gradients of a swept 2-pole lowpass
+     and the compressor at 10 s with respect to the signal and a 0-d
+     cutoff on the card and the CPU (the backward's launches counted);
+     drive Audio.resample 48 -> 44.1 kHz, add_moisture and convolve by a
+     2 s IR at 600 s, each held to the CPU at 10 s; time the new kernels.
 
 The launch counters are zeroed just before each main path (phases 3 and 4
 together, then phase 5, then phase 6, then resonate and perturb in phase
-7) and read just after it, before any launch made for a comparison; the probe's counter runs over all of them
+7, then phase 8's filters) and read just after it, before any launch made for a comparison; the probe's counter runs over all of them
 (it lies on no path). Every failed check raises, so the script exits nonzero
 without printing the result line. The line before the last is one JSON
 object describing the kernels (share_of_bound is bound_ms / ms; time_kernels
@@ -136,6 +151,10 @@ SQPV_CASES = [(8000.0, 6.0, (100.0, 3000.0), 1, 16000),
 # arithmetic of each plain version (the polynomial atan2 as 24, sincos as
 # 20); the byte bound is the larger for all four kernels.
 HBM_BYTES_PER_S = 3.35e12
+NEW_KERNELS = ("scan_affine_kxk", "saturator_1pole", "saturator_2pole",
+               "comb_swept", "saturator_1pole_backward",
+               "saturator_2pole_backward", "comb_swept_backward")
+BACKWARD_KERNELS = NEW_KERNELS[4:]
 F32_OPS_PER_S = 67e12
 # the scans count the sequential recurrence's arithmetic per element (an
 # FMA is 2); the probe its ~50 operations per output element
@@ -193,6 +212,84 @@ PERTURB_STD = (0.05, 0.5)   # magnitude and frequency std of phase 7
 # the share of resonate's frequency cells that may follow another frame
 TOL_ALGO_CPU = 1e-4
 TOL_RESONATE_CELLS = 1e-3
+
+
+# phase 8: the k x k scan's cases, (rows, frames, A shared by the rows):
+# one element, around one tile and one look-back window of tiles (the one
+# pass, k <= 8, and in time order above it) and a long row (its float64
+# plain run holds k*k + k planes of the row: one row keeps phase 8 short)
+KXK_KS = (1, 3, 4, 8, 12)
+KXK_CASES = [(1, 1, True), (8, "T+1", False), (2, "W+1", True),
+             (1, 1_000_003, True)]
+MULTINOTCH_SECONDS = 600.0
+# the multinotch filters on the card vs the CPU: 3 s, past a look-back
+# window of tiles at k = 4 (131,072 frames) and k = 8 (65,536), where the
+# CPU's float32 plain scan of the k = 8 map takes seconds a second
+MULTINOTCH_CPU_SECONDS = 3.0
+# a 2-pole multinotch of order 6 (k = 12, the time-order kernel above 8)
+# at 600 s: one call, its kernel timed once
+KXK_TIME_ORDER = 6
+SEQ_PLAIN_FRAMES = 2000     # the saturator's plain loop on the card, frames
+COMB_PLAIN_SECONDS = 1.0    # the swept comb's plain loop on the card
+SAT_SECONDS = 10.0          # the saturator at headline width: 480,000
+# dependent steps a channel, so 10 s, where 600 s would be 28.8 M
+# the backwards' plain loops on the card, over the last frames of the
+# path's call (the adjoint runs in reverse time: the last frames need
+# nothing before them); and the saturator's gradient, card vs CPU, over a
+# short signal (the CPU's plain loops take ~4 ms a step forward and back)
+SEQ_BACK_PLAIN_FRAMES = 400
+SAT_GRAD_CPU_FRAMES = 500
+# saturator kernel vs its plain loop on the card, times the peak: tanhf and
+# fused multiply-adds against torch's float32 ops, damped by the Newton
+# solve (the card tests' bound); the comb's step is the same arithmetic in
+# both, to fused multiply-adds
+TOL_SATURATOR = 1e-5
+TOL_COMB = 1e-6
+# the backward kernels vs their plain loops on the card, times each
+# gradient's peak: the saturator's adjoint divides by Newton's
+# denominators (float32 in two orders, the card tests' bound); the comb's
+# sums the adjoints sent to one sample in another order
+TOL_SATURATOR_BACK = 1e-4
+TOL_COMB_BACK = 1e-5
+# card vs CPU at 10 s, times the peak: add_moisture's sine takes 2 pi f
+# |s|^skew cycles (up to ~190 here), where an ulp of the power turns the
+# phase by ~1e-4 rad (tests/test_torch_resample.py)
+TOL_MOISTURE_CPU = 1e-3
+# gradients on the card vs the CPU: float32 scans in two orders, forward
+# and adjoint. The lowpass's gradient is smooth: its largest difference,
+# over its peak. Through the compressor the gradient jumps where the peak
+# detector's max changes branch, and the two devices' forward scans (the
+# CPU's plain one 18x further from float64 than the card's, phase 6) put
+# a near-tie on two sides at a few dozen of 960,000 samples: 61 read at 10
+# s, with the L2 norm of the difference 5.3e-3 of the gradient's and the
+# cutoff's gradient 1.4e-3 apart (H100). Those are held by L2 and by the
+# parameter's gradient, at about 4 and 7 times the reading.
+TOL_GRAD_CPU = 1e-3
+TOL_GRAD_SWITCH_L2 = 2e-2
+TOL_GRAD_SWITCH_PARAM = 1e-2
+IR_SECONDS = 2.0
+# The sequential kernels' least time is their chain of dependent steps:
+# steps (a channel's; channels run side by side) times the cycles a step
+# needs at the SM's clock, counted from the latencies on the chain of one
+# step (an estimate, not a measurement): a Newton iteration of the
+# saturator is ~100 cycles (tanhf ~40, an IEEE division ~30, six dependent
+# FMAs and selects), a cascade stage 16 (1-pole) or 32 (2-pole), the rest
+# of a step 40; a round of the comb (as many steps as the least delay
+# ahead, at most 32) ~150 (a five-step shuffle minimum, a shared-memory
+# read, two FMAs, a shared-memory write, two warp barriers)
+NEWTON_CYCLES, STAGE_CYCLES, STEP_CYCLES = 100, {False: 16, True: 32}, 40
+COMB_ROUND_CYCLES = 150
+# The backwards' chains: the adjoint carried from step to step (the
+# forward's rerun of a step does not wait on it). A Newton step's adjoint
+# is ~60 cycles (an IEEE division ~30, four dependent FMAs), a cascade
+# stage's twice the forward's; a comb round ~200 (the forward's, a warp
+# match and the adds of the lanes that send to one sample)
+NEWTON_BACK_CYCLES = 60
+COMB_BACK_ROUND_CYCLES = 200
+# the k x k map in time order (k > 8): a step is k FMAs in a row (4 cycles
+# each), then a shared-memory store, a barrier and the next step's loads
+# of the state (~60 cycles together)
+KXK_ROWS_STEP_CYCLES = 60
 
 
 def fail(msg: str):
@@ -565,17 +662,31 @@ def phase2_scans(torch, lib, scan_kernels, scan, dev):
                       "grad_err_rel": err}), flush=True)
     # tests/test_pallas_scan.py's tolerance for T1/T2's gradient
     check(err < 1e-3, f"linear scan backward: {err} of the peak")
-    x = torch.rand((1, 64), device=dev, requires_grad=True)
-    for name, call in (
-            ("scan_max_affine", lambda: scan.max_affine_recurrence(x, 0.5, x)),
-            ("scan_affine2x2",
-             lambda: scan.affine2x2_recurrence(0.5, 0.0, 0.0, 0.5, x, x))):
-        try:
-            call()
-        except RuntimeError as exc:
-            check("no backward" in str(exc), f"{name}: {exc}")
-        else:
-            fail(f"{name} returned a result without a gradient")
+    # the other maps' backwards: the adjoint recurrences on the kernels
+    # against autograd through the plain versions on the card
+    m0 = rng.standard_normal((2, 200000)).astype(np.float32)
+    for name, run in (
+            ("scan_max_affine", lambda fn, a, b: fn(b, a, (1.0 - a) * b)),
+            ("scan_affine2x2", lambda fn, a, b: torch.stack(fn(
+                0.9 * a, 0.05 * a, -0.05 * a, 0.8 * a, b, -b)))):
+        plain = {"scan_max_affine":
+                 lambda m, a, c: scan_kernels.max_affine_ref(m, a, c, 0.0),
+                 "scan_affine2x2": lambda *p: scan_kernels.affine2x2_ref(
+                     *p, 0.0, 0.0)}[name]
+        custom = {"scan_max_affine": scan.max_affine_recurrence,
+                  "scan_affine2x2": scan.affine2x2_recurrence}[name]
+        grads = []
+        for fn in (custom, plain):
+            a, b = (torch.from_numpy(v).to(dev).requires_grad_()
+                    for v in (a0, m0))
+            y = run(fn, a, b)
+            grads.append(torch.autograd.grad((y * y).sum(), (a, b)))
+        err = max(float((g - w).abs().max() / w.abs().max())
+                  for g, w in zip(*grads))
+        print(json.dumps({"phase": 2, "kernel": name,
+                          "case": "backward [2, 200000]",
+                          "grad_err_rel": err}), flush=True)
+        check(err < 1e-3, f"{name} backward: {err} of the peak")
     return worst
 
 
@@ -944,29 +1055,33 @@ def filter_path(Audio, x, device):
     return a
 
 
-def capture_scan_calls(scan, run, keep):
-    """run() with the scan kernels' wrappers, as ops/scan.py calls them,
-    wrapped to keep the arguments of each call that keep(name, args, kept)
-    accepts, `kept` being that scan's calls kept so far (no launch of their
-    own). Returns run()'s result and name -> the kept argument tuples, in
-    call order."""
-    captured = {name: [] for name in SCANS}
-    originals = [getattr(scan, name) for name in SCANS]
+def capture_calls(targets, run, keep=None):
+    """run() with module.<name> for each (module, name) of targets wrapped
+    to keep the arguments of each call that keep(name, args, kept) accepts
+    (`kept` being that name's calls kept so far; by default the first call
+    only), with no launch of their own. Returns run()'s result and name ->
+    the kept argument tuples, in call order."""
+    if keep is None:
+        def keep(name, args, kept):
+            return not kept
+    captured = {name: [] for _, name in targets}
+    originals = [(module, name, getattr(module, name))
+                 for module, name in targets]
 
     def recorder(name, fn):
-        def call(*args):
+        def call(*args, **kwargs):
             if keep(name, args, captured[name]):
                 captured[name].append(args)
-            return fn(*args)
+            return fn(*args, **kwargs)
         return call
 
     try:
-        for name, fn in zip(SCANS, originals):
-            setattr(scan, name, recorder(name, fn))
+        for module, name, fn in originals:
+            setattr(module, name, recorder(name, fn))
         out = run()
     finally:
-        for name, fn in zip(SCANS, originals):
-            setattr(scan, name, fn)
+        for module, name, fn in originals:
+            setattr(module, name, fn)
     return out, captured
 
 
@@ -999,8 +1114,9 @@ def phase6_filters(torch, Audio, scan, scan_kernels, dev):
         return a, stages
 
     # the first call of each scan at full length
-    (out, stages), calls = capture_scan_calls(
-        scan, staged, lambda name, args, kept: not kept
+    (out, stages), calls = capture_calls(
+        [(scan, name) for name in SCANS], staged,
+        lambda name, args, kept: not kept
         and args[0].shape[-1] == x.shape[1])
     captured = {name: kept[0] for name, kept in calls.items() if kept}
     report = {"phase": 6, "path": "filters_compress_600s_stereo_48k",
@@ -1246,9 +1362,10 @@ def phase7_algorithms(torch, Audio, scan, scan_kernels, dev):
                                  device=dev).convert_to_PV(2048, 128, 4096)
     torch.cuda.synchronize()
     scan_kernels.reset_launch_counts()
-    (res, per), captured = capture_scan_calls(scan, lambda: (
-        pv.resonate(RESONATE_SECONDS, RESONATE_DECAY),
-        pv.perturb(PERTURB_STD, seed=3)), lambda name, args, kept: True)
+    (res, per), captured = capture_calls(
+        [(scan, name) for name in SCANS], lambda: (
+            pv.resonate(RESONATE_SECONDS, RESONATE_DECAY),
+            pv.perturb(PERTURB_STD, seed=3)), lambda name, args, kept: True)
     torch.cuda.synchronize()
     launches = {"scan_linear": scan_kernels.LAUNCHES["scan_linear"],
                 "scan_max_affine": scan_kernels.LAUNCHES["scan_max_affine"]}
@@ -1319,6 +1436,587 @@ def phase7_algorithms(torch, Audio, scan, scan_kernels, dev):
     check(e_r["freq_cells_off"] <= TOL_RESONATE_CELLS,
           f"resonate frequencies on the card vs the CPU: {e_r}")
     return launches, errs, calls
+
+
+def sm_clock_hz() -> float:
+    """The SM's maximum clock (nvidia-smi), for the latency estimates."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def kxk_frames(n, tile: int, window: int) -> int:
+    """A k x k case's frames (scan_frames, with the rows kernel's tile of
+    0 read as 256 so that its cases keep their lengths)."""
+    return scan_frames(n, tile or 256, window)
+
+
+def kxk_planes(torch, k: int, rows: int, n: int, shared: bool, seed: int,
+               dev):
+    """k x k maps near the multinotch's (a decay of 0.5 to 0.99999 on the
+    diagonal, weak coupling off it), inputs and start states, float32 on the
+    card: A [1 or rows, k*k, N], b [rows, k, N], y0 [rows, k]."""
+    rng = np.random.default_rng(seed)
+    ra = 1 if shared else rows
+    A = rng.uniform(-1, 1, (ra, k, k, n)).astype(np.float32) * (0.3 / k)
+    A[:, np.arange(k), np.arange(k)] = rng.uniform(0.5, 0.99999, (ra, k, n))
+    b = rng.standard_normal((rows, k, n)).astype(np.float32)
+    y0 = rng.standard_normal((rows, k)).astype(np.float32)
+    return [torch.from_numpy(v).to(dev) for v in
+            (A.reshape(ra, k * k, n), b, y0)]
+
+
+def phase8_kxk_cases(torch, lib, scan_kernels, dev) -> float:
+    """The k x k kernel against its plain version over k (the one pass and,
+    above 8, the rows kernel), lengths and rows, A shared and not; three
+    calls for the same bits at each k. Returns the largest absolute
+    error against the float32 plain run."""
+    worst = 0.0
+    for k in KXK_KS:
+        tile = lib.flan_scan_kxk_tile(k)
+        for i, (rows, frames, shared) in enumerate(KXK_CASES):
+            n = kxk_frames(frames, tile, lib.flan_scan_window_tiles())
+            args = kxk_planes(torch, k, rows, n, shared, 10 * k + i, dev)
+            e = scan_errors(torch, scan_kernels.scan_affine_kxk,
+                            scan_kernels.affine_kxk_ref, args)
+            print(json.dumps({"phase": 8, "kernel": "scan_affine_kxk",
+                              "k": k, "rows": rows, "frames": n,
+                              "shared": shared, **e}), flush=True)
+            check_scan(e, f"k x k k={k} rows={rows} N={n} shared={shared}",
+                       SCAN_FLOOR)
+            worst = max(worst, e["abs_err"])
+            del args
+        args = kxk_planes(torch, k, 64, 30_011, True, k, dev)
+        check_same_bits(torch, lambda: scan_kernels.scan_affine_kxk(*args),
+                        f"k x k k={k} on 64 rows")
+    return worst
+
+
+def multinotch_runs():
+    """Phase 8's multinotch calls: (name, k, step)."""
+    def sweep(t):
+        return 200.0 * 10.0 ** (t / MULTINOTCH_SECONDS)   # 200 -> 2000 Hz
+    return [
+        ("multinotch_1pole_4_swept", 4, lambda a: a.filter_1pole_multinotch(
+            4, sweep, 0.5)),
+        ("multinotch_2pole_4_swept", 8, lambda a: a.filter_2pole_multinotch(
+            4, sweep, 0.3, 0.5)),
+        ("multinotch_2pole_2_fir", 4, lambda a: a.filter_2pole_multinotch(
+            2, 800.0, 0.35, 0.3)),
+        ("comb_swept", None, lambda a: a.filter_comb(sweep, 0.5)),
+    ]
+
+
+def phase8_filters(torch, Audio, scan, scan_kernels, seq, dev, card):
+    """The filters that run on the k x k and the sequential kernels, at
+    headline width: the multinotch filters and the swept comb at 600 s
+    stereo 48 kHz, the saturator at 10 s; counted from zero, a first call
+    and a second, peak memory; each held to the CPU (the multinotch
+    filters at 3 s, the comb at 10 s, the saturator over its first
+    SEQ_PLAIN_FRAMES frames). Returns the launches, the report, the
+    captured k x k calls (k -> arguments), the sequential kernels' calls
+    (kernel -> arguments) and the first frames of their outputs (kernel ->
+    array), which phase8_sequential_checks holds to the plain loops."""
+    x = stereo_signal(MULTINOTCH_SECONDS)
+    x10 = stereo_signal(FILTER_CPU_SECONDS)
+    x_mn = x10[:, :int(MULTINOTCH_CPU_SECONDS * SR)].copy()
+    report = {"phase": 8, "path": "filters_on_kxk_and_sequential_kernels",
+              "card": card}
+    launches = {**scan_kernels.LAUNCHES, **seq.LAUNCHES}
+    launches = dict.fromkeys(launches, 0)
+    kxk_args, seq_args, seq_out = {}, {}, {}
+    for name, k, step in multinotch_runs() + [
+            ("saturator_1pole_2", None, lambda a: a.filter_1pole_multinotch(
+                2, lambda t: 300.0 + 300.0 * t, 0.6, False, 0.5, True)),
+            ("saturator_2pole_2", None, lambda a: a.filter_2pole_multinotch(
+                2, lambda t: 300.0 + 300.0 * t, 0.4, 0.7, True, 0.5, True))]:
+        seconds = SAT_SECONDS if name.startswith("saturator") else \
+            MULTINOTCH_SECONDS
+        xs = x if seconds == MULTINOTCH_SECONDS else stereo_signal(seconds)
+        scan_kernels.reset_launch_counts()
+        seq.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        (y, ms_first), calls = capture_calls(
+            [(scan, "scan_affine_kxk"), (seq, "saturator_cuda"),
+             (seq, "comb_swept_cuda")],
+            lambda: timed(torch, lambda: step(Audio.create_from_array(
+                xs, SR, device=dev))))
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        if k is not None and calls["scan_affine_kxk"]:
+            kxk_args.setdefault(k, calls["scan_affine_kxk"][0])
+        if calls["saturator_cuda"]:
+            seq_args[name[:15]] = calls["saturator_cuda"][0]
+        if calls["comb_swept_cuda"]:
+            seq_args["comb_swept"] = calls["comb_swept_cuda"][0]
+        del y
+        y, ms_second = timed(torch, lambda: step(Audio.create_from_array(
+            xs, SR, device=dev)))
+        # the path's launches: its two calls, before any comparison
+        run_launches = {**scan_kernels.LAUNCHES, **seq.LAUNCHES}
+        for key, count in run_launches.items():
+            launches[key] += count
+        y_np = y.to_numpy()
+        del y
+        # the sequential kernels' outputs are causal: their first frames
+        # are held to the plain loops on the call's own inputs
+        if name.startswith("saturator"):
+            seq_out[name[:15]] = y_np[:, :SEQ_PLAIN_FRAMES]
+        elif name == "comb_swept":
+            seq_out[name] = y_np[:, :int(COMB_PLAIN_SECONDS * SR)]
+        # the saturator's plain loop on the CPU takes ~0.5 ms a step: it is
+        # compared over its first SEQ_PLAIN_FRAMES frames
+        xc = (x10[:, :SEQ_PLAIN_FRAMES].copy() if name.startswith(
+            "saturator") else x10 if name == "comb_swept" else x_mn)
+        (want, got), cmp = capture_calls(
+            [(seq, "comb_swept_ref"), (seq, "comb_swept_cuda")],
+            lambda: [step(Audio.create_from_array(xc, SR, device=d)
+                          ).to_numpy() for d in ("cpu", dev)])
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        extra = {}
+        if name == "comb_swept":
+            # int(sr / (2 w)) truncates: where the card's and the CPU's
+            # float32 w round sr / (2 w) to two sides of an integer, the
+            # two delays differ by one sample, and the comb's output with
+            # them. The card is held to the CPU's plain loop on the card's
+            # own delays; the CPU's own result is information.
+            x_c, d_c, k_c, a_c, f_c, _ = cmp["comb_swept_cuda"][0]
+            d_cpu = cmp["comb_swept_ref"][0][1]
+            extra = {"delays_differ": int((d_c.cpu() != d_cpu).sum()),
+                     "card_vs_cpu_own_delays_err_rel": err}
+            want = seq.comb_swept_ref(x_c.cpu(), d_c.cpu(), k_c.cpu(),
+                                      a_c.cpu(), f_c).numpy()
+            err = float(np.abs(got - want).max() / np.abs(want).max())
+        report[name] = {**extra,
+            "seconds": seconds, "cpu_frames": xc.shape[1],
+            "wall_s_first": ms_first / 1e3,
+            "wall_s_second": ms_second / 1e3,
+            "x_realtime_second": seconds / (ms_second / 1e3),
+            "peak_alloc_gb": peak_gb,
+            "launches": {key: n for key, n in run_launches.items() if n},
+            "card_vs_cpu_err_rel": err}
+        print(json.dumps({"phase": 8, "path": name, **report[name]}),
+              flush=True)
+        check(y_np.shape == xs.shape and bool(np.isfinite(y_np).all()),
+              f"{name}: output {y_np.shape}, finite "
+              f"{bool(np.isfinite(y_np).all())}")
+        check(got.shape == want.shape and err < TOL_FILTER_CPU,
+              f"{name} on the card vs the CPU ({xc.shape[1]} frames): {err}")
+    for name in ("scan_affine_kxk", "saturator_1pole", "saturator_2pole",
+                 "comb_swept"):
+        check(launches[name] > 0,
+              f"{name} kernel was not launched on the phase-8 path")
+    check(sorted(kxk_args) == [4, 8],
+          f"the k x k calls captured at full length: {sorted(kxk_args)}")
+    return launches, report, kxk_args, seq_args, seq_out
+
+
+def phase8_sequential_checks(torch, seq, seq_args, seq_out):
+    """The sequential kernels' outputs on the path (the saturators' 10 s
+    calls, the comb's 600 s call: the calls that are timed) against the
+    plain loops on the card, run on the same call's inputs cut to the
+    first frames (the loops are causal), and three calls of each kernel on
+    the cut inputs for the same bits. Returns name -> (largest absolute
+    error, plain ms, plain frames)."""
+    out = {}
+    for name, args in seq_args.items():
+        want_np = seq_out[name]
+        n = want_np.shape[1]
+        if name == "comb_swept":
+            x, delays, k, a, f, ring = args
+            cut = (x[:, :n].contiguous(), delays[:n].contiguous(),
+                   k[:n].contiguous(), a[:n].contiguous(), f)
+            kernel = (lambda: seq.comb_swept_cuda(*cut, ring))
+            plain = (lambda: seq.comb_swept_ref(*cut))
+            tol = TOL_COMB
+        else:
+            x, planes, inv, order, two_pole = args
+            cut = (x[:, :n].contiguous(),
+                   tuple(p[:n].contiguous() for p in planes), inv, order,
+                   two_pole)
+            ref = (seq.saturator_2pole_ref if two_pole
+                   else seq.saturator_1pole_ref)
+            kernel = (lambda: seq.saturator_cuda(*cut))
+            plain = (lambda: ref(cut[0], *cut[1], inv, order))
+            tol = TOL_SATURATOR
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = torch.from_numpy(want_np).to(want.device)
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        check_same_bits(torch, kernel, name)
+        print(json.dumps({"phase": 8, "kernel": name, "frames": n,
+                          "of_frames": int(x.shape[1]), "err_rel": rel,
+                          "plain_ms": plain_ms}), flush=True)
+        check(rel <= tol, f"{name} on the path vs its plain loop over the "
+              f"first {n} frames: {rel}")
+        out[name] = (err, plain_ms, n)
+    return out
+
+
+def phase8_kxk_time_order(torch, Audio, scan, scan_kernels, dev, card):
+    """A swept 2-pole multinotch of order KXK_TIME_ORDER (k = 12: the k x
+    k kernel in time order, one block a row) at 600 s stereo 48 kHz: one
+    call, counted from zero, its wall and peak, and its k x k call timed
+    inside it by CUDA events (the wrapper's allocations included); the
+    output's shape and finiteness (the kernel is held to its plain version
+    in phase8_kxk_cases). The kernel's least time by bytes is kxk_bound's;
+    its chain is N dependent steps of k FMAs in a row and a barrier,
+    estimated at KXK_ROWS_STEP_CYCLES. Returns the launches and the
+    timing."""
+    x = stereo_signal(MULTINOTCH_SECONDS)
+    k = 2 * KXK_TIME_ORDER
+    kernel, calls = scan.scan_affine_kxk, []
+
+    def timed_kxk(A, b, y0):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = kernel(A, b, y0)
+        end.record()
+        calls.append((start, end, kxk_bound(A, b, k),
+                      4 * (A.numel() + 2 * b.numel()) / 1e9, b.shape[2]))
+        return y
+
+    scan_kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    scan.scan_affine_kxk = timed_kxk
+    try:
+        y, ms = timed(torch, lambda: Audio.create_from_array(
+            x, SR, device=dev).filter_2pole_multinotch(
+                KXK_TIME_ORDER, lambda t: 200.0 * 10.0 ** (
+                    t / MULTINOTCH_SECONDS), 0.3, 0.5))
+    finally:
+        scan.scan_affine_kxk = kernel
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    launches = dict(scan_kernels.LAUNCHES)
+    shape, finite = tuple(y.data.shape), bool(torch.isfinite(y.data).all())
+    del y
+    check(shape == x.shape and finite,
+          f"the k = {k} multinotch: {shape}, finite {finite}")
+    check(launches["scan_affine_kxk"] == 1 and len(calls) == 1,
+          f"the k = {k} multinotch's k x k launches: {launches}")
+    start, end, bnd, planes_gb, n = calls[0]
+    timing = {"ms": start.elapsed_time(end), "bound_ms": bnd[0],
+              "bound_by": bnd[1],
+              "chain_estimate_ms": n * (4 * k + KXK_ROWS_STEP_CYCLES)
+              / sm_clock_hz() * 1e3,
+              "planes_gb": planes_gb, "path_wall_s": ms / 1e3,
+              "path_peak_alloc_gb": peak_gb}
+    print(json.dumps({"phase": 8, "path": f"multinotch_2pole_"
+                      f"{KXK_TIME_ORDER}_swept_600s", "card": card, "k": k,
+                      "launches": {key: v for key, v in launches.items()
+                                   if v}, **timing}), flush=True)
+    return launches, timing
+
+
+def phase8_sequential_gradients(torch, Audio, seq, dev, card):
+    """Gradients through the saturator multinotch (1-pole and 2-pole, order
+    2) and the swept comb on the card, on their backward kernels:
+      - against the CPU through the same methods: the saturators over
+        SAT_GRAD_CPU_FRAMES frames with respect to the signal and the
+        cutoff (their plain loops on the CPU take ~4 ms a step), the comb
+        over 10 s with respect to the signal and the feedback, on delays
+        of whole samples and a half (its cutoff sr / (2 (D + 1/2))), which
+        no rounding moves across an integer;
+      - at the forward paths' sizes (the saturators at 10 s, the comb at
+        600 s), counted from zero: the backward kernel's launches, wall,
+        finite gradients, and its output over the last frames against its
+        plain loop on the card, run on the same call's inputs cut to those
+        frames (the adjoint runs in reverse time: the last frames need
+        nothing before them), and three calls on the cut inputs for the
+        same bits.
+    Returns the launches (kernel -> count, the forward's and the
+    backward's), the backward calls (kernel -> arguments) and name ->
+    (largest absolute error, plain ms, plain frames)."""
+    def sat(two_pole):
+        def run(a, c):
+            cut = (lambda t: c * (1.0 + t))
+            if two_pole:
+                return a.filter_2pole_multinotch(2, cut, 0.4, 0.7, True, 0.5,
+                                                 True)
+            return a.filter_1pole_multinotch(2, cut, 0.6, True, 0.5, True)
+        return run
+
+    def comb_cut(t):
+        return SR / (2.0 * (torch.floor(12.0 + 10.0 * t) + 0.5))
+    paths = {
+        "saturator_1pole": (sat(False), 300.0, SAT_GRAD_CPU_FRAMES,
+                            SAT_SECONDS),
+        "saturator_2pole": (sat(True), 300.0, SAT_GRAD_CPU_FRAMES,
+                            SAT_SECONDS),
+        "comb_swept": (lambda a, c: a.filter_comb(comb_cut, c, 0.5), 0.5,
+                       int(FILTER_CPU_SECONDS * SR), MULTINOTCH_SECONDS)}
+    launches, back_args, out = {}, {}, {}
+    for name, (run, c0, cpu_frames, seconds) in paths.items():
+        back = f"{name}_backward"
+        x = stereo_signal(FILTER_CPU_SECONDS)[:, :cpu_frames] * 3.0
+        grads = {}
+        for device in ("cpu", dev):
+            v = torch.from_numpy(x).to(device).requires_grad_()
+            c = torch.tensor(c0, device=device, requires_grad=True)
+            y = run(Audio.create_from_array(v, SR), c).data
+            grads[str(device)] = [g.cpu().double() for g in
+                                  torch.autograd.grad((y * y).sum(), (v, c))]
+        (gv, gc), (wv, wc) = grads[str(dev)], grads["cpu"]
+        e = {"frames": cpu_frames,
+             "signal_grad_err_max": float((gv - wv).abs().max()
+                                          / wv.abs().max()),
+             "param_grad_err": float((gc - wc).abs() / wc.abs()),
+             "param_grad_card": float(gc), "param_grad_cpu": float(wc)}
+        print(json.dumps({"phase": 8, "path": f"gradients_{name}_card_vs_cpu",
+                          "card": card, **e}), flush=True)
+        check(e["signal_grad_err_max"] < TOL_GRAD_CPU
+              and e["param_grad_err"] < TOL_GRAD_CPU,
+              f"{name}: gradients on the card vs the CPU: {e}")
+        # the forward path's size, counted
+        xs = stereo_signal(seconds) * 3.0
+        seq.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v = torch.from_numpy(xs).to(dev).requires_grad_()
+        c = torch.tensor(c0, device=dev, requires_grad=True)
+        (y, grad), calls = capture_calls(
+            [(seq, f"{'comb_swept' if name == 'comb_swept' else 'saturator'}"
+              "_backward_cuda")],
+            lambda: (lambda y: (y, torch.autograd.grad(
+                (y * y).sum(), (v, c))))(run(Audio.create_from_array(v, SR),
+                                             c).data))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counted = {k: n for k, n in seq.LAUNCHES.items() if n}
+        launches[name] = seq.LAUNCHES[name]
+        launches[back] = seq.LAUNCHES[back]
+        finite = all(bool(torch.isfinite(g).all()) for g in grad)
+        del y, grad, v
+        check(launches[back] == 1 and launches[name] == 1 and finite,
+              f"{name}: {seconds} s forward and backward: launches "
+              f"{counted}, finite {finite}")
+        args = next(iter(calls.values()))[0]
+        back_args[back] = args
+        # the backward's last frames against its plain loop
+        p = SEQ_BACK_PLAIN_FRAMES
+        if name == "comb_swept":
+            gy, delays, k, a, f, ring = args
+            cut = tuple(t[..., -p:].contiguous()
+                        for t in (gy, delays, k, a)) + (f,)
+
+            def kernel():
+                return seq.comb_swept_backward_cuda(*cut, ring)
+
+            def plain():
+                return seq.comb_swept_backward_ref(*cut)
+            full = seq.comb_swept_backward_cuda(*args)[:, -p:]
+            tol = TOL_COMB_BACK
+        else:
+            gy, x_, planes, y_, states, inv, order, two_pole = args
+            s0 = gy.shape[1] - p - 1     # the frame before: prev and states
+            cut = (gy[:, s0:].contiguous(), x_[:, s0:].contiguous(),
+                   tuple(q[s0:].contiguous() for q in planes),
+                   y_[:, s0:].contiguous(), states[..., s0:].contiguous(),
+                   inv, order, two_pole)
+
+            def kernel():
+                return seq.saturator_backward_cuda(*cut)
+
+            def plain():
+                gx, gp = seq.saturator_backward_ref(*cut)
+                return torch.cat([gx[:, 1:, None], gp[..., 1:].transpose(
+                    1, 2)], dim=2)
+            gx, gp = seq.saturator_backward_cuda(*args)
+            full = torch.cat([gx[:, -p:, None],
+                              gp[..., -p:].transpose(1, 2)], dim=2)
+            tol = TOL_SATURATOR_BACK
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        # each gradient (the signal's, each plane's) over its own peak
+        err = (full - want).abs()
+        peaks = want.abs().amax(dim=tuple(range(want.ndim - 1)),
+                                keepdim=True) if want.ndim == 3 else \
+            want.abs().max()
+        rel = float((err / peaks.clamp(min=1e-30)).max())
+        check_same_bits(torch, kernel, back)
+        print(json.dumps({"phase": 8, "kernel": back, "frames": p,
+                          "of_frames": int(gy.shape[1]), "err_rel": rel,
+                          "plain_ms": plain_ms, "wall_s_fwd_bwd": wall,
+                          "launches": counted}), flush=True)
+        check(rel <= tol, f"{back} on the path vs its plain loop over the "
+              f"last {p} frames: {rel}")
+        out[back] = (float(err.max()), plain_ms, p)
+    return launches, back_args, out
+
+
+def phase8_gradients(torch, Audio, scan_kernels, dev, card):
+    """Gradients of the energy on the card against the CPU at 10 s stereo,
+    with respect to the signal and to a cutoff given as a 0-d tensor:
+    through a swept 2-pole lowpass of order 2 (the 2 x 2 scan and its
+    backward), whose gradient is smooth, held by its largest difference;
+    then through the lowpass and the compressor (the max-affine and linear
+    scans' backwards), held by the relative L2 norm of the difference and
+    by the cutoff's gradient: the compressor's peak detector takes the
+    branch that wins a max, and where the two branches meet within the
+    float32 rounding of two devices' scans, the two gradients part from
+    that sample back over the detector's decay (TOL_GRAD_SWITCH_L2). The
+    launch counters show the backward on the kernels."""
+    x10 = stereo_signal(FILTER_CPU_SECONDS)
+    paths = {
+        "lowpass": lambda a, c: a.filter_2pole_lowpass(
+            lambda t: c * (1.0 + t / 10.0), 0.5, 2),
+        "lowpass_compress": lambda a, c: a.filter_2pole_lowpass(
+            lambda t: c * (1.0 + t / 10.0), 0.5, 2).compress(
+                -18.0, 4.0, 0.005, 0.1, 6.0)}
+    report = {}
+    back_all = dict.fromkeys(scan_kernels.LAUNCHES, 0)
+    for name, run in paths.items():
+        grads, counts = {}, {}
+        for device in ("cpu", dev):
+            v = torch.from_numpy(x10).to(device).requires_grad_()
+            c = torch.tensor(1200.0, device=device, requires_grad=True)
+            before = dict(scan_kernels.LAUNCHES)
+            y = run(Audio.create_from_array(v, SR), c).data
+            loss = (y * y).sum()
+            forward = {k: scan_kernels.LAUNCHES[k] - before[k]
+                       for k in before}
+            grads[str(device)] = [g.cpu().double() for g in
+                                  torch.autograd.grad(loss, (v, c))]
+            counts[str(device)] = {
+                "forward": forward,
+                "backward": {k: scan_kernels.LAUNCHES[k] - before[k]
+                             - forward[k] for k in before}}
+        (gv, gc), (wv, wc) = grads[str(dev)], grads["cpu"]
+        d = (gv - wv).abs()
+        e = {"signal_grad_err_max": float(d.max() / wv.abs().max()),
+             "signal_grad_err_l2": float((gv - wv).norm() / wv.norm()),
+             "signal_samples_off": int((d > 1e-3 * wv.abs().max()).sum()),
+             "cutoff_grad_err": float((gc - wc).abs() / wc.abs()),
+             "cutoff_grad_card": float(gc), "cutoff_grad_cpu": float(wc),
+             "launches": counts[str(dev)]}
+        report[name] = e
+        print(json.dumps({"phase": 8, "path": f"gradients_{name}_10s_stereo",
+                          "card": card, **e}), flush=True)
+        back = counts[str(dev)]["backward"]
+        for k in back_all:
+            back_all[k] += back[k]
+        check(not any(counts["cpu"]["backward"].values()),
+              f"{name}: the CPU's backward launched a kernel")
+        check(back["scan_affine2x2"] >= 2, f"{name}: the backward did not "
+              f"run on the 2 x 2 kernel: {back}")
+        smooth = name == "lowpass"
+        check(e["cutoff_grad_err"] < (TOL_GRAD_CPU if smooth
+                                      else TOL_GRAD_SWITCH_PARAM),
+              f"{name}: cutoff gradient on the card vs the CPU: {e}")
+        check(e["signal_grad_err_max"] < TOL_GRAD_CPU if smooth
+              else e["signal_grad_err_l2"] < TOL_GRAD_SWITCH_L2,
+              f"{name}: signal gradient on the card vs the CPU: {e}")
+    check(report["lowpass_compress"]["launches"]["backward"]["scan_linear"]
+          >= 2, "the compressor's backward did not run on the linear kernel")
+    return back_all
+
+
+def phase8_resample_convolve(torch, Audio, dev, card):
+    """Audio.resample 48 -> 44.1 kHz, add_moisture (4x oversampling: two
+    resampling passes) and convolve by a 2 s stereo impulse response, at
+    600 s stereo: a first call and a second, peak memory; each held to the
+    CPU at 10 s."""
+    x = stereo_signal(MULTINOTCH_SECONDS)
+    x10 = stereo_signal(FILTER_CPU_SECONDS)
+    rng = np.random.default_rng(11)
+    m = int(IR_SECONDS * SR)
+    ir = (rng.standard_normal((2, m)) * np.exp(-np.arange(m) / (0.3 * SR))
+          ).astype(np.float32)
+    runs = {
+        "resample_44k1": (lambda a: a.resample(44100.0), TOL_FILTER_CPU),
+        "add_moisture": (lambda a: a.add_moisture(), TOL_MOISTURE_CPU),
+        "convolve_2s_ir": (lambda a: a.convolve(Audio.create_from_array(
+            ir, SR, device=a.device)), TOL_FILTER_CPU)}
+    report = {"phase": 8, "path": "resample_convolve_600s_stereo_48k",
+              "card": card}
+    for name, (run, tol) in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        y, ms_first = timed(torch, lambda: run(Audio.create_from_array(
+            x, SR, device=dev)))
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        del y
+        y, ms_second = timed(torch, lambda: run(Audio.create_from_array(
+            x, SR, device=dev)))
+        shape = tuple(y.data.shape)
+        finite = bool(torch.isfinite(y.data).all())
+        del y
+        want = run(Audio.create_from_array(x10, SR, device="cpu")).to_numpy()
+        got = run(Audio.create_from_array(x10, SR, device=dev)).to_numpy()
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        report[name] = {"wall_s_first": ms_first / 1e3,
+                        "wall_s_second": ms_second / 1e3,
+                        "x_realtime_second": MULTINOTCH_SECONDS
+                        / (ms_second / 1e3),
+                        "peak_alloc_gb": peak_gb, "shape": shape,
+                        "card_vs_cpu_10s_err_rel": err}
+        check(finite, f"{name}: output not finite")
+        check(got.shape == want.shape and err < tol,
+              f"{name} on the card vs the CPU at 10 s: {err}")
+    print(json.dumps(report), flush=True)
+    n = x.shape[1]
+    check(report["resample_44k1"]["shape"] == (2, int(n * 44100.0 / SR))
+          and report["add_moisture"]["shape"] == (2, n)
+          and report["convolve_2s_ir"]["shape"] == (2, n + m),
+          f"shapes {[report[k]['shape'] for k in runs]}")
+    return report
+
+
+def kxk_bound(A, b, k: int):
+    """(bound_ms, bound_by) of one k x k call: A read once (one map for
+    every row counts once), b read and y written per row; 2 k^2 operations
+    (k^2 FMAs) an element of a row."""
+    rows, _, n = b.shape
+    t_bytes = 4 * (A.numel() + 2 * b.numel()) / HBM_BYTES_PER_S
+    t_ops = 2 * k * k * rows * n / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def sequential_bound(name: str, frames: int, delays=None, clock=1.98e9):
+    """(bound_ms, bound_by, note) of a sequential kernel on stereo at order
+    2: the larger of its bytes over the memory rate and the latency
+    estimate of its chain of dependent steps (see NEWTON_CYCLES and
+    NEWTON_BACK_CYCLES)."""
+    back = name.endswith("_backward")
+    if name.startswith("comb_swept"):
+        d = delays.double().clamp(max=32)
+        per = COMB_BACK_ROUND_CYCLES if back else COMB_ROUND_CYCLES
+        cycles = float((1.0 / d).sum()) * per
+        # x (gy) in and y (gu) out per channel; the delays, k and a
+        nbytes = 4 * frames * (2 * 2 + 3)
+        note = (f"estimate: {float((1.0 / d).sum()):.0f} rounds of at most "
+                f"32 steps x ~{per} cycles")
+    else:
+        two = name.startswith("saturator_2pole")
+        planes, states = (6, 4) if two else (5, 2)
+        if back:
+            # the adjoint's chain: 8 Newton adjoints and the two stages'
+            per = 8 * NEWTON_BACK_CYCLES + 4 * STAGE_CYCLES[two] + STEP_CYCLES
+            # gy, x, y in and gx out, the states in and the planes'
+            # gradients out per channel; the planes
+            nbytes = 4 * frames * (2 * (4 + states + planes) + planes)
+        else:
+            per = 8 * NEWTON_CYCLES + 2 * STAGE_CYCLES[two] + STEP_CYCLES
+            nbytes = 4 * frames * (2 * 2 + planes)
+        cycles = frames * per
+        note = f"estimate: {frames} dependent steps x ~{per} cycles"
+    t_lat = cycles / clock
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_lat, t_bytes) * 1e3, "operations", note)
 
 
 def scan_bytes(args, nplanes: int, nstates: int):
@@ -1436,7 +2134,8 @@ def main() -> None:
     card, torch, dev, lib = start(None)
     from flan_tpu_torch import SQPV, Audio, pipelines
     from flan_tpu_torch.ops import (probe_kernels, scan, scan_kernels,
-                                    spv_kernels, sqpv_kernels)
+                                    sequential_kernels, spv_kernels,
+                                    sqpv_kernels)
     from flan_tpu_torch.sqpv.transform import cq_geometry
     phase_done("0-1 card, imports, build")
 
@@ -1570,6 +2269,91 @@ def main() -> None:
     del pv60, calls7
     print(json.dumps({"phase": 7, "scans_in_regime": regime}), flush=True)
     phase_done("7 resonate, perturb, checks, timing")
+
+    # phase 8: the k x k scan and the sequential kernels; the filters on
+    # them, counted; the gradients; resampling and convolution
+    worst["scan_affine_kxk"] = phase8_kxk_cases(torch, lib, scan_kernels,
+                                                dev)
+    phase_done("8 k x k cases")
+    launches8, _, kxk_args, seq_args, seq_out = phase8_filters(
+        torch, Audio, scan, scan_kernels, sequential_kernels, dev, card)
+    for name in NEW_KERNELS[:4]:
+        launches[name] = launches8[name]
+    phase_done("8 multinotch, comb, saturator")
+    kxk12_launches, kxk12_timing = phase8_kxk_time_order(
+        torch, Audio, scan, scan_kernels, dev, card)
+    launches["scan_affine_kxk"] += kxk12_launches["scan_affine_kxk"]
+    phase_done("8 k = 12 multinotch")
+    for name, (err, plain_ms, frames) in phase8_sequential_checks(
+            torch, sequential_kernels, seq_args, seq_out).items():
+        worst[name], errs[name] = err, 0.0
+        times[name] = {"plain_ms": plain_ms, "plain_frames": frames}
+    seq_grad_launches, back_args, back_checks = \
+        phase8_sequential_gradients(torch, Audio, sequential_kernels, dev,
+                                    card)
+    for name, count in seq_grad_launches.items():
+        launches[name] = launches.get(name, 0) + count
+    for name, (err, plain_ms, frames) in back_checks.items():
+        worst[name], errs[name] = err, 0.0
+        times[name] = {"plain_ms": plain_ms, "plain_frames": frames}
+    phase_done("8 sequential checks, their gradients")
+    grad_launches = phase8_gradients(torch, Audio, scan_kernels, dev, card)
+    for name in SCANS:
+        by_path.setdefault(name, {"filters": launches[name]})
+        by_path[name]["gradients_backward"] = grad_launches[name]
+        launches[name] += grad_launches[name]
+    phase_done("8 scan gradients")
+    phase8_resample_convolve(torch, Audio, dev, card)
+    phase_done("8 resample, add_moisture, convolve")
+    # the k x k kernel on the k = 4 multinotch's planes at 600 s (its
+    # float32 plain run fits the card there; at k = 8 it would hold ~70 GB
+    # of leaves): each A read once, b and y per row; the recurrence's
+    # k^2 FMAs an element
+    A, b, y0 = kxk_args[4]
+    times.update(time_kernels(torch, {"scan_affine_kxk": (
+        lambda: scan_kernels.scan_affine_kxk(A, b, y0),
+        lambda: scan_kernels.affine_kxk_ref(A, b, y0))}))
+    errs["scan_affine_kxk"] = 0.0
+    regime8 = {}
+    for k, (A, b, y0) in sorted(kxk_args.items()):
+        rows, _, n = b.shape
+        bnd = kxk_bound(A, b, k)
+        regime8[f"k{k}_600s_stereo"] = {
+            "ms": cuda_ms(torch, lambda: scan_kernels.scan_affine_kxk(
+                A, b, y0), 3), "bound_ms": bnd[0], "bound_by": bnd[1],
+            "planes_gb": 4 * (A.numel() + 2 * b.numel()) / 1e9}
+        if k == 4:
+            bounds["scan_affine_kxk"] = bnd
+    del A, b, y0, kxk_args
+    regime8[f"k{2 * KXK_TIME_ORDER}_600s_stereo"] = kxk12_timing
+    clock = sm_clock_hz()
+    for name, args in seq_args.items():
+        fn = (sequential_kernels.comb_swept_cuda if name == "comb_swept"
+              else sequential_kernels.saturator_cuda)
+        # each ran at this shape in the path: two launches, none untimed
+        times[name]["ms"] = cuda_ms(torch, lambda: fn(*args), 2)
+        times[name]["frames"] = int(args[0].shape[1])
+        bounds[name] = sequential_bound(
+            name, int(args[0].shape[1]),
+            args[1] if name == "comb_swept" else None, clock)
+    del seq_args
+    for name, args in back_args.items():
+        fn = (sequential_kernels.comb_swept_backward_cuda
+              if name == "comb_swept_backward"
+              else sequential_kernels.saturator_backward_cuda)
+        # each ran once at this shape in the path and once in its check
+        times[name]["ms"] = cuda_ms(torch, lambda: fn(*args), 2)
+        times[name]["frames"] = int(args[0].shape[1])
+        bounds[name] = sequential_bound(
+            name, int(args[0].shape[1]),
+            args[1] if name == "comb_swept_backward" else None, clock)
+    del back_args
+    print(json.dumps({"phase": 8, "card": card, "sm_clock_hz": clock,
+                      "kxk_regimes": regime8,
+                      "sequential_times": {n: times[n] for n in NEW_KERNELS
+                                           if n != "scan_affine_kxk"}}),
+          flush=True)
+    phase_done("8 timing")
     print(json.dumps({"profile_us_per_launch": split}), flush=True)
     print(json.dumps({"phase_seconds": seconds,
                       "seconds": round(sum(seconds.values()), 1)}), flush=True)
@@ -1577,7 +2361,9 @@ def main() -> None:
     source = {"spv": "flan_tpu_torch/csrc/spv_kernels.cu",
               "sqpv": "flan_tpu_torch/csrc/sqpv_kernels.cu",
               "scan": "flan_tpu_torch/csrc/scan_kernels.cu",
-              "probe": "flan_tpu_torch/csrc/probe_kernels.cu"}
+              "probe": "flan_tpu_torch/csrc/probe_kernels.cu",
+              "saturator": "flan_tpu_torch/csrc/sequential_kernels.cu",
+              "comb": "flan_tpu_torch/csrc/sequential_kernels.cu"}
     replaces = {"spv_forward": "flan_tpu/ops/spv_pallas.py:93",
                 "spv_inverse": "flan_tpu/ops/spv_pallas.py:239",
                 "sqpv_forward": "flan_tpu/ops/sqpv_pallas.py:139",
@@ -1586,12 +2372,28 @@ def main() -> None:
                 "scan_linear": "tools/pallas_scan_experiment.py:64,117",
                 "scan_max_affine": "tools/pallas_scan_experiment.py:64,117",
                 "scan_affine2x2": "tools/pallas_scan_experiment.py:64,117",
-                "probe": "tools/probe_pallas_ops.py:20"}
+                "probe": "tools/probe_pallas_ops.py:20",
+                "scan_affine_kxk": "tools/pallas_scan_experiment.py:64,117",
+                # no TPU kernel: the JAX package's lax.scan loops
+                "saturator_1pole": "flan_tpu/audio/filters.py:603",
+                "saturator_2pole": "flan_tpu/audio/filters.py:569",
+                "comb_swept": "flan_tpu/audio/filters.py:643",
+                # jax.grad through those loops
+                "saturator_1pole_backward": "flan_tpu/audio/filters.py:603",
+                "saturator_2pole_backward": "flan_tpu/audio/filters.py:569",
+                "comb_swept_backward": "flan_tpu/audio/filters.py:643"}
     path = {"spv_forward": "spv", "spv_inverse": "spv",
             "sqpv_forward": "sqpv", "sqpv_inverse": "sqpv",
-            "scan_linear": "filters, pv_algorithms",
-            "scan_max_affine": "filters, pv_algorithms",
-            "scan_affine2x2": "filters", "probe": None}
+            "scan_linear": "filters, pv_algorithms, gradients",
+            "scan_max_affine": "filters, pv_algorithms, gradients",
+            "scan_affine2x2": "filters, gradients", "probe": None,
+            "scan_affine_kxk": "multinotch filters",
+            "saturator_1pole": "saturator multinotch, gradients",
+            "saturator_2pole": "saturator multinotch, gradients",
+            "comb_swept": "swept comb, gradients",
+            "saturator_1pole_backward": "gradients",
+            "saturator_2pole_backward": "gradients",
+            "comb_swept_backward": "gradients"}
     errs["probe"] = 0.0     # compared in phase 2 only
     kernels = [{"name": name, "route": "cuda",
                 "source": source[name.split("_")[0]],
@@ -1605,6 +2407,14 @@ def main() -> None:
                 "library_ms": None}
                for name in replaces]
     for entry in kernels:
+        if entry["name"] in NEW_KERNELS[1:]:
+            entry["replaces_note"] = ("jax.grad through a lax.scan: no TPU "
+                                      "kernel" if entry["name"] in
+                                      BACKWARD_KERNELS else
+                                      "a lax.scan: no TPU kernel")
+            entry["bound_note"] = bounds[entry["name"]][2]
+        if entry["name"] == "scan_affine_kxk":
+            entry["regimes"] = regime8
         if entry["name"] in by_path:
             entry["launches_by_path"] = by_path[entry["name"]]
             entry["regimes"] = {case: t for case, t in regime.items()

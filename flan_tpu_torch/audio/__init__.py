@@ -1,5 +1,6 @@
 """Time-domain entry point: binds the method groups onto Audio, as
 flan_tpu/audio/__init__.py does (each group a module of plain functions)."""
+from flan_tpu_torch.audio import combination as _combination
 from flan_tpu_torch.audio import filters as _filters
 from flan_tpu_torch.audio import volume as _volume
 from flan_tpu_torch.audio.audio import Audio
@@ -10,7 +11,8 @@ def _bind(module, names):
         setattr(Audio, name, getattr(module, name))
 
 
-_bind(_volume, ["compress", "apply_adsr_envelope", "apply_ar_envelope"])
+_bind(_volume, ["waveshape", "add_moisture", "compress",
+                "apply_adsr_envelope", "apply_ar_envelope"])
 _bind(_filters, [
     "filter_1pole_lowpass", "filter_1pole_highpass", "filter_1pole_split",
     "filter_1pole_lowshelf", "filter_1pole_highshelf",
@@ -21,5 +23,9 @@ _bind(_filters, [
     "filter_1pole_multinotch", "filter_2pole_multinotch", "filter_comb",
     "halfband_modulate", "shift_frequency", "halfband_multiply",
 ])
+Audio.convolve = _combination.convolve
+Audio.mix = staticmethod(_combination.mix)
+Audio.join = staticmethod(_combination.join)
+Audio.select = staticmethod(_combination.select)
 
 __all__ = ["Audio"]

@@ -4,10 +4,10 @@
 Audio is a frozen AudioBuffer; every method returns a new object on the
 same device as its input. Host data goes to the card unless the caller
 names a device (core/types.py DEFAULT_DEVICE). This module carries the
-constructors, WAV file I/O, mid/side conversion, the conversions to PV,
-SPV and SQPV, the frame time grid and the basic volume methods;
-audio/__init__.py binds the filter and dynamics methods
-(audio/filters.py, audio/volume.py).
+constructors, WAV file I/O, mid/side conversion, resampling, the
+conversions to PV, SPV and SQPV, the frame time grid and the basic volume
+methods; audio/__init__.py binds the filter, dynamics and combination
+methods (audio/filters.py, audio/volume.py, audio/combination.py).
 """
 from __future__ import annotations
 
@@ -71,6 +71,31 @@ class Audio(AudioBuffer):
                      strings: Optional[SndfileStrings] = None) -> None:
         """Save as WAV float32 (reference AudioBuffer.cpp:139-190)."""
         write_wav(filename, self.to_numpy(), self.sample_rate, strings)
+
+    def resample(self, new_sample_rate: float) -> "Audio":
+        """Whole-buffer SRC, the r8brain equivalent (reference
+        AudioConversions.cpp:14-30), by polyphase windowed sinc
+        (ops/resample.py). The reference's quirk is kept (golden-tested):
+        it feeds the whole channel-major buffer through one resampler, so
+        the flat [C N] stream is resampled and cut into [C, floor(N
+        ratio)] rows, later channels shifted by the fractional offset of
+        c N ratio (flan_tpu/audio/audio.py:187-215)."""
+        from flan_tpu_torch.ops.resample import resample as _resample
+        if self.is_null():
+            return Audio.create_null()
+        if new_sample_rate == self.sample_rate:
+            return self.copy()
+        c = self.num_channels
+        if c == 1:
+            data = _resample(self.data, float(self.sample_rate),
+                             float(new_sample_rate))
+        else:
+            ratio = float(new_sample_rate) / float(self.sample_rate)
+            out_n = int(self.num_frames * ratio)
+            flat = _resample(self.data.reshape(1, -1),
+                             float(self.sample_rate), float(new_sample_rate))
+            data = flat[0, :c * out_n].reshape(c, out_n)
+        return Audio(data=data, sample_rate=float(new_sample_rate))
 
     def convert_to_PV(self, window_size: int = 2048, hop: int = 128,
                       dft_size: int = 4096):

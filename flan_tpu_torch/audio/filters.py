@@ -3,16 +3,16 @@ shelves, the constant-delay comb, the Hilbert network and frequency
 shifting (counterpart of flan_tpu/audio/filters.py; reference:
 src/flan/Audio/AudioFilter.cpp, after "VA Filter Design" 2nd ed.).
 
-Every per-sample loop is a parallel scan (ops/scan.py through
-ops/filter_cores.py); cascades run stage by stage. A filter whose
-parameters are all constant runs, from 16384 frames on, as an FFT
-convolution with its truncated impulse response (ops/fir.py). Bound onto
-Audio in flan_tpu_torch/audio/__init__.py.
-
-Not ported yet (ROADMAP A.13): the multinotch filters (a k x k matrix
-scan), their saturator variant (a sequential scan) and the comb with a
-time-varying cutoff (a sequential ring-buffer scan); they raise
-NotImplementedError.
+Every linear per-sample loop is a parallel scan (ops/scan.py through
+ops/filter_cores.py); cascades run stage by stage, and the multinotch
+filters' allpass cascade with its feedback is one k x k matrix scan. A
+filter whose parameters are all constant runs, from 16384 frames on, as an
+FFT convolution with its truncated impulse response (ops/fir.py). The two
+loops that are not linear, the multinotch's tanh saturator and the comb
+with a time-varying delay, run in time order (ops/sequential_kernels.py).
+A parameter given as a tensor that requires grad takes the direct scan
+path (func/function.py), so the filters are differentiable in it. Bound
+onto Audio in flan_tpu_torch/audio/__init__.py.
 """
 from __future__ import annotations
 
@@ -28,6 +28,9 @@ from flan_tpu_torch.ops.filter_cores import (allpass_1pole_chain,
                                              phase_diff_network_poles,
                                              svf_core)
 from flan_tpu_torch.ops.fir import fir_apply, impulse_response
+from flan_tpu_torch.ops.scan import affine_kxk_recurrence
+from flan_tpu_torch.ops.sequential_kernels import (comb_swept, ipow,
+                                                   saturator_multinotch)
 from flan_tpu_torch.ops.stft import cpu_exact, true_div
 
 # Constant-coefficient fast path: at or above this length, a filter whose
@@ -353,22 +356,143 @@ def filter_2pole_highshelf(self, cutoff, damping, gain, order: int = 1):
 
 
 # ===========================================================================
-# Not ported yet (ROADMAP A.13)
+# Multinotch (allpass phaser with feedback; reference
+# AudioFilter.cpp:802-985). The no-saturator path is a linear time-varying
+# state space over the allpass states, solved with one k x k matrix scan;
+# its coefficient rows come from propagating affine forms through the
+# cascade (filters.py:389-418, 466-509). Forms are kept as [k, N] planes
+# (state component first), so the stacked A is [k, k, N], the layout the
+# scan takes, and is one map for every channel.
 # ===========================================================================
+def _multinotch_out(self, A, b_x, cx, s_coeff, u_cx, u_cs, mix, inv):
+    """The cascade's states from the scan, then x_bar and the wet/dry mix
+    (filters.py:420-428): x [C, N], the forms [k, N] or [N]."""
+    x = self.data
+    s = affine_kxk_recurrence(A, b_x[None] * x[:, None, :])   # [C, k, N]
+    s_prev = torch.nn.functional.pad(s[..., :-1], (1, 0))
+    x_bar = cx * x + torch.sum(s_coeff * s_prev, dim=-2)
+    y_bar = u_cx * x + torch.sum(u_cs * s_prev, dim=-2)
+    return self._with(data=mix * x_bar + (1.0 - mix) * y_bar * inv)
+
+
 def filter_1pole_multinotch(self, order, cutoff, feedback=0.0,
                             invert: bool = False, wet_dry=0.5,
-                            use_saturator: bool = False):
-    raise NotImplementedError(
-        "filter_1pole_multinotch: its k x k matrix scan and saturator "
-        "variant are not ported yet (ROADMAP A.13)")
+                            use_saturator: bool = False, _direct=False):
+    """Phaser: a cascade of `order` 1-pole allpasses with feedback
+    (filters.py:360-431); k = order states."""
+    if self.is_null():
+        return _null()
+    if (not _direct and not use_saturator
+            and _is_constant(cutoff, feedback, wet_dry)):
+        key = ("mn1", order, _const_val(cutoff), _const_val(feedback),
+               invert, _const_val(wet_dry), self.sample_rate)
+        out = _fir_fastpath(self, lambda a: filter_1pole_multinotch(
+            a, order, cutoff, feedback, invert, wet_dry, _direct=True),
+            cache_key=key)
+        if out is not None:
+            return out
+    order = max(1, int(order))
+    w = _sample_over_frames(self, cutoff, clamp_cutoff=True)
+    k = _sample_over_frames(self, feedback)
+    mix = _sample_over_frames(self, wet_dry)
+    inv = -1.0 if invert else 1.0
+
+    g = _g_of(self, w)
+    G_f = g / (1.0 + g)                      # TPT filter G
+    G_ap = (g - 1.0) / (g + 1.0)             # allpass gain
+    if use_saturator:
+        return self._with(data=saturator_multinotch(
+            self.data, (g, G_f, G_ap, k, mix), inv, order, two_pole=False))
+
+    # the affine form of x_bar over [x, s_0 .. s_{order-1}]
+    denom = 1.0 - inv * k * ipow(G_ap, order)
+    cx = 1.0 / denom
+    mem_scale = inv * k * (2.0 / (1.0 + g)) * cx
+    s_coeff = torch.stack([mem_scale * ipow(G_ap, order - 1 - i)
+                           for i in range(order)])           # [k, N]
+    eye = torch.eye(order, dtype=torch.float32, device=self.device)
+    u_cx, u_cs = cx, s_coeff
+    A = g.new_empty((order, order, g.shape[0]))
+    b_x = g.new_empty((order, g.shape[0]))
+    for j in range(order):
+        e_j = eye[:, j:j + 1]
+        # s_j' = 2 G_f u_j + (1 - 2 G_f) s_j
+        A[j] = 2.0 * G_f * u_cs + (1.0 - 2.0 * G_f) * e_j
+        b_x[j] = 2.0 * G_f * u_cx
+        # y_j = (2 G_f - 1) u_j + 2 (1 - G_f) s_j -> u_{j+1}
+        u_cs = (2.0 * G_f - 1.0) * u_cs + (2.0 * (1.0 - G_f)) * e_j
+        u_cx = (2.0 * G_f - 1.0) * u_cx
+    return _multinotch_out(self, A, b_x, cx, s_coeff, u_cx, u_cs, mix, inv)
 
 
 def filter_2pole_multinotch(self, order, cutoff, damping, feedback=0.0,
                             invert: bool = False, wet_dry=0.5,
-                            use_saturator: bool = False):
-    raise NotImplementedError(
-        "filter_2pole_multinotch: its k x k matrix scan and saturator "
-        "variant are not ported yet (ROADMAP A.13)")
+                            use_saturator: bool = False, _direct=False):
+    """Phaser: a cascade of `order` 2-pole SVF allpasses with feedback
+    (filters.py:434-521); k = 2 order states, (s1, s2) per stage."""
+    if self.is_null():
+        return _null()
+    if (not _direct and not use_saturator
+            and _is_constant(cutoff, damping, feedback, wet_dry)):
+        key = ("mn2", order, _const_val(cutoff), _const_val(damping),
+               _const_val(feedback), invert, _const_val(wet_dry),
+               self.sample_rate)
+        out = _fir_fastpath(self, lambda a: filter_2pole_multinotch(
+            a, order, cutoff, damping, feedback, invert, wet_dry,
+            _direct=True), cache_key=key)
+        if out is not None:
+            return out
+    order = max(1, int(order))
+    w = _sample_over_frames(self, cutoff, clamp_cutoff=True)
+    k = _sample_over_frames(self, feedback)
+    R = _sample_over_frames(self, damping)
+    mix = _sample_over_frames(self, wet_dry)
+    inv = -1.0 if invert else 1.0
+
+    g = _g_of(self, w)
+    d = 1.0 / (1.0 + 2.0 * R * g + g * g)
+    G = d * (1.0 - 2.0 * R * g + g * g)      # allpass gain
+    if use_saturator:
+        return self._with(data=saturator_multinotch(
+            self.data, (g, G, k, mix, R, d), inv, order, two_pole=True))
+
+    nstates = 2 * order
+    cx = 1.0 / (1.0 - inv * k * ipow(G, order))
+    # memory_sum = sum_i G^i (g s2_{N-1-i} - s1_{N-1-i});
+    # x_bar = (x + inv k 4 R d msum) / denom
+    mcoef = inv * k * 4.0 * R * d * cx
+    s_rows = [None] * nstates
+    for i in range(order):
+        j = order - 1 - i
+        s_rows[2 * j] = -mcoef * ipow(G, i)
+        s_rows[2 * j + 1] = mcoef * g * ipow(G, i)
+    s_coeff = torch.stack(s_rows)                              # [k, N]
+
+    g1 = 2.0 * R + g
+    eye = torch.eye(nstates, dtype=torch.float32, device=self.device)
+    u_cx, u_cs = cx, s_coeff
+    A = g.new_empty((nstates, nstates, g.shape[0]))
+    b_x = g.new_empty((nstates, g.shape[0]))
+    for j in range(order):
+        e1, e2 = eye[:, 2 * j:2 * j + 1], eye[:, 2 * j + 1:2 * j + 2]
+        # hp = d u - d g1 s1 - d s2
+        hp_cs = d * u_cs - (d * g1) * e1 - d * e2
+        hp_cx = d * u_cx
+        # bp = g hp + s1
+        bp_cs = g * hp_cs + e1
+        bp_cx = g * hp_cx
+        # lp = g bp + s2
+        lp_cs = g * bp_cs + e2
+        lp_cx = g * bp_cx
+        # s1' = s1 + 2 g hp ; s2' = s2 + 2 g bp
+        A[2 * j] = e1 * torch.ones_like(g) + 2.0 * g * hp_cs
+        b_x[2 * j] = 2.0 * g * hp_cx
+        A[2 * j + 1] = e2 * torch.ones_like(g) + 2.0 * g * bp_cs
+        b_x[2 * j + 1] = 2.0 * g * bp_cx
+        # allpass out: lp - 2R bp + hp
+        u_cs = lp_cs - (2.0 * R) * bp_cs + hp_cs
+        u_cx = lp_cx - 2.0 * R * bp_cx + hp_cx
+    return _multinotch_out(self, A, b_x, cx, s_coeff, u_cx, u_cs, mix, inv)
 
 
 # ===========================================================================
@@ -376,18 +500,26 @@ def filter_2pole_multinotch(self, order, cutoff, damping, feedback=0.0,
 # ===========================================================================
 def filter_comb(self, cutoff, feedback=0.0, wet_dry=0.5,
                 invert: bool = False):
+    """Feedback comb at delay 1 / (2 cutoff): a constant cutoff runs as
+    lag-t scans (ops/filter_cores.py comb_core), a swept one in time order
+    with the delay taken per sample, d[n] = clip(int(sr / (2 w[n])), 1, N)
+    (filters.py:622-644)."""
     if self.is_null():
         return _null()
     cut_fn = as_function(cutoff)
-    if not cut_fn.is_constant:
-        raise NotImplementedError(
-            "filter_comb with a time-varying cutoff (a sequential "
-            "ring-buffer scan) is not ported yet (ROADMAP A.13)")
     k = _sample_over_frames(self, feedback)
     a = _sample_over_frames(self, wet_dry)
-    w = float(np.clip(cut_fn.constant_value, 1.0, self.sample_rate / 2.0))
-    delay = self.time_to_frame(1.0 / (2.0 * w))
-    return self._with(data=comb_core(self.data, delay, k, invert, a))
+    if cut_fn.is_constant:
+        w = float(np.clip(cut_fn.constant_value, 1.0, self.sample_rate / 2.0))
+        delay = self.time_to_frame(1.0 / (2.0 * w))
+        return self._with(data=comb_core(self.data, delay, k, invert, a))
+    w = _sample_over_frames(self, cut_fn, clamp_cutoff=True)
+    sr = torch.full((), self.sample_rate, dtype=torch.float32,
+                    device=self.device)
+    delays = torch.clamp((sr / (2.0 * w)).to(torch.int32), 1,
+                         self.num_frames)
+    return self._with(data=comb_swept(self.data, delays, k, a,
+                                      -1.0 if invert else 1.0))
 
 
 # ===========================================================================

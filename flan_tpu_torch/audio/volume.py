@@ -1,19 +1,63 @@
-"""Audio dynamics: the compressor and the ADSR / AR envelopes (counterpart
-of flan_tpu/audio/volume.py; reference: src/flan/Audio/AudioVolume.cpp).
+"""Audio dynamics: waveshaping, the compressor and the ADSR / AR envelopes
+(counterpart of flan_tpu/audio/volume.py; reference:
+src/flan/Audio/AudioVolume.cpp).
 
-The compressor's sequential peak detector is two scans (ops/scan.py): a
-max-affine one and a linear one over the [N] control signal. Bound onto
-Audio in flan_tpu_torch/audio/__init__.py. waveshape and add_moisture wait
-for ops/resample.py (ROADMAP A.12) and are not bound.
+waveshape runs its shaper at an oversampled rate, through two passes of
+ops/resample.py. The compressor's sequential peak detector is two scans
+(ops/scan.py): a max-affine one and a linear one over the [N] control
+signal. Bound onto Audio in flan_tpu_torch/audio/__init__.py.
 """
 from __future__ import annotations
 
 import torch
 
+import math
+
 from flan_tpu_torch.audio.filters import _sample_over_frames
-from flan_tpu_torch.func.function import adsr as adsr_fn
+from flan_tpu_torch.func.function import adsr as adsr_fn, as_function
 from flan_tpu_torch.ops.scan import linear_recurrence, max_affine_recurrence
 from flan_tpu_torch.ops.stft import cpu_exact, true_div
+
+
+def waveshape(self, shaper, oversample_factor: int = 4):
+    """shaper(t, sample) applied at oversample_factor times the sample rate
+    to keep its harmonics from aliasing (reference AudioVolume.cpp:146-166;
+    flan_tpu/audio/volume.py:20-35). t is [1, frames] in seconds."""
+    from flan_tpu_torch.audio.audio import Audio
+    if self.is_null():
+        return Audio.create_null()
+    over = self if oversample_factor <= 1 else self.resample(
+        self.sample_rate * oversample_factor)
+    t = true_div(torch.arange(over.num_frames, dtype=torch.float32,
+                              device=over.device), over.sample_rate)
+    shaped = torch.as_tensor(shaper(t[None, :], over.data),
+                             dtype=torch.float32, device=over.device)
+    shaped = over._with(data=torch.broadcast_to(shaped, over.data.shape))
+    if oversample_factor <= 1:
+        return shaped
+    return shaped.resample(self.sample_rate)
+
+
+def add_moisture(self, amount=0.5, frequency=96.0, skew=4.0, waveform=None):
+    """Bass "moisture": s + a s waveform(2 pi f sign(s) |s|^skew), shaped at
+    4x oversampling (reference AudioVolume.cpp:168-188;
+    flan_tpu/audio/volume.py:38-54). The waveform takes its argument in
+    cycles and the reference hands it radians, so the default sine runs at
+    2 pi f |s|^skew cycles: kept."""
+    from flan_tpu_torch.func.function import waveforms
+    if waveform is None:
+        waveform = waveforms.sine
+    amount_fn, freq_fn, skew_fn = (as_function(p)
+                                   for p in (amount, frequency, skew))
+
+    def shaper(t, s):
+        a, f, k = (torch.as_tensor(fn(t), dtype=torch.float32,
+                                   device=s.device)
+                   for fn in (amount_fn, freq_fn, skew_fn))
+        power = torch.sign(s) * torch.pow(torch.abs(s), k)
+        return s + a * s * waveform(2.0 * math.pi * f * power)
+
+    return waveshape(self, shaper)
 
 
 def compress(self, threshold, ratio=3.0, attack=0.005, release=0.1,

@@ -1,20 +1,23 @@
 // Linear-recurrence scans for Hopper: y[n] = f_n(y[n-1]) along the last axis
-// of [rows, N], for three families of maps f_n that are closed under
+// of [rows, N], for four families of maps f_n that are closed under
 // composition:
 //   linear      y -> a y + b                      (2 planes in, 1 state)
 //   max_affine  y -> max(m, a y + c), a >= 0      (3 planes in, 1 state)
-//   affine2x2   s -> A s + b, A 2x2, s = (s1, s2) (6 planes in, 2 states)
+//   affine_kxk  s -> A s + b, A k x k             (k*k + k planes, k states)
+// Each map has one instantiation: the 2-pole SVF's 2 x 2 (flan_scan kind 2)
+// is AffineKxK<2>, and the k x k entry point runs k = 1 as Linear.
 //
 // Replaces the TPU kernels of tools/pallas_scan_experiment.py:
 //   T1  _compose_maps -> kernel  (each chain's total affine map)
 //   T2  _apply_from   -> kernel  (rerun each chain from its start state)
 // and computes what flan_tpu/ops/scan.py linear_recurrence,
-// max_affine_recurrence and matrix_affine_recurrence (k = 2) compute. The
-// plain PyTorch versions are flan_tpu_torch/ops/scan_kernels.py
-// linear_ref, max_affine_ref and affine2x2_ref.
+// max_affine_recurrence and matrix_affine_recurrence (k = 2, and any k for
+// the multinotch filters) compute. The plain PyTorch versions are
+// flan_tpu_torch/ops/scan_kernels.py linear_ref, max_affine_ref,
+// affine2x2_ref and affine_kxk_ref.
 //
 // Bound: memory. Each element is read once per plane and written once per
-// state: 12 bytes for linear, 16 for max_affine and 32 for affine2x2 when
+// state: 12 bytes for linear, 16 for max_affine and 32 for the 2 x 2 when
 // every plane is a full [rows, N] tensor (a plane that is one row shared by
 // all rows is read once). The arithmetic is a few FMAs per element. So the
 // design moves each byte once: T1/T2's two passes (the chains' total maps,
@@ -69,6 +72,21 @@
 // scan and a look-back reduction of 6-float maps, 20 operations a
 // composition.
 //
+// The k x k map (entry point flan_scan_kxk) runs in this one-pass scan for
+// k <= kMaxRegK: its map is k*k + k floats (72 at k = 8), composed in the
+// operation order of flan_tpu/ops/scan.py:245-257. Its least time is its
+// bytes, but what holds it is the k^3 FMAs of a composition, ~15 of them a
+// thread a tile in the block scan and the look-back, and the registers
+// that hold the maps (255 at k = 8): 6.5 ms at k = 4 and 85 ms at k = 8 for
+// 600 s stereo on an H100 against 1.1 and 3.3 ms of bytes (PERF.md). The
+// threads run 1 to 16 elements each so that the tile's planes still fit
+// in shared memory. Above kMaxRegK a map no longer fits a
+// thread's registers, and flan_scan_kxk runs scan_kxk_rows instead: one
+// block per row steps through time, each thread one state component, the
+// state in shared memory (k^2 FMAs a step, N dependent steps), the maps of
+// the next chunk of steps staged in shared memory while a chunk runs. A
+// variant chosen by k, for every k.
+//
 // The max_affine identity is m = -1e30, not -inf: decay products underflow
 // to 0 and 0 * -inf is NaN (flan_tpu/ops/scan.py:208-210). Its composition
 // law holds only for a >= 0.
@@ -83,16 +101,18 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxPlanes = 6;
-constexpr int kMaxStates = 2;
+constexpr int kMaxRegK = 8;       // the largest k x k map of the one pass
+constexpr int kMaxPlanes = kMaxRegK * kMaxRegK + kMaxRegK;
+constexpr int kMaxStates = kMaxRegK;
 constexpr int kWindow = kThreads;  // tiles per look-back window
 
 typedef unsigned long long Word;   // a float (low half) beside its flag
 
 struct ScanArgs {
   const float* in[kMaxPlanes];
-  long long stride[kMaxPlanes];  // row stride in elements: 0 or N
-  float* out[kMaxStates];        // [rows, N] each
+  long long stride[kMaxPlanes];  // row stride of each plane: 0 for shared
+  float* out[kMaxStates];        // each at out[q] + row * out_stride
+  long long out_stride;
 };
 
 // Each family: kMap components (the element map is its planes, in order),
@@ -127,24 +147,46 @@ struct MaxAffine {
   }
 };
 
-// (a11, a12, a21, a22, b1, b2)
-struct Affine2x2 {
-  static constexpr int kMap = 6, kState = 2, kPerThread = 8, kBlocks = 4;
+// (A row-major, then b): k*k + k planes, k states; at k = 2 the SVF's
+// (a11, a12, a21, a22, b1, b2). The threads' runs shrink with k so that the
+// tile's planes fit in shared memory (76 KB at k = 8). k = 1 is the Linear
+// map and runs as it.
+template <int K>
+struct AffineKxK {
+  static constexpr int kMap = K * K + K, kState = K;
+  static_assert(K >= 2, "k = 1 is the Linear map");
+  static constexpr int kPerThread = K == 2 ? 8 : (K == 3 ? 4 : (K <= 5 ? 2 : 1));
+  static constexpr int kBlocks = K == 2 ? 4 : (K <= 4 ? 2 : 1);
   __device__ static float identity(int p) {
-    return (p == 0 || p == 3) ? 1.f : 0.f;
+    return (p < K * K && p / K == p % K) ? 1.f : 0.f;
   }
   __device__ static void compose(const float* l, const float* r, float* o) {
-    o[0] = r[0] * l[0] + r[1] * l[2];
-    o[1] = r[0] * l[1] + r[1] * l[3];
-    o[2] = r[2] * l[0] + r[3] * l[2];
-    o[3] = r[2] * l[1] + r[3] * l[3];
-    o[4] = r[0] * l[4] + r[1] * l[5] + r[4];
-    o[5] = r[2] * l[4] + r[3] * l[5] + r[5];
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        float acc = r[i * K] * l[j];
+#pragma unroll
+        for (int m = 1; m < K; ++m) acc += r[i * K + m] * l[m * K + j];
+        o[i * K + j] = acc;
+      }
+      float acc = r[i * K] * l[K * K];
+#pragma unroll
+      for (int m = 1; m < K; ++m) acc += r[i * K + m] * l[K * K + m];
+      o[K * K + i] = acc + r[K * K + i];
+    }
   }
   __device__ static void apply(const float* m, float* s) {
-    const float s1 = s[0], s2 = s[1];
-    s[0] = m[0] * s1 + m[1] * s2 + m[4];
-    s[1] = m[2] * s1 + m[3] * s2 + m[5];
+    float t[K];
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      float acc = m[i * K] * s[0];
+#pragma unroll
+      for (int j = 1; j < K; ++j) acc += m[i * K + j] * s[j];
+      t[i] = acc + m[K * K + i];
+    }
+#pragma unroll
+    for (int i = 0; i < K; ++i) s[i] = t[i];
   }
 };
 
@@ -352,9 +394,10 @@ scan_one_pass(ScanArgs args, const float* __restrict__ y0, Word* scratch,
   float m[Op::kMap], ex[Op::kMap], total[Op::kMap];
   compose_run<Op>(sm, m);
   block_scan<Op>(m, ex, total, warp_tot);
+  // only the last warp holds the total: lane 31 - p % 32 stores word p
 #pragma unroll
   for (int p = 0; p < Op::kMap; ++p)
-    if (threadIdx.x == kThreads - 1 - p)
+    if (threadIdx.x == kThreads - 1 - p % 32)
       publish(totals + (row * ntiles + tile) * Op::kMap + p, total[p]);
 
   // look-back: the first tile of a window takes the whole window before
@@ -412,7 +455,7 @@ scan_one_pass(ScanArgs args, const float* __restrict__ y0, Word* scratch,
   __syncthreads();
 #pragma unroll
   for (int q = 0; q < Op::kState; ++q) {
-    float* dst = args.out[q] + row * n;
+    float* dst = args.out[q] + row * args.out_stride;
 #pragma unroll 4
     for (int k = 0; k < Op::kPerThread; ++k) {
       const int i = threadIdx.x + k * kThreads;
@@ -447,17 +490,190 @@ int launch(const ScanArgs& args, const float* y0, Word* scratch, int rows,
   return (int)cudaGetLastError();
 }
 
+// The k x k map in the one pass: A [rows or 1, k*k, N] (a_row its row
+// stride, 0 when one A serves every row), b and y [rows, k, N], y0
+// [rows, k], all contiguous. k = 1 is the Linear map.
+template <int K>
+int launch_kxk(const float* A, long long a_row, const float* b, float* y,
+               const float* y0, Word* scratch, int rows, long long n,
+               cudaStream_t s) {
+  ScanArgs args = {};
+  if constexpr (K == 1) {
+    args.in[0] = A;
+    args.stride[0] = a_row;
+    args.in[1] = b;
+    args.stride[1] = n;
+    args.out[0] = y;
+    args.out_stride = n;
+    return launch<Linear>(args, y0, scratch, rows, n, s);
+  } else {
+    for (int p = 0; p < K * K; ++p) {
+      args.in[p] = A + p * n;
+      args.stride[p] = a_row;
+    }
+    for (int q = 0; q < K; ++q) {
+      args.in[K * K + q] = b + q * n;
+      args.stride[K * K + q] = (long long)K * n;
+      args.out[q] = y + q * n;
+    }
+    args.out_stride = (long long)K * n;
+    return launch<AffineKxK<K>>(args, y0, scratch, rows, n, s);
+  }
+}
+
+// The k x k map for k > kMaxRegK, in time order: one block per row, thread
+// i computes state component i (and i + blockDim.x, ...) of every step
+// from the last step's state in shared memory, y[n] = A[n] y[n-1] + b[n]
+// with each row of A[n] summed in column order: N dependent steps of a
+// k-long chain of FMAs and a barrier. A step reads k*k + k planes, each N
+// floats apart, so the block stages chunks of L steps of them in shared
+// memory (a warp copies a plane's L consecutive floats, asynchronously,
+// while the chunk before is computed), and a step reads shared memory
+// only. Where one step's maps do not fit twice (k > ~110), L is 0 and the
+// steps read the planes from device memory. y overwrites b in the chunk's
+// buffer and is stored coalesced after the chunk.
+constexpr int kRowsThreads = 256;
+constexpr int kRowsChunk = 128;
+constexpr long long kRowsSharedFloats = 50 * 1024;   // 200 KB
+
+__host__ int rows_chunk(int k) {
+  const long long per = 2LL * ((long long)k * k + k);   // two buffers
+  const long long fit = (kRowsSharedFloats - 2LL * k) / per - 1;
+  return fit >= kRowsChunk ? kRowsChunk : (fit < 1 ? 0 : (int)fit);
+}
+
+// The planes of steps t0 .. t0 + L - 1 into buf ([k*k + k][L + 1]: A's,
+// then b's), past n the identity's zeros; asynchronous, committed.
+__device__ void stage_rows(float* buf, const float* ar, const float* br,
+                           int k, int L, long long t0, long long n) {
+  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  for (int p = threadIdx.x >> 5; p < k * k + k; p += warps) {
+    const float* src = p < k * k ? ar + (long long)p * n
+                                 : br + (long long)(p - k * k) * n;
+    for (int j = lane; j < L; j += 32) {
+      float* dst = buf + p * (L + 1) + j;
+      if (t0 + j < n) {
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                         (unsigned)__cvta_generic_to_shared(dst)),
+                     "l"(src + t0 + j));
+      } else {
+        *dst = 0.f;
+      }
+    }
+  }
+  asm volatile("cp.async.commit_group;");
+}
+
+// K > 0: k == K, a step's products unrolled, so that all its loads are
+// issued before its FMAs (half the time of the loop at k = 12 on an H100);
+// 0: any k, in a loop.
+template <int K>
+__global__ void __launch_bounds__(kRowsThreads)
+scan_kxk_rows(const float* __restrict__ A, long long a_row,
+              const float* __restrict__ b, float* __restrict__ y,
+              const float* __restrict__ y0, int k, long long n, int L) {
+  extern __shared__ float sm[];
+  const long long row = blockIdx.x;
+  const float* ar = A + row * a_row;
+  const float* br = b + row * k * n;
+  float* yr = y + row * k * n;
+  const bool staged = L > 0;
+  const int len_max = staged ? L : 1;
+  const int P = L + 1;
+  float* st = sm;                     // two states of k floats, in turns
+  // two buffers of a chunk's planes, in turns
+  const int buf_floats = (k * k + k) * P;
+  for (int i = threadIdx.x; i < k; i += blockDim.x) st[i] = y0[row * k + i];
+  if (staged) stage_rows(sm + 2 * k, ar, br, k, L, 0, n);
+  int cur = 0;
+  for (long long t0 = 0, c = 0; t0 < n; t0 += len_max, ++c) {
+    const int len = (int)(n - t0 < len_max ? n - t0 : len_max);
+    float* as = sm + 2 * k + (c & 1) * buf_floats;
+    float* bs = as + k * k * P;
+    if (staged) {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+      __syncthreads();   // this chunk landed; the last chunk's y stored
+      if (t0 + L < n)
+        stage_rows(sm + 2 * k + ((c + 1) & 1) * buf_floats, ar, br, k, L,
+                   t0 + L, n);
+    } else {
+      __syncthreads();
+    }
+    for (int j = 0; j < len; ++j) {
+      const float* s = st + cur * k;
+      float* next = st + (1 - cur) * k;
+      for (int i = threadIdx.x; i < k; i += blockDim.x) {
+        float acc;
+        if (staged) {
+          const float* ai = as + i * k * P + j;
+          acc = ai[0] * s[0];
+          if constexpr (K > 0) {
+#pragma unroll
+            for (int m = 1; m < K; ++m) acc += ai[m * P] * s[m];
+          } else {
+#pragma unroll 4
+            for (int m = 1; m < k; ++m) acc += ai[m * P] * s[m];
+          }
+          acc += bs[i * P + j];
+          bs[i * P + j] = acc;
+        } else {
+          const float* ai = ar + (long long)i * k * n + t0;
+          acc = ai[0] * s[0];
+          for (int m = 1; m < k; ++m) acc += ai[(long long)m * n] * s[m];
+          acc += br[(long long)i * n + t0];
+          yr[(long long)i * n + t0] = acc;
+        }
+        next[i] = acc;
+      }
+      __syncthreads();
+      cur = 1 - cur;
+    }
+    if (staged) {
+      const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+      for (int q = threadIdx.x >> 5; q < k; q += warps)
+        for (int j = lane; j < len; j += 32)
+          yr[(long long)q * n + t0 + j] = bs[q * P + j];
+    }
+  }
+}
+
+int launch_kxk_rows(const float* A, long long a_row, const float* b,
+                    float* y, const float* y0, int k, int rows, long long n,
+                    cudaStream_t s) {
+  const int L = rows_chunk(k);
+  const int threads = k <= kRowsThreads ? kRowsThreads
+                                        : (k >= 1024 ? 1024 : (k + 31) / 32 * 32);
+  const size_t bytes = sizeof(float) *
+      (2 * (size_t)k + (L > 0 ? 2 * ((size_t)k * k + k) * (L + 1) : 0));
+  // the unrolled steps for the k of the multinotch filters of order up to
+  // 16 (1-pole) and 8 (2-pole) above the one pass
+  decltype(&scan_kxk_rows<0>) kernel = scan_kxk_rows<0>;
+  switch (k) {
+#define FLAN_KXK_ROWS(K) \
+    case K: kernel = scan_kxk_rows<K>; break;
+    FLAN_KXK_ROWS(9) FLAN_KXK_ROWS(10) FLAN_KXK_ROWS(11) FLAN_KXK_ROWS(12)
+    FLAN_KXK_ROWS(13) FLAN_KXK_ROWS(14) FLAN_KXK_ROWS(15) FLAN_KXK_ROWS(16)
+#undef FLAN_KXK_ROWS
+    default: break;
+  }
+  const cudaError_t allowed = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (allowed != cudaSuccess) return (int)allowed;
+  kernel<<<rows, threads, bytes, s>>>(A, a_row, b, y, y0, k, n, L);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Elements per tile of each kind (0 linear, 1 max_affine, 2 affine2x2) and
+// Elements per tile of each kind (0 linear, 1 max_affine, 2 the 2 x 2) and
 // tiles per look-back window: the wrappers check their constants by them.
 int flan_scan_tile(int kind) {
   switch (kind) {
     case 0: return Tile<Linear>::kLen;
     case 1: return Tile<MaxAffine>::kLen;
-    case 2: return Tile<Affine2x2>::kLen;
+    case 2: return Tile<AffineKxK<2>>::kLen;
     default: return 0;
   }
 }
@@ -469,12 +685,69 @@ long long flan_scan_scratch_bytes(int kind, int rows, long long n) {
   switch (kind) {
     case 0: return 8 * scratch_words<Linear>(rows, tiles_of<Linear>(n));
     case 1: return 8 * scratch_words<MaxAffine>(rows, tiles_of<MaxAffine>(n));
-    case 2: return 8 * scratch_words<Affine2x2>(rows, tiles_of<Affine2x2>(n));
+    case 2:
+      return 8 * scratch_words<AffineKxK<2>>(rows, tiles_of<AffineKxK<2>>(n));
     default: return 0;
   }
 }
 
-// kind 0 linear, 1 max_affine, 2 affine2x2. in_ptrs, in_strides: host
+// The k x k map: elements per tile of the one pass (0 above kMaxRegK,
+// where scan_kxk_rows runs), and the bytes of scratch a call needs (8 for
+// scan_kxk_rows, which uses none).
+int flan_scan_kxk_tile(int k) {
+  switch (k) {
+#define FLAN_KXK_TILE(K) \
+    case K: return Tile<AffineKxK<K>>::kLen;
+    case 1: return Tile<Linear>::kLen;
+    FLAN_KXK_TILE(2) FLAN_KXK_TILE(3) FLAN_KXK_TILE(4)
+    FLAN_KXK_TILE(5) FLAN_KXK_TILE(6) FLAN_KXK_TILE(7) FLAN_KXK_TILE(8)
+#undef FLAN_KXK_TILE
+    default: return 0;
+  }
+}
+
+int flan_scan_max_reg_k() { return kMaxRegK; }
+
+long long flan_scan_kxk_scratch_bytes(int k, int rows, long long n) {
+  switch (k) {
+#define FLAN_KXK_SCRATCH(K)                                  \
+    case K:                                                  \
+      return 8 * scratch_words<AffineKxK<K>>(                \
+                     rows, tiles_of<AffineKxK<K>>(n));
+    case 1: return 8 * scratch_words<Linear>(rows, tiles_of<Linear>(n));
+    FLAN_KXK_SCRATCH(2) FLAN_KXK_SCRATCH(3)
+    FLAN_KXK_SCRATCH(4) FLAN_KXK_SCRATCH(5) FLAN_KXK_SCRATCH(6)
+    FLAN_KXK_SCRATCH(7) FLAN_KXK_SCRATCH(8)
+#undef FLAN_KXK_SCRATCH
+    default: return k > kMaxRegK ? 8 : 0;
+  }
+}
+
+// y[n] = A[n] y[n-1] + b[n] for k x k maps: A [rows or 1, k*k, n] row-major
+// maps with row stride a_row (0: one A for every row), b and y [rows, k,
+// n], y0 [rows, k]; scratch: flan_scan_kxk_scratch_bytes(k, rows, n)
+// bytes, 8-byte aligned. All float32, contiguous, on the stream's device.
+int flan_scan_kxk(int k, const float* A, long long a_row, const float* b,
+                  float* y, const float* y0, void* scratch, int rows,
+                  long long n, void* stream) {
+  if (k < 1 || rows < 1 || n < 1 ||
+      reinterpret_cast<unsigned long long>(scratch) % sizeof(Word) != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  Word* w = reinterpret_cast<Word*>(scratch);
+  switch (k) {
+#define FLAN_KXK_LAUNCH(K) \
+    case K: return launch_kxk<K>(A, a_row, b, y, y0, w, rows, n, s);
+    FLAN_KXK_LAUNCH(1) FLAN_KXK_LAUNCH(2) FLAN_KXK_LAUNCH(3)
+    FLAN_KXK_LAUNCH(4) FLAN_KXK_LAUNCH(5) FLAN_KXK_LAUNCH(6)
+    FLAN_KXK_LAUNCH(7) FLAN_KXK_LAUNCH(8)
+#undef FLAN_KXK_LAUNCH
+    default: return launch_kxk_rows(A, a_row, b, y, y0, k, rows, n, s);
+  }
+}
+
+// kind 0 linear, 1 max_affine, 2 the 2 x 2 map (a11, a12, a21, a22, b1, b2).
+// in_ptrs, in_strides: host
 // arrays of the kind's planes (2, 3 or 6) as device addresses and row
 // strides (0 or n); out_ptrs: its 1 or 2 outputs [rows, n]. y0 [rows, kState];
 // scratch: flan_scan_scratch_bytes(kind, rows, n) bytes, 8-byte aligned. All
@@ -495,12 +768,13 @@ int flan_scan(int kind, const long long* in_ptrs, const long long* in_strides,
   }
   for (int q = 0; q < (kind == 2 ? 2 : 1); ++q)
     args.out[q] = reinterpret_cast<float*>(out_ptrs[q]);
+  args.out_stride = n;
   cudaStream_t s = (cudaStream_t)stream;
   Word* w = reinterpret_cast<Word*>(scratch);
   switch (kind) {
     case 0: return launch<Linear>(args, y0, w, rows, n, s);
     case 1: return launch<MaxAffine>(args, y0, w, rows, n, s);
-    default: return launch<Affine2x2>(args, y0, w, rows, n, s);
+    default: return launch<AffineKxK<2>>(args, y0, w, rows, n, s);
   }
 }
 

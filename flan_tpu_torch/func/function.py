@@ -5,10 +5,14 @@ A Function wraps a constant or a callable. Callables are evaluated once on
 a whole float32 grid tensor, so they must accept tensors (plain arithmetic
 and torch functions do). Constants short-circuit: sampling a constant
 returns a python float, which keeps downstream ops cheap exactly like the
-reference's variant fast path.
+reference's variant fast path. A tensor that requires grad is no constant:
+it becomes a callable returning itself broadcast, so algorithms take their
+sampled path and the result is differentiable in it, as a traced scalar
+is in the JAX package (flan_tpu/func/function.py:38-47).
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Union
 
 import torch
@@ -16,6 +20,24 @@ import torch
 from flan_tpu_torch.ops.stft import true_div
 
 FunctionLike = Union[float, int, "Function", Callable]
+
+
+def _traced(f) -> bool:
+    """A parameter to differentiate in: a tensor that requires grad."""
+    return isinstance(f, torch.Tensor) and f.requires_grad
+
+
+def _broadcaster(v: torch.Tensor):
+    """The callable a traced parameter becomes: v broadcast to the shape of
+    whatever grid it is given, as float32 on the grid's device."""
+    def fn(*grid):
+        shape = torch.broadcast_shapes(*(torch.as_tensor(g).shape
+                                         for g in grid))
+        device = next((g.device for g in grid
+                       if isinstance(g, torch.Tensor)), v.device)
+        return torch.broadcast_to(v.to(device=device, dtype=torch.float32),
+                                  shape)
+    return fn
 
 
 def broadcast_f32(out, shape, device) -> torch.Tensor:
@@ -33,6 +55,8 @@ class Function:
             self._const, self._fn = f._const, f._fn
         elif callable(f):
             self._const, self._fn = None, f
+        elif _traced(f):
+            self._const, self._fn = None, _broadcaster(f)
         else:
             self._const, self._fn = float(f), None
 
@@ -76,6 +100,8 @@ class Function2d:
             self._fn = None if fn is None else (lambda t, fr: fn(t))
         elif callable(f):
             self._const, self._fn = None, f
+        elif _traced(f):
+            self._const, self._fn = None, _broadcaster(f)
         else:
             self._const, self._fn = float(f), None
 
@@ -114,6 +140,31 @@ def as_function(f: FunctionLike) -> Function:
 
 def as_function2d(f) -> Function2d:
     return f if isinstance(f, Function2d) else Function2d(f)
+
+
+# --- Waveforms (reference Function.h:295-300; period and amplitude 1) --------
+class waveforms:
+    """Unit-period waveforms of a phase in cycles (flan_tpu/func/function.py
+    :311-330); add_moisture's default shaper is sine."""
+
+    @staticmethod
+    def sine(t):
+        return torch.sin(2.0 * math.pi * torch.as_tensor(t, dtype=torch.float32))
+
+    @staticmethod
+    def square(t):
+        t = torch.as_tensor(t, dtype=torch.float32)
+        return torch.where(torch.remainder(t, 1.0) < 0.5, -1.0, 1.0)
+
+    @staticmethod
+    def saw(t):
+        t = torch.as_tensor(t, dtype=torch.float32)
+        return 2.0 * torch.remainder(t, 1.0) - 1.0
+
+    @staticmethod
+    def triangle(t):
+        m = torch.remainder(torch.as_tensor(t, dtype=torch.float32), 1.0)
+        return torch.where(m < 0.5, 4.0 * m - 1.0, 3.0 - 4.0 * m)
 
 
 # --- ADSR (reference Function.h:281-300, Function.cpp) -----------------------

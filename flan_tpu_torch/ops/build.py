@@ -39,7 +39,15 @@ SIGNATURES = {
                           _i, _f, _f, _d, _p],
     "flan_sqpv_inverse": [_p, _p, _p, _p, _p, _p, _i, _ll, _i, _d, _p],
     "flan_scan": [_i, _lla, _lla, _lla, _p, _p, _i, _ll, _p],
+    "flan_scan_kxk": [_i, _p, _ll, _p, _p, _p, _p, _i, _ll, _p],
     "flan_probe": [_p, _p, _p, _i, _p],
+    "flan_saturator_multinotch": [_i, _p, _p, _p, _p, _p, _p, _p, _p, _p,
+                                  _i, _ll, _i, _f, _p],
+    "flan_saturator_multinotch_backward": [_i] + [_p] * 12 + [_i, _ll, _i,
+                                                              _f, _p],
+    "flan_comb_swept": [_p, _p, _p, _p, _p, _p, _p, _i, _ll, _i, _f, _p],
+    "flan_comb_swept_backward": [_p, _p, _p, _p, _p, _p, _i, _ll, _i, _f,
+                                 _p],
 }
 # functions of no argument that must return the constants the wrappers
 # size their tensors by (TILE_FRAMES, MAX_BINS and SCAN_CHUNK_TILES from
@@ -129,6 +137,17 @@ def load_library() -> ctypes.CDLL:
     lib.flan_scan_window_tiles.restype = ctypes.c_int
     lib.flan_scan_scratch_bytes.argtypes = [_i, _i, _ll]
     lib.flan_scan_scratch_bytes.restype = ctypes.c_longlong
+    # the k x k map's: elements per tile (0 where it runs in time order),
+    # the largest k of the one pass, bytes of scratch: (k, rows, n)
+    lib.flan_scan_kxk_tile.argtypes = [_i]
+    lib.flan_scan_kxk_tile.restype = ctypes.c_int
+    lib.flan_scan_max_reg_k.restype = ctypes.c_int
+    lib.flan_scan_kxk_scratch_bytes.argtypes = [_i, _i, _ll]
+    lib.flan_scan_kxk_scratch_bytes.restype = ctypes.c_longlong
+    # the swept comb's ring in device memory: (channels, ring length,
+    # backward)
+    lib.flan_comb_swept_ring_floats.argtypes = [_i, _i, _i]
+    lib.flan_comb_swept_ring_floats.restype = ctypes.c_longlong
     # the SQPV inverse's scratch: (channels, frames, bins); its frames per
     # tile: (bins)
     lib.flan_sqpv_inverse_scratch_bytes.argtypes = [_i, _ll, _i]

@@ -5,12 +5,19 @@ _compose_maps and T2 _apply_from) and of the recurrences of
 flan_tpu/ops/scan.py. One CUDA source, csrc/scan_kernels.cu flan_scan,
 runs T1's and T2's work in one launch (each tile's total map, a look-back
 over the tiles before it in a fixed order, the rerun from the tile's
-start state), instantiated for three families of maps along the last axis
+start state), instantiated for four families of maps along the last axis
 of [..., N]:
 
   scan_linear      y = a y + b                       linear_ref
   scan_max_affine  y = max(m, a y + c), a >= 0       max_affine_ref
   scan_affine2x2   (s1, s2) = A (s1, s2) + (b1, b2)  affine2x2_ref
+  scan_affine_kxk  s = A s + b, A k x k, any k       affine_kxk_ref
+
+The 2 x 2 map is the k x k one's k = 2 instantiation (the SVF passes its
+six planes unstacked), and the k x k map's k = 1 runs as the linear one.
+The k x k map runs in the one pass for k <= the library's
+flan_scan_max_reg_k() (8) and above it in time order, one block a row
+(csrc/scan_kernels.cu scan_kxk_rows).
 
 The plain versions transcribe flan_tpu/ops/scan.py's tiled scan: a
 Hillis-Steele doubling scan within blocks of BLOCK = 4096 elements, then
@@ -18,10 +25,10 @@ the same over the block totals (scan.py:30-97; not the lane-scan branch,
 which is off there). They compute in their inputs' dtype: float32 is what
 the kernels are held to, float64 a yardstick of how far float32 drifts.
 
-Dispatch by the tensors' device, and the linear scan's backward, live in
-ops/scan.py. The wrappers here take CUDA tensors only; the max-affine and
-2x2 wrappers raise on an input that requires grad, since a ctypes call
-returns no grad_fn. LAUNCHES counts each wrapper's kernel launches.
+Dispatch by the tensors' device, and the scans' backward (the same
+kernels run on reversed adjoint planes), live in ops/scan.py. The wrappers
+here take CUDA tensors only and return results without a grad_fn.
+LAUNCHES counts each wrapper's kernel launches.
 """
 from __future__ import annotations
 
@@ -30,11 +37,12 @@ import math
 
 import torch
 
-from flan_tpu_torch.ops.build import load_library, raise_on
+from flan_tpu_torch.ops.build import check_cuda, load_library, raise_on
 
 BLOCK = 4096            # elements per block of the plain versions (as JAX)
 
-LAUNCHES = {"scan_linear": 0, "scan_max_affine": 0, "scan_affine2x2": 0}
+LAUNCHES = {"scan_linear": 0, "scan_max_affine": 0, "scan_affine2x2": 0,
+            "scan_affine_kxk": 0}
 
 # name -> (kind in csrc, planes in, states out)
 _KINDS = {"scan_linear": (0, 2, 1), "scan_max_affine": (1, 3, 1),
@@ -44,7 +52,6 @@ _KINDS = {"scan_linear": (0, 2, 1), "scan_max_affine": (1, 3, 1),
 # and 0 * -inf is NaN (flan_tpu/ops/scan.py:208-210).
 LINEAR_IDENTITY = (1.0, 0.0)
 MAX_AFFINE_IDENTITY = (-1e30, 1.0, 0.0)
-AFFINE2X2_IDENTITY = (1.0, 0.0, 0.0, 1.0, 0.0, 0.0)
 
 
 def reset_launch_counts() -> None:
@@ -65,16 +72,26 @@ def combine_max_affine(l, r):
             r[1] * l[2] + r[2])
 
 
-def combine_affine2x2(l, r):
-    """s -> A s + b with (a11, a12, a21, a22, b1, b2): l, then r, in the
-    operation order of scan.py:245-257 for k = 2."""
-    k = 2
-    al, bl, ar, br = l[:4], l[4:], r[:4], r[4:]
-    aa = tuple(ar[i * k] * al[j] + ar[i * k + 1] * al[k + j]
-               for i in range(k) for j in range(k))
-    bb = tuple(ar[i * k] * bl[0] + ar[i * k + 1] * bl[1] + br[i]
-               for i in range(k))
-    return aa + bb
+def combine_kxk(k: int):
+    """The composition of s -> A s + b maps with (A row-major, b) as k*k + k
+    leaves: l, then r, in the operation order of scan.py:245-257."""
+    def combine(l, r):
+        al, bl, ar, br = l[:k * k], l[k * k:], r[:k * k], r[k * k:]
+        aa = tuple(sum(ar[i * k + m] * al[m * k + j] for m in range(k))
+                   for i in range(k) for j in range(k))
+        bb = tuple(sum(ar[i * k + m] * bl[m] for m in range(k)) + br[i]
+                   for i in range(k))
+        return aa + bb
+    return combine
+
+
+def kxk_identity(k: int):
+    return tuple(1.0 if i == j else 0.0 for i in range(k)
+                 for j in range(k)) + (0.0,) * k
+
+
+# s -> A s + b with (a11, a12, a21, a22, b1, b2)
+combine_affine2x2 = combine_kxk(2)
 
 
 def _hillis_steele(combine, identity, leaves):
@@ -144,11 +161,23 @@ def max_affine_ref(m, a, c, y0) -> torch.Tensor:
 def affine2x2_ref(a11, a12, a21, a22, b1, b2, y01, y02):
     """(s1, s2)[n] = A[n] (s1, s2)[n-1] + (b1, b2)[n] along the last axis
     from (y01, y02) (scan.py:223-279 with k = 2)."""
-    aa = tiled_scan_ref(combine_affine2x2, AFFINE2X2_IDENTITY,
+    aa = tiled_scan_ref(combine_affine2x2, kxk_identity(2),
                         _full((a11, a12, a21, a22, b1, b2)))
     y0 = (y01, y02)
     return tuple(aa[i * 2] * y0[0] + aa[i * 2 + 1] * y0[1] + aa[4 + i]
                  for i in range(2))
+
+
+def affine_kxk_ref(A, b, y0):
+    """y[n] = A[n] y[n-1] + b[n] along the last axis for k x k maps
+    (scan.py:223-279): A [rows or 1, k*k, N] row-major, b [rows, k, N], y0
+    [rows, k]; returns y [rows, k, N]."""
+    k = b.shape[1]
+    leaves = tuple(A[:, p] for p in range(k * k)) + tuple(
+        b[:, q] for q in range(k))
+    aa = tiled_scan_ref(combine_kxk(k), kxk_identity(k), _full(leaves))
+    return torch.stack([sum(aa[i * k + m] * y0[:, m, None] for m in range(k))
+                        + aa[k * k + i] for i in range(k)], dim=1)
 
 
 # ------------------------------------------------------------------ kernels
@@ -202,14 +231,6 @@ def _launch(name: str, planes, y0s):
     return outs
 
 
-def _refuse_grad(name: str, tensors) -> None:
-    if torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name} has no backward on the card yet (ROADMAP A.12): its "
-            "kernel would return a result without a gradient")
-
-
 def scan_linear(a, b, y0) -> torch.Tensor:
     """The linear kernel on float32 CUDA tensors, no autograd."""
     return _launch("scan_linear", (a, b), (y0,))[0]
@@ -219,12 +240,39 @@ def scan_max_affine(m, a, c, y0) -> torch.Tensor:
     """The max-affine kernel on float32 CUDA tensors. Requires a >= 0 (the
     composition law fails otherwise); not checked, which would cost a
     synchronisation."""
-    _refuse_grad("scan_max_affine", (m, a, c, y0))
     return _launch("scan_max_affine", (m, a, c), (y0,))[0]
 
 
 def scan_affine2x2(a11, a12, a21, a22, b1, b2, y01, y02):
     """The 2x2 matrix-affine kernel on float32 CUDA tensors."""
     planes = (a11, a12, a21, a22, b1, b2)
-    _refuse_grad("scan_affine2x2", planes + (y01, y02))
     return tuple(_launch("scan_affine2x2", planes, (y01, y02)))
+
+
+def scan_affine_kxk(A, b, y0) -> torch.Tensor:
+    """The k x k kernel on float32 CUDA tensors: A [rows or 1, k*k, N]
+    row-major maps (one A for every row is read once, then from L2), b
+    [rows, k, N], y0 [rows, k]; returns y [rows, k, N]."""
+    if b.ndim != 3 or A.ndim != 3 or A.shape[0] not in (1, b.shape[0]) \
+            or A.shape[1:] != (b.shape[1] ** 2, b.shape[2]) \
+            or y0.shape != b.shape[:2]:
+        raise ValueError(f"scan_affine_kxk: A {tuple(A.shape)}, b "
+                         f"{tuple(b.shape)}, y0 {tuple(y0.shape)} do not "
+                         "fit [rows or 1, k*k, N], [rows, k, N], [rows, k]")
+    for name, t in (("A", A), ("b", b), ("y0", y0)):
+        check_cuda(t, f"scan_affine_kxk {name}", t.ndim)
+    rows, k, n = b.shape
+    if A.device != b.device or y0.device != b.device:
+        raise ValueError("scan_affine_kxk: A, b and y0 must be on one device")
+    lib = load_library()
+    with torch.cuda.device(b.device):
+        y = torch.empty_like(b)
+        scratch = torch.empty(lib.flan_scan_kxk_scratch_bytes(k, rows, n)
+                              // 8, dtype=torch.int64, device=b.device)
+        err = lib.flan_scan_kxk(
+            k, A.data_ptr(), 0 if A.shape[0] == 1 else k * k * n,
+            b.data_ptr(), y.data_ptr(), y0.data_ptr(), scratch.data_ptr(),
+            rows, n, torch.cuda.current_stream().cuda_stream)
+    raise_on(err, "scan_affine_kxk")
+    LAUNCHES["scan_affine_kxk"] += 1
+    return y

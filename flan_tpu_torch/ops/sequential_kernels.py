@@ -1,0 +1,588 @@
+"""Sequential recurrences of the filter family: Hopper kernels and plain
+versions.
+
+Two per-sample loops have no parallel form: the tanh-feedback multinotch
+(flan_tpu/audio/filters.py _multinotch_saturator_scan, :524-604) and the
+comb with a per-sample delay (filter_comb's ring buffer, :622-644). The
+JAX package runs both as lax.scan and differentiates them through it; no
+TPU kernel stands behind them. One CUDA source,
+csrc/sequential_kernels.cu, runs each channel's chain of steps in one
+warp, forward and backward:
+
+  saturator_1pole / saturator_2pole    saturator_1pole_ref, saturator_2pole_ref
+  saturator_1pole_backward / _2pole_   saturator_backward_ref
+  comb_swept                           comb_swept_ref
+  comb_swept_backward                  comb_swept_backward_ref
+
+The plain versions are PyTorch loops over time, vectorised over channels,
+in the JAX package's order of operations (powers by binary exponentiation,
+as jax.lax.integer_pow). The swept comb's loops take as many steps at once
+as read no output of each other (the least delay ahead), as the kernels
+do: each element's arithmetic is the same whatever the step count.
+
+The backward is the adjoint of each loop run in reverse time
+(SaturatorMultinotch, CombSwept: torch.autograd.Functions used on both
+devices, plain loops on the CPU and kernels on the card, as ops/scan.py's
+recurrences). The saturator's forward keeps every step's allpass states;
+its backward reruns each step from them and takes the adjoint of the 8
+Newton steps, the cascade and the feedback sum, as jax.grad does through
+lax.scan. The comb's forward keeps u; its backward scatters each step's
+adjoint back to the step it read, u's adjoint, and the feedback's and the
+mix's gradients follow from u in PyTorch.
+
+Dispatch by device: a CPU tensor goes to the plain version, a CUDA tensor
+to the kernel or the call raises. LAUNCHES counts each wrapper's kernel
+launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from flan_tpu_torch.ops.build import check_cuda, load_library, raise_on
+from flan_tpu_torch.ops.scan import _on_cpu, _wants_grad
+
+LAUNCHES = {"saturator_1pole": 0, "saturator_2pole": 0, "comb_swept": 0,
+            "saturator_1pole_backward": 0, "saturator_2pole_backward": 0,
+            "comb_swept_backward": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def ipow(x, e: int):
+    """x ** e for an integer e >= 0 in the order of jax.lax.integer_pow:
+    binary exponentiation, the accumulator multiplied on the left."""
+    if e == 0:
+        return torch.ones_like(x)
+    acc = None
+    while e > 0:
+        if e & 1:
+            acc = x if acc is None else acc * x
+        e >>= 1
+        if e > 0:
+            x = x * x
+    return acc
+
+
+# ------------------------------------------------------------ plain versions
+
+def _newton_forward(u, x, k, gn, msum, inv: float):
+    """The 8 Newton steps on u = x + inv tanh(k (gn u + msum)) from u, with
+    the |den| < 1e-6 guard (filters.py:547-551): the iterates u_0 .. u_8,
+    and each step's tanh, denominator and guard."""
+    us, ts, dens, guards = [u], [], [], []
+    for _ in range(8):
+        t = torch.tanh(k * (gn * u + msum))
+        den = inv * (1 - t * t) * k * gn - 1.0
+        guard = torch.abs(den) < 1e-6
+        den = torch.where(guard, 1.0, den)
+        u = u - (x + inv * t - u) / den
+        us.append(u)
+        ts.append(t)
+        dens.append(den)
+        guards.append(guard)
+    return us, ts, dens, guards
+
+
+def _newton_backward(gu, fwd, x, k, gn, msum, inv: float):
+    """The adjoint of the Newton steps: from the cotangent of u_8 to those
+    of u_0 (the last output), x, k, gn and msum. A guarded denominator is
+    the constant 1 and passes nothing back."""
+    us, ts, dens, guards = fwd
+    gx = gk = ggn = gmsum = 0.0
+    for it in reversed(range(8)):
+        u, t, den = us[it], ts[it], dens[it]
+        r = x + inv * t - u
+        gr = -gu / den
+        gden = torch.where(guards[it], 0.0, gu * r / (den * den))
+        sech2 = 1 - t * t
+        gt = inv * gr - 2.0 * t * (gden * (inv * k * gn))
+        gk = gk + gden * (inv * sech2 * gn)
+        ggn = ggn + gden * (inv * sech2 * k)
+        w = gt * sech2 * k
+        gk = gk + gt * sech2 * (gn * u + msum)
+        ggn = ggn + w * u
+        gmsum = gmsum + w
+        gx = gx + gr
+        gu = gu - gr + w * gn
+    return gu, gx, gk, ggn, gmsum
+
+
+def _ipow_grad(x, e: int):
+    """d(x ** e)/dx = e x ** (e - 1)."""
+    return e * ipow(x, e - 1) if e > 0 else torch.zeros_like(x)
+
+
+def _step_1pole(s, prev, xt, g, G_f, G_ap, k, mix, inv, order):
+    """One step of the 1-pole saturator from states s and the last output:
+    (new states, output, what the backward reruns)."""
+    msum0 = torch.zeros_like(xt)
+    for i in range(order):
+        msum0 = msum0 + ipow(G_ap, i) * s[order - 1 - i]
+    msum = msum0 * 2.0 / (1.0 + g)
+    gn = ipow(G_ap, order)
+    fwd = _newton_forward(prev, xt, k, gn, msum, inv)
+    xbar = fwd[0][-1]
+    y, ys, new = xbar, [], []
+    for j in range(order):
+        ys.append(y)
+        v = G_f * (y - s[j])
+        lp = v + s[j]
+        new.append(lp + v)
+        y = 2 * lp - y
+    yv = y * inv
+    out = mix * xbar + (1 - mix) * yv
+    return new, out, (msum0, msum, gn, fwd, xbar, ys, yv)
+
+
+def _step_2pole(s, prev, xt, g, G, k, mix, R, d, inv, order):
+    """One step of the 2-pole saturator; s holds (s1, s2) of each stage in
+    turn."""
+    msum = torch.zeros_like(xt)
+    for i in range(order):
+        j = order - 1 - i
+        msum = msum + ipow(G, i) * (g * s[2 * j + 1] - s[2 * j])
+    gn = ipow(G, order)
+    fwd = _newton_forward(prev, xt, k, gn, msum, inv)
+    xbar = fwd[0][-1]
+    y, ys, new = xbar, [], []
+    for j in range(order):
+        ys.append(y)
+        g1 = 2 * R + g
+        hp = (y - g1 * s[2 * j] - s[2 * j + 1]) * d
+        v1 = g * hp
+        bp = v1 + s[2 * j]
+        v2 = g * bp
+        lp = v2 + s[2 * j + 1]
+        new += [bp + v1, lp + v2]
+        y = lp - bp * 2 * R + hp
+    yv = y * inv
+    out = mix * xbar + (1 - mix) * yv
+    return new, out, (msum, gn, fwd, xbar, ys, yv)
+
+
+def _saturator_ref(x, planes, inv: float, order: int, two_pole: bool,
+                   keep_states: bool):
+    c, n = x.shape
+    ns = 2 * order if two_pole else order
+    s = [x.new_zeros(c) for _ in range(ns)]
+    prev = x.new_zeros(c)
+    out, states = [], []
+    for t in range(n):
+        at = [p[t] for p in planes]
+        if two_pole:
+            s, prev, _ = _step_2pole(s, prev, x[:, t], *at, inv, order)
+        else:
+            s, prev, _ = _step_1pole(s, prev, x[:, t], *at, inv, order)
+        out.append(prev)
+        if keep_states:
+            states.append(torch.stack(s, dim=1))
+    y = torch.stack(out, dim=1)
+    return (y, torch.stack(states, dim=2)) if keep_states else y
+
+
+def saturator_1pole_ref(x, g, G_f, G_ap, k, mix, inv: float, order: int,
+                        keep_states: bool = False):
+    """The 1-pole saturator multinotch (filters.py:580-604): x [C, N], the
+    coefficient planes [N]. Newton starts from the last step's output, not
+    from the last feedback value: the JAX package carries (states, out).
+    With keep_states, also every step's new states [C, order, N]."""
+    return _saturator_ref(x, (g, G_f, G_ap, k, mix), inv, order, False,
+                          keep_states)
+
+
+def saturator_2pole_ref(x, g, G, k, mix, R, d, inv: float, order: int,
+                        keep_states: bool = False):
+    """The 2-pole saturator multinotch (filters.py:530-577): x [C, N], the
+    coefficient planes [N]; the carry is (states, out) as in the 1-pole.
+    With keep_states, also every step's new states [C, 2 order, N], (s1,
+    s2) of each stage in turn."""
+    return _saturator_ref(x, (g, G, k, mix, R, d), inv, order, True,
+                          keep_states)
+
+
+def _back_1pole(gout, gs, s, prev, xt, g, G_f, G_ap, k, mix, inv, order):
+    """The adjoint of _step_1pole: from the cotangents of the output and
+    the new states to those of the old states, the last output, x and the
+    planes (g, G_f, G_ap, k, mix)."""
+    _, _, (msum0, msum, gn, fwd, xbar, ys, yv) = _step_1pole(
+        s, prev, xt, g, G_f, G_ap, k, mix, inv, order)
+    gmix = gout * (xbar - yv)
+    gy = gout * (1 - mix) * inv
+    gGf = 0.0
+    gs_in = [None] * order
+    for j in reversed(range(order)):
+        glp = 2 * gy + gs[j]
+        gv = gs[j] + glp
+        gGf = gGf + gv * (ys[j] - s[j])
+        gs_in[j] = glp - gv * G_f
+        gy = gv * G_f - gy
+    gxbar = gout * mix + gy
+    gprev, gx, gk, ggn, gmsum = _newton_backward(gxbar, fwd, xt, k, gn,
+                                                 msum, inv)
+    gmsum0 = gmsum * 2.0 / (1.0 + g)
+    gg = -gmsum * msum0 * 2.0 / ((1.0 + g) * (1.0 + g))
+    gGa = ggn * _ipow_grad(G_ap, order)
+    for i in range(order):
+        j = order - 1 - i
+        gs_in[j] = gs_in[j] + gmsum0 * ipow(G_ap, i)
+        gGa = gGa + gmsum0 * s[j] * _ipow_grad(G_ap, i)
+    return gs_in, gprev, gx, (gg, gGf, gGa, gk, gmix)
+
+
+def _back_2pole(gout, gs, s, prev, xt, g, G, k, mix, R, d, inv, order):
+    """The adjoint of _step_2pole; the planes are (g, G, k, mix, R, d)."""
+    _, _, (msum, gn, fwd, xbar, ys, yv) = _step_2pole(
+        s, prev, xt, g, G, k, mix, R, d, inv, order)
+    gmix = gout * (xbar - yv)
+    gy = gout * (1 - mix) * inv
+    gg = gR = gd = 0.0
+    gs_in = [None] * (2 * order)
+    for j in reversed(range(order)):
+        s1, s2 = s[2 * j], s[2 * j + 1]
+        g1 = 2 * R + g
+        inner = ys[j] - g1 * s1 - s2
+        hp = inner * d
+        v1 = g * hp
+        bp = v1 + s1
+        glp = gy + gs[2 * j + 1]
+        gv2 = gs[2 * j + 1] + glp
+        gbp = gs[2 * j] + gv2 * g - gy * 2 * R
+        gR = gR - gy * 2 * bp
+        gg = gg + gv2 * bp
+        gv1 = gs[2 * j] + gbp
+        gg = gg + gv1 * hp
+        ghp = gy + gv1 * g
+        gd = gd + ghp * inner
+        gin = ghp * d
+        gg1 = -gin * s1
+        gR = gR + 2 * gg1
+        gg = gg + gg1
+        gs_in[2 * j] = gbp - gin * g1
+        gs_in[2 * j + 1] = glp - gin
+        gy = gin
+    gxbar = gout * mix + gy
+    gprev, gx, gk, ggn, gmsum = _newton_backward(gxbar, fwd, xt, k, gn,
+                                                 msum, inv)
+    gG = ggn * _ipow_grad(G, order)
+    for i in range(order):
+        j = order - 1 - i
+        p = ipow(G, i)
+        s1, s2 = s[2 * j], s[2 * j + 1]
+        gs_in[2 * j + 1] = gs_in[2 * j + 1] + gmsum * p * g
+        gs_in[2 * j] = gs_in[2 * j] - gmsum * p
+        gg = gg + gmsum * p * s2
+        gG = gG + gmsum * (g * s2 - s1) * _ipow_grad(G, i)
+    return gs_in, gprev, gx, (gg, gG, gk, gmix, gR, gd)
+
+
+def saturator_backward_ref(gy, x, planes, y, states, inv: float, order: int,
+                           two_pole: bool):
+    """The saturator's adjoint in reverse time: gy, x, y [C, N], the planes
+    [N] and the forward's states [C, nstates, N]; returns the signal's
+    gradient [C, N] and the planes' per channel [C, nplanes, N] (their sum
+    over channels is the planes' gradient)."""
+    c, n = x.shape
+    ns = 2 * order if two_pole else order
+    back = _back_2pole if two_pole else _back_1pole
+    zero = x.new_zeros(c)
+    gs = [zero] * ns
+    gprev = zero
+    gx = torch.empty_like(x)
+    gp = x.new_empty((c, len(planes), n))
+    for t in reversed(range(n)):
+        s = ([states[:, i, t - 1] for i in range(ns)] if t > 0
+             else [zero] * ns)
+        prev = y[:, t - 1] if t > 0 else zero
+        gs, gprev, gxt, gpt = back(gy[:, t] + gprev, gs, s, prev, x[:, t],
+                                   *(p[t] for p in planes), inv, order)
+        gx[:, t] = gxt
+        for i, v in enumerate(gpt):
+            gp[:, i, t] = v
+    return gx, gp
+
+
+def _comb_rounds(d: torch.Tensor, n: int, reverse: bool):
+    """The comb loops' rounds: ranges of frames that read no output of each
+    other, as many as the least delay among the next 4096 frames (forward)
+    or the 4096 before (reverse)."""
+    pos = n - 1 if reverse else 0
+    while 0 <= pos < n:
+        near = d[max(pos - 4095, 0):pos + 1] if reverse else d[pos:pos + 4096]
+        steps = min(int(near.min()), near.shape[0])
+        if reverse:
+            yield torch.arange(pos - steps + 1, pos + 1, device=d.device)
+            pos -= steps
+        else:
+            yield torch.arange(pos, pos + steps, device=d.device)
+            pos += steps
+
+
+def comb_swept_ref(x, delays, k, a, f: float, keep_u: bool = False):
+    """u[n] = x[n] + k[n] f u[n - d[n]] (0 before the start), y[n] = a[n]
+    u[n] + (1 - a[n]) f u[n - d[n]] (filters.py:622-644): x [C, N], delays
+    [N] integers in [1, N], k and a [N]. Runs D steps at a time, D the
+    least delay among them (a step reads only outputs before its round).
+    With keep_u, returns (y, u)."""
+    n = x.shape[1]
+    u = torch.zeros_like(x)
+    y = torch.empty_like(x)
+    d = delays.long()
+    for t in _comb_rounds(d, n, reverse=False):
+        src = t - d[t]
+        u_del = torch.where(src >= 0, u[:, src.clamp(min=0)], 0.0)
+        ut = x[:, t] + k[t] * f * u_del
+        u[:, t] = ut
+        y[:, t] = a[t] * ut + (1 - a[t]) * f * u_del
+    return (y, u) if keep_u else y
+
+
+def comb_swept_backward_ref(gy, delays, k, a, f: float):
+    """u's adjoint in reverse time: gu[n] = a[n] gy[n] + the adjoints that
+    the steps m reading u[n] (m - d[m] = n) scatter back, each
+    (1 - a[m]) f gy[m] + k[m] f gu[m]; gy [C, N]. gu is the signal's
+    gradient."""
+    n = gy.shape[1]
+    acc = torch.zeros_like(gy)
+    gu = torch.empty_like(gy)
+    d = delays.long()
+    for t in _comb_rounds(d, n, reverse=True):
+        gut = a[t] * gy[:, t] + acc[:, t]
+        gu[:, t] = gut
+        gv = (1 - a[t]) * f * gy[:, t] + k[t] * f * gut
+        src = t - d[t]
+        ok = src >= 0
+        # the later steps first, as the reversed loop adds them
+        acc.index_add_(1, src[ok].flip(0), gv[:, ok].flip(1))
+    return gu
+
+
+def comb_param_grads(gy, gu, u, delays, f: float):
+    """The feedback's and the mix's gradients per frame, summed over the
+    channels: du/dk = f u[n - d[n]], dy/da = u - f u[n - d[n]]."""
+    d = delays.long()
+    src = torch.arange(u.shape[1], device=u.device) - d
+    v = torch.where(src >= 0, u[:, src.clamp(min=0)], 0.0)
+    return (f * v * gu).sum(0), ((u - f * v) * gy).sum(0)
+
+
+# ------------------------------------------------------------------ kernels
+
+def _planes_on(x: torch.Tensor, name: str, planes, dtypes=None) -> None:
+    check_cuda(x, f"{name} x", 2)
+    for i, p in enumerate(planes):
+        check_cuda(p, f"{name} plane {i}", 1,
+                   torch.float32 if dtypes is None else dtypes[i])
+        if p.shape[0] != x.shape[1] or p.device != x.device:
+            raise ValueError(f"{name}: plane {i} of shape {tuple(p.shape)} on "
+                             f"{p.device} for x {tuple(x.shape)} on "
+                             f"{x.device}")
+
+
+def _kernel_planes(planes, two_pole: bool):
+    """(g, G, G_f or R, d or None, k, mix): the planes in the kernel's
+    order."""
+    if two_pole:
+        g, G, k, mix, R, d = planes
+        return g, G, R, d, k, mix
+    g, G_f, G_ap, k, mix = planes
+    return g, G_ap, G_f, None, k, mix
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def saturator_cuda(x, planes, inv: float, order: int, two_pole: bool,
+                   keep_states: bool = False):
+    """The saturator kernel on float32 CUDA tensors, no autograd: x [C, N]
+    and, each [N], (g, G_f, G_ap, k, mix) for the 1-pole or (g, G, k, mix,
+    R, d) for the 2-pole. With keep_states, returns (y, every step's new
+    states [C, nstates, N])."""
+    name = "saturator_2pole" if two_pole else "saturator_1pole"
+    _planes_on(x, name, planes)
+    lib = load_library()
+    c, n = x.shape
+    with torch.cuda.device(x.device):
+        y = torch.empty_like(x)
+        states = (x.new_empty((c, (2 if two_pole else 1) * order, n))
+                  if keep_states else None)
+        err = lib.flan_saturator_multinotch(
+            int(two_pole), x.data_ptr(),
+            *(_ptr(p) for p in _kernel_planes(planes, two_pole)),
+            y.data_ptr(), _ptr(states), c, n, order, inv,
+            torch.cuda.current_stream().cuda_stream)
+    raise_on(err, name)
+    LAUNCHES[name] += 1
+    return (y, states) if keep_states else y
+
+
+def saturator_backward_cuda(gy, x, planes, y, states, inv: float,
+                            order: int, two_pole: bool):
+    """The saturator's backward kernel (saturator_backward_ref's work):
+    returns the signal's gradient [C, N] and the planes' per channel [C,
+    nplanes, N], the planes in saturator_cuda's order."""
+    name = ("saturator_2pole_backward" if two_pole
+            else "saturator_1pole_backward")
+    _planes_on(x, name, planes)
+    for t, what in ((gy, "gy"), (y, "y")):
+        check_cuda(t, f"{name} {what}", 2)
+    check_cuda(states, f"{name} states", 3)
+    c, n = x.shape
+    if gy.shape != x.shape or y.shape != x.shape or states.shape != (
+            c, (2 if two_pole else 1) * order, n):
+        raise ValueError(f"{name}: gy {tuple(gy.shape)}, y {tuple(y.shape)} "
+                         f"and states {tuple(states.shape)} for x "
+                         f"{tuple(x.shape)} and order {order}")
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        gx = torch.empty_like(x)
+        gp = x.new_empty((c, len(planes), n))
+        err = lib.flan_saturator_multinotch_backward(
+            int(two_pole), gy.data_ptr(), x.data_ptr(), y.data_ptr(),
+            states.data_ptr(),
+            *(_ptr(p) for p in _kernel_planes(planes, two_pole)),
+            gx.data_ptr(), gp.data_ptr(), c, n, order, inv,
+            torch.cuda.current_stream().cuda_stream)
+    raise_on(err, name)
+    LAUNCHES[name] += 1
+    return gx, gp
+
+
+def _comb_checked(x, delays, k, a, name: str):
+    _planes_on(x, name, (delays, k, a),
+               (torch.int32, torch.float32, torch.float32))
+
+
+def comb_swept_cuda(x, delays, k, a, f: float, ring_len: int,
+                    keep_u: bool = False):
+    """The swept comb kernel: x [C, N] float32, delays [N] int32 in [1,
+    ring_len], k and a [N] float32, all on one CUDA device; no autograd.
+    With keep_u, returns (y, u)."""
+    _comb_checked(x, delays, k, a, "comb_swept")
+    lib = load_library()
+    c, n = x.shape
+    with torch.cuda.device(x.device):
+        y = torch.empty_like(x)
+        u = torch.empty_like(x) if keep_u else None
+        ring = torch.empty(lib.flan_comb_swept_ring_floats(c, ring_len, 0),
+                           dtype=torch.float32, device=x.device)
+        err = lib.flan_comb_swept(
+            x.data_ptr(), delays.data_ptr(), k.data_ptr(), a.data_ptr(),
+            y.data_ptr(), _ptr(u), ring.data_ptr() if ring.numel() else None,
+            c, n, ring_len, f, torch.cuda.current_stream().cuda_stream)
+    raise_on(err, "comb_swept")
+    LAUNCHES["comb_swept"] += 1
+    return (y, u) if keep_u else y
+
+
+def comb_swept_backward_cuda(gy, delays, k, a, f: float, ring_len: int):
+    """The swept comb's backward kernel (comb_swept_backward_ref's work):
+    u's adjoint, the signal's gradient, [C, N]."""
+    _comb_checked(gy, delays, k, a, "comb_swept_backward")
+    lib = load_library()
+    c, n = gy.shape
+    with torch.cuda.device(gy.device):
+        gu = torch.empty_like(gy)
+        ring = torch.empty(lib.flan_comb_swept_ring_floats(c, ring_len, 1),
+                           dtype=torch.float32, device=gy.device)
+        err = lib.flan_comb_swept_backward(
+            gy.data_ptr(), delays.data_ptr(), k.data_ptr(), a.data_ptr(),
+            gu.data_ptr(), ring.data_ptr() if ring.numel() else None, c, n,
+            ring_len, f, torch.cuda.current_stream().cuda_stream)
+    raise_on(err, "comb_swept_backward")
+    LAUNCHES["comb_swept_backward"] += 1
+    return gu
+
+
+# ----------------------------------------------------------------- autograd
+
+class SaturatorMultinotch(torch.autograd.Function):
+    """The saturator with its backward: the forward keeps every step's
+    states, the backward runs the adjoint in reverse time (the plain loop
+    on the CPU, the backward kernel on the card) and sums the planes'
+    per-channel gradients."""
+
+    @staticmethod
+    def forward(ctx, x, inv, order, two_pole, *planes):
+        if _on_cpu(x):
+            plain = saturator_2pole_ref if two_pole else saturator_1pole_ref
+            y, states = plain(x, *planes, inv, order, keep_states=True)
+        else:
+            y, states = saturator_cuda(x, planes, inv, order, two_pole,
+                                       keep_states=True)
+        ctx.save_for_backward(x, y, states, *planes)
+        ctx.args = (inv, order, two_pole)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, y, states, *planes = ctx.saved_tensors
+        run = (saturator_backward_ref if _on_cpu(x)
+               else saturator_backward_cuda)
+        gx, gp = run(gy.contiguous(), x, planes, y, states, *ctx.args)
+        return (gx, None, None, None) + tuple(gp.sum(0).unbind(0))
+
+
+class CombSwept(torch.autograd.Function):
+    """The swept comb with its backward: the forward keeps u, the backward
+    scatters u's adjoint in reverse time (the plain loop on the CPU, the
+    backward kernel on the card); the delays take no gradient (integers,
+    as in the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, x, delays, k, a, f):
+        if _on_cpu(x):
+            y, u = comb_swept_ref(x, delays, k, a, f, keep_u=True)
+            ring = 0
+        else:
+            ring = int(delays.max())
+            y, u = comb_swept_cuda(x, delays, k, a, f, ring, keep_u=True)
+        ctx.save_for_backward(delays, k, a, u)
+        ctx.args = (f, ring)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        delays, k, a, u = ctx.saved_tensors
+        f, ring = ctx.args
+        gy = gy.contiguous()
+        gu = (comb_swept_backward_ref(gy, delays, k, a, f) if _on_cpu(gy)
+              else comb_swept_backward_cuda(gy, delays, k, a, f, ring))
+        gk, ga = comb_param_grads(gy, gu, u, delays, f)
+        return gu, None, gk, ga, None
+
+
+# ----------------------------------------------------------------- dispatch
+
+def saturator_multinotch(x, planes, inv: float, order: int, two_pole: bool):
+    """The saturator multinotch on x [C, N] with per-frame planes [N] (see
+    saturator_cuda): the plain loop on the CPU, the kernel on the card;
+    differentiable on both (SaturatorMultinotch)."""
+    if x.device.type != "cpu":
+        # a parameter sampled from a number is a broadcast view: the kernel
+        # reads dense planes
+        x = x.contiguous()
+        planes = tuple(p.contiguous() for p in planes)
+    if _wants_grad(x, *planes):
+        return SaturatorMultinotch.apply(x, inv, order, two_pole, *planes)
+    if x.device.type == "cpu":
+        if two_pole:
+            return saturator_2pole_ref(x, *planes, inv, order)
+        return saturator_1pole_ref(x, *planes, inv, order)
+    return saturator_cuda(x, planes, inv, order, two_pole)
+
+
+def comb_swept(x, delays, k, a, f: float):
+    """The swept comb on x [C, N] with delays [N] (int32) and k, a [N]; the
+    ring holds max(delays) samples, as the JAX package's does.
+    Differentiable in x, k and a on both devices (CombSwept)."""
+    if x.device.type != "cpu":
+        x, delays, k, a = (t.contiguous() for t in (x, delays, k, a))
+    if _wants_grad(x, k, a):
+        return CombSwept.apply(x, delays, k, a, f)
+    if x.device.type == "cpu":
+        return comb_swept_ref(x, delays, k, a, f)
+    return comb_swept_cuda(x, delays, k, a, f, int(delays.max()))

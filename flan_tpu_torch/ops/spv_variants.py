@@ -95,8 +95,8 @@ _SCAN_FILL = """  for (int p = 0; p < Op::kMap; ++p)
     }
 """
 _SCAN_LOAD = "  load_tile<Op>(args, row, base, n, sm);\n  copies_done();\n"
-_SCAN_HALF_TILES = [("cu", "kState = 2, kPerThread = 8,",
-                     "kState = 2, kPerThread = 4,"),
+_SCAN_HALF_TILES = [("cu", "kPerThread = K == 2 ? 8 :",
+                     "kPerThread = K == 2 ? 4 :"),
                     ("cu", "kPerThread = 16,", "kPerThread = 8,", 2)]
 SCAN_VARIANTS = {
     "as_shipped": [],

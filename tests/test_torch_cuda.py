@@ -11,7 +11,8 @@ import torch
 
 import flan_tpu_torch
 from flan_tpu_torch.ops import (build, probe_kernels, scan, scan_kernels,
-                                 spv_kernels, sqpv_kernels)
+                                 sequential_kernels, spv_kernels,
+                                 sqpv_kernels)
 from flan_tpu_torch.sqpv.transform import sqpv_forward, sqpv_inverse
 
 SR = 48000.0
@@ -574,15 +575,348 @@ def test_linear_scan_gradient(cuda_device):
             1.0, float(want.abs().max()))
 
 
+def _backward_cases(device):
+    """(name, run(device) -> (loss, inputs)) for the three scans whose
+    backward came after the linear one's: the max-affine, 2 x 2 and k x k
+    maps, coefficient planes shared by the rows as the filters pass them."""
+    rng = np.random.default_rng(21)
+    n = 20000
+    a = rng.uniform(0.5, 0.999, (1, n)).astype(np.float32)
+    th = rng.uniform(0.0, 0.2, (1, n)).astype(np.float32)
+    m = rng.standard_normal((2, n)).astype(np.float32)
+    A = (rng.uniform(-1, 1, (3, 3, n)) * 0.3).astype(np.float32)
+    b = rng.standard_normal((2, 3, n)).astype(np.float32)
+
+    def leaf(v):
+        return torch.from_numpy(v).to(device).requires_grad_()
+
+    def max_affine():
+        t = [leaf(v) for v in (m, a)]
+        y = scan.max_affine_recurrence(t[0], t[1], (1 - t[1]) * t[0])
+        return (y * y).sum(), t
+
+    def affine2x2():
+        t = [leaf(v) for v in (a, th, m)]
+        s1, s2 = scan.affine2x2_recurrence(
+            t[0] * torch.cos(t[1]), -t[0] * torch.sin(t[1]),
+            t[0] * torch.sin(t[1]), t[0] * torch.cos(t[1]), t[2], -t[2])
+        return (s1 * s1 + s2).sum(), t
+
+    def kxk():
+        t = [leaf(v) for v in (A, b)]
+        y = scan.affine_kxk_recurrence(t[0], t[1], 0.5)
+        return (y * y).sum(), t
+
+    return {"scan_max_affine": max_affine, "scan_affine2x2": affine2x2,
+            "scan_affine_kxk": kxk}
+
+
 @pytest.mark.cuda
-def test_scans_without_backward_refuse_grad(cuda_device):
-    x = torch.rand((1, 64), device=cuda_device, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        scan.max_affine_recurrence(x, 0.5, x)
-    with pytest.raises(RuntimeError, match="no backward"):
-        scan.affine2x2_recurrence(0.5, 0.0, 0.0, 0.5, x, x)
-    with torch.no_grad():
-        scan.max_affine_recurrence(x, 0.5, x)
+@pytest.mark.parametrize("kind", ["scan_max_affine", "scan_affine2x2",
+                                  "scan_affine_kxk"])
+def test_scans_without_backward_refuse_grad(cuda_device, kind):
+    """No scan refuses grad on the card any more: each backward runs the
+    forward kernel on the reversed adjoint planes (the max-affine's on the
+    linear kernel), and its gradients equal the CPU's, whose backward runs
+    the plain versions: 1e-4 of each gradient's peak (float32 scans in two
+    orders)."""
+    grads = []
+    for device in ("cpu", cuda_device):
+        before = dict(scan_kernels.LAUNCHES)
+        loss, inputs = _backward_cases(device)[kind]()
+        forward = {k: scan_kernels.LAUNCHES[k] - before[k] for k in before}
+        grads.append([g.cpu() for g in torch.autograd.grad(loss, inputs)])
+        backward = {k: scan_kernels.LAUNCHES[k] - before[k] - forward[k]
+                    for k in before}
+        if device == "cpu":
+            assert not any(forward.values()) and not any(backward.values())
+        else:
+            adjoint = "scan_linear" if kind == "scan_max_affine" else kind
+            assert forward[kind] == 1 and backward[adjoint] == 1, backward
+    for got, want in zip(grads[1], grads[0]):
+        assert bool(torch.isfinite(got).all())
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+# ----------------------------------------------------- the k x k scan
+
+def _kxk_planes(k, rows, n, shared, seed=31):
+    """k x k maps near the multinotch's: a decay of 0.5 to 0.99999 on the
+    diagonal beside weak random coupling, and inputs b; A [1 or rows, k*k,
+    N], b [rows, k, N], y0 [rows, k], float32 on the card."""
+    rng = np.random.default_rng(seed)
+    ra = 1 if shared else rows
+    A = rng.uniform(-1, 1, (ra, k, k, n)) * (0.3 / k)
+    A[:, np.arange(k), np.arange(k)] = rng.uniform(0.5, 0.99999, (ra, k, n))
+    b = rng.standard_normal((rows, k, n))
+    y0 = rng.standard_normal((rows, k))
+    return [torch.from_numpy(v.astype(np.float32)).to("cuda")
+            for v in (A.reshape(ra, k * k, n), b, y0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6, 7, 8, 9, 12])
+@pytest.mark.parametrize("rows,frames,shared", [
+    (1, 1, True), (2, "T-1", True), (3, "T+1", False), (2, "W+1", True),
+    (1, 1_000_003, True)])
+def test_kxk_kernel_matches_plain(cuda_device, k, rows, frames, shared):
+    """The k x k kernel against its plain version around one tile and one
+    look-back window of tiles (the one pass, k <= 8) and in time order
+    (k > 8): its error against the float64 plain run at most twice the
+    float32 plain run's, plus 1e-6 of the peak, as the other scans."""
+    lib = build.load_library()
+    tile = lib.flan_scan_kxk_tile(k) or 256
+    n = frames if isinstance(frames, int) else (
+        {"T": tile, "W": lib.flan_scan_window_tiles() * tile}[frames[0]]
+        + int(frames[1:] or 0))
+    if k > lib.flan_scan_max_reg_k() and n > 100_000:
+        n = 100_003         # N dependent steps: keep the rows kernel short
+    A, b, y0 = _kxk_planes(k, rows, n, shared)
+    before = scan_kernels.LAUNCHES["scan_affine_kxk"]
+    y = scan_kernels.scan_affine_kxk(A, b, y0)
+    assert scan_kernels.LAUNCHES["scan_affine_kxk"] == before + 1
+    p32 = scan_kernels.affine_kxk_ref(A, b, y0)
+    p64 = scan_kernels.affine_kxk_ref(A.double(), b.double(), y0.double())
+    torch.cuda.synchronize()
+    assert y.shape == b.shape and bool(torch.isfinite(y).all())
+    err_k, err_p = _drift(y, p32, p64)
+    print(f"kxk k={k} rows={rows} N={n}: kernel {err_k:.3g}, "
+          f"plain {err_p:.3g}")
+    assert err_k <= 2.0 * err_p + 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 8, 12])
+def test_kxk_kernel_gives_the_same_bits_every_call(cuda_device, k):
+    """64 rows of one shared map wait on one look-back window at once; three
+    calls agree bit for bit (the rows kernel above 8 too)."""
+    A, b, y0 = _kxk_planes(k, 64, 30_011, True)
+    first = scan_kernels.scan_affine_kxk(A, b, y0)
+    for _ in range(2):
+        again = scan_kernels.scan_affine_kxk(A, b, y0)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+def test_kxk_kernel_rejects_bad_input(cuda_device):
+    A, b, y0 = _kxk_planes(3, 2, 100, False)
+    with pytest.raises(ValueError, match="do not fit"):
+        scan_kernels.scan_affine_kxk(A[:, :4], b, y0)
+    with pytest.raises(ValueError, match="contiguous"):
+        scan_kernels.scan_affine_kxk(A, b.transpose(1, 2).contiguous()
+                                     .transpose(1, 2), y0)
+
+
+# ------------------------------------------------ the sequential kernels
+
+def _saturator_planes(n, two_pole, seed=41):
+    rng = np.random.default_rng(seed)
+    g = torch.from_numpy(rng.uniform(0.02, 0.6, n).astype(np.float32)).cuda()
+    k = torch.from_numpy(rng.uniform(0.2, 0.9, n).astype(np.float32)).cuda()
+    mix = torch.full((n,), 0.5, device="cuda")
+    if two_pole:
+        R = torch.from_numpy(rng.uniform(0.2, 0.8, n).astype(np.float32)
+                             ).cuda()
+        d = 1.0 / (1.0 + 2.0 * R * g + g * g)
+        return (g, d * (1.0 - 2.0 * R * g + g * g), k, mix, R, d)
+    return (g, g / (1.0 + g), (g - 1.0) / (g + 1.0), k, mix)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_pole", [False, True])
+@pytest.mark.parametrize("order,inv", [(1, 1.0), (2, -1.0), (4, 1.0)])
+def test_saturator_kernel_matches_plain(cuda_device, two_pole, order, inv):
+    """The saturator kernel against its plain loop on the card: 1e-5 of the
+    peak (tanhf and fused multiply-adds against torch's float32 ops; the
+    Newton solve damps what they differ by), the same bits on three
+    calls."""
+    n = 1500
+    x = torch.from_numpy(_signal(n, 2) * 3.0).cuda()
+    planes = _saturator_planes(n, two_pole)
+    name = "saturator_2pole" if two_pole else "saturator_1pole"
+    before = sequential_kernels.LAUNCHES[name]
+    got = sequential_kernels.saturator_cuda(x, planes, inv, order, two_pole)
+    assert sequential_kernels.LAUNCHES[name] == before + 1
+    plain = (sequential_kernels.saturator_2pole_ref if two_pole
+             else sequential_kernels.saturator_1pole_ref)
+    want = plain(x, *planes, inv, order)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    for _ in range(2):
+        assert torch.equal(got, sequential_kernels.saturator_cuda(
+            x, planes, inv, order, two_pole))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo,hi", [(1, 40), (12, 120), (30000, 60000)])
+def test_comb_kernel_matches_plain(cuda_device, lo, hi):
+    """The swept comb kernel against its plain loop: delays from 1 (one
+    step a round) to past the shared-memory ring (60000 samples: the ring
+    in device memory). The arithmetic of a step is the same in both, so
+    they agree to fused multiply-adds: 1e-6 of the peak; the same bits on
+    three calls."""
+    rng = np.random.default_rng(lo)
+    n = 200_000
+    d = torch.from_numpy(rng.integers(lo, hi + 1, n).astype(np.int32)).cuda()
+    x = torch.from_numpy(rng.standard_normal((2, n)).astype(np.float32)
+                         ).cuda()
+    k = torch.from_numpy(rng.uniform(-0.7, 0.7, n).astype(np.float32)).cuda()
+    a = torch.from_numpy(rng.uniform(0.0, 1.0, n).astype(np.float32)).cuda()
+    ring = int(d.max())
+    got = sequential_kernels.comb_swept_cuda(x, d, k, a, -1.0, ring)
+    want = sequential_kernels.comb_swept_ref(x, d, k, a, -1.0)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+    for _ in range(2):
+        assert torch.equal(got, sequential_kernels.comb_swept_cuda(
+            x, d, k, a, -1.0, ring))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_pole", [False, True])
+@pytest.mark.parametrize("order,inv", [(1, 1.0), (2, -1.0), (4, 1.0)])
+def test_saturator_backward_kernel_matches_plain(cuda_device, two_pole,
+                                                 order, inv):
+    """The saturator's forward with its states and its backward kernel
+    against the plain loops on the card, on the kernel's own states: the
+    states 1e-5 of their peak (the forward's bound), each gradient (the
+    signal's, each plane's per channel) 1e-4 of its peak (the adjoint
+    divides by Newton's denominators: float32 in two orders); the same
+    bits on three calls."""
+    n = 700
+    x = torch.from_numpy(_signal(n, 2) * 3.0).cuda()
+    planes = _saturator_planes(n, two_pole)
+    y, states = sequential_kernels.saturator_cuda(x, planes, inv, order,
+                                                  two_pole, keep_states=True)
+    plain = (sequential_kernels.saturator_2pole_ref if two_pole
+             else sequential_kernels.saturator_1pole_ref)
+    y_ref, states_ref = plain(x, *planes, inv, order, keep_states=True)
+    assert torch.equal(y, sequential_kernels.saturator_cuda(
+        x, planes, inv, order, two_pole))
+    assert (states - states_ref).abs().max() <= 1e-5 * states_ref.abs().max()
+    gy = torch.from_numpy(_signal(n, 2, seed=9)).cuda()
+    name = ("saturator_2pole_backward" if two_pole
+            else "saturator_1pole_backward")
+    before = sequential_kernels.LAUNCHES[name]
+    gx, gp = sequential_kernels.saturator_backward_cuda(
+        gy, x, planes, y, states, inv, order, two_pole)
+    assert sequential_kernels.LAUNCHES[name] == before + 1
+    wx, wp = sequential_kernels.saturator_backward_ref(
+        gy, x, planes, y, states, inv, order, two_pole)
+    torch.cuda.synchronize()
+    assert (gx - wx).abs().max() <= 1e-4 * wx.abs().max()
+    for i in range(wp.shape[1]):
+        assert (gp[:, i] - wp[:, i]).abs().max() <= \
+            1e-4 * wp[:, i].abs().max(), i
+    for _ in range(2):
+        again = sequential_kernels.saturator_backward_cuda(
+            gy, x, planes, y, states, inv, order, two_pole)
+        assert torch.equal(gx, again[0]) and torch.equal(gp, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo,hi", [(1, 40), (12, 120), (30000, 60000)])
+def test_comb_backward_kernel_matches_plain(cuda_device, lo, hi):
+    """The swept comb's forward with u and its backward kernel against the
+    plain loops: u 1e-6 of its peak (the forward's bound), u's adjoint
+    1e-5 (adjoints sent to one sample are summed in another order), with
+    delays from 1 to past the shared-memory ring (device-memory
+    accumulators); the same bits on three calls."""
+    rng = np.random.default_rng(lo)
+    n = 200_000
+    d = torch.from_numpy(rng.integers(lo, hi + 1, n).astype(np.int32)).cuda()
+    x, gy = (torch.from_numpy(rng.standard_normal((2, n)).astype(np.float32)
+                              ).cuda() for _ in range(2))
+    k = torch.from_numpy(rng.uniform(-0.7, 0.7, n).astype(np.float32)).cuda()
+    a = torch.from_numpy(rng.uniform(0.0, 1.0, n).astype(np.float32)).cuda()
+    ring = int(d.max())
+    y, u = sequential_kernels.comb_swept_cuda(x, d, k, a, -1.0, ring,
+                                              keep_u=True)
+    y_ref, u_ref = sequential_kernels.comb_swept_ref(x, d, k, a, -1.0,
+                                                     keep_u=True)
+    assert (u - u_ref).abs().max() <= 1e-6 * u_ref.abs().max()
+    assert torch.equal(y, sequential_kernels.comb_swept_cuda(
+        x, d, k, a, -1.0, ring))
+    before = sequential_kernels.LAUNCHES["comb_swept_backward"]
+    gu = sequential_kernels.comb_swept_backward_cuda(gy, d, k, a, -1.0, ring)
+    assert sequential_kernels.LAUNCHES["comb_swept_backward"] == before + 1
+    want = sequential_kernels.comb_swept_backward_ref(gy, d, k, a, -1.0)
+    torch.cuda.synchronize()
+    assert (gu - want).abs().max() <= 1e-5 * want.abs().max()
+    for _ in range(2):
+        assert torch.equal(gu, sequential_kernels.comb_swept_backward_cuda(
+            gy, d, k, a, -1.0, ring))
+
+
+@pytest.mark.cuda
+def test_sequential_kernels_refuse_grad(cuda_device):
+    """The sequential kernels refuse grad no more: gradients through the
+    swept comb and the saturator multinotch run their backward kernels on
+    the card (one launch each) and equal the CPU's plain adjoints, with
+    respect to the signal and to a parameter given as a 0-d tensor (the
+    feedback, the cutoff): 1e-4 of the peak."""
+    x = _signal(3000, 2) * 3.0
+
+    def comb(a, c):
+        return a.filter_comb(lambda t: 4000.0 / (torch.floor(
+            12.0 + 100.0 * t) + 0.5), c, 0.5)
+
+    def sat(a, c):
+        return a.filter_2pole_multinotch(2, lambda t: c * (1.0 + t), 0.4,
+                                         0.7, True, 0.5, True)
+    for run, c0, kernel, n in ((comb, 0.5, "comb_swept_backward", 3000),
+                               (sat, 300.0, "saturator_2pole_backward", 300)):
+        grads = []
+        for device in ("cpu", cuda_device):
+            before = sequential_kernels.LAUNCHES[kernel]
+            v = torch.from_numpy(x[:, :n]).to(device).requires_grad_()
+            c = torch.tensor(c0, device=device, requires_grad=True)
+            y = run(flan_tpu_torch.Audio.create_from_array(v, 8000.0), c).data
+            grads.append([g.cpu() for g in torch.autograd.grad(
+                (y * y).sum(), (v, c))])
+            assert sequential_kernels.LAUNCHES[kernel] - before == (
+                0 if device == "cpu" else 1), kernel
+        for got, want in zip(grads[1], grads[0]):
+            assert bool(torch.isfinite(got).all())
+            assert (got - want).abs().max() <= 1e-4 * want.abs().max(), kernel
+
+
+@pytest.mark.cuda
+def test_new_filters_run_on_the_card(cuda_device):
+    """The multinotch filters (scan and FIR path), their saturator variant
+    and the swept comb on the card against the CPU at 8 kHz: 1e-4 of the
+    peak, chip_smoke.py phase 8's bound; each launches its kernel on the
+    card and none on the CPU."""
+    x = _signal(20000, 2)
+    runs = {
+        "mn1": (lambda a: a.filter_1pole_multinotch(
+            4, lambda t: 200.0 + 500.0 * t, 0.5), "scan_affine_kxk"),
+        "mn2": (lambda a: a.filter_2pole_multinotch(
+            4, lambda t: 200.0 + 500.0 * t, 0.3, 0.5), "scan_affine_kxk"),
+        "mn2_fir": (lambda a: a.filter_2pole_multinotch(
+            2, 800.0, 0.35, 0.3), "scan_affine_kxk"),
+        "sat2": (lambda a: a.filter_2pole_multinotch(
+            2, 800.0, 0.35, 0.3, use_saturator=True), "saturator_2pole"),
+        # a feedback sampled from a number is a broadcast view
+        "comb": (lambda a: a.filter_comb(lambda t: 200.0 + 500.0 * t,
+                                         lambda t: 0.5), "comb_swept"),
+    }
+    counters = {**scan_kernels.LAUNCHES, **sequential_kernels.LAUNCHES}
+    for name, (run, kernel) in runs.items():
+        xs = x[:, :2000] if name == "sat2" else x
+        outs = []
+        for device in ("cpu", cuda_device):
+            before = {**scan_kernels.LAUNCHES, **sequential_kernels.LAUNCHES}
+            outs.append(run(flan_tpu_torch.Audio.create_from_array(
+                xs, 8000.0, device=device)).to_numpy())
+            after = {**scan_kernels.LAUNCHES, **sequential_kernels.LAUNCHES}
+            launched = after[kernel] - before[kernel]
+            assert launched == 0 if device == "cpu" else launched >= 1, name
+        want, got = outs
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() < 1e-4 * np.abs(want).max(), name
+    assert set(counters) >= {"scan_affine_kxk", "comb_swept"}
 
 
 @pytest.mark.cuda
@@ -625,7 +959,7 @@ def test_filter_path_runs_on_the_card(cuda_device):
     (cpu, cpu_launches), (gpu, gpu_launches) = (path(d) for d in
                                                 ("cpu", cuda_device))
     assert not any(cpu_launches.values())
-    assert all(gpu_launches.values()), gpu_launches
+    assert all(gpu_launches[k] for k in _KINDS), gpu_launches
     want, got = cpu.to_numpy(), gpu.to_numpy()
     assert gpu.device.type == "cuda" and got.shape == want.shape
     assert np.abs(got - want).max() < 1e-4 * np.abs(want).max()

@@ -195,14 +195,23 @@ def test_impulse_response_is_cached_per_device():
 
 
 def test_unported_filters_raise():
+    """The three filters that raised NotImplementedError until their scans
+    were ported now run on the CPU tensors' plain versions (no kernel
+    launched) and return finite audio of the input's shape; their values
+    are held to flan_tpu in tests/test_torch_multinotch.py."""
+    from flan_tpu_torch.ops import sequential_kernels
     a = flan_tpu_torch.Audio.create_from_array(_signal(600), SR,
                                                device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        a.filter_1pole_multinotch(2, 800.0, 0.3)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        a.filter_2pole_multinotch(2, 800.0, 0.35, 0.3)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        a.filter_comb(lambda t: 500.0 + 100.0 * t, 0.5)
+    scan_kernels.reset_launch_counts()
+    for out in (a.filter_1pole_multinotch(2, 800.0, 0.3),
+                a.filter_2pole_multinotch(2, 800.0, 0.35, 0.3),
+                a.filter_comb(lambda t: 500.0 + 100.0 * t, 0.5),
+                a.filter_1pole_multinotch(2, 800.0, 0.3, use_saturator=True)):
+        assert out.data.shape == a.data.shape and out.device.type == "cpu"
+        assert bool(torch.isfinite(out.data).all())
+    assert scan_kernels.LAUNCHES == dict.fromkeys(scan_kernels.LAUNCHES, 0)
+    assert sequential_kernels.LAUNCHES == dict.fromkeys(
+        sequential_kernels.LAUNCHES, 0)
 
 
 def test_null_and_order_zero():

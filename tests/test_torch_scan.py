@@ -195,10 +195,60 @@ def test_linear_gradient_with_shared_coefficients():
 
 
 def test_matrix_scan_of_higher_order_waits():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        scan.matrix_affine_recurrence(torch.zeros((1, 8, 3, 3)),
-                                      torch.zeros((1, 8, 3)),
-                                      torch.zeros((1, 3)))
+    """The k x k scan no longer waits: k = 3 runs on the CPU, through the
+    plain k x k version, and gives what k = 3 leaves of JAX's scan give
+    (0.0 read, CPU)."""
+    rng = np.random.default_rng(6)
+    A = rng.uniform(-0.3, 0.3, (1, 8, 3, 3)).astype(np.float32)
+    b = rng.standard_normal((1, 8, 3)).astype(np.float32)
+    y0 = rng.standard_normal((1, 3)).astype(np.float32)
+    got = scan.matrix_affine_recurrence(*(torch.from_numpy(v)
+                                          for v in (A, b, y0)))
+    want = _np(jax_scan.matrix_affine_recurrence(
+        *(jnp.asarray(v) for v in (A, b, y0))))
+    _close(got, want, TOL_EXACT)
+    assert scan_kernels.LAUNCHES["scan_affine_kxk"] == 0
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 6])
+@pytest.mark.parametrize("n", [1, 100, 4097])
+def test_kxk_recurrence_matches_flan_tpu(k, n):
+    """matrix_affine_recurrence for k x k maps against the JAX package's
+    (its tiled scan over k*k + k leaves, transcribed): 0.0 read at every k
+    and length here (CPU), bound a few float32 ulps."""
+    rng = np.random.default_rng(10 * k + n % 7)
+    A = (rng.uniform(-1, 1, (2, n, k, k)) * 0.95 / k).astype(np.float32)
+    b = rng.standard_normal((2, n, k)).astype(np.float32)
+    y0 = rng.standard_normal((2, k)).astype(np.float32)
+    want = _np(jax_scan.matrix_affine_recurrence(
+        *(jnp.asarray(v) for v in (A, b, y0))))
+    got = scan.matrix_affine_recurrence(*(torch.from_numpy(v)
+                                          for v in (A, b, y0)))
+    _close(got, want, TOL_EXACT)
+
+
+def test_kxk_recurrence_shares_one_map_among_rows():
+    """An A without the rows' leading axis is one map for every row (the
+    multinotch's layout, [k, k, N] against b [C, k, N]): the result equals
+    the run with A copied to every row, and the float64 plain version
+    equals a sample-by-sample loop (1e-12 of the peak; 4.4e-16 read,
+    CPU)."""
+    rng = np.random.default_rng(12)
+    k, n = 3, 500
+    A = rng.uniform(-0.3, 0.3, (k, k, n))
+    b = rng.standard_normal((2, k, n))
+    shared = scan.affine_kxk_recurrence(torch.from_numpy(A),
+                                        torch.from_numpy(b), 0.0)
+    copied = scan.affine_kxk_recurrence(
+        torch.from_numpy(np.broadcast_to(A, (2, k, k, n)).copy()),
+        torch.from_numpy(b), 0.0)
+    assert torch.equal(shared, copied)
+    want = np.zeros((2, k, n))
+    s = np.zeros((2, k))
+    for t in range(n):
+        s = np.einsum("ij,cj->ci", A[:, :, t], s) + b[:, :, t]
+        want[:, :, t] = s
+    _close(shared, want, 1e-12)
 
 
 def test_start_state_must_not_vary_along_the_scan():
@@ -215,6 +265,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         scan_kernels.scan_linear(x, x, 0.0)
     with pytest.raises(ValueError, match="CUDA"):
         scan_kernels.scan_affine2x2(x, x, x, x, x, x, 0.0, 0.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        scan_kernels.scan_affine_kxk(torch.ones((1, 9, 16)),
+                                     torch.ones((1, 3, 16)),
+                                     torch.ones((1, 3)))
+    with pytest.raises(ValueError, match="do not fit"):
+        scan_kernels.scan_affine_kxk(torch.ones((1, 4, 16)),
+                                     torch.ones((1, 3, 16)),
+                                     torch.ones((1, 3)))
     with pytest.raises(ValueError):
         probe_kernels.probe_cuda(torch.ones((4, 128, 512)),
                                  torch.ones((128, 512)))
@@ -250,7 +308,10 @@ def test_probe_plain_matches_t3_interpret():
 def test_port_modules_import_without_jax():
     code = ("import flan_tpu_torch, flan_tpu_torch.audio.filters, "
             "flan_tpu_torch.audio.volume, flan_tpu_torch.ops.scan, "
-            "flan_tpu_torch.ops.probe_kernels, sys; "
+            "flan_tpu_torch.ops.probe_kernels, "
+            "flan_tpu_torch.ops.sequential_kernels, "
+            "flan_tpu_torch.ops.resample, flan_tpu_torch.ops.fft_conv, "
+            "flan_tpu_torch.audio.combination, sys; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'flan_tpu' or m.startswith('flan_tpu.') "
             "for m in sys.modules)")
@@ -278,13 +339,20 @@ def _apply_affine2x2(m, s):
             m[2] * s[0] + m[3] * s[1] + m[5])
 
 
+def _apply_kxk3(m, s):
+    return tuple(sum(m[i * 3 + j] * s[j] for j in range(3)) + m[9 + i]
+                 for i in range(3))
+
+
 _ORDER = {
+    "scan_affine_kxk3": (scan_kernels.combine_kxk(3), _apply_kxk3,
+                         scan_kernels.kxk_identity(3)),
     "scan_linear": (scan_kernels.combine_linear, _apply_linear,
                     scan_kernels.LINEAR_IDENTITY),
     "scan_max_affine": (scan_kernels.combine_max_affine, _apply_max_affine,
                         scan_kernels.MAX_AFFINE_IDENTITY),
     "scan_affine2x2": (scan_kernels.combine_affine2x2, _apply_affine2x2,
-                       scan_kernels.AFFINE2X2_IDENTITY)}
+                       scan_kernels.kxk_identity(2))}
 
 
 def _shift(leaves, identity, d: int):
@@ -390,7 +458,17 @@ def scan_emulated(name: str, planes, y0s, tile: int):
                  .reshape(shape) for parts in zip(*out))
 
 
+def _kxk3_ref(*args):
+    """affine_kxk_ref on the emulation's 12 planes and 3 start states."""
+    planes = torch.broadcast_tensors(*args[:12])
+    y = scan_kernels.affine_kxk_ref(torch.stack(planes[:9], dim=1),
+                                    torch.stack(planes[9:], dim=1),
+                                    torch.cat(args[12:], dim=1))
+    return tuple(y[:, i] for i in range(3))
+
+
 _EMULATED = {
+    "scan_affine_kxk3": (_kxk3_ref, 12, 3),
     "scan_linear": (scan_kernels.linear_ref, 2, 1),
     "scan_max_affine": (scan_kernels.max_affine_ref, 3, 1),
     "scan_affine2x2": (scan_kernels.affine2x2_ref, 6, 2)}
@@ -408,6 +486,14 @@ def _emulation_planes(name, ch, n, seed, shared):
     elif name == "scan_max_affine":
         m = rng.standard_normal((ch, n))
         planes = (m, a, (1.0 - a) * m)
+    elif name == "scan_affine_kxk3":
+        # a decay times a rotation in the (0, 1) plane and a decay on 2,
+        # coupled weakly: the multinotch's maps are this close to the unit
+        th = rng.uniform(0.0, 0.2, (rows, n))
+        c = rng.uniform(-0.01, 0.01, (rows, n))
+        planes = (a * np.cos(th), -a * np.sin(th), c, a * np.sin(th),
+                  a * np.cos(th), c, c, c, a,
+                  *rng.standard_normal((3, ch, n)))
     else:
         th = rng.uniform(0.0, 0.2, (rows, n))
         planes = (a * np.cos(th), -a * np.sin(th), a * np.sin(th),
@@ -430,8 +516,11 @@ _EMULATION_CASES = [(1, 1, 256), (2, 255, 256), (2, 256, 256), (3, 257, 256),
                     (1, 2 * 65536 + 300, 256), (2, 4095, 4096), (1, 4097, 2048)]
 
 
-@pytest.mark.parametrize("name", list(_EMULATED))
-@pytest.mark.parametrize("ch,n,tile", _EMULATION_CASES)
+# the k x k map's 12 planes cost the emulation 6x the 2 x 2's: it takes the
+# cases up to a few tiles
+@pytest.mark.parametrize("name,ch,n,tile", [
+    (name, *case) for name in _EMULATED for case in _EMULATION_CASES
+    if name != "scan_affine_kxk3" or case[1] < 65535])
 def test_kernel_order_of_composition(name, ch, n, tile):
     """The scan kernel's order of composition (runs of a thread, a warp's
     doubling scan, the warps in order; then, across tiles, a fixed tree
@@ -477,13 +566,16 @@ def test_kernel_order_is_a_function_of_the_tile_alone():
 
 def test_scan_constants_match_the_emulation():
     """The emulation's threads per block, window and tile sizes are the
-    kernel source's."""
+    kernel source's: the linear and max-affine maps' runs, then the 2 x 2
+    map's (the k x k map's k = 2 instantiation)."""
     from flan_tpu_torch.ops import build
     cu = (build.CSRC / "scan_kernels.cu").read_text()
     assert f"constexpr int kThreads = {THREADS};" in cu
     assert "constexpr int kWindow = kThreads;" in cu
     assert "static constexpr int kLen = kThreads * Op::kPerThread;" in cu
     per_thread = [int(v) for v in re.findall(r"kPerThread = (\d+),", cu)]
+    per_thread += [int(v) for v in re.findall(
+        r"kPerThread = K == 2 \? (\d+) :", cu)]
     assert [THREADS * v for v in per_thread] == [4096, 4096, 2048]
     assert {t for _, _, t in _EMULATION_CASES} >= {4096, 2048}
 

@@ -428,11 +428,16 @@ def test_plain_sqrt_and_log2_are_correctly_rounded_on_the_cpu():
 def test_kernel_library_lists_every_source():
     names = [p.name for p in build.sources()]
     assert names == ["probe_kernels.cu", "scan_kernels.cu",
-                     "spv_kernels.cu", "sqpv_kernels.cu"]
+                     "sequential_kernels.cu", "spv_kernels.cu",
+                     "sqpv_kernels.cu"]
     assert set(build.SIGNATURES) == {"flan_spv_forward", "flan_spv_inverse",
                                      "flan_sqpv_forward",
                                      "flan_sqpv_inverse", "flan_scan",
-                                     "flan_probe"}
+                                     "flan_scan_kxk", "flan_probe",
+                                     "flan_saturator_multinotch",
+                                     "flan_saturator_multinotch_backward",
+                                     "flan_comb_swept",
+                                     "flan_comb_swept_backward"}
 
 
 
