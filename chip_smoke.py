@@ -8,10 +8,11 @@ Runs from the root of a checkout and needs one CUDA card and the CUDA
 toolkit (nvcc). It imports nothing of JAX. With --time-calls it only builds
 the library, drives the filter path and times the scan kernels and the SQPV
 forward and inverse as phases 5 and 6 do (time_kernels, the profiler per
-launch and inside the path); with --package DIR it takes flan_tpu_torch
-from DIR, so that another commit's kernels are timed by this script's
-yardstick (`git archive COMMIT flan_tpu_torch | tar -x -C build/parent`,
-then --package build/parent). Phases:
+launch and inside the path), and the k x k kernel on phase 8's swept
+multinotch planes at k = 4, 8 and 12; with --package DIR it takes
+flan_tpu_torch from DIR, so that another commit's kernels are timed by this
+script's yardstick (`git archive COMMIT flan_tpu_torch | tar -x -C
+build/parent`, then --package build/parent). Phases:
 
   0. print the card's name and power limit; fail without a CUDA card;
   1. build the kernel library from flan_tpu_torch/csrc with nvcc (one
@@ -65,19 +66,23 @@ then --package build/parent). Phases:
      60 s stereo PV: their scans' launches, each scan call against the
      float64 plain run and for the same bits, the methods on the card
      against the CPU at 2 s, the scans timed in this regime;
-  8. hold the k x k scan kernel against its plain version over k = 1, 3,
-     4, 8 (the one pass) and 12 (in time order), lengths 1 to 1,000,003
-     around one tile and one look-back window, 1 to 8 rows, A shared and
-     not, three calls for the same bits; drive the multinotch filters at
+  8. hold the k x k scan kernel against its plain version over k = 1 (the
+     linear map), 3, 4, 8, 12, 16 and 20 (the chunked kernel), lengths
+     around one sub-run, one tile and past the look-back's batch of 32
+     windows of tiles, 1 to 64 rows (in groups of one A), A shared and
+     not, a row of 1,000,003 at k = 1, 3 and 4, three calls for the same
+     bits; drive the multinotch filters at
      headline size (a swept 1-pole of order 4, k = 4; a swept 2-pole of
      order 4, k = 8; a constant 2-pole of order 2 on the FIR path, probed
-     on the k x k kernel), the swept comb at 600 s and the saturator
+     on the k x k kernel) and a swept 2-pole of order 6 (k = 12), the
+     swept comb at 600 s and the saturator
      multinotch (1-pole and 2-pole, order 2) at 10 s, counted, each held
      to the CPU (at 10 s; the saturator over 2000 frames); hold the
      sequential kernels to their plain loops on the card and ask three
      calls for the same bits; take the gradients of a swept 2-pole lowpass
-     and the compressor at 10 s with respect to the signal and a 0-d
-     cutoff on the card and the CPU (the backward's launches counted);
+     and the compressor at 10 s, and of swept 2-pole multinotch filters of
+     order 4 and 6 (k = 8 and 12) at 1 s, with respect to the signal and a
+     0-d cutoff on the card and the CPU (the backward's launches counted);
      drive Audio.resample 48 -> 44.1 kHz, add_moisture and convolve by a
      2 s IR at 600 s, each held to the CPU at 10 s; time the new kernels.
 
@@ -215,20 +220,28 @@ TOL_RESONATE_CELLS = 1e-3
 
 
 # phase 8: the k x k scan's cases, (rows, frames, A shared by the rows):
-# one element, around one tile and one look-back window of tiles (the one
-# pass, k <= 8, and in time order above it) and a long row (its float64
-# plain run holds k*k + k planes of the row: one row keeps phase 8 short)
-KXK_KS = (1, 3, 4, 8, 12)
-KXK_CASES = [(1, 1, True), (8, "T+1", False), (2, "W+1", True),
-             (1, 1_000_003, True)]
+# one element, around one sub-run ("R") and one tile ("T") of the chunked
+# kernel (the one pass's tile at k = 1), past the 32 windows of tiles ("B")
+# its look-back reads at a time (the one pass's look-back window at k = 1)
+# on 2 rows, 64 rows in groups of one A; and a long row at the k of
+# KXK_LONG_ROW_KS, where its float32 and float64 plain runs take seconds
+KXK_KS = (1, 3, 4, 8, 12, 16, 20)
+KXK_CASES = [(1, 1, True), (2, "R+1", True), (8, "T+1", False),
+             (2, "B+1", True), (64, "T-1", True)]
+KXK_LONG_ROW, KXK_LONG_ROW_KS = (1, 1_000_003, True), (1, 3, 4)
 MULTINOTCH_SECONDS = 600.0
 # the multinotch filters on the card vs the CPU: 3 s, past a look-back
 # window of tiles at k = 4 (131,072 frames) and k = 8 (65,536), where the
 # CPU's float32 plain scan of the k = 8 map takes seconds a second
 MULTINOTCH_CPU_SECONDS = 3.0
-# a 2-pole multinotch of order 6 (k = 12, the time-order kernel above 8)
-# at 600 s: one call, its kernel timed once
-KXK_TIME_ORDER = 6
+# a 2-pole multinotch of order 6 (k = 12) at 600 s: one call; its k x k
+# call then timed on the call's own planes
+KXK12_ORDER = 6
+# gradients through swept 2-pole multinotch filters of these orders (k = 8
+# and 12), card vs CPU, at this length (the CPU's plain k x k scan over
+# k*k + k leaves takes seconds a second)
+MULTINOTCH_GRAD_ORDERS = (4, 6)
+MULTINOTCH_GRAD_SECONDS = 1.0
 SEQ_PLAIN_FRAMES = 2000     # the saturator's plain loop on the card, frames
 COMB_PLAIN_SECONDS = 1.0    # the swept comb's plain loop on the card
 SAT_SECONDS = 10.0          # the saturator at headline width: 480,000
@@ -286,10 +299,6 @@ COMB_ROUND_CYCLES = 150
 # match and the adds of the lanes that send to one sample)
 NEWTON_BACK_CYCLES = 60
 COMB_BACK_ROUND_CYCLES = 200
-# the k x k map in time order (k > 8): a step is k FMAs in a row (4 cycles
-# each), then a shared-memory store, a barrier and the next step's loads
-# of the state (~60 cycles together)
-KXK_ROWS_STEP_CYCLES = 60
 
 
 def fail(msg: str):
@@ -1446,10 +1455,19 @@ def sm_clock_hz() -> float:
     return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
-def kxk_frames(n, tile: int, window: int) -> int:
-    """A k x k case's frames (scan_frames, with the rows kernel's tile of
-    0 read as 256 so that its cases keep their lengths)."""
-    return scan_frames(n, tile or 256, window)
+def kxk_frames(n, k: int, lib) -> int:
+    """A k x k case's frames: a number, or an edge of the kernel's tiling
+    with an offset: "R" a sub-run, "T" a tile, "B" the 32 windows of tiles
+    its look-back reads at a time (at k = 1 and 2 the one pass's tile and
+    look-back window of tiles)."""
+    if isinstance(n, int):
+        return n
+    tile = lib.flan_scan_kxk_tile(k)
+    window = (lib.flan_scan_kxk_window_tiles() * 32 if k >= 3
+              else lib.flan_scan_window_tiles())
+    unit = {"R": lib.flan_scan_kxk_subrun(k) or tile, "T": tile,
+            "B": window * tile}[n[0]]
+    return unit + int(n[1:] or 0)
 
 
 def kxk_planes(torch, k: int, rows: int, n: int, shared: bool, seed: int,
@@ -1468,15 +1486,15 @@ def kxk_planes(torch, k: int, rows: int, n: int, shared: bool, seed: int,
 
 
 def phase8_kxk_cases(torch, lib, scan_kernels, dev) -> float:
-    """The k x k kernel against its plain version over k (the one pass and,
-    above 8, the rows kernel), lengths and rows, A shared and not; three
-    calls for the same bits at each k. Returns the largest absolute
-    error against the float32 plain run."""
+    """The k x k kernel against its plain version over k (the linear map at
+    k = 1, the chunked kernel above 2), lengths and rows, A shared and
+    not; three calls for the same bits at each k. Returns the largest
+    absolute error against the float32 plain run."""
     worst = 0.0
     for k in KXK_KS:
-        tile = lib.flan_scan_kxk_tile(k)
-        for i, (rows, frames, shared) in enumerate(KXK_CASES):
-            n = kxk_frames(frames, tile, lib.flan_scan_window_tiles())
+        cases = KXK_CASES + ([KXK_LONG_ROW] if k in KXK_LONG_ROW_KS else [])
+        for i, (rows, frames, shared) in enumerate(cases):
+            n = kxk_frames(frames, k, lib)
             args = kxk_planes(torch, k, rows, n, shared, 10 * k + i, dev)
             e = scan_errors(torch, scan_kernels.scan_affine_kxk,
                             scan_kernels.affine_kxk_ref, args)
@@ -1493,18 +1511,20 @@ def phase8_kxk_cases(torch, lib, scan_kernels, dev) -> float:
     return worst
 
 
+def kxk_sweep(t):
+    return 200.0 * 10.0 ** (t / MULTINOTCH_SECONDS)   # 200 -> 2000 Hz
+
+
 def multinotch_runs():
     """Phase 8's multinotch calls: (name, k, step)."""
-    def sweep(t):
-        return 200.0 * 10.0 ** (t / MULTINOTCH_SECONDS)   # 200 -> 2000 Hz
     return [
         ("multinotch_1pole_4_swept", 4, lambda a: a.filter_1pole_multinotch(
-            4, sweep, 0.5)),
+            4, kxk_sweep, 0.5)),
         ("multinotch_2pole_4_swept", 8, lambda a: a.filter_2pole_multinotch(
-            4, sweep, 0.3, 0.5)),
+            4, kxk_sweep, 0.3, 0.5)),
         ("multinotch_2pole_2_fir", 4, lambda a: a.filter_2pole_multinotch(
             2, 800.0, 0.35, 0.3)),
-        ("comb_swept", None, lambda a: a.filter_comb(sweep, 0.5)),
+        ("comb_swept", None, lambda a: a.filter_comb(kxk_sweep, 0.5)),
     ]
 
 
@@ -1659,18 +1679,12 @@ def phase8_sequential_checks(torch, seq, seq_args, seq_out):
     return out
 
 
-def phase8_kxk_time_order(torch, Audio, scan, scan_kernels, dev, card):
-    """A swept 2-pole multinotch of order KXK_TIME_ORDER (k = 12: the k x
-    k kernel in time order, one block a row) at 600 s stereo 48 kHz: one
-    call, counted from zero, its wall and peak, and its k x k call timed
-    inside it by CUDA events (the wrapper's allocations included); the
-    output's shape and finiteness (the kernel is held to its plain version
-    in phase8_kxk_cases). The kernel's least time by bytes is kxk_bound's;
-    its chain is N dependent steps of k FMAs in a row and a barrier,
-    estimated at KXK_ROWS_STEP_CYCLES. Returns the launches and the
-    timing."""
+def kxk_path_call(torch, Audio, scan, scan_kernels, dev, step, k: int):
+    """step() on 600 s stereo 48 kHz, once, its launches counted from zero:
+    its wall and peak, its first k x k call timed inside it by CUDA events
+    (the wrapper's allocations included) and kept. Returns the launches,
+    the timing and the kept call's arguments."""
     x = stereo_signal(MULTINOTCH_SECONDS)
-    k = 2 * KXK_TIME_ORDER
     kernel, calls = scan.scan_affine_kxk, []
 
     def timed_kxk(A, b, y0):
@@ -1679,8 +1693,7 @@ def phase8_kxk_time_order(torch, Audio, scan, scan_kernels, dev, card):
         start.record()
         y = kernel(A, b, y0)
         end.record()
-        calls.append((start, end, kxk_bound(A, b, k),
-                      4 * (A.numel() + 2 * b.numel()) / 1e9, b.shape[2]))
+        calls.append((start, end, (A, b, y0)))
         return y
 
     scan_kernels.reset_launch_counts()
@@ -1689,10 +1702,8 @@ def phase8_kxk_time_order(torch, Audio, scan, scan_kernels, dev, card):
     base = torch.cuda.memory_allocated()
     scan.scan_affine_kxk = timed_kxk
     try:
-        y, ms = timed(torch, lambda: Audio.create_from_array(
-            x, SR, device=dev).filter_2pole_multinotch(
-                KXK_TIME_ORDER, lambda t: 200.0 * 10.0 ** (
-                    t / MULTINOTCH_SECONDS), 0.3, 0.5))
+        y, ms = timed(torch, lambda: step(Audio.create_from_array(
+            x, SR, device=dev)))
     finally:
         scan.scan_affine_kxk = kernel
     peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
@@ -1701,20 +1712,111 @@ def phase8_kxk_time_order(torch, Audio, scan, scan_kernels, dev, card):
     del y
     check(shape == x.shape and finite,
           f"the k = {k} multinotch: {shape}, finite {finite}")
-    check(launches["scan_affine_kxk"] == 1 and len(calls) == 1,
+    check(launches["scan_affine_kxk"] == len(calls) >= 1,
           f"the k = {k} multinotch's k x k launches: {launches}")
-    start, end, bnd, planes_gb, n = calls[0]
-    timing = {"ms": start.elapsed_time(end), "bound_ms": bnd[0],
+    start, end, args = calls[0]
+    bnd = kxk_bound(args[0], args[1], k)
+    timing = {"ms_in_path": start.elapsed_time(end), "bound_ms": bnd[0],
               "bound_by": bnd[1],
-              "chain_estimate_ms": n * (4 * k + KXK_ROWS_STEP_CYCLES)
-              / sm_clock_hz() * 1e3,
-              "planes_gb": planes_gb, "path_wall_s": ms / 1e3,
-              "path_peak_alloc_gb": peak_gb}
+              "planes_gb": 4 * (args[0].numel() + 2 * args[1].numel()) / 1e9,
+              "path_wall_s": ms / 1e3, "path_peak_alloc_gb": peak_gb}
+    return launches, timing, args
+
+
+def kxk_regime(torch, scan_kernels, args, k: int, reps: int = 3) -> dict:
+    """The k x k kernel on one call's planes: the mean of `reps` launches
+    by CUDA events (the path's own launch came before), its bound."""
+    A, b, y0 = args
+    bnd = kxk_bound(A, b, k)
+    ms = cuda_ms(torch, lambda: scan_kernels.scan_affine_kxk(A, b, y0), reps)
+    return {"ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "share_of_bound": bnd[0] / ms,
+            "planes_gb": 4 * (A.numel() + 2 * b.numel()) / 1e9}
+
+
+def phase8_kxk12(torch, Audio, scan, scan_kernels, dev, card):
+    """A swept 2-pole multinotch of order KXK12_ORDER (k = 12) at 600 s
+    stereo 48 kHz: one call, counted from zero, its wall and peak, its k x
+    k call timed inside it and then on the call's own planes (the kernel
+    is held to its plain version in phase8_kxk_cases). Returns the
+    launches and the timing."""
+    k = 2 * KXK12_ORDER
+    launches, timing, args = kxk_path_call(
+        torch, Audio, scan, scan_kernels, dev,
+        lambda a: a.filter_2pole_multinotch(KXK12_ORDER, kxk_sweep, 0.3,
+                                            0.5), k)
+    check(launches["scan_affine_kxk"] == 1,
+          f"the k = {k} multinotch's k x k launches: {launches}")
+    timing.update(kxk_regime(torch, scan_kernels, args, k))
+    del args
     print(json.dumps({"phase": 8, "path": f"multinotch_2pole_"
-                      f"{KXK_TIME_ORDER}_swept_600s", "card": card, "k": k,
+                      f"{KXK12_ORDER}_swept_600s", "card": card, "k": k,
                       "launches": {key: v for key, v in launches.items()
                                    if v}, **timing}), flush=True)
     return launches, timing
+
+
+def kxk_regimes(torch, Audio, scan, scan_kernels, dev) -> dict:
+    """The --time-calls reading of the k x k kernel: the swept multinotch
+    calls of phase 8 at 600 s stereo (1-pole order 4, k = 4; 2-pole order
+    4, k = 8; 2-pole order KXK12_ORDER, k = 12), each run once and its k x
+    k call then timed on its own planes (three launches)."""
+    runs = [(4, lambda a: a.filter_1pole_multinotch(4, kxk_sweep, 0.5)),
+            (8, lambda a: a.filter_2pole_multinotch(4, kxk_sweep, 0.3, 0.5)),
+            (2 * KXK12_ORDER, lambda a: a.filter_2pole_multinotch(
+                KXK12_ORDER, kxk_sweep, 0.3, 0.5))]
+    out = {}
+    for k, step in runs:
+        _, timing, args = kxk_path_call(torch, Audio, scan, scan_kernels,
+                                        dev, step, k)
+        timing.update(kxk_regime(torch, scan_kernels, args, k))
+        del args
+        out[f"k{k}_600s_stereo"] = timing
+    return out
+
+
+def phase8_multinotch_gradients(torch, Audio, scan_kernels, dev, card):
+    """Gradients of the energy through swept 2-pole multinotch filters of
+    the orders MULTINOTCH_GRAD_ORDERS (k = 8 and 12) at 1 s stereo, with
+    respect to the signal and a 0-d base cutoff, on the card and the CPU:
+    the backward runs the k x k kernel on the reversed, transposed maps.
+    Held within TOL_GRAD_CPU of each gradient's peak. Returns the
+    backward's k x k launches."""
+    x = stereo_signal(MULTINOTCH_GRAD_SECONDS)
+    back_all = 0
+    for order in MULTINOTCH_GRAD_ORDERS:
+        grads, back = {}, 0
+        for device in ("cpu", dev):
+            v = torch.from_numpy(x).to(device).requires_grad_()
+            c = torch.tensor(300.0, device=device, requires_grad=True)
+            before = scan_kernels.LAUNCHES["scan_affine_kxk"]
+            y = Audio.create_from_array(v, SR).filter_2pole_multinotch(
+                order, lambda t: c * (1.0 + 2.0 * t), 0.3, 0.5).data
+            loss = (y * y).sum()
+            forward = scan_kernels.LAUNCHES["scan_affine_kxk"] - before
+            grads[str(device)] = [g.cpu().double() for g in
+                                  torch.autograd.grad(loss, (v, c))]
+            back = (scan_kernels.LAUNCHES["scan_affine_kxk"] - before
+                    - forward)
+            check(device != "cpu" or forward + back == 0,
+                  f"order {order}: the CPU launched the k x k kernel")
+        (gv, gc), (wv, wc) = grads[str(dev)], grads["cpu"]
+        e = {"k": 2 * order,
+             "signal_grad_err_max": float((gv - wv).abs().max()
+                                          / wv.abs().max()),
+             "cutoff_grad_err": float((gc - wc).abs() / wc.abs()),
+             "cutoff_grad_card": float(gc), "cutoff_grad_cpu": float(wc),
+             "forward_launches": forward, "backward_launches": back}
+        print(json.dumps({"phase": 8, "path": f"gradients_multinotch_2pole_"
+                          f"{order}_1s_stereo", "card": card, **e}),
+              flush=True)
+        check(forward == 1 and back == 1, f"order {order}: the k x k "
+              f"kernel's launches forward and back: {e}")
+        check(e["signal_grad_err_max"] < TOL_GRAD_CPU
+              and e["cutoff_grad_err"] < TOL_GRAD_CPU,
+              f"order {order}: the gradient on the card vs the CPU: {e}")
+        back_all += back
+    return back_all
 
 
 def phase8_sequential_gradients(torch, Audio, seq, dev, card):
@@ -2074,7 +2176,8 @@ def start(package):
 def time_calls(package) -> None:
     """The --time-calls mode: the scan kernels on the filter path's planes
     and the SQPV forward and inverse at their bench shape, timed as phases
-    5 and 6 time them, and nothing else."""
+    5 and 6 time them, and the k x k kernel on phase 8's multinotch planes
+    at k = 4, 8 and 12 (kxk_regimes), and nothing else."""
     card, torch, dev, _ = start(package)
     from flan_tpu_torch import Audio
     from flan_tpu_torch.ops import scan, scan_kernels, sqpv_kernels
@@ -2101,8 +2204,11 @@ def time_calls(package) -> None:
     times.update(time_kernels(torch, calls))
     split.update(profile_launches(torch, {n: k for n, (k, _) in
                                           calls.items()}))
+    del captured, calls
+    kxk = kxk_regimes(torch, Audio, scan, scan_kernels, dev)
     print(f"card: {card}", flush=True)
-    print(json.dumps({"package": package or ".", "call_times": times,
+    print(json.dumps({"package": package or ".", "kxk_regimes": kxk,
+                      "call_times": times,
                       "profile_us_per_launch": split,
                       "scans_in_path": report["scans_in_path"],
                       "filter_path_ms_second": report["wall_s_second"] * 1e3,
@@ -2280,7 +2386,7 @@ def main() -> None:
     for name in NEW_KERNELS[:4]:
         launches[name] = launches8[name]
     phase_done("8 multinotch, comb, saturator")
-    kxk12_launches, kxk12_timing = phase8_kxk_time_order(
+    kxk12_launches, kxk12_timing = phase8_kxk12(
         torch, Audio, scan, scan_kernels, dev, card)
     launches["scan_affine_kxk"] += kxk12_launches["scan_affine_kxk"]
     phase_done("8 k = 12 multinotch")
@@ -2302,6 +2408,11 @@ def main() -> None:
         by_path.setdefault(name, {"filters": launches[name]})
         by_path[name]["gradients_backward"] = grad_launches[name]
         launches[name] += grad_launches[name]
+    kxk_back = phase8_multinotch_gradients(torch, Audio, scan_kernels, dev,
+                                           card)
+    by_path["scan_affine_kxk"] = {"filters": launches["scan_affine_kxk"],
+                                  "gradients_backward": kxk_back}
+    launches["scan_affine_kxk"] += kxk_back
     phase_done("8 scan gradients")
     phase8_resample_convolve(torch, Audio, dev, card)
     phase_done("8 resample, add_moisture, convolve")
@@ -2315,17 +2426,12 @@ def main() -> None:
         lambda: scan_kernels.affine_kxk_ref(A, b, y0))}))
     errs["scan_affine_kxk"] = 0.0
     regime8 = {}
-    for k, (A, b, y0) in sorted(kxk_args.items()):
-        rows, _, n = b.shape
-        bnd = kxk_bound(A, b, k)
-        regime8[f"k{k}_600s_stereo"] = {
-            "ms": cuda_ms(torch, lambda: scan_kernels.scan_affine_kxk(
-                A, b, y0), 3), "bound_ms": bnd[0], "bound_by": bnd[1],
-            "planes_gb": 4 * (A.numel() + 2 * b.numel()) / 1e9}
-        if k == 4:
-            bounds["scan_affine_kxk"] = bnd
-    del A, b, y0, kxk_args
-    regime8[f"k{2 * KXK_TIME_ORDER}_600s_stereo"] = kxk12_timing
+    for k, args in sorted(kxk_args.items()):
+        regime8[f"k{k}_600s_stereo"] = kxk_regime(torch, scan_kernels,
+                                                   args, k)
+    bounds["scan_affine_kxk"] = kxk_bound(A, b, 4)
+    del A, b, y0, args, kxk_args
+    regime8[f"k{2 * KXK12_ORDER}_600s_stereo"] = kxk12_timing
     clock = sm_clock_hz()
     for name, args in seq_args.items():
         fn = (sequential_kernels.comb_swept_cuda if name == "comb_swept"
@@ -2413,12 +2519,12 @@ def main() -> None:
                                       BACKWARD_KERNELS else
                                       "a lax.scan: no TPU kernel")
             entry["bound_note"] = bounds[entry["name"]][2]
-        if entry["name"] == "scan_affine_kxk":
-            entry["regimes"] = regime8
         if entry["name"] in by_path:
             entry["launches_by_path"] = by_path[entry["name"]]
             entry["regimes"] = {case: t for case, t in regime.items()
                                 if calls_kind[case] == entry["name"]}
+        if entry["name"] == "scan_affine_kxk":
+            entry["regimes"] = regime8
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

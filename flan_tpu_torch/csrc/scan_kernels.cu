@@ -4,8 +4,9 @@
 //   linear      y -> a y + b                      (2 planes in, 1 state)
 //   max_affine  y -> max(m, a y + c), a >= 0      (3 planes in, 1 state)
 //   affine_kxk  s -> A s + b, A k x k             (k*k + k planes, k states)
-// Each map has one instantiation: the 2-pole SVF's 2 x 2 (flan_scan kind 2)
-// is AffineKxK<2>, and the k x k entry point runs k = 1 as Linear.
+// The one pass below runs the linear, max_affine and 2 x 2 maps (the 2-pole
+// SVF's, flan_scan kind 2, AffineKxK<2>); the k x k entry point runs k = 1
+// as Linear, k = 2 as AffineKxK<2> and k >= 3 in a kernel of its own.
 //
 // Replaces the TPU kernels of tools/pallas_scan_experiment.py:
 //   T1  _compose_maps -> kernel  (each chain's total affine map)
@@ -72,20 +73,62 @@
 // scan and a look-back reduction of 6-float maps, 20 operations a
 // composition.
 //
-// The k x k map (entry point flan_scan_kxk) runs in this one-pass scan for
-// k <= kMaxRegK: its map is k*k + k floats (72 at k = 8), composed in the
-// operation order of flan_tpu/ops/scan.py:245-257. Its least time is its
-// bytes, but what holds it is the k^3 FMAs of a composition, ~15 of them a
-// thread a tile in the block scan and the look-back, and the registers
-// that hold the maps (255 at k = 8): 6.5 ms at k = 4 and 85 ms at k = 8 for
-// 600 s stereo on an H100 against 1.1 and 3.3 ms of bytes (PERF.md). The
-// threads run 1 to 16 elements each so that the tile's planes still fit
-// in shared memory. Above kMaxRegK a map no longer fits a
-// thread's registers, and flan_scan_kxk runs scan_kxk_rows instead: one
-// block per row steps through time, each thread one state component, the
-// state in shared memory (k^2 FMAs a step, N dependent steps), the maps of
-// the next chunk of steps staged in shared memory while a chunk runs. A
-// variant chosen by k, for every k.
+// The k x k map for k >= 3 (entry point flan_scan_kxk)
+// replaces the same TPU pair, T1/T2, for the multinotch filters' maps
+// (flan_tpu/ops/scan.py:245-262 matrix_affine_recurrence) and runs its own
+// kernel, scan_kxk_chunked. Its least time is its bytes: a step reads k*k
+// floats of A (once for all rows that share it: the multinotch passes one
+// A for both channels) and k of b per row and writes k of y per row, 22 GB
+// at k = 12 for 600 s stereo, 6.6 ms on an H100. A parallel scan of it
+// also needs k^3 FMAs a step for A's part (once per shared A) and k^2 per
+// row: ~1.5 ms of float32 at k = 12, below the bytes up to k = 16. What
+// the one pass does with a whole map in a thread's registers (compose maps
+// ~15 times a thread a tile, k^3 FMAs each) would cost k^3 per element and
+// row, 255 registers at k = 8. So the design keeps maps out of registers
+// and composes them once per sub-run:
+//   1. one block per (tile of L steps, group of up to kKxKGroup rows that
+//      share A; a row alone where each row has its own A) stages the
+//      tile's planes in shared memory, a plane's L steps one contiguous
+//      span (16-byte cp.async), A once for the group;
+//   2. the tile is S sub-runs of R steps. For each, threads carry the
+//      columns of its A-product from e_c and one vector a row its b-part
+//      from 0, v <- A[t] v (+ b[t]) in time order, 2 to 4 vectors a
+//      thread so each A entry read (a broadcast: a sub-run's lanes read
+//      the same step; the steps' 16-byte chunks are permuted so sub-runs
+//      fall on distinct banks) serves several products; k^2 FMAs a vector
+//      a step, no exchange;
+//   3. the sub-runs' maps are composed in order into their prefixes; the
+//      last is the tile's total, published in 64-bit (flag | float)
+//      descriptor words as the one pass does;
+//   4. the carry across tiles, in windows of kKxKWindow tiles: the last
+//      tile of a window folds the window's totals in order into its total
+//      (one composition, k^3 FMAs, a tile); a window's start state is the
+//      window totals before it applied in order to y0, found by a
+//      decoupled look-back (the nearest published window state, the
+//      totals after it read in batches and applied, k^2 FMAs a row each)
+//      and published; a tile's start state is its window's with the totals
+//      of the tiles before it in the window applied, or the end state of
+//      an earlier tile of its window (the same fold) where one is
+//      published. A chain of one state a tile would cost ~80 cycles a tile
+//      in a row, 9 ms at k = 12. Every application and composition runs
+//      the same rounded operations (apply_one, compose_one) whichever
+//      block does it, so a state is the same bits on every call;
+//   5. each (sub-run, row) thread takes its start state through the prefix
+//      before it and steps its R steps in time order, y over b in shared
+//      memory, then the tile is stored coalesced.
+// Above k = 32 (kKxKRegK) a thread's vectors no longer fit its registers
+// and a tile's planes and maps outgrow shared memory (a map alone is 4 KB
+// at k = 32, 40 KB at k = 100): the same steps run with one thread an
+// output, a round a step, the planes read from device memory and the maps
+// and states in the scratch (scan_kxk_chunked<0>).
+// No tensor cores: TF32 keeps ~3 digits. What holds it on an H100
+// (PERF.md, by python -m flan_tpu_torch.ops.spv_variants --source kxk): a
+// few warps a block in steps 2, 3 and 5, their loads from shared memory
+// and their latency, and the carry's trips to L2; 25-38% of the byte bound
+// at k = 4 to 12. k = 1 and k = 2 keep the one pass: the linear map's state
+// is one float, and the SVF's 2 x 2 map (flan_scan kind 2, also k = 2
+// here) is 6 floats, composed at 20 operations, at half its byte bound;
+// this kernel took about three times as long at k = 2.
 //
 // The max_affine identity is m = -1e30, not -inf: decay products underflow
 // to 0 and 0 * -inf is NaN (flan_tpu/ops/scan.py:208-210). Its composition
@@ -101,9 +144,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRegK = 8;       // the largest k x k map of the one pass
-constexpr int kMaxPlanes = kMaxRegK * kMaxRegK + kMaxRegK;
-constexpr int kMaxStates = kMaxRegK;
+constexpr int kMaxPlanes = 6;     // the 2 x 2 map's
+constexpr int kMaxStates = 2;
 constexpr int kWindow = kThreads;  // tiles per look-back window
 
 typedef unsigned long long Word;   // a float (low half) beside its flag
@@ -147,16 +189,13 @@ struct MaxAffine {
   }
 };
 
-// (A row-major, then b): k*k + k planes, k states; at k = 2 the SVF's
-// (a11, a12, a21, a22, b1, b2). The threads' runs shrink with k so that the
-// tile's planes fit in shared memory (76 KB at k = 8). k = 1 is the Linear
-// map and runs as it.
+// (A row-major, then b): k*k + k planes, k states. Only k = 2, the SVF's
+// (a11, a12, a21, a22, b1, b2), runs in the one pass.
 template <int K>
 struct AffineKxK {
   static constexpr int kMap = K * K + K, kState = K;
-  static_assert(K >= 2, "k = 1 is the Linear map");
-  static constexpr int kPerThread = K == 2 ? 8 : (K == 3 ? 4 : (K <= 5 ? 2 : 1));
-  static constexpr int kBlocks = K == 2 ? 4 : (K <= 4 ? 2 : 1);
+  static_assert(K == 2, "k = 1 is the Linear map, k >= 3 scan_kxk_chunked");
+  static constexpr int kPerThread = 8, kBlocks = 4;
   __device__ static float identity(int p) {
     return (p < K * K && p / K == p % K) ? 1.f : 0.f;
   }
@@ -490,9 +529,10 @@ int launch(const ScanArgs& args, const float* y0, Word* scratch, int rows,
   return (int)cudaGetLastError();
 }
 
-// The k x k map in the one pass: A [rows or 1, k*k, N] (a_row its row
-// stride, 0 when one A serves every row), b and y [rows, k, N], y0
-// [rows, k], all contiguous. k = 1 is the Linear map.
+// The k x k map for k = 1 and 2 in the one pass: A [rows or 1, k*k, N]
+// (a_row its row stride, 0 when one A serves every row), b and y [rows, k,
+// N], y0 [rows, k], all contiguous. k = 1 is the Linear map, k = 2 the
+// SVF's AffineKxK<2>.
 template <int K>
 int launch_kxk(const float* A, long long a_row, const float* b, float* y,
                const float* y0, Word* scratch, int rows, long long n,
@@ -521,145 +561,642 @@ int launch_kxk(const float* A, long long a_row, const float* b, float* y,
   }
 }
 
-// The k x k map for k > kMaxRegK, in time order: one block per row, thread
-// i computes state component i (and i + blockDim.x, ...) of every step
-// from the last step's state in shared memory, y[n] = A[n] y[n-1] + b[n]
-// with each row of A[n] summed in column order: N dependent steps of a
-// k-long chain of FMAs and a barrier. A step reads k*k + k planes, each N
-// floats apart, so the block stages chunks of L steps of them in shared
-// memory (a warp copies a plane's L consecutive floats, asynchronously,
-// while the chunk before is computed), and a step reads shared memory
-// only. Where one step's maps do not fit twice (k > ~110), L is 0 and the
-// steps read the planes from device memory. y overwrites b in the chunk's
-// buffer and is stored coalesced after the chunk.
-constexpr int kRowsThreads = 256;
-constexpr int kRowsChunk = 128;
-constexpr long long kRowsSharedFloats = 50 * 1024;   // 200 KB
+// ------------------------------------------- the k x k map, k >= 3: chunked
+//
+// One block per (tile of L steps, group of rows). Where one A serves every
+// row the group is up to kKxKGroup rows and the block loads the tile's A
+// once for all of them; where each row has its own A a row is a group.
+// The tile is S sub-runs of R steps. Maps are (Phi k x k row-major, beta
+// k x g): the state [k][g] of the group's g rows goes to Phi x + beta.
+constexpr int kKxKGroup = 4;     // rows of one shared A per block
+constexpr int kKxKWindow = 8;    // tiles per window of the carry
+constexpr int kKxKRegK = 32;     // the largest k whose vectors are registers
 
-__host__ int rows_chunk(int k) {
-  const long long per = 2LL * ((long long)k * k + k);   // two buffers
-  const long long fit = (kRowsSharedFloats - 2LL * k) / per - 1;
-  return fit >= kRowsChunk ? kRowsChunk : (fit < 1 ? 0 : (int)fit);
+struct KxKTiling {
+  int L, S, R;    // steps per tile, sub-runs per tile, steps per sub-run
+};
+
+__host__ __device__ constexpr int pow2_floor(int x) {
+  int p = 1;
+  while (p * 2 <= x) p *= 2;
+  return p;
 }
 
-// The planes of steps t0 .. t0 + L - 1 into buf ([k*k + k][L + 1]: A's,
-// then b's), past n the identity's zeros; asynchronous, committed.
-__device__ void stage_rows(float* buf, const float* ar, const float* br,
-                           int k, int L, long long t0, long long n) {
-  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
-  for (int p = threadIdx.x >> 5; p < k * k + k; p += warps) {
-    const float* src = p < k * k ? ar + (long long)p * n
-                                 : br + (long long)(p - k * k) * n;
-    for (int j = lane; j < L; j += 32) {
-      float* dst = buf + p * (L + 1) + j;
-      if (t0 + j < n) {
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
-                         (unsigned)__cvta_generic_to_shared(dst)),
-                     "l"(src + t0 + j));
-      } else {
-        *dst = 0.f;
+// Steps per tile: the planes of kKxKGroup rows (k*k + 4k floats a step)
+// within ~96 KB, 8 to 512 steps; sub-runs: their maps twice (the sub-runs'
+// and the prefixes) within ~24 KB, at most 16.
+__host__ __device__ constexpr KxKTiling kxk_tiling(int k) {
+  const int per = k * k + kKxKGroup * k;
+  int L = pow2_floor(24576 / per);
+  L = L < 8 ? 8 : (L > 512 ? 512 : L);
+  int S = 3072 / per > 1 ? pow2_floor(3072 / per) : 1;
+  S = S > 16 ? 16 : S;
+  S = S > L ? L : S;
+  return KxKTiling{L, S, L / S};
+}
+
+// Totals read at once in the carry: as many as ~8 KB holds, 1 to 8.
+__host__ __device__ inline int kxk_batch(int k, int g) {
+  const int b = 2048 / (k * k + k * g);
+  return b < 1 ? 1 : (b > 8 ? 8 : b);
+}
+
+// The maps and states of a block of g rows: the sub-runs' maps (two at
+// least: the carry folds a window in them), their prefixes, a batch of
+// totals read in the carry, the state twice.
+__host__ __device__ inline long long kxk_work_floats(int k, int g) {
+  const KxKTiling t = kxk_tiling(k);
+  const long long map = (long long)k * k + (long long)k * g;
+  return (long long)((t.S > 2 ? t.S : 2) + t.S + kxk_batch(k, g)) * map +
+         2LL * k * g;
+}
+
+// Shared memory of a block of g rows for k <= kKxKRegK: the tile's planes
+// (A, then b, which y overwrites), then its maps and states. Above
+// kKxKRegK the block reads the planes from device memory and keeps its
+// maps and states in the scratch (kxk_work_floats each), since a k x k map
+// outgrows shared memory as k grows.
+__host__ __device__ inline long long kxk_smem_floats(int k, int g) {
+  return ((long long)k * k + (long long)k * g) * kxk_tiling(k).L +
+         kxk_work_floats(k, g);
+}
+
+// Scratch of a group, in 64-bit (flag | float) words: a record for each
+// tile, then one for each window of kKxKWindow tiles, each its total map
+// (Phi, then beta [k][g], g up to gmax) and the state after it [k][g].
+__host__ __device__ inline long long kxk_record_words(int k, int gmax) {
+  return (long long)k * k + 2LL * k * gmax;
+}
+
+__host__ __device__ inline long long kxk_group_words(int k, int gmax,
+                                                     long long ntiles) {
+  const long long nwin = (ntiles + kKxKWindow - 1) / kKxKWindow;
+  return (ntiles + nwin) * kxk_record_words(k, gmax);
+}
+
+struct KxKLaunch {
+  int gmax, ngroups;
+  long long ntiles;
+};
+
+__host__ inline KxKLaunch kxk_launch_shape(int k, int rows, long long n,
+                                           bool shared) {
+  KxKLaunch s;
+  s.gmax = shared ? (rows < kKxKGroup ? rows : kKxKGroup) : 1;
+  s.ngroups = shared ? (rows + kKxKGroup - 1) / kKxKGroup : rows;
+  s.ntiles = (n + kxk_tiling(k).L - 1) / kxk_tiling(k).L;
+  return s;
+}
+
+// The descriptors (zeroed by every call), then above kKxKRegK each block's
+// maps and states, kxk_work_floats(k, gmax) floats a block in ticket order.
+__host__ inline long long kxk_scratch_words(int k, int rows, long long n,
+                                            bool shared) {
+  const KxKLaunch s = kxk_launch_shape(k, rows, n, shared);
+  return 1 + s.ngroups * kxk_group_words(k, s.gmax, s.ntiles);
+}
+
+__host__ inline long long kxk_work_words(int k, int rows, long long n,
+                                         bool shared) {
+  if (k <= kKxKRegK) return 0;
+  const KxKLaunch s = kxk_launch_shape(k, rows, n, shared);
+  return (s.ntiles * s.ngroups * kxk_work_floats(k, s.gmax) + 1) / 2;
+}
+
+// Output o = (i, r) of the map T applied to the state x: row i of Phi
+// against column r of x in column order, then beta. Every use of this
+// function (a tile's own end state, a look-back's step) runs the same
+// rounded operations, so a state is the same bits whoever computes it.
+__device__ __forceinline__ float apply_one(const float* T, const float* x,
+                                           int o, int k, int g) {
+  const int i = o / g, r = o - (o / g) * g;
+  const float* phi = T + i * k;
+  float acc = __fmul_rn(phi[0], x[r]);
+  for (int m = 1; m < k; ++m) acc = __fmaf_rn(phi[m], x[m * g + r], acc);
+  return __fadd_rn(acc, T[k * k + o]);
+}
+
+// Output o of "P, then M" (maps of the same layout): Phi = Phi_M Phi_P,
+// beta = Phi_M beta_P + beta_M, each sum in column order.
+__device__ __forceinline__ float compose_one(const float* M, const float* P,
+                                             int o, int k, int g) {
+  const int kk = k * k;
+  if (o < kk) {
+    const int i = o / k, j = o - (o / k) * k;
+    float acc = __fmul_rn(M[i * k], P[j]);
+    for (int m = 1; m < k; ++m)
+      acc = __fmaf_rn(M[i * k + m], P[m * k + j], acc);
+    return acc;
+  }
+  const int q = o - kk, i = q / g, r = q - (q / g) * g;
+  float acc = __fmul_rn(M[i * k], P[kk + r]);
+  for (int m = 1; m < k; ++m)
+    acc = __fmaf_rn(M[i * k + m], P[kk + m * g + r], acc);
+  return __fadd_rn(acc, M[o]);
+}
+
+// Maps [t0, t0 + cnt) of `recs` (a map every `stride` words, `map` words
+// each) into dst, as they are published: every round issues a thread's
+// loads together (up to 8 words a thread at once) and repeats only while a
+// flag is missing, so a batch costs one trip to L2, not one a word.
+__device__ void load_maps(const Word* recs, long long stride, long long t0,
+                          int cnt, int map, float* dst) {
+  constexpr int kPer = 8;
+  const int count = cnt * map;
+  for (int o0 = threadIdx.x; o0 < count; o0 += kThreads * kPer) {
+    bool ready;
+    do {
+      Word w[kPer];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int o = o0 + j * kThreads;
+        if (o < count)
+          w[j] = *reinterpret_cast<const volatile Word*>(
+              recs + (t0 + o / map) * stride + o % map);
       }
+      ready = true;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int o = o0 + j * kThreads;
+        if (o < count) {
+          if ((w[j] >> 32) == 0)
+            ready = false;
+          else
+            dst[o] = __uint_as_float((unsigned)w[j]);
+        }
+      }
+    } while (!ready);
+  }
+}
+
+// Where step j of a plane's tile lies in shared memory: the 16-byte
+// chunks of each 128-byte row are permuted by the row's index, so the
+// sub-runs that a warp reads at one step (R apart) fall on distinct banks;
+// a chunk stays whole for the 16-byte copies.
+__device__ __forceinline__ int swz(int j) {
+  const int c = j >> 2;
+  return (((c & ~7) | ((c ^ (c >> 3)) & 7)) << 2) | (j & 3);
+}
+
+// A plane's L steps from base into shared memory (at swz), asynchronously:
+// 16-byte copies where the chunk is whole and aligned, else 4-byte ones,
+// and `fill` (the identity's entry) past n.
+__device__ __forceinline__ void stage_plane(float* dst, const float* src,
+                                            long long base, long long n,
+                                            int L, float fill, int lane) {
+  if (base + L <= n && (reinterpret_cast<unsigned long long>(src) & 15) == 0) {
+    for (int j = lane * 4; j < L; j += 128)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                       (unsigned)__cvta_generic_to_shared(dst + swz(j))),
+                   "l"(src + j));
+  } else {
+    for (int j = lane; j < L; j += 32) {
+      if (base + j < n)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                         (unsigned)__cvta_generic_to_shared(dst + swz(j))),
+                     "l"(src + j));
+      else
+        dst[swz(j)] = fill;
     }
+  }
+}
+
+__device__ __forceinline__ void store_plane(float* dst, const float* src,
+                                            long long base, long long n,
+                                            int L, int lane) {
+  if (base + L <= n && (reinterpret_cast<unsigned long long>(dst) & 15) == 0) {
+    for (int j = lane * 4; j < L; j += 128)
+      *reinterpret_cast<float4*>(dst + j) =
+          *reinterpret_cast<const float4*>(src + swz(j));
+  } else {
+    for (int j = lane; j < L; j += 32)
+      if (base + j < n) dst[j] = src[swz(j)];
+  }
+}
+
+// KC: the k the registers hold; kExact: k == KC (every size known to the
+// compiler), else any k <= KC, the loops guarded. A thread of the
+// sub-runs' pass carries V vectors, so each A entry read from shared
+// memory serves V products: what bounds the kernel at k >= 8 is its loads
+// from shared memory, one a warp a cycle. KC = 0 (k > kKxKRegK): the same
+// steps with no vector in registers. The block reads the planes from
+// device memory where it needs them, writes y there, and keeps its maps
+// and states in `work` (its share of the scratch); steps 2 and 5 advance
+// every sub-run's (k + g) x k map or k x g state one step a round, one
+// output a thread, in the register path's rounded operations.
+template <int KC, bool kExact>
+__global__ void __launch_bounds__(kThreads,
+                                  KC <= 5 ? 4 : (KC <= 16 ? 2 : 1))
+scan_kxk_chunked(const float* __restrict__ A, long long a_row,
+                 const float* __restrict__ b, float* __restrict__ y,
+                 const float* __restrict__ y0, Word* scratch,
+                 float* work, int k_arg, int rows, int gmax, long long n,
+                 long long ntiles, int ngroups) {
+  constexpr bool kWide = KC == 0;
+  constexpr int V = KC <= 8 ? 4 : (KC <= 12 ? 3 : 2);
+  constexpr int KR = kWide ? 1 : KC;   // register arrays' size
+  constexpr KxKTiling kTl = kxk_tiling(kWide ? 3 : KC);
+  const int k = kExact ? KC : k_arg;
+  const KxKTiling tl = kExact ? kTl : kxk_tiling(k_arg);
+  const int L = tl.L, S = tl.S, R = tl.R;
+  extern __shared__ __align__(16) float sm[];
+  __shared__ unsigned ticket_sm;
+  __shared__ long long from_sm[2];   // the carry's starts: tile, window
+  if (threadIdx.x == 0)
+    ticket_sm = atomicAdd(reinterpret_cast<unsigned*>(scratch), 1u);
+  __syncthreads();
+  // tile-major tickets: the groups of one tile run together, so a shared A
+  // comes from device memory once and from L2 for the other groups
+  const long long tile = ticket_sm / (unsigned)ngroups;
+  const int grp = (int)(ticket_sm - (unsigned)tile * (unsigned)ngroups);
+  const bool shared_a = a_row == 0;
+  const int row0 = shared_a ? grp * kKxKGroup : grp;
+  const int g = shared_a ? min(kKxKGroup, rows - row0) : 1;
+  const float* ag = A + (shared_a ? 0 : (long long)row0 * a_row);
+  const long long base = tile * L;
+  const int kk = k * k, map = kk + k * g, kg = k * g;
+  const long long tw = kxk_record_words(k, gmax);   // a tile's or window's
+  const long long ww = tw;
+  const long long map_off = kk + (long long)k * gmax;  // its state's words
+  Word* tiles = scratch + 1 + grp * kxk_group_words(k, gmax, ntiles);
+  Word* wins = tiles + ntiles * tw;
+  const int batch = kxk_batch(k, g);
+  float* As = sm;                          // [k*k][L]
+  float* bs = As + (long long)kk * L;      // [g][k][L]: b, then y
+  float* Ms = kWide ? work + ticket_sm * kxk_work_floats(k, gmax)
+                    : bs + (long long)kg * L;   // S maps: the sub-runs'
+  float* Ps = Ms + (S > 2 ? S : 2) * map;  // S maps: prefixes P_1 .. P_S
+  float* lb = Ps + S * map;                // totals read in the carry
+  float* x = lb + batch * map;             // the state [k][g], twice
+  float* x2 = x + kg;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // the planes in device memory (KC = 0): A's entry (i, m), b's and y's
+  // component i of the group's row r, at step t of the tile
+  auto a_at = [&](int i, int m, long long t) {
+    return ag[(long long)(i * k + m) * n + base + t];
+  };
+  auto b_off = [&](int r, int i, long long t) {
+    return ((long long)(row0 + r) * k + i) * n + base + t;
+  };
+
+  // 1. the tile's planes into shared memory, one warp a plane
+  for (int p = warp; p < (kWide ? 0 : kk + kg); p += kWarps) {
+    const float* src =
+        p < kk ? ag + (long long)p * n
+               : b + ((long long)(row0 + (p - kk) / k) * k + (p - kk) % k) * n;
+    const float fill = (p < kk && p / k == p % k) ? 1.f : 0.f;
+    stage_plane(sm + (long long)p * L, src + base, base, n, L, fill, lane);
   }
   asm volatile("cp.async.commit_group;");
-}
+  copies_done();
 
-// K > 0: k == K, a step's products unrolled, so that all its loads are
-// issued before its FMAs (half the time of the loop at k = 12 on an H100);
-// 0: any k, in a loop.
-template <int K>
-__global__ void __launch_bounds__(kRowsThreads)
-scan_kxk_rows(const float* __restrict__ A, long long a_row,
-              const float* __restrict__ b, float* __restrict__ y,
-              const float* __restrict__ y0, int k, long long n, int L) {
-  extern __shared__ float sm[];
-  const long long row = blockIdx.x;
-  const float* ar = A + row * a_row;
-  const float* br = b + row * k * n;
-  float* yr = y + row * k * n;
-  const bool staged = L > 0;
-  const int len_max = staged ? L : 1;
-  const int P = L + 1;
-  float* st = sm;                     // two states of k floats, in turns
-  // two buffers of a chunk's planes, in turns
-  const int buf_floats = (k * k + k) * P;
-  for (int i = threadIdx.x; i < k; i += blockDim.x) st[i] = y0[row * k + i];
-  if (staged) stage_rows(sm + 2 * k, ar, br, k, L, 0, n);
-  int cur = 0;
-  for (long long t0 = 0, c = 0; t0 < n; t0 += len_max, ++c) {
-    const int len = (int)(n - t0 < len_max ? n - t0 : len_max);
-    float* as = sm + 2 * k + (c & 1) * buf_floats;
-    float* bs = as + k * k * P;
-    if (staged) {
-      asm volatile("cp.async.wait_group 0;" ::: "memory");
-      __syncthreads();   // this chunk landed; the last chunk's y stored
-      if (t0 + L < n)
-        stage_rows(sm + 2 * k + ((c + 1) & 1) * buf_floats, ar, br, k, L,
-                   t0 + L, n);
-    } else {
-      __syncthreads();
+  // 2. each sub-run's map: k threads' worth of vectors carry the columns of
+  // its A-product from e_c, one more a row carries its b-part from 0, each
+  // step v <- A[t] v (+ b[t]) in time order
+  if constexpr (kWide) {
+    // in turns between the prefixes' room and Ms, ending in Ms
+    float* cur = (R & 1) ? Ps : Ms;
+    float* nxt = (R & 1) ? Ms : Ps;
+    for (int o = threadIdx.x; o < S * map; o += kThreads) {
+      const int q = o % map;
+      cur[o] = (q < kk && q / k == q % k) ? 1.f : 0.f;
     }
-    for (int j = 0; j < len; ++j) {
-      const float* s = st + cur * k;
-      float* next = st + (1 - cur) * k;
-      for (int i = threadIdx.x; i < k; i += blockDim.x) {
-        float acc;
-        if (staged) {
-          const float* ai = as + i * k * P + j;
-          acc = ai[0] * s[0];
-          if constexpr (K > 0) {
-#pragma unroll
-            for (int m = 1; m < K; ++m) acc += ai[m * P] * s[m];
-          } else {
-#pragma unroll 4
-            for (int m = 1; m < k; ++m) acc += ai[m * P] * s[m];
-          }
-          acc += bs[i * P + j];
-          bs[i * P + j] = acc;
-        } else {
-          const float* ai = ar + (long long)i * k * n + t0;
-          acc = ai[0] * s[0];
-          for (int m = 1; m < k; ++m) acc += ai[(long long)m * n] * s[m];
-          acc += br[(long long)i * n + t0];
-          yr[(long long)i * n + t0] = acc;
+    __syncthreads();
+    for (int t = 0; t < R; ++t) {
+      for (int o = threadIdx.x; o < S * map; o += kThreads) {
+        const int s = o / map, q = o - s * map;
+        const long long at = (long long)s * R + t;
+        const float* m0 = cur + s * map;
+        float v = cur[o];
+        if (base + at < n) {
+          // column c of Phi (q < kk) or of beta: A[t] times it (+ b[t])
+          const bool phi = q < kk;
+          const int i = phi ? q / k : (q - kk) / g;
+          const int c = phi ? q - i * k : q - kk - i * g;
+          const float* col = phi ? m0 + c : m0 + kk + c;
+          const int step = phi ? k : g;
+          float acc = __fmul_rn(a_at(i, 0, at), col[0]);
+          for (int m = 1; m < k; ++m)
+            acc = __fmaf_rn(a_at(i, m, at), col[m * step], acc);
+          v = phi ? acc : __fadd_rn(acc, b[b_off(c, i, at)]);
         }
-        next[i] = acc;
+        nxt[o] = v;
       }
       __syncthreads();
-      cur = 1 - cur;
+      float* swap = cur;
+      cur = nxt;
+      nxt = swap;
     }
-    if (staged) {
-      const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
-      for (int q = threadIdx.x >> 5; q < k; q += warps)
-        for (int j = lane; j < len; j += 32)
-          yr[(long long)q * n + t0 + j] = bs[q * P + j];
+  }
+  const int per_sub = (k + g + V - 1) / V;
+  for (int task = threadIdx.x; task < (kWide ? 0 : S * per_sub);
+       task += kThreads) {
+    const int s = task / per_sub, c0 = (task - s * per_sub) * V;
+    float v[V][KR];
+    const float* bsrc[V];
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+      const int c = c0 + u;
+      bsrc[u] = (c >= k && c < k + g) ? bs + (long long)(c - k) * k * L
+                                      : nullptr;
+#pragma unroll
+      for (int i = 0; i < KC; ++i) v[u][i] = (i == c) ? 1.f : 0.f;
     }
+    const int t0 = s * R;
+    for (int t = t0; t < t0 + R; ++t) {
+      const int at = swz(t);
+      float nv[V][KR];
+#pragma unroll
+      for (int i = 0; i < KC; ++i) {
+        if (kExact || i < k) {
+          const float* ai = As + (long long)i * k * L + at;
+          float a = ai[0];
+#pragma unroll
+          for (int u = 0; u < V; ++u) nv[u][i] = __fmul_rn(a, v[u][0]);
+#pragma unroll
+          for (int m = 1; m < KC; ++m) {
+            if (kExact || m < k) {
+              a = ai[(long long)m * L];
+#pragma unroll
+              for (int u = 0; u < V; ++u)
+                nv[u][i] = __fmaf_rn(a, v[u][m], nv[u][i]);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < V; ++u)
+            if (bsrc[u])
+              nv[u][i] = __fadd_rn(nv[u][i], bsrc[u][i * L + at]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < V; ++u)
+#pragma unroll
+        for (int i = 0; i < KC; ++i) v[u][i] = nv[u][i];
+    }
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+      const int c = c0 + u;
+      if (c >= k + g) continue;
+      float* out = Ms + s * map + (c < k ? c : kk + (c - k));
+      const int stride = c < k ? k : g;
+#pragma unroll
+      for (int i = 0; i < KC; ++i)
+        if (kExact || i < k) out[i * stride] = v[u][i];
+    }
+  }
+  __syncthreads();
+
+  // 3. the prefixes P_1 = M_0, P_{s+1} = M_s after P_s, in order; P_S is
+  // the tile's total, published at once
+  for (int o = threadIdx.x; o < map; o += kThreads) Ps[o] = Ms[o];
+  __syncthreads();
+  for (int s = 1; s < S; ++s) {
+    for (int o = threadIdx.x; o < map; o += kThreads)
+      Ps[s * map + o] = compose_one(Ms + s * map, Ps + (s - 1) * map, o, k, g);
+    __syncthreads();
+  }
+  const float* total = Ps + (S - 1) * map;
+  for (int o = threadIdx.x; o < map; o += kThreads)
+    publish(tiles + tile * tw + o, total[o]);
+
+  // 4. the carry. Windows of kKxKWindow tiles: the last tile of a whole
+  // window folds its tiles' totals in order into the window's total
+  // (before it waits on anything); the state at a window's start is the
+  // window totals before it applied to y0 in order, and a tile's start
+  // state the totals of the tiles before it in its window applied to
+  // that. Every application and composition runs the same rounded
+  // operations (apply_one, compose_one) whichever block computes it, so
+  // the states are the same bits on every call.
+  const long long win = tile / kKxKWindow;
+  const int r = (int)(tile - win * kKxKWindow);
+  const long long first = win * kKxKWindow;
+  if (r == kKxKWindow - 1) {
+    float* acc = Ms;                       // the sub-runs' maps are spent
+    float* nxt = Ms + map;
+    for (long long t0 = first; t0 < tile; t0 += batch) {
+      const int cnt = (int)(tile - t0 < batch ? tile - t0 : batch);
+      load_maps(tiles, tw, t0, cnt, map, lb);
+      __syncthreads();
+      for (int j = 0; j < cnt; ++j) {
+        for (int o = threadIdx.x; o < map; o += kThreads)
+          nxt[o] = t0 + j == first ? lb[j * map + o]
+                                   : compose_one(lb + j * map, acc, o, k, g);
+        __syncthreads();
+        float* swap = acc;
+        acc = nxt;
+        nxt = swap;
+      }
+    }
+    for (int o = threadIdx.x; o < map; o += kThreads)
+      publish(wins + win * ww + o, compose_one(total, acc, o, k, g));
+  }
+  // totals [t0, t1) of `recs` (stride `stride` words) applied to x in
+  // order; where the state fits a warp (k * g <= 32) warp 0 alone applies
+  // them, with warp barriers
+  auto apply_run = [&](const Word* recs, long long stride, long long t0,
+                       long long t1) {
+    for (; t0 < t1; t0 += batch) {
+      const int cnt = (int)(t1 - t0 < batch ? t1 - t0 : batch);
+      __syncthreads();    // lb and x are free
+      load_maps(recs, stride, t0, cnt, map, lb);
+      __syncthreads();
+      for (int j = 0; j < cnt; ++j) {
+        if (kg <= 32) {
+          if (warp == 0) {
+            if (lane < kg) x2[lane] = apply_one(lb + j * map, x, lane, k, g);
+            __syncwarp();
+          }
+        } else {
+          if ((int)threadIdx.x < kg)
+            x2[threadIdx.x] = apply_one(lb + j * map, x, threadIdx.x, k, g);
+          __syncthreads();
+        }
+        float* swap = x;
+        x = x2;
+        x2 = swap;
+      }
+    }
+    __syncthreads();
+  };
+  // A tile starts from the state at its window's start with the totals
+  // of the tiles before it in the window applied in order. Warp 0 finds the
+  // nearest earlier tile of the window whose end state is published (that
+  // same fold), else takes the window's start, waiting where a tile between
+  // has published nothing yet. Both words a lane tests are loaded at once.
+  if (warp == 0) {
+    for (;;) {
+      int st = 2;     // at or past the window's start (r < 32)
+      if (lane < r) {
+        const volatile Word* d =
+            reinterpret_cast<const volatile Word*>(tiles + (tile - 1 - lane)
+                                                   * tw);
+        const Word state = d[map_off], total = d[0];
+        st = (state >> 32) ? 2 : ((total >> 32) ? 1 : 0);
+      }
+      const unsigned has = __ballot_sync(0xffffffffu, st == 2);
+      const unsigned none = __ballot_sync(0xffffffffu, st == 0);
+      const int f = __ffs(has) - 1;
+      if ((none & ((1u << f) - 1u)) == 0) {
+        if (lane == 0) from_sm[0] = tile - 1 - f;
+        break;
+      }
+    }
+  }
+  __syncthreads();
+  const long long from_tile = from_sm[0];
+  if (from_tile < first) {
+    // the state after window bw - 1: warp 0 finds the nearest earlier
+    // window whose end state is published (window -1: y0), waiting where a
+    // window between has published nothing yet
+    const long long bw = (from_tile + 1) / kKxKWindow;
+    if (warp == 0) {
+      long long j = bw - 1;
+      for (;;) {
+        const long long w = j - lane;
+        int st = 2;
+        if (w >= 0) {
+          const volatile Word* d =
+              reinterpret_cast<const volatile Word*>(wins + w * ww);
+          const Word state = d[map_off], total = d[0];
+          st = (state >> 32) ? 2 : ((total >> 32) ? 1 : 0);
+        }
+        const unsigned has = __ballot_sync(0xffffffffu, st == 2);
+        const unsigned none = __ballot_sync(0xffffffffu, st == 0);
+        if (has) {
+          const int f = __ffs(has) - 1;
+          if ((none & ((1u << f) - 1u)) == 0) {
+            j -= f;
+            break;
+          }
+        } else if (!none) {
+          j -= 32;
+        }
+      }
+      if (lane == 0) from_sm[1] = j;
+    }
+    __syncthreads();
+    const long long from = from_sm[1];
+    if ((int)threadIdx.x < kg) {
+      const int i = threadIdx.x / g, rr = threadIdx.x - (threadIdx.x / g) * g;
+      float v;
+      if (from < 0)
+        v = y0[(long long)(row0 + rr) * k + i];
+      else
+        poll<1>(wins + from * ww + map_off + threadIdx.x, &v);
+      x[threadIdx.x] = v;
+    }
+    __syncthreads();
+    apply_run(wins, ww, from + 1, bw);
+    if (from + 1 < bw && (int)threadIdx.x < kg)
+      publish(wins + (bw - 1) * ww + map_off + threadIdx.x, x[threadIdx.x]);
+  } else {
+    if ((int)threadIdx.x < kg)
+      poll<1>(tiles + from_tile * tw + map_off + threadIdx.x,
+              x + threadIdx.x);
+    __syncthreads();
+  }
+  apply_run(tiles, tw, from_tile + 1, tile);
+  if ((int)threadIdx.x < kg)
+    publish(tiles + tile * tw + map_off + threadIdx.x,
+            apply_one(total, x, threadIdx.x, k, g));
+
+  // 5. one thread a (sub-run, row): its start state through the prefix
+  // before it, then its R steps in time order, y over b
+  if constexpr (kWide) {
+    // one thread an output (sub-run, component, row), the states in turns
+    // in Ms (spent): S*k*g floats each
+    float* cur = Ms;
+    float* nxt = Ms + S * kg;
+    for (int o = threadIdx.x; o < S * kg; o += kThreads) {
+      const int s = o / kg, q = o - s * kg;
+      cur[o] = s == 0 ? x[q] : apply_one(Ps + (s - 1) * map, x, q, k, g);
+    }
+    __syncthreads();
+    for (int t = 0; t < R; ++t) {
+      for (int o = threadIdx.x; o < S * kg; o += kThreads) {
+        const int s = o / kg, q = o - s * kg, i = q / g, r = q - i * g;
+        const long long at = (long long)s * R + t;
+        const float* st = cur + s * kg + r;
+        float v = cur[o];
+        if (base + at < n) {
+          float acc = __fmul_rn(a_at(i, 0, at), st[0]);
+          for (int m = 1; m < k; ++m)
+            acc = __fmaf_rn(a_at(i, m, at), st[m * g], acc);
+          v = __fadd_rn(acc, b[b_off(r, i, at)]);
+          y[b_off(r, i, at)] = v;
+        }
+        nxt[o] = v;
+      }
+      __syncthreads();
+      float* swap = cur;
+      cur = nxt;
+      nxt = swap;
+    }
+  }
+  for (int task = threadIdx.x; task < (kWide ? 0 : S * g); task += kThreads) {
+    const int s = task / g, r = task - (task / g) * g;
+    float st[KR];
+#pragma unroll
+    for (int i = 0; i < KC; ++i)
+      if (kExact || i < k)
+        st[i] = s == 0 ? x[i * g + r]
+                       : apply_one(Ps + (s - 1) * map, x, i * g + r, k, g);
+    float* br = bs + (long long)r * k * L;
+    for (int t = s * R; t < s * R + R; ++t) {
+      const int at = swz(t);
+      float nv[KR];
+#pragma unroll
+      for (int i = 0; i < KC; ++i) {
+        if (kExact || i < k) {
+          const float* ai = As + (long long)i * k * L + at;
+          float acc = __fmul_rn(ai[0], st[0]);
+#pragma unroll
+          for (int m = 1; m < KC; ++m)
+            if (kExact || m < k)
+              acc = __fmaf_rn(ai[(long long)m * L], st[m], acc);
+          nv[i] = __fadd_rn(acc, br[i * L + at]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < KC; ++i) {
+        if (kExact || i < k) {
+          st[i] = nv[i];
+          br[i * L + at] = nv[i];
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // 6. the states out, one warp a plane
+  for (int p = warp; p < (kWide ? 0 : kg); p += kWarps) {
+    const int r = p / k, q = p - (p / k) * k;
+    store_plane(y + ((long long)(row0 + r) * k + q) * n + base,
+                bs + (long long)p * L, base, n, L, lane);
   }
 }
 
-int launch_kxk_rows(const float* A, long long a_row, const float* b,
-                    float* y, const float* y0, int k, int rows, long long n,
-                    cudaStream_t s) {
-  const int L = rows_chunk(k);
-  const int threads = k <= kRowsThreads ? kRowsThreads
-                                        : (k >= 1024 ? 1024 : (k + 31) / 32 * 32);
-  const size_t bytes = sizeof(float) *
-      (2 * (size_t)k + (L > 0 ? 2 * ((size_t)k * k + k) * (L + 1) : 0));
-  // the unrolled steps for the k of the multinotch filters of order up to
-  // 16 (1-pole) and 8 (2-pole) above the one pass
-  decltype(&scan_kxk_rows<0>) kernel = scan_kxk_rows<0>;
-  switch (k) {
-#define FLAN_KXK_ROWS(K) \
-    case K: kernel = scan_kxk_rows<K>; break;
-    FLAN_KXK_ROWS(9) FLAN_KXK_ROWS(10) FLAN_KXK_ROWS(11) FLAN_KXK_ROWS(12)
-    FLAN_KXK_ROWS(13) FLAN_KXK_ROWS(14) FLAN_KXK_ROWS(15) FLAN_KXK_ROWS(16)
-#undef FLAN_KXK_ROWS
-    default: break;
-  }
+template <int KC, bool kExact>
+int launch_kxk_chunked(const float* A, long long a_row, const float* b,
+                       float* y, const float* y0, Word* scratch, int k,
+                       int rows, long long n, cudaStream_t s) {
+  const KxKLaunch shape = kxk_launch_shape(k, rows, n, a_row == 0);
+  const long long blocks = shape.ntiles * shape.ngroups;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long words = kxk_scratch_words(k, rows, n, a_row == 0);
+  const cudaError_t zeroed =
+      cudaMemsetAsync(scratch, 0, sizeof(Word) * words, s);
+  if (zeroed != cudaSuccess) return (int)zeroed;
+  const int bytes =
+      KC == 0 ? 0 : (int)(sizeof(float) * kxk_smem_floats(k, shape.gmax));
   const cudaError_t allowed = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      scan_kxk_chunked<KC, kExact>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (allowed != cudaSuccess) return (int)allowed;
-  kernel<<<rows, threads, bytes, s>>>(A, a_row, b, y, y0, k, n, L);
+  scan_kxk_chunked<KC, kExact><<<(unsigned)blocks, kThreads, bytes, s>>>(
+      A, a_row, b, y, y0, scratch, reinterpret_cast<float*>(scratch + words),
+      k, rows, shape.gmax, n, shape.ntiles, shape.ngroups);
   return (int)cudaGetLastError();
 }
 
@@ -691,42 +1228,37 @@ long long flan_scan_scratch_bytes(int kind, int rows, long long n) {
   }
 }
 
-// The k x k map: elements per tile of the one pass (0 above kMaxRegK,
-// where scan_kxk_rows runs), and the bytes of scratch a call needs (8 for
-// scan_kxk_rows, which uses none).
+// The k x k map: steps per tile (elements of the one pass for k = 1 and
+// 2), steps per sub-run (0 below 3), tiles per window of the carry, and
+// the bytes of scratch a call needs.
 int flan_scan_kxk_tile(int k) {
-  switch (k) {
-#define FLAN_KXK_TILE(K) \
-    case K: return Tile<AffineKxK<K>>::kLen;
-    case 1: return Tile<Linear>::kLen;
-    FLAN_KXK_TILE(2) FLAN_KXK_TILE(3) FLAN_KXK_TILE(4)
-    FLAN_KXK_TILE(5) FLAN_KXK_TILE(6) FLAN_KXK_TILE(7) FLAN_KXK_TILE(8)
-#undef FLAN_KXK_TILE
-    default: return 0;
-  }
+  if (k == 1) return Tile<Linear>::kLen;
+  if (k == 2) return Tile<AffineKxK<2>>::kLen;
+  return k >= 3 ? kxk_tiling(k).L : 0;
 }
 
-int flan_scan_max_reg_k() { return kMaxRegK; }
+int flan_scan_kxk_subrun(int k) { return k >= 3 ? kxk_tiling(k).R : 0; }
 
-long long flan_scan_kxk_scratch_bytes(int k, int rows, long long n) {
-  switch (k) {
-#define FLAN_KXK_SCRATCH(K)                                  \
-    case K:                                                  \
-      return 8 * scratch_words<AffineKxK<K>>(                \
-                     rows, tiles_of<AffineKxK<K>>(n));
-    case 1: return 8 * scratch_words<Linear>(rows, tiles_of<Linear>(n));
-    FLAN_KXK_SCRATCH(2) FLAN_KXK_SCRATCH(3)
-    FLAN_KXK_SCRATCH(4) FLAN_KXK_SCRATCH(5) FLAN_KXK_SCRATCH(6)
-    FLAN_KXK_SCRATCH(7) FLAN_KXK_SCRATCH(8)
-#undef FLAN_KXK_SCRATCH
-    default: return k > kMaxRegK ? 8 : 0;
-  }
+int flan_scan_kxk_window_tiles() { return kKxKWindow; }
+
+long long flan_scan_kxk_scratch_bytes(int k, int rows, long long n,
+                                      int shared) {
+  if (k == 1) return 8 * scratch_words<Linear>(rows, tiles_of<Linear>(n));
+  if (k == 2)
+    return 8 * scratch_words<AffineKxK<2>>(rows, tiles_of<AffineKxK<2>>(n));
+  if (k < 3 || rows < 1 || n < 1) return 0;
+  return 8 * (kxk_scratch_words(k, rows, n, shared != 0) +
+              kxk_work_words(k, rows, n, shared != 0));
 }
 
-// y[n] = A[n] y[n-1] + b[n] for k x k maps: A [rows or 1, k*k, n] row-major
-// maps with row stride a_row (0: one A for every row), b and y [rows, k,
-// n], y0 [rows, k]; scratch: flan_scan_kxk_scratch_bytes(k, rows, n)
-// bytes, 8-byte aligned. All float32, contiguous, on the stream's device.
+// y[n] = A[n] y[n-1] + b[n] for k x k maps, k >= 1: A [rows or 1, k*k, n]
+// row-major maps with row stride a_row (0: one A for every row), b and y
+// [rows, k, n], y0 [rows, k]; scratch: flan_scan_kxk_scratch_bytes(k,
+// rows, n, a_row == 0) bytes, 8-byte aligned. All float32, contiguous, on
+// the stream's device. The chunked kernel's instantiation goes by k: k
+// itself to 16 (on an H100 the guarded one took 3 to 10 times as long at
+// every k measured), a guarded one to kKxKRegK, and above that the one
+// whose maps are in the scratch.
 int flan_scan_kxk(int k, const float* A, long long a_row, const float* b,
                   float* y, const float* y0, void* scratch, int rows,
                   long long n, void* stream) {
@@ -736,13 +1268,24 @@ int flan_scan_kxk(int k, const float* A, long long a_row, const float* b,
   cudaStream_t s = (cudaStream_t)stream;
   Word* w = reinterpret_cast<Word*>(scratch);
   switch (k) {
-#define FLAN_KXK_LAUNCH(K) \
-    case K: return launch_kxk<K>(A, a_row, b, y, y0, w, rows, n, s);
-    FLAN_KXK_LAUNCH(1) FLAN_KXK_LAUNCH(2) FLAN_KXK_LAUNCH(3)
-    FLAN_KXK_LAUNCH(4) FLAN_KXK_LAUNCH(5) FLAN_KXK_LAUNCH(6)
-    FLAN_KXK_LAUNCH(7) FLAN_KXK_LAUNCH(8)
+    case 1: return launch_kxk<1>(A, a_row, b, y, y0, w, rows, n, s);
+    case 2: return launch_kxk<2>(A, a_row, b, y, y0, w, rows, n, s);
+#define FLAN_KXK_LAUNCH(K)                                                \
+    case K:                                                               \
+      return launch_kxk_chunked<K, true>(A, a_row, b, y, y0, w, k, rows,  \
+                                         n, s);
+    FLAN_KXK_LAUNCH(3) FLAN_KXK_LAUNCH(4) FLAN_KXK_LAUNCH(5)
+    FLAN_KXK_LAUNCH(6) FLAN_KXK_LAUNCH(7) FLAN_KXK_LAUNCH(8)
+    FLAN_KXK_LAUNCH(9) FLAN_KXK_LAUNCH(10) FLAN_KXK_LAUNCH(11)
+    FLAN_KXK_LAUNCH(12) FLAN_KXK_LAUNCH(13) FLAN_KXK_LAUNCH(14)
+    FLAN_KXK_LAUNCH(15) FLAN_KXK_LAUNCH(16)
 #undef FLAN_KXK_LAUNCH
-    default: return launch_kxk_rows(A, a_row, b, y, y0, k, rows, n, s);
+    default:
+      if (k <= kKxKRegK)
+        return launch_kxk_chunked<kKxKRegK, false>(A, a_row, b, y, y0, w, k,
+                                                   rows, n, s);
+      return launch_kxk_chunked<0, false>(A, a_row, b, y, y0, w, k, rows, n,
+                                          s);
   }
 }
 

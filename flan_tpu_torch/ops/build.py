@@ -137,12 +137,13 @@ def load_library() -> ctypes.CDLL:
     lib.flan_scan_window_tiles.restype = ctypes.c_int
     lib.flan_scan_scratch_bytes.argtypes = [_i, _i, _ll]
     lib.flan_scan_scratch_bytes.restype = ctypes.c_longlong
-    # the k x k map's: elements per tile (0 where it runs in time order),
-    # the largest k of the one pass, bytes of scratch: (k, rows, n)
-    lib.flan_scan_kxk_tile.argtypes = [_i]
-    lib.flan_scan_kxk_tile.restype = ctypes.c_int
-    lib.flan_scan_max_reg_k.restype = ctypes.c_int
-    lib.flan_scan_kxk_scratch_bytes.argtypes = [_i, _i, _ll]
+    # the k x k map's: steps per tile and per sub-run (k), tiles per window
+    # of its carry, bytes of scratch: (k, rows, n, one A shared by the rows)
+    for name in ("flan_scan_kxk_tile", "flan_scan_kxk_subrun"):
+        getattr(lib, name).argtypes = [_i]
+        getattr(lib, name).restype = ctypes.c_int
+    lib.flan_scan_kxk_window_tiles.restype = ctypes.c_int
+    lib.flan_scan_kxk_scratch_bytes.argtypes = [_i, _i, _ll, _i]
     lib.flan_scan_kxk_scratch_bytes.restype = ctypes.c_longlong
     # the swept comb's ring in device memory: (channels, ring length,
     # backward)

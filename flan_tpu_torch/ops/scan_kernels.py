@@ -15,9 +15,11 @@ of [..., N]:
 
 The 2 x 2 map is the k x k one's k = 2 instantiation (the SVF passes its
 six planes unstacked), and the k x k map's k = 1 runs as the linear one.
-The k x k map runs in the one pass for k <= the library's
-flan_scan_max_reg_k() (8) and above it in time order, one block a row
-(csrc/scan_kernels.cu scan_kxk_rows).
+For k >= 3 the k x k map runs its own kernel (csrc/scan_kernels.cu
+scan_kxk_chunked): tiles of L steps for a group of rows that share A, S
+sub-runs of R steps a tile, the carry over windows of tiles in a fixed
+order; above k = 32 its maps live in the scratch, not in registers and
+shared memory.
 
 The plain versions transcribe flan_tpu/ops/scan.py's tiled scan: a
 Hillis-Steele doubling scan within blocks of BLOCK = 4096 elements, then
@@ -251,8 +253,9 @@ def scan_affine2x2(a11, a12, a21, a22, b1, b2, y01, y02):
 
 def scan_affine_kxk(A, b, y0) -> torch.Tensor:
     """The k x k kernel on float32 CUDA tensors: A [rows or 1, k*k, N]
-    row-major maps (one A for every row is read once, then from L2), b
-    [rows, k, N], y0 [rows, k]; returns y [rows, k, N]."""
+    row-major maps (one A for every row is read once for each group of
+    rows that a block takes), b [rows, k, N], y0 [rows, k]; returns y
+    [rows, k, N]."""
     if b.ndim != 3 or A.ndim != 3 or A.shape[0] not in (1, b.shape[0]) \
             or A.shape[1:] != (b.shape[1] ** 2, b.shape[2]) \
             or y0.shape != b.shape[:2]:
@@ -265,12 +268,14 @@ def scan_affine_kxk(A, b, y0) -> torch.Tensor:
     if A.device != b.device or y0.device != b.device:
         raise ValueError("scan_affine_kxk: A, b and y0 must be on one device")
     lib = load_library()
+    shared = A.shape[0] == 1
     with torch.cuda.device(b.device):
         y = torch.empty_like(b)
-        scratch = torch.empty(lib.flan_scan_kxk_scratch_bytes(k, rows, n)
-                              // 8, dtype=torch.int64, device=b.device)
+        scratch = torch.empty(
+            lib.flan_scan_kxk_scratch_bytes(k, rows, n, int(shared)) // 8,
+            dtype=torch.int64, device=b.device)
         err = lib.flan_scan_kxk(
-            k, A.data_ptr(), 0 if A.shape[0] == 1 else k * k * n,
+            k, A.data_ptr(), 0 if shared else k * k * n,
             b.data_ptr(), y.data_ptr(), y0.data_ptr(), scratch.data_ptr(),
             rows, n, torch.cuda.current_stream().cuda_stream)
     raise_on(err, "scan_affine_kxk")

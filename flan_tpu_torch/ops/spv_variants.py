@@ -1,12 +1,14 @@
 """What holds the hand-written kernels: time each launch with one part taken
 out.
 
-    python -m flan_tpu_torch.ops.spv_variants [--source spv scan sqpv]
+    python -m flan_tpu_torch.ops.spv_variants [--source spv scan kxk sqpv]
                                               [--first-version COMMIT CSRC_DIR]
                                               [--variants NAME ...]
+                                              [--ks K ...]
 
-Needs one CUDA card and nvcc. For each source named (all three by default:
-csrc/spv_kernels.cu, scan_kernels.cu, sqpv_kernels.cu) it copies the source
+Needs one CUDA card and nvcc. For each source named (all four by default:
+csrc/spv_kernels.cu, scan_kernels.cu, the k x k kernel in scan_kernels.cu,
+sqpv_kernels.cu) it copies the source
 and common.cuh, applies one textual substitution set per variant (stores
 removed, table loads or gathers replaced by constants, cheap roundings put
 back to IEEE ones, ...), builds each copy into
@@ -15,8 +17,10 @@ then per variant the device microseconds of every launch, from
 torch.profiler: one forward and one inverse call at the SPV bench shape
 (30 s mono 48 kHz, 512 bins); one call of each scan map on planes of the
 filter path's shapes at 600 s stereo 48 kHz (2x2: 4 planes shared by the
-channels; linear: a shared; max-affine: one row); one SQPV forward and one
-inverse at their bench shape (10 s mono 48 kHz, 16-24000 Hz, 24 bins per
+channels; linear: a shared; max-affine: one row); one k x k call at k = 2
+(the SVF's planes), 4, 8 and 12 (or those of --ks) on phase 8's shapes (one
+A for 2 rows of 28.8 M steps); one SQPV forward and one inverse at their
+bench shape (10 s mono 48 kHz, 16-24000 Hz, 24 bins per
 octave; a variant named forward_* runs only the forward, inverse_* only the
 inverse, on the planes of the unchanged source). A variant computes
 something else than the kernel does: only its times mean anything.
@@ -95,8 +99,8 @@ _SCAN_FILL = """  for (int p = 0; p < Op::kMap; ++p)
     }
 """
 _SCAN_LOAD = "  load_tile<Op>(args, row, base, n, sm);\n  copies_done();\n"
-_SCAN_HALF_TILES = [("cu", "kPerThread = K == 2 ? 8 :",
-                     "kPerThread = K == 2 ? 4 :"),
+_SCAN_HALF_TILES = [("cu", "kPerThread = 8, kBlocks = 4;",
+                     "kPerThread = 4, kBlocks = 4;"),
                     ("cu", "kPerThread = 16,", "kPerThread = 8,", 2)]
 SCAN_VARIANTS = {
     "as_shipped": [],
@@ -123,6 +127,69 @@ SCAN_VARIANTS = {
          "(unsigned)ntiles);")],
     "half_tiles": _SCAN_HALF_TILES,
 }
+
+# ---- the k x k map's chunked kernel (scan_kernels.cu scan_kxk_chunked)
+_KXK_NO_CARRY = [
+    ("cu", "  if (r == kKxKWindow - 1) {", "  if (r == -1) {"),
+    ("cu", "  if (warp == 0) {\n    for (;;) {",
+     "  if (warp == -1) {\n    for (;;) {"),
+    ("cu", "  const long long from_tile = from_sm[0];",
+     "  const long long from_tile = first - 1;"),
+    ("cu", "    if (warp == 0) {\n      long long j = bw - 1;",
+     "    if (warp == -1) {\n      long long j = bw - 1;"),
+    ("cu", "    const long long from = from_sm[1];",
+     "    const long long from = -1;"),
+    ("cu", "    apply_run(wins, ww, from + 1, bw);\n", ""),
+    ("cu", "  apply_run(tiles, tw, from_tile + 1, tile);\n", "")]
+_KXK_STAGE = ("    stage_plane(sm + (long long)p * L, src + base, base, n, "
+              "L, fill, lane);")
+_KXK_STORE = ("    store_plane(y + ((long long)(row0 + r) * k + q) * n + "
+              "base,")
+_KXK_NO_LOADS = [("cu", _KXK_STAGE, "    for (int j = lane; j < L; j += 32)\n"
+                  "      sm[(long long)p * L + j] = fill + 1e-9f * (float)j;")]
+_KXK_NO_STORES = [("cu", _KXK_STORE,
+                   "    if (bs[0] == 123.456f)\n" + _KXK_STORE)]
+KXK_VARIANTS = {
+    "as_shipped": [],
+    "no_carry": _KXK_NO_CARRY,
+    "no_subruns": [
+        ("cu", "task < (kWide ? 0 : S * per_sub);", "task < 0;")],
+    "no_prefixes": [
+        ("cu", "  for (int s = 1; s < S; ++s) {",
+         "  for (int s = 1; s < 0; ++s) {")],
+    "no_stepping": [
+        ("cu", "task < (kWide ? 0 : S * g);", "task < 0;")],
+    "no_loads": _KXK_NO_LOADS,
+    "no_stores": _KXK_NO_STORES,
+    "compute_only": _KXK_NO_CARRY + _KXK_NO_LOADS + _KXK_NO_STORES,
+    # the tile's size: half and twice the steps (twice: 1 block a
+    # multiprocessor above k = 5), and 8 sub-runs at most
+    "half_tiles": [
+        ("cu", "int L = pow2_floor(24576 / per);",
+         "int L = pow2_floor(12288 / per);")],
+    "double_tiles": [
+        ("cu", "int L = pow2_floor(24576 / per);",
+         "int L = pow2_floor(49152 / per);"),
+        ("cu", "L = L < 8 ? 8 : (L > 512 ? 512 : L);",
+         "L = L < 8 ? 8 : (L > 1024 ? 1024 : L);"),
+        ("cu", "KC <= 5 ? 4 : (KC <= 16 ? 2 : 1))", "KC <= 5 ? 2 : 1)")],
+    "subruns8": [("cu", "S = S > 16 ? 16 : S;", "S = S > 8 ? 8 : S;")],
+    # k = 3 to 16 on the guarded instantiation of k <= 16 in place of
+    # their own
+    "generic16": [("cu", "return launch_kxk_chunked<K, true>(",
+                   "return launch_kxk_chunked<16, false>(")],
+    # k = 2 (the SVF's map) on the chunked kernel instead of the one pass
+    "k2_chunked": [
+        ("cu", "    case 2: return launch_kxk<2>(A, a_row, b, y, y0, w, rows, "
+         "n, s);", "    case 2: return launch_kxk_chunked<2, true>(\n"
+         "        A, a_row, b, y, y0, w, k, rows, n, s);"),
+        ("cu", "  if (k == 2)\n    return 8 * scratch_words<AffineKxK<2>>("
+         "rows, tiles_of<AffineKxK<2>>(n));\n  if (k < 3 ||",
+         "  if (k < 2 ||")],
+}
+# the SVF's map (phase 6's 2 x 2 planes) and phase 8's multinotch maps;
+# --ks names others
+KXK_KS = (2, 4, 8, 12)
 
 # ---- B3: tile totals, a chunked carry, an epilogue of whole rows
 _SQPV_CONSTANT_TABLE = [
@@ -278,6 +345,12 @@ def apply_variant(texts: dict, edits) -> dict:
     return texts
 
 
+def source_file(source: str) -> str:
+    """The csrc file a source's variants edit (the k x k kernel's are in
+    the scans' file)."""
+    return f"{'scan' if source == 'kxk' else source}_kernels.cu"
+
+
 def build_variants(csrc: Path, source: str, variants: dict,
                    signatures: dict) -> dict:
     """name -> ctypes library of csrc/<source>_kernels.cu, every variant
@@ -285,7 +358,7 @@ def build_variants(csrc: Path, source: str, variants: dict,
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME is None:
         raise RuntimeError("nvcc not found")
-    cu = f"{source}_kernels.cu"
+    cu = source_file(source)
     texts = {"cu": (csrc / cu).read_text(),
              "cuh": (csrc / "common.cuh").read_text()}
     # every substitution before the first compiler starts: a variant that
@@ -435,6 +508,51 @@ def bench_scan(libs: dict, first) -> None:
         report("scan", name, times)
 
 
+def bench_kxk(libs: dict, first) -> None:
+    """One call of the k x k kernel per variant at each of KXK_KS on planes
+    of phase 8's shapes (A [1, k*k, N] shared by 2 rows, b [2, k, N]; a
+    decay of 0.5 to 0.99999 on the diagonal, weak coupling off it; at k = 2
+    the SVF's, a decay times a rotation of up to 0.2 rad, as
+    scan_bench_planes makes the 2 x 2 kind's)."""
+    dev = torch.device("cuda", 0)
+    n, rows = SCAN_FRAMES, SCAN_ROWS
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    times = {name: {} for name in libs}
+    for k in KXK_KS:
+        A = torch.empty((1, k, k, n), device=dev).uniform_(
+            -0.3 / k, 0.3 / k, generator=gen)
+        A.diagonal(dim1=1, dim2=2).uniform_(0.5, 0.99999, generator=gen)
+        if k == 2:
+            a = torch.empty(n, device=dev).uniform_(0.5, 0.99999,
+                                                   generator=gen)
+            th = torch.empty(n, device=dev).uniform_(0.0, 0.2, generator=gen)
+            A = torch.stack([a * th.cos(), -a * th.sin(), a * th.sin(),
+                             a * th.cos()])[None]
+        A = A.reshape(1, k * k, n)
+        b = torch.empty((rows, k, n), device=dev).uniform_(-1.0, 1.0,
+                                                           generator=gen)
+        y = torch.empty_like(b)
+        y0 = torch.zeros((rows, k), device=dev)
+        for name, lib in libs.items():
+            lib.flan_scan_kxk_scratch_bytes.argtypes = [build._i, build._i,
+                                                        build._ll, build._i]
+            lib.flan_scan_kxk_scratch_bytes.restype = ctypes.c_longlong
+            scratch = torch.empty(
+                lib.flan_scan_kxk_scratch_bytes(k, rows, n, 1) // 8,
+                dtype=torch.int64, device=dev)
+
+            def call():
+                build.raise_on(lib.flan_scan_kxk(
+                    k, A.data_ptr(), 0, b.data_ptr(), y.data_ptr(),
+                    y0.data_ptr(), scratch.data_ptr(), rows, n, stream), name)
+            times[name][f"k{k}"] = launch_times(call)
+            del scratch
+        del A, b, y
+    for name in libs:
+        report("kxk", name, times[name])
+
+
 def sqpv_inverse_call(lib, planes, out, geo, stream):
     """A call of this tree's SQPV inverse entry point on planes [1, N, B]."""
     from flan_tpu_torch.ops import sqpv_kernels
@@ -507,6 +625,7 @@ def bench_sqpv(libs: dict, first) -> None:
 SOURCES = {
     "spv": (SPV_VARIANTS, bench_spv),
     "scan": (SCAN_VARIANTS, bench_scan),
+    "kxk": (KXK_VARIANTS, bench_kxk),
     "sqpv": (SQPV_VARIANTS, bench_sqpv),
 }
 
@@ -519,7 +638,11 @@ def main() -> None:
                         metavar=("COMMIT", "CSRC_DIR"))
     parser.add_argument("--variants", nargs="+", default=None,
                         metavar="NAME", help="only these (and as_shipped)")
+    parser.add_argument("--ks", nargs="+", type=int, default=None,
+                        metavar="K", help="the k x k kernel at these k")
     args = parser.parse_args()
+    global KXK_KS
+    KXK_KS = tuple(args.ks) if args.ks else KXK_KS
     if not torch.cuda.is_available():
         sys.exit("spv_variants: needs a CUDA card")
     first = None    # the first version's sets and hooks, if asked for

@@ -8,7 +8,11 @@ redesigned); csrc/scan_kernels.cu and csrc/sqpv_kernels.cu of commit 9ad48d3
 totals, a sequential carry and an epilogue that read every table entry from
 L2); csrc/sqpv_kernels.cu of commit 91765eb (B4 as tile totals of float32
 mod-1 cycles, a prefix over tiles and an epilogue with sincosf and a
-reduction across the block every frame). `git archive COMMIT
+reduction across the block every frame); the k x k map of
+csrc/scan_kernels.cu of commit 1f4e009 (the one pass with maps in
+registers for k <= 8, a block a row in time order above; its
+flan_scan_kxk_scratch_bytes takes no fourth argument, which the call
+ignores). `git archive COMMIT
 flan_tpu_torch/csrc | tar -x -C build/first` brings a source back. Beside
 the sets stand the entry points, scratch and constants of those sources
 where today's differ.
@@ -310,6 +314,16 @@ def sqpv_inverse_call(lib, planes, out, geo, stream):
     return call
 
 
+# ---- the k x k map before its redesign (commit 1f4e009)
+KXK_FIRST_VARIANTS = {
+    "as_shipped": [],
+    # the one pass (k <= 8) without its look-back
+    "no_look_back": [
+        ("cu", "  const int count = first ? kWindow : r;",
+         "  const int count = 0 * (first ? kWindow : r);")],
+}
+
+
 class Version(NamedTuple):
     """The substitution sets of one commit's sources (source -> variant ->
     edits), its entry points where they differ from ops/build.py's, and the
@@ -331,4 +345,5 @@ VERSIONS = {
     "91765eb": Version({"sqpv": SQPV_INVERSE_FIRST_VARIANTS},
                        {"flan_sqpv_inverse": _SQPV_INVERSE_FIRST},
                        sqpv_inverse_call=sqpv_inverse_call),
+    "1f4e009": Version({"kxk": KXK_FIRST_VARIANTS}),
 }

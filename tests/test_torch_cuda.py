@@ -654,23 +654,43 @@ def _kxk_planes(k, rows, n, shared, seed=31):
             for v in (A.reshape(ra, k * k, n), b, y0)]
 
 
+def _kxk_frames(frames, k, lib):
+    """A case's frames: a number, or an edge of the k x k kernel's tiling
+    with an offset: "R" a sub-run, "T" a tile, "B" the 32 windows of tiles
+    its look-back reads at a time (for k = 1 and 2 the one pass's tile and
+    look-back window of tiles)."""
+    if isinstance(frames, int):
+        return frames
+    tile = lib.flan_scan_kxk_tile(k)
+    window = (lib.flan_scan_kxk_window_tiles() * 32 if k >= 3
+              else lib.flan_scan_window_tiles())
+    unit = {"R": lib.flan_scan_kxk_subrun(k) or tile, "T": tile,
+            "B": window * tile}[frames[0]]
+    return unit + int(frames[1:] or 0)
+
+
+# the k x k kernel's cases: (rows, frames, A shared); the long row at the
+# k whose plain runs over it take seconds, not minutes
+_KXK_KERNEL_CASES = [(1, 1, True), (2, "R-1", True), (2, "R+1", False),
+                     (2, "T-1", True), (3, "T+1", False), (2, "B+1", True),
+                     (64, "T+1", True)]
+_KXK_LONG_ROW = (1, 1_000_003, True)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6, 7, 8, 9, 12])
-@pytest.mark.parametrize("rows,frames,shared", [
-    (1, 1, True), (2, "T-1", True), (3, "T+1", False), (2, "W+1", True),
-    (1, 1_000_003, True)])
+@pytest.mark.parametrize("k,rows,frames,shared", [
+    (k, *case) for k in (1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 16, 20, 34, 40)
+    for case in _KXK_KERNEL_CASES + ([_KXK_LONG_ROW] if k <= 8 else [])])
 def test_kxk_kernel_matches_plain(cuda_device, k, rows, frames, shared):
-    """The k x k kernel against its plain version around one tile and one
-    look-back window of tiles (the one pass, k <= 8) and in time order
-    (k > 8): its error against the float64 plain run at most twice the
-    float32 plain run's, plus 1e-6 of the peak, as the other scans."""
+    """The k x k kernel against its plain version at one step, around one
+    sub-run and one tile, past the 32 windows of tiles its look-back reads
+    at a time on 2 rows, 64 rows of one A in groups, A shared and not, a
+    long row up to k = 8, and at k = 34 and 40 the instantiation whose
+    maps are in the scratch: its error against the float64 plain run at
+    most twice the float32 plain run's, plus 1e-6 of the peak, as the
+    other scans."""
     lib = build.load_library()
-    tile = lib.flan_scan_kxk_tile(k) or 256
-    n = frames if isinstance(frames, int) else (
-        {"T": tile, "W": lib.flan_scan_window_tiles() * tile}[frames[0]]
-        + int(frames[1:] or 0))
-    if k > lib.flan_scan_max_reg_k() and n > 100_000:
-        n = 100_003         # N dependent steps: keep the rows kernel short
+    n = _kxk_frames(frames, k, lib)
     A, b, y0 = _kxk_planes(k, rows, n, shared)
     before = scan_kernels.LAUNCHES["scan_affine_kxk"]
     y = scan_kernels.scan_affine_kxk(A, b, y0)
@@ -686,16 +706,56 @@ def test_kxk_kernel_matches_plain(cuda_device, k, rows, frames, shared):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [3, 8, 12])
+@pytest.mark.parametrize("k", [3, 4, 8, 12, 16, 20, 34])
 def test_kxk_kernel_gives_the_same_bits_every_call(cuda_device, k):
-    """64 rows of one shared map wait on one look-back window at once; three
-    calls agree bit for bit (the rows kernel above 8 too)."""
+    """64 rows of one shared map, in groups, wait on one another's tiles
+    at once; three calls agree bit for bit."""
     A, b, y0 = _kxk_planes(k, 64, 30_011, True)
     first = scan_kernels.scan_affine_kxk(A, b, y0)
     for _ in range(2):
         again = scan_kernels.scan_affine_kxk(A, b, y0)
         torch.cuda.synchronize()
         assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+def test_kxk_tiling_matches_the_emulation(cuda_device):
+    """The (steps a tile, steps a sub-run) pairs and the window of tiles
+    that tests/test_torch_scan.py emulates the kernel's order at are the
+    library's."""
+    lib = build.load_library()
+    pairs = {3: (512, 32), 4: (512, 32), 8: (256, 16), 12: (128, 8),
+             16: (64, 8), 20: (32, 8), 34: (16, 8), 40: (8, 8)}
+    for k, pair in pairs.items():
+        assert (lib.flan_scan_kxk_tile(k), lib.flan_scan_kxk_subrun(k)) == \
+            pair, k
+    assert lib.flan_scan_kxk_window_tiles() == 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [4, 6])
+def test_multinotch_gradient_on_the_card(cuda_device, order):
+    """The gradient of the energy through a swept 2-pole multinotch of
+    order 4 and 6 (k = 8 and 12) at 1 s stereo 48 kHz, with respect to the
+    signal and a 0-d base cutoff: the backward runs the k x k kernel on the
+    reversed, transposed maps; card against CPU within 1e-3 of each
+    gradient's peak, as chip_smoke.py holds the other gradients."""
+    x = _signal(int(SR), 2)
+    grads = []
+    for device in ("cpu", cuda_device):
+        before = scan_kernels.LAUNCHES["scan_affine_kxk"]
+        v = torch.from_numpy(x).to(device).requires_grad_()
+        c = torch.tensor(300.0, device=device, requires_grad=True)
+        y = flan_tpu_torch.Audio.create_from_array(v, SR) \
+            .filter_2pole_multinotch(order, lambda t: c * (1.0 + 2.0 * t),
+                                     0.3, 0.5).data
+        grads.append([g.cpu() for g in torch.autograd.grad(
+            (y * y).sum(), (v, c))])
+        launched = scan_kernels.LAUNCHES["scan_affine_kxk"] - before
+        assert launched == (0 if device == "cpu" else 2), launched
+    for got, want in zip(grads[1], grads[0]):
+        assert bool(torch.isfinite(got).all())
+        assert (got - want).abs().max() <= 1e-3 * want.abs().max()
 
 
 @pytest.mark.cuda

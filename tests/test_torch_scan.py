@@ -339,14 +339,7 @@ def _apply_affine2x2(m, s):
             m[2] * s[0] + m[3] * s[1] + m[5])
 
 
-def _apply_kxk3(m, s):
-    return tuple(sum(m[i * 3 + j] * s[j] for j in range(3)) + m[9 + i]
-                 for i in range(3))
-
-
 _ORDER = {
-    "scan_affine_kxk3": (scan_kernels.combine_kxk(3), _apply_kxk3,
-                         scan_kernels.kxk_identity(3)),
     "scan_linear": (scan_kernels.combine_linear, _apply_linear,
                     scan_kernels.LINEAR_IDENTITY),
     "scan_max_affine": (scan_kernels.combine_max_affine, _apply_max_affine,
@@ -458,6 +451,105 @@ def scan_emulated(name: str, planes, y0s, tile: int):
                  .reshape(shape) for parts in zip(*out))
 
 
+# the k x k kernel's own sizes (csrc/scan_kernels.cu kxk_tiling, kKxKWindow,
+# kKxKGroup): (steps a tile, steps a sub-run) by k, tiles a window of its
+# carry, rows of one shared A a block; tests/test_torch_cuda.py holds the
+# pairs to the library's
+KXK_KERNEL_TILING = {3: (512, 32), 4: (512, 32), 8: (256, 16), 12: (128, 8),
+                     16: (64, 8), 20: (32, 8), 34: (16, 8), 40: (8, 8)}
+KXK_KERNEL_WINDOW, KXK_KERNEL_GROUP = 8, 4
+
+
+def kxk_emulated(A, b, y0, tile: int, subrun: int,
+                 window: int = KXK_KERNEL_WINDOW,
+                 group_rows: int = KXK_KERNEL_GROUP):
+    """PyTorch emulation of the k x k kernel's order (csrc/scan_kernels.cu
+    scan_kxk_chunked) in the inputs' dtype: A [rows or 1, k*k, N], b [rows,
+    k, N], y0 [rows, k]; returns y [rows, k, N]. `tile` steps a tile,
+    `subrun` a sub-run (the kernel's: KXK_KERNEL_TILING[k]) and `window`
+    tiles a window of the carry.
+
+    Rows that share A go in groups of `group_rows`, a row alone where each
+    has its own A. Within a tile, each sub-run's map (the A-product from
+    the identity, each row's b-part from 0) is carried step by step in time
+    order; the sub-runs' maps compose in order into their prefixes, the
+    last the tile's total. Across tiles: a whole window's total is its
+    tiles' totals folded in order, and the window totals applied in order
+    to y0 give each window's start; a tile starts from its window's start
+    with the totals of the tiles before it in the window applied in order
+    (what every path of the kernel's look-back computes). Each sub-run
+    then steps from its prefix applied to the tile's start state. Rounding
+    differs from the kernel's: matmul sums in another order than its
+    column-order FMAs."""
+    rows, k, n = b.shape
+    subs = tile // subrun
+    nt = -(-n // tile)
+    pad = nt * tile - n
+    eye = torch.eye(k, dtype=b.dtype)
+    ap = torch.cat([A, eye.reshape(1, k * k, 1).expand(A.shape[0], k * k,
+                                                       pad)], dim=-1)
+    am = ap.reshape(A.shape[0], k, k, nt, subs, subrun).permute(
+        0, 3, 4, 5, 1, 2)                           # [ra, tiles, S, R, k, k]
+    bm = torch.nn.functional.pad(b, (0, pad)).reshape(
+        rows, k, nt, subs, subrun).permute(0, 2, 3, 4, 1)   # [rows, ..., k]
+    shared = A.shape[0] == 1
+    groups = ([list(range(r, min(r + group_rows, rows)))
+               for r in range(0, rows, group_rows)] if shared
+              else [[r] for r in range(rows)])
+    out = torch.empty(rows, nt, subs, subrun, k, dtype=b.dtype)
+    for grp in groups:
+        a = am[0 if shared else grp[0]]
+        g = len(grp)
+        bb = bm[grp].permute(1, 2, 3, 4, 0)          # [tiles, S, R, k, g]
+        # each sub-run's map (Phi | beta), [tiles, S, k, k + g]
+        v = torch.cat([eye.expand(nt, subs, k, k),
+                       torch.zeros(nt, subs, k, g, dtype=b.dtype)], dim=-1)
+        for t in range(subrun):
+            v = a[:, :, t] @ v
+            v = torch.cat([v[..., :k], v[..., k:] + bb[:, :, t]], dim=-1)
+        pre = [v[:, 0]]
+        for s in range(1, subs):
+            m, p = v[:, s], pre[-1]
+            pre.append(torch.cat([m[..., :k] @ p[..., :k],
+                                  m[..., :k] @ p[..., k:] + m[..., k:]],
+                                 dim=-1))
+        pre = torch.stack(pre, dim=1)
+        # the carry: windows of tiles
+        tot = pre[:, -1]
+        x = y0[grp].T
+        starts = []
+        for w0 in range(0, nt, window):
+            xt = x
+            for t in range(w0, min(w0 + window, nt)):
+                starts.append(xt)
+                xt = tot[t, :, :k] @ xt + tot[t, :, k:]
+            if w0 + window <= nt:
+                acc = tot[w0]
+                for t in range(w0 + 1, w0 + window):
+                    acc = torch.cat([tot[t, :, :k] @ acc[:, :k],
+                                     tot[t, :, :k] @ acc[:, k:]
+                                     + tot[t, :, k:]], dim=-1)
+                x = acc[:, :k] @ x + acc[:, k:]
+        x0 = torch.stack(starts)[:, None]           # [tiles, 1, k, g]
+        st = torch.cat([x0, pre[:, :-1, :, :k] @ x0 + pre[:, :-1, :, k:]],
+                       dim=1)
+        ys = []
+        for t in range(subrun):
+            st = a[:, :, t] @ st + bb[:, :, t]
+            ys.append(st)
+        out[grp] = torch.stack(ys, dim=2).permute(4, 0, 1, 2, 3)
+    return out.permute(0, 4, 1, 2, 3).reshape(rows, k, nt * tile)[..., :n]
+
+
+def _kxk3_emulated(planes, y0s, tile):
+    """kxk_emulated on the order test's 12 planes and 3 start states, in
+    sub-runs of 32 steps."""
+    y = kxk_emulated(torch.stack(planes[:9], dim=1),
+                     torch.stack(planes[9:], dim=1), torch.cat(y0s, dim=1),
+                     tile, 32)
+    return tuple(y[:, i] for i in range(3))
+
+
 def _kxk3_ref(*args):
     """affine_kxk_ref on the emulation's 12 planes and 3 start states."""
     planes = torch.broadcast_tensors(*args[:12])
@@ -524,8 +616,10 @@ _EMULATION_CASES = [(1, 1, 256), (2, 255, 256), (2, 256, 256), (3, 257, 256),
 def test_kernel_order_of_composition(name, ch, n, tile):
     """The scan kernel's order of composition (runs of a thread, a warp's
     doubling scan, the warps in order; then, across tiles, a fixed tree
-    over the tiles of a look-back window and a chain over the windows),
-    emulated in PyTorch, against the plain version: as close to the float64
+    over the tiles of a look-back window and a chain over the windows;
+    for the k x k map, k = 3 here, its own kernel's order: kxk_emulated,
+    in sub-runs of 32 steps), emulated in PyTorch, against the plain
+    version: as close to the float64
     plain run as the float32 plain run is, to a factor of 2 and 1e-6 of the
     peak (what the card is held to; 1.7e-7 against 1.3e-7 of the peak read
     for the linear map at 65541 elements), and equal to rounding in
@@ -533,12 +627,15 @@ def test_kernel_order_of_composition(name, ch, n, tile):
     plain, nplanes, _ = _EMULATED[name]
     planes, y0 = _emulation_planes(name, ch, n, seed=n % 97,
                                    shared=ch % 2 == 0)
-    emu = torch.stack(scan_emulated(name, planes, y0, tile=tile))
+
+    def emulated(ps, ys):
+        if name == "scan_affine_kxk3":
+            return torch.stack(_kxk3_emulated(ps, ys, tile))
+        return torch.stack(scan_emulated(name, ps, ys, tile=tile))
+    emu = emulated(planes, y0)
     p32 = _stacked(plain(*planes, *y0))
     p64 = _stacked(plain(*(t.double() for t in planes + y0)))
-    emu64 = torch.stack(scan_emulated(
-        name, [t.double() for t in planes], [t.double() for t in y0],
-        tile=tile))
+    emu64 = emulated([t.double() for t in planes], [t.double() for t in y0])
     assert emu.shape == p32.shape and emu.dtype == torch.float32
     peak = float(p64.abs().max())
     assert float((emu64 - p64).abs().max()) <= 1e-12 * max(peak, 1.0)
@@ -574,10 +671,107 @@ def test_scan_constants_match_the_emulation():
     assert "constexpr int kWindow = kThreads;" in cu
     assert "static constexpr int kLen = kThreads * Op::kPerThread;" in cu
     per_thread = [int(v) for v in re.findall(r"kPerThread = (\d+),", cu)]
-    per_thread += [int(v) for v in re.findall(
-        r"kPerThread = K == 2 \? (\d+) :", cu)]
     assert [THREADS * v for v in per_thread] == [4096, 4096, 2048]
     assert {t for _, _, t in _EMULATION_CASES} >= {4096, 2048}
+
+
+# ------------------------- the k x k kernel's order (scan_kxk_chunked)
+
+def _kxk_case(k, rows, n, shared, seed):
+    """k x k maps near the multinotch's (a decay of 0.5 to 0.99999 on the
+    diagonal, weak coupling off it), inputs and start states, float32: A
+    [1 or rows, k*k, N], b [rows, k, N], y0 [rows, k]."""
+    rng = np.random.default_rng(seed)
+    ra = 1 if shared else rows
+    A = rng.uniform(-1, 1, (ra, k, k, n)) * (0.3 / k)
+    A[:, np.arange(k), np.arange(k)] = rng.uniform(0.5, 0.99999, (ra, k, n))
+    b = rng.standard_normal((rows, k, n))
+    y0 = rng.standard_normal((rows, k))
+    return [torch.from_numpy(v.astype(np.float32))
+            for v in (A.reshape(ra, k * k, n), b, y0)]
+
+
+def _kxk_float64(A, b, y0):
+    """The recurrence sample by sample in float64: the yardstick."""
+    rows, k, n = b.shape
+    a = np.broadcast_to(A.double().numpy().reshape(-1, k, k, n),
+                        (rows, k, k, n))
+    bb, s = b.double().numpy(), y0.double().numpy()
+    out = np.empty((rows, k, n))
+    for t in range(n):
+        s = np.einsum("rij,rj->ri", a[..., t], s) + bb[..., t]
+        out[..., t] = s
+    return torch.from_numpy(out)
+
+
+# the emulation's own small tile, sub-run and window, so that every
+# boundary is reached at a few hundred steps: lengths of one step, around
+# a sub-run, around a tile, and around one look-back window of tiles
+KXK_EMU_TILE, KXK_EMU_SUBRUN, KXK_EMU_WINDOW = 16, 4, 4
+KXK_EMU_LENGTHS = [1, KXK_EMU_SUBRUN - 1, KXK_EMU_SUBRUN + 1,
+                   KXK_EMU_TILE - 1, KXK_EMU_TILE + 1,
+                   KXK_EMU_WINDOW * KXK_EMU_TILE - 1,
+                   KXK_EMU_WINDOW * KXK_EMU_TILE + 1,
+                   9 * KXK_EMU_WINDOW * KXK_EMU_TILE + 3]
+KXK_EMU_ROWS = [(1, True), (2, True), (3, True), (5, True), (1, False),
+                (2, False), (3, False), (5, False)]
+KXK_EMU_KS = (3, 4, 8, 12, 16, 20)
+
+
+@pytest.mark.parametrize("k,rows,shared,n", [
+    (k, *KXK_EMU_ROWS[(i + j) % len(KXK_EMU_ROWS)], n)
+    for i, k in enumerate(KXK_EMU_KS)
+    for j, n in enumerate(KXK_EMU_LENGTHS)])
+def test_kxk_kernel_order(k, rows, shared, n):
+    """The k x k kernel's order (sub-runs stepped in time order, their
+    prefixes, the carry over windows of tiles, row groups of a shared A),
+    emulated: its error against the float64 recurrence at most twice the
+    float32 plain run's, plus 1e-6 of the peak (what the card is held
+    to)."""
+    A, b, y0 = _kxk_case(k, rows, n, shared, seed=100 * k + n)
+    emu = kxk_emulated(A, b, y0, KXK_EMU_TILE, KXK_EMU_SUBRUN,
+                       KXK_EMU_WINDOW)
+    p32 = scan_kernels.affine_kxk_ref(A, b, y0)
+    want = _kxk_float64(A, b, y0)
+    assert emu.shape == b.shape and emu.dtype == torch.float32
+    peak = float(want.abs().max())
+    err_emu = float((emu.double() - want).abs().max())
+    err_plain = float((p32.double() - want).abs().max())
+    assert err_emu <= 2.0 * err_plain + 1e-6 * peak, (err_emu, err_plain)
+
+
+@pytest.mark.parametrize("k", [4, 12, 34, 40])
+def test_kxk_kernel_order_at_its_own_tiles(k):
+    """The emulation at the kernel's own tile, sub-run and window over a
+    window and a tile and a step, rows in two groups of a shared A (k = 34
+    and 40: the maps in the scratch; 40: one sub-run a tile): as close to
+    the float64 recurrence as the plain run, to a factor of 2 and 1e-6 of
+    the peak."""
+    tile, subrun = KXK_KERNEL_TILING[k]
+    n = (KXK_KERNEL_WINDOW + 1) * tile + 1
+    A, b, y0 = _kxk_case(k, 5, n, True, seed=k)
+    emu = kxk_emulated(A, b, y0, tile, subrun)
+    want = _kxk_float64(A, b, y0)
+    peak = float(want.abs().max())
+    err_plain = float((scan_kernels.affine_kxk_ref(A, b, y0).double()
+                       - want).abs().max())
+    assert float((emu.double() - want).abs().max()) <= (
+        2.0 * err_plain + 1e-6 * peak)
+
+
+@pytest.mark.parametrize("k", KXK_EMU_KS)
+def test_kxk_kernel_order_matches_flan_tpu(k):
+    """The emulated order against flan_tpu's matrix_affine_recurrence on
+    the CPU (its tiled scan over k*k + k leaves), each row its own A, over
+    two windows of tiles and three steps: within 1e-5 of the peak."""
+    n = 2 * KXK_EMU_WINDOW * KXK_EMU_TILE + 3
+    A, b, y0 = _kxk_case(k, 2, n, False, seed=7 * k)
+    emu = kxk_emulated(A, b, y0, KXK_EMU_TILE, KXK_EMU_SUBRUN,
+                       KXK_EMU_WINDOW)
+    want = _np(jax_scan.matrix_affine_recurrence(
+        jnp.asarray(A.numpy().reshape(2, k, k, n).transpose(0, 3, 1, 2)),
+        jnp.asarray(b.numpy().transpose(0, 2, 1)), jnp.asarray(y0.numpy())))
+    _close(emu.numpy().transpose(0, 2, 1), want, 1e-5)
 
 
 def test_variants_fit_the_kernel_sources():
@@ -587,7 +781,8 @@ def test_variants_fit_the_kernel_sources():
     from flan_tpu_torch.ops import build, spv_variants
     cuh = (build.CSRC / "common.cuh").read_text()
     for source, (variants, _) in spv_variants.SOURCES.items():
-        texts = {"cu": (build.CSRC / f"{source}_kernels.cu").read_text(),
+        texts = {"cu": (build.CSRC / spv_variants.source_file(source))
+                 .read_text(),
                  "cuh": cuh}
         for name, edits in variants.items():
             out = spv_variants.apply_variant(texts, edits)
@@ -602,7 +797,7 @@ def test_first_version_variants_are_well_formed():
     source of the tool and has its as_shipped, and every source has one."""
     from flan_tpu_torch.ops import spv_variants, spv_variants_first
     versions = spv_variants_first.VERSIONS
-    assert set(versions) == {"9089281", "9ad48d3", "91765eb"}
+    assert set(versions) == {"9089281", "9ad48d3", "91765eb", "1f4e009"}
     assert {src for v in versions.values() for src in v.variants} == set(
         spv_variants.SOURCES)
     for version in versions.values():
