@@ -8,8 +8,9 @@ Runs from the root of a checkout and needs one CUDA card and the CUDA
 toolkit (nvcc). It imports nothing of JAX. With --time-calls it only builds
 the library, drives the filter path and times the scan kernels and the SQPV
 forward and inverse as phases 5 and 6 do (time_kernels, the profiler per
-launch and inside the path), and the k x k kernel on phase 8's swept
-multinotch planes at k = 4, 8 and 12; with --package DIR it takes
+launch and inside the path), the k x k kernel on phase 8's swept
+multinotch planes at k = 4, 8 and 12, and the saturator's forward,
+backward and gradient at 10 s stereo; with --package DIR it takes
 flan_tpu_torch from DIR, so that another commit's kernels are timed by this
 script's yardstick (`git archive COMMIT flan_tpu_torch | tar -x -C
 build/parent`, then --package build/parent). Phases:
@@ -79,7 +80,11 @@ build/parent`, then --package build/parent). Phases:
      multinotch (1-pole and 2-pole, order 2) at 10 s, counted, each held
      to the CPU (at 10 s; the saturator over 2000 frames); hold the
      sequential kernels to their plain loops on the card and ask three
-     calls for the same bits; take the gradients of a swept 2-pole lowpass
+     calls for the same bits; take the gradients through the saturators
+     (their backward: a maps kernel, the k x k scan in reverse time, a
+     read-out kernel, each kernel held to its plain pass and the whole to
+     the step-by-step loop) and the comb; take the gradients of a swept
+     2-pole lowpass
      and the compressor at 10 s, and of swept 2-pole multinotch filters of
      order 4 and 6 (k = 8 and 12) at 1 s, with respect to the signal and a
      0-d cutoff on the card and the CPU (the backward's launches counted);
@@ -157,9 +162,12 @@ SQPV_CASES = [(8000.0, 6.0, (100.0, 3000.0), 1, 16000),
 # 20); the byte bound is the larger for all four kernels.
 HBM_BYTES_PER_S = 3.35e12
 NEW_KERNELS = ("scan_affine_kxk", "saturator_1pole", "saturator_2pole",
-               "comb_swept", "saturator_1pole_backward",
-               "saturator_2pole_backward", "comb_swept_backward")
+               "comb_swept", "saturator_1pole_backward_maps",
+               "saturator_1pole_backward_readout",
+               "saturator_2pole_backward_maps",
+               "saturator_2pole_backward_readout", "comb_swept_backward")
 BACKWARD_KERNELS = NEW_KERNELS[4:]
+SAT_PASSES = ("maps", "readout")    # the saturator backward's own kernels
 F32_OPS_PER_S = 67e12
 # the scans count the sequential recurrence's arithmetic per element (an
 # FMA is 2); the probe its ~50 operations per output element
@@ -281,24 +289,32 @@ TOL_GRAD_CPU = 1e-3
 TOL_GRAD_SWITCH_L2 = 2e-2
 TOL_GRAD_SWITCH_PARAM = 1e-2
 IR_SECONDS = 2.0
-# The sequential kernels' least time is their chain of dependent steps:
+# The sequential forwards' least time is their chain of dependent steps:
 # steps (a channel's; channels run side by side) times the cycles a step
-# needs at the SM's clock, counted from the latencies on the chain of one
-# step (an estimate, not a measurement): a Newton iteration of the
-# saturator is ~100 cycles (tanhf ~40, an IEEE division ~30, six dependent
-# FMAs and selects), a cascade stage 16 (1-pole) or 32 (2-pole), the rest
-# of a step 40; a round of the comb (as many steps as the least delay
-# ahead, at most 32) ~150 (a five-step shuffle minimum, a shared-memory
-# read, two FMAs, a shared-memory write, two warp barriers)
-NEWTON_CYCLES, STAGE_CYCLES, STEP_CYCLES = 100, {False: 16, True: 32}, 40
+# needs at the SM's clock. The saturator's at order 2 is counted in its
+# compiled code (cuobjdump -sass of saturator_forward<false, 2> and <true,
+# 2>, H100): 8 Newton iterations of 23 dependent instructions (tanhf's
+# MUFU.EX2 and MUFU.RCP and their selects, the guard's compare and select,
+# the division's MUFU.RCP and five FMAs) and a tail of 11 (1-pole) or 17
+# (2-pole: 7 a stage) through the cascade and the mix to the next step,
+# each at the 4 cycles of a dependent FP32 instruction, the least any of
+# them takes (the MUFU ones take longer), so a floor. The compiled chain
+# alone, the forward without its loads and shuffles (spv_variants
+# forward_chain_only), reads within 2% of the kernel. A round of the comb
+# (as many steps as the least delay ahead, at most 32) ~150 cycles (a
+# five-step shuffle minimum, a shared-memory read, two FMAs, a
+# shared-memory write, two warp barriers), an estimate; its backward's
+# ~200 (the forward's, a warp match and the adds of the lanes that send to
+# one sample)
+SAT_CHAIN_CYCLES = {False: 4 * (8 * 23 + 11), True: 4 * (8 * 23 + 17)}
 COMB_ROUND_CYCLES = 150
-# The backwards' chains: the adjoint carried from step to step (the
-# forward's rerun of a step does not wait on it). A Newton step's adjoint
-# is ~60 cycles (an IEEE division ~30, four dependent FMAs), a cascade
-# stage's twice the forward's; a comb round ~200 (the forward's, a warp
-# match and the adds of the lanes that send to one sample)
-NEWTON_BACK_CYCLES = 60
 COMB_BACK_ROUND_CYCLES = 200
+# Operations of one saturator step at order 2, counted from the source's
+# arithmetic (a tanhf as 10, a division as 9, an FMA as 2): the rerun
+# (the forward's step) and one adjoint (the backward's read-out; the maps
+# take one a state and one for the output)
+SAT_STEP_OPS = {False: 302, True: 319}
+SAT_ADJOINT_OPS = {False: 521, True: 542}
 
 
 def fail(msg: str):
@@ -1819,6 +1835,72 @@ def phase8_multinotch_gradients(torch, Audio, scan_kernels, dev, card):
     return back_all
 
 
+def saturator_pass_checks(torch, seq, args, back_args):
+    """The saturator backward's two kernels on one backward call's inputs
+    (args: saturator_backward_cuda's): the maps kernel over the whole call
+    (kept in back_args for timing, with the read-outs' call on the scan of
+    those maps) and over its last SEQ_BACK_PLAIN_FRAMES frames against
+    the plain maps there (A and b each within TOL_SATURATOR_BACK of its
+    peak), the read-out kernel over those frames on the kernel scan's
+    states against the plain read-outs on the same states (each gradient
+    within TOL_SATURATOR_BACK of its peak); three calls of each for the
+    same bits. Returns kernel -> (largest absolute error, plain ms, plain
+    frames)."""
+    from flan_tpu_torch.ops import scan_kernels
+    gy, x, planes, y, states, inv, order, two_pole = args
+    c, n = x.shape
+    k = states.shape[1] + 1
+    back = f"saturator_{2 if two_pole else 1}pole_backward"
+    full = (gy, x, planes, y, states, inv, order, two_pole)
+    A, b = seq.saturator_backward_maps_cuda(*full, 0, n)
+    carry = torch.zeros((c, k), device=x.device)
+    lam = scan_kernels.scan_affine_kxk(A, b, carry)
+    gx, gp = torch.empty_like(x), x.new_empty((c, len(planes), n))
+    back_args[f"{back}_maps"] = full + (0, n)
+    back_args[f"{back}_readout"] = (gy, x, planes, y, states, lam, carry, gx,
+                                    gp, inv, order, two_pole, 0, n)
+    p = SEQ_BACK_PLAIN_FRAMES
+    head, tail = (gy, x, planes, y, states), (inv, order, two_pole, n - p, p)
+    lam_p = lam[..., :p].contiguous()     # lam in reversed time: the end's
+    gx_p, gp_p = torch.empty_like(x), torch.empty_like(gp)
+
+    def peaks_err(got, want):
+        return max(float((g - w).abs().max() / w.abs().max().clamp(
+            min=1e-30)) for g, w in zip(got, want))
+    calls = {
+        "maps": (lambda: seq.saturator_backward_maps_cuda(*head, *tail),
+                 lambda: seq.saturator_adjoint_maps_ref(*head, *tail)),
+        "readout": (
+            lambda: (seq.saturator_backward_readout_cuda(
+                *head, lam_p, carry, gx_p, gp_p, *tail),
+                gx_p[:, n - p:].clone(), gp_p[..., n - p:].clone())[1:],
+            lambda: seq.saturator_adjoint_readout_ref(*head, lam_p, carry,
+                                                      *tail))}
+    out = {}
+    for part, (kernel, plain) in calls.items():
+        got = kernel()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if part == "readout":       # each plane's gradient on its own
+            got = (got[0],) + tuple(got[1].unbind(1))
+            want = (want[0],) + tuple(want[1].unbind(1))
+        rel = peaks_err(got, want)
+        check_same_bits(torch, kernel, f"{back}_{part}")
+        print(json.dumps({"phase": 8, "kernel": f"{back}_{part}",
+                          "frames": p, "of_frames": n, "err_rel": rel,
+                          "plain_ms": plain_ms}), flush=True)
+        check(rel <= TOL_SATURATOR_BACK,
+              f"{back}_{part} on the path vs its plain pass over the last "
+              f"{p} frames: {rel}")
+        out[f"{back}_{part}"] = (max(float((g - w).abs().max())
+                                     for g, w in zip(got, want)),
+                                 plain_ms, p)
+    return out
+
+
 def phase8_sequential_gradients(torch, Audio, seq, dev, card):
     """Gradients through the saturator multinotch (1-pole and 2-pole, order
     2) and the swept comb on the card, on their backward kernels:
@@ -1835,9 +1917,14 @@ def phase8_sequential_gradients(torch, Audio, seq, dev, card):
         frames (the adjoint runs in reverse time: the last frames need
         nothing before them), and three calls on the cut inputs for the
         same bits.
+    The saturator's backward is two kernels of its own with the k x k scan
+    between them: each is held to its plain pass (the maps, and the
+    read-outs on the kernel scan's states) over the last frames, on the
+    call's own inputs.
     Returns the launches (kernel -> count, the forward's and the
-    backward's), the backward calls (kernel -> arguments) and name ->
-    (largest absolute error, plain ms, plain frames)."""
+    backward's, the k x k scan's under scan_affine_kxk), the backward
+    kernels' calls (kernel -> arguments, a whole-length call each) and name
+    -> (largest absolute error, plain ms, plain frames)."""
     def sat(two_pole):
         def run(a, c):
             cut = (lambda t: c * (1.0 + t))
@@ -1856,7 +1943,8 @@ def phase8_sequential_gradients(torch, Audio, seq, dev, card):
                             SAT_SECONDS),
         "comb_swept": (lambda a, c: a.filter_comb(comb_cut, c, 0.5), 0.5,
                        int(FILTER_CPU_SECONDS * SR), MULTINOTCH_SECONDS)}
-    launches, back_args, out = {}, {}, {}
+    from flan_tpu_torch.ops import scan_kernels
+    launches, back_args, out = {"scan_affine_kxk": 0}, {}, {}
     for name, (run, c0, cpu_frames, seconds) in paths.items():
         back = f"{name}_backward"
         x = stereo_signal(FILTER_CPU_SECONDS)[:, :cpu_frames] * 3.0
@@ -1878,9 +1966,11 @@ def phase8_sequential_gradients(torch, Audio, seq, dev, card):
         check(e["signal_grad_err_max"] < TOL_GRAD_CPU
               and e["param_grad_err"] < TOL_GRAD_CPU,
               f"{name}: gradients on the card vs the CPU: {e}")
-        # the forward path's size, counted
+        # the forward path's size, counted (the saturator's backward runs
+        # the k x k scan between its kernels)
         xs = stereo_signal(seconds) * 3.0
         seq.reset_launch_counts()
+        kxk0 = scan_kernels.LAUNCHES["scan_affine_kxk"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         v = torch.from_numpy(xs).to(dev).requires_grad_()
@@ -1894,15 +1984,26 @@ def phase8_sequential_gradients(torch, Audio, seq, dev, card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counted = {k: n for k, n in seq.LAUNCHES.items() if n}
-        launches[name] = seq.LAUNCHES[name]
-        launches[back] = seq.LAUNCHES[back]
+        kxk = scan_kernels.LAUNCHES["scan_affine_kxk"] - kxk0
+        launches["scan_affine_kxk"] = launches.get("scan_affine_kxk",
+                                                   0) + kxk
+        if kxk:
+            counted["scan_affine_kxk"] = kxk
+        backs = ([back] if name == "comb_swept"
+                 else [f"{back}_{part}" for part in SAT_PASSES])
+        for key in [name] + backs:
+            launches[key] = seq.LAUNCHES[key]
         finite = all(bool(torch.isfinite(g).all()) for g in grad)
         del y, grad, v
-        check(launches[back] == 1 and launches[name] == 1 and finite,
+        check(all(launches[key] == 1 for key in [name] + backs) and finite
+              and kxk == (0 if name == "comb_swept" else 1),
               f"{name}: {seconds} s forward and backward: launches "
               f"{counted}, finite {finite}")
         args = next(iter(calls.values()))[0]
-        back_args[back] = args
+        if name == "comb_swept":
+            back_args[back] = args
+        else:
+            out.update(saturator_pass_checks(torch, seq, args, back_args))
         # the backward's last frames against its plain loop
         p = SEQ_BACK_PLAIN_FRAMES
         if name == "comb_swept":
@@ -1947,14 +2048,17 @@ def phase8_sequential_gradients(torch, Audio, seq, dev, card):
                                 keepdim=True) if want.ndim == 3 else \
             want.abs().max()
         rel = float((err / peaks.clamp(min=1e-30)).max())
-        check_same_bits(torch, kernel, back)
-        print(json.dumps({"phase": 8, "kernel": back, "frames": p,
+        # the comb's kernel, or the saturator's whole backward (its two
+        # kernels and the scan)
+        key = back if name == "comb_swept" else f"{back}_call"
+        check_same_bits(torch, kernel, key)
+        print(json.dumps({"phase": 8, "kernel": key, "frames": p,
                           "of_frames": int(gy.shape[1]), "err_rel": rel,
                           "plain_ms": plain_ms, "wall_s_fwd_bwd": wall,
                           "launches": counted}), flush=True)
-        check(rel <= tol, f"{back} on the path vs its plain loop over the "
+        check(rel <= tol, f"{key} on the path vs its plain loop over the "
               f"last {p} frames: {rel}")
-        out[back] = (float(err.max()), plain_ms, p)
+        out[key] = (float(err.max()), plain_ms, p)
     return launches, back_args, out
 
 
@@ -2088,15 +2192,43 @@ def kxk_bound(A, b, k: int):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def saturator_backward_bound(two_pole: bool, frames: int, part=None):
+    """(bound_ms, bound_by, note) of the saturator's backward on stereo at
+    order 2: the larger of its required bytes over the memory rate and its
+    operations over the float32 rate. Required: gy, x, y, the states and
+    the planes read once, gx and the planes' gradients written once (the
+    per-step maps are the design's own traffic); operations: a rerun and
+    one adjoint a step. part "maps" counts what its kernel must read and
+    does (the rerun and K = nstates + 1 adjoints), "readout" what its
+    kernel must write and does (the rerun and one adjoint); any other part
+    the whole backward."""
+    ch, planes, states = 2, (6 if two_pole else 5), (4 if two_pole else 2)
+    reads = ch * (3 + states) + planes
+    writes = ch * (1 + planes)
+    adjoints = {"maps": states + 1}.get(part, 1)
+    floats = {"maps": reads, "readout": writes}.get(part, reads + writes)
+    t_bytes = 4 * frames * floats / HBM_BYTES_PER_S
+    t_ops = ch * frames * (SAT_STEP_OPS[two_pole] + adjoints
+                           * SAT_ADJOINT_OPS[two_pole]) / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations",
+            f"{4 * frames * floats / 1e6:.1f} MB required, "
+            f"{t_ops * F32_OPS_PER_S / 1e9:.2f} GFLOP")
+
+
 def sequential_bound(name: str, frames: int, delays=None, clock=1.98e9):
-    """(bound_ms, bound_by, note) of a sequential kernel on stereo at order
-    2: the larger of its bytes over the memory rate and the latency
-    estimate of its chain of dependent steps (see NEWTON_CYCLES and
-    NEWTON_BACK_CYCLES)."""
-    back = name.endswith("_backward")
+    """(bound_ms, bound_by, note) of a sequential forward (or the comb's
+    backward) on stereo at order 2: the larger of its bytes over the memory
+    rate and the estimate of its chain of dependent steps
+    (SAT_CHAIN_CYCLES, COMB_ROUND_CYCLES); the saturator backward's passes
+    by saturator_backward_bound."""
+    if name.startswith("saturator") and "_backward_" in name:
+        return saturator_backward_bound(name.startswith("saturator_2pole"),
+                                        frames, name.rsplit("_", 1)[1])
     if name.startswith("comb_swept"):
         d = delays.double().clamp(max=32)
-        per = COMB_BACK_ROUND_CYCLES if back else COMB_ROUND_CYCLES
+        per = (COMB_BACK_ROUND_CYCLES if name.endswith("_backward")
+               else COMB_ROUND_CYCLES)
         cycles = float((1.0 / d).sum()) * per
         # x (gy) in and y (gu) out per channel; the delays, k and a
         nbytes = 4 * frames * (2 * 2 + 3)
@@ -2104,18 +2236,11 @@ def sequential_bound(name: str, frames: int, delays=None, clock=1.98e9):
                 f"32 steps x ~{per} cycles")
     else:
         two = name.startswith("saturator_2pole")
-        planes, states = (6, 4) if two else (5, 2)
-        if back:
-            # the adjoint's chain: 8 Newton adjoints and the two stages'
-            per = 8 * NEWTON_BACK_CYCLES + 4 * STAGE_CYCLES[two] + STEP_CYCLES
-            # gy, x, y in and gx out, the states in and the planes'
-            # gradients out per channel; the planes
-            nbytes = 4 * frames * (2 * (4 + states + planes) + planes)
-        else:
-            per = 8 * NEWTON_CYCLES + 2 * STAGE_CYCLES[two] + STEP_CYCLES
-            nbytes = 4 * frames * (2 * 2 + planes)
+        per = SAT_CHAIN_CYCLES[two]
+        nbytes = 4 * frames * (2 * 2 + (6 if two else 5))
         cycles = frames * per
-        note = f"estimate: {frames} dependent steps x ~{per} cycles"
+        note = (f"{frames} dependent steps x {per} cycles: the compiled "
+                "step's dependent instructions at 4 cycles each")
     t_lat = cycles / clock
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_lat, t_bytes) * 1e3, "operations", note)
@@ -2173,11 +2298,65 @@ def start(package):
     return card, torch, torch.device("cuda", 0), lib
 
 
+def saturator_timing(torch, Audio, seq, dev) -> dict:
+    """The saturator's kernels as phase 8 calls them (the 1-pole and the
+    2-pole of order 2 on SAT_SECONDS stereo, phase 8's parameters), by the
+    entry points every version of the port has: the forward filter call
+    (ms: CUDA events over two calls after the captured one), the backward
+    on its states and a gradient of one (ms, and µs a launch of each kernel
+    it runs by the profiler), and the gradient through the filter call,
+    forward and backward, on the host's clock (wall_s, the second of two
+    calls)."""
+    x = stereo_signal(SAT_SECONDS) * 3.0
+    steps = {False: lambda a, c: a.filter_1pole_multinotch(
+                 2, lambda t: c * (1.0 + t), 0.6, False, 0.5, True),
+             True: lambda a, c: a.filter_2pole_multinotch(
+                 2, lambda t: c * (1.0 + t), 0.4, 0.7, True, 0.5, True)}
+    out = {}
+    for two, step in steps.items():
+        name = f"saturator_{2 if two else 1}pole"
+        _, calls = capture_calls([(seq, "saturator_cuda")], lambda: step(
+            Audio.create_from_array(x, SR, device=dev), 300.0))
+        args = calls["saturator_cuda"][0]
+        fwd_ms = cuda_ms(torch, lambda: seq.saturator_cuda(*args), 2)
+        xk, planes, inv, order, _ = args
+        y, states = seq.saturator_cuda(xk, planes, inv, order, two,
+                                       keep_states=True)
+        gy = torch.from_numpy(stereo_signal(SAT_SECONDS, seed=5)).to(dev)
+        back = (gy, xk, planes, y, states, inv, order, two)
+        seq.saturator_backward_cuda(*back)
+        back_ms = cuda_ms(torch, lambda: seq.saturator_backward_cuda(*back),
+                          3)
+        split = profile_launches(torch, {"backward": (
+            lambda: seq.saturator_backward_cuda(*back))})["backward"]
+        del y, states, gy, back
+
+        def grad():
+            v = torch.from_numpy(x).to(dev).requires_grad_()
+            c = torch.tensor(300.0, device=dev, requires_grad=True)
+            yv = step(Audio.create_from_array(v, SR), c).data
+            return torch.autograd.grad((yv * yv).sum(), (v, c))
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grad()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[name] = {"forward_ms": fwd_ms, "backward_ms": back_ms,
+                     "backward_us_per_launch": split,
+                     "gradient_wall_s": walls[1], "frames": x.shape[1]}
+        print(json.dumps({"saturator_timing": {name: out[name]}}),
+              flush=True)
+    return out
+
+
 def time_calls(package) -> None:
     """The --time-calls mode: the scan kernels on the filter path's planes
     and the SQPV forward and inverse at their bench shape, timed as phases
-    5 and 6 time them, and the k x k kernel on phase 8's multinotch planes
-    at k = 4, 8 and 12 (kxk_regimes), and nothing else."""
+    5 and 6 time them, the k x k kernel on phase 8's multinotch planes at
+    k = 4, 8 and 12 (kxk_regimes), the saturator's forward, backward and
+    gradient at 10 s (saturator_timing), and nothing else."""
     card, torch, dev, _ = start(package)
     from flan_tpu_torch import Audio
     from flan_tpu_torch.ops import scan, scan_kernels, sqpv_kernels
@@ -2206,8 +2385,11 @@ def time_calls(package) -> None:
                                           calls.items()}))
     del captured, calls
     kxk = kxk_regimes(torch, Audio, scan, scan_kernels, dev)
+    from flan_tpu_torch.ops import sequential_kernels
+    sat = saturator_timing(torch, Audio, sequential_kernels, dev)
     print(f"card: {card}", flush=True)
     print(json.dumps({"package": package or ".", "kxk_regimes": kxk,
+                      "saturator": sat,
                       "call_times": times,
                       "profile_us_per_launch": split,
                       "scans_in_path": report["scans_in_path"],
@@ -2394,9 +2576,12 @@ def main() -> None:
             torch, sequential_kernels, seq_args, seq_out).items():
         worst[name], errs[name] = err, 0.0
         times[name] = {"plain_ms": plain_ms, "plain_frames": frames}
+    kxk_filters = launches["scan_affine_kxk"]
     seq_grad_launches, back_args, back_checks = \
         phase8_sequential_gradients(torch, Audio, sequential_kernels, dev,
                                     card)
+    kxk_saturator = seq_grad_launches.pop("scan_affine_kxk")
+    launches["scan_affine_kxk"] += kxk_saturator
     for name, count in seq_grad_launches.items():
         launches[name] = launches.get(name, 0) + count
     for name, (err, plain_ms, frames) in back_checks.items():
@@ -2410,8 +2595,9 @@ def main() -> None:
         launches[name] += grad_launches[name]
     kxk_back = phase8_multinotch_gradients(torch, Audio, scan_kernels, dev,
                                            card)
-    by_path["scan_affine_kxk"] = {"filters": launches["scan_affine_kxk"],
-                                  "gradients_backward": kxk_back}
+    by_path["scan_affine_kxk"] = {"filters": kxk_filters,
+                                  "gradients_backward": kxk_back,
+                                  "saturator_backward": kxk_saturator}
     launches["scan_affine_kxk"] += kxk_back
     phase_done("8 scan gradients")
     phase8_resample_convolve(torch, Audio, dev, card)
@@ -2443,21 +2629,42 @@ def main() -> None:
             name, int(args[0].shape[1]),
             args[1] if name == "comb_swept" else None, clock)
     del seq_args
+    backward_fns = {"comb": sequential_kernels.comb_swept_backward_cuda,
+                    "maps": sequential_kernels.saturator_backward_maps_cuda,
+                    "readout":
+                        sequential_kernels.saturator_backward_readout_cuda}
     for name, args in back_args.items():
-        fn = (sequential_kernels.comb_swept_backward_cuda
-              if name == "comb_swept_backward"
-              else sequential_kernels.saturator_backward_cuda)
-        # each ran once at this shape in the path and once in its check
+        fn = backward_fns[name.rsplit("_", 1)[1] if name.startswith(
+            "saturator") else "comb"]
+        # each ran at this shape in the path or in its check
         times[name]["ms"] = cuda_ms(torch, lambda: fn(*args), 2)
         times[name]["frames"] = int(args[0].shape[1])
         bounds[name] = sequential_bound(
             name, int(args[0].shape[1]),
             args[1] if name == "comb_swept_backward" else None, clock)
+    # the saturator's whole backward (its two kernels and the k x k scan),
+    # on the maps' call inputs
+    for two in (False, True):
+        name = f"saturator_{2 if two else 1}pole_backward"
+        args = back_args[f"{name}_maps"][:8]
+        times[f"{name}_call"]["ms"] = cuda_ms(
+            torch, lambda: sequential_kernels.saturator_backward_cuda(*args),
+            2)
+        (times[f"{name}_call"]["bound_ms"], times[f"{name}_call"]["bound_by"],
+         times[f"{name}_call"]["bound_note"]) = saturator_backward_bound(
+            two, int(args[0].shape[1]))
+    split.update(profile_launches(torch, {
+        f"saturator_{2 if two else 1}pole_backward_call": (
+            lambda a=back_args[f"saturator_{2 if two else 1}pole_backward_"
+                               "maps"][:8]:
+            sequential_kernels.saturator_backward_cuda(*a))
+        for two in (False, True)}))
     del back_args
     print(json.dumps({"phase": 8, "card": card, "sm_clock_hz": clock,
                       "kxk_regimes": regime8,
-                      "sequential_times": {n: times[n] for n in NEW_KERNELS
-                                           if n != "scan_affine_kxk"}}),
+                      "sequential_times": {n: times[n] for n in times
+                                           if n.startswith(("saturator",
+                                                            "comb"))}}),
           flush=True)
     phase_done("8 timing")
     print(json.dumps({"profile_us_per_launch": split}), flush=True)
@@ -2485,8 +2692,14 @@ def main() -> None:
                 "saturator_2pole": "flan_tpu/audio/filters.py:569",
                 "comb_swept": "flan_tpu/audio/filters.py:643",
                 # jax.grad through those loops
-                "saturator_1pole_backward": "flan_tpu/audio/filters.py:603",
-                "saturator_2pole_backward": "flan_tpu/audio/filters.py:569",
+                "saturator_1pole_backward_maps":
+                    "flan_tpu/audio/filters.py:603",
+                "saturator_1pole_backward_readout":
+                    "flan_tpu/audio/filters.py:603",
+                "saturator_2pole_backward_maps":
+                    "flan_tpu/audio/filters.py:569",
+                "saturator_2pole_backward_readout":
+                    "flan_tpu/audio/filters.py:569",
                 "comb_swept_backward": "flan_tpu/audio/filters.py:643"}
     path = {"spv_forward": "spv", "spv_inverse": "spv",
             "sqpv_forward": "sqpv", "sqpv_inverse": "sqpv",
@@ -2497,8 +2710,10 @@ def main() -> None:
             "saturator_1pole": "saturator multinotch, gradients",
             "saturator_2pole": "saturator multinotch, gradients",
             "comb_swept": "swept comb, gradients",
-            "saturator_1pole_backward": "gradients",
-            "saturator_2pole_backward": "gradients",
+            "saturator_1pole_backward_maps": "gradients",
+            "saturator_1pole_backward_readout": "gradients",
+            "saturator_2pole_backward_maps": "gradients",
+            "saturator_2pole_backward_readout": "gradients",
             "comb_swept_backward": "gradients"}
     errs["probe"] = 0.0     # compared in phase 2 only
     kernels = [{"name": name, "route": "cuda",
@@ -2518,6 +2733,9 @@ def main() -> None:
                                       "kernel" if entry["name"] in
                                       BACKWARD_KERNELS else
                                       "a lax.scan: no TPU kernel")
+            if "_backward_" in entry["name"]:
+                entry["backward_call"] = times[
+                    entry["name"].rsplit("_", 1)[0] + "_call"]
             entry["bound_note"] = bounds[entry["name"]][2]
         if entry["name"] in by_path:
             entry["launches_by_path"] = by_path[entry["name"]]

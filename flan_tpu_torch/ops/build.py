@@ -27,6 +27,7 @@ MAX_BINS = 2048         # 256 threads x 8 bins each in the epilogues
 SCAN_CHUNK_TILES = 256  # tiles per block of the prefix over tiles
 SQPV_CARRY_CHUNK = 32   # tiles per chunk of the SQPV forward's carry
 PROBE_SHAPE = (128, 512)  # rows and columns of the probe (probe_kernels.cu)
+SATURATOR_FIXED_ORDERS = 8  # orders with their own saturator kernels
 
 _p, _i, _ll, _d, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_double, ctypes.c_float)
@@ -43,8 +44,10 @@ SIGNATURES = {
     "flan_probe": [_p, _p, _p, _i, _p],
     "flan_saturator_multinotch": [_i, _p, _p, _p, _p, _p, _p, _p, _p, _p,
                                   _i, _ll, _i, _f, _p],
-    "flan_saturator_multinotch_backward": [_i] + [_p] * 12 + [_i, _ll, _i,
-                                                              _f, _p],
+    "flan_saturator_backward_maps": [_i] + [_p] * 13 + [_i, _ll, _ll, _ll,
+                                                        _i, _f, _p],
+    "flan_saturator_backward_readout": [_i] + [_p] * 15 + [_i, _ll, _ll,
+                                                           _ll, _i, _f, _p],
     "flan_comb_swept": [_p, _p, _p, _p, _p, _p, _p, _i, _ll, _i, _f, _p],
     "flan_comb_swept_backward": [_p, _p, _p, _p, _p, _p, _i, _ll, _i, _f,
                                  _p],
@@ -52,13 +55,15 @@ SIGNATURES = {
 # functions of no argument that must return the constants the wrappers
 # size their tensors by (TILE_FRAMES, MAX_BINS and SCAN_CHUNK_TILES from
 # csrc/common.cuh, the SQPV carry's chunk from csrc/sqpv_kernels.cu, the
-# probe's shape from csrc/probe_kernels.cu)
+# probe's shape from csrc/probe_kernels.cu, the saturator's highest order
+# with its own kernels from csrc/sequential_kernels.cu)
 _LIMITS = {"flan_spv_tile_frames": TILE_FRAMES,
            "flan_spv_max_bins": MAX_BINS,
            "flan_scan_chunk_tiles": SCAN_CHUNK_TILES,
            "flan_sqpv_carry_chunk": SQPV_CARRY_CHUNK,
            "flan_probe_rows": PROBE_SHAPE[0],
-           "flan_probe_cols": PROBE_SHAPE[1]}
+           "flan_probe_cols": PROBE_SHAPE[1],
+           "flan_saturator_max_fixed_order": SATURATOR_FIXED_ORDERS}
 
 
 def sources() -> list[Path]:
@@ -145,6 +150,10 @@ def load_library() -> ctypes.CDLL:
     lib.flan_scan_kxk_window_tiles.restype = ctypes.c_int
     lib.flan_scan_kxk_scratch_bytes.argtypes = [_i, _i, _ll, _i]
     lib.flan_scan_kxk_scratch_bytes.restype = ctypes.c_longlong
+    # the saturator backward's work memory (runtime orders): (two_pole,
+    # order, channels, frames)
+    lib.flan_saturator_backward_work_floats.argtypes = [_i, _i, _i, _ll]
+    lib.flan_saturator_backward_work_floats.restype = ctypes.c_longlong
     # the swept comb's ring in device memory: (channels, ring length,
     # backward)
     lib.flan_comb_swept_ring_floats.argtypes = [_i, _i, _i]

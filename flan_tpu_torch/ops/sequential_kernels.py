@@ -6,29 +6,35 @@ Two per-sample loops have no parallel form: the tanh-feedback multinotch
 comb with a per-sample delay (filter_comb's ring buffer, :622-644). The
 JAX package runs both as lax.scan and differentiates them through it; no
 TPU kernel stands behind them. One CUDA source,
-csrc/sequential_kernels.cu, runs each channel's chain of steps in one
-warp, forward and backward:
+csrc/sequential_kernels.cu, runs each forward as one warp a channel, the
+comb's backward likewise, and the saturator's backward as a parallel job:
 
   saturator_1pole / saturator_2pole    saturator_1pole_ref, saturator_2pole_ref
-  saturator_1pole_backward / _2pole_   saturator_backward_ref
+  saturator_*_backward_maps            saturator_adjoint_maps_ref
+  saturator_*_backward_readout         saturator_adjoint_readout_ref
   comb_swept                           comb_swept_ref
   comb_swept_backward                  comb_swept_backward_ref
 
 The plain versions are PyTorch loops over time, vectorised over channels,
 in the JAX package's order of operations (powers by binary exponentiation,
-as jax.lax.integer_pow). The swept comb's loops take as many steps at once
-as read no output of each other (the least delay ahead), as the kernels
-do: each element's arithmetic is the same whatever the step count.
+as jax.lax.integer_pow); the saturator's backward passes are vectorised
+over time. The swept comb's loops take as many steps at once as read no
+output of each other (the least delay ahead), as the kernels do: each
+element's arithmetic is the same whatever the step count.
 
-The backward is the adjoint of each loop run in reverse time
-(SaturatorMultinotch, CombSwept: torch.autograd.Functions used on both
-devices, plain loops on the CPU and kernels on the card, as ops/scan.py's
-recurrences). The saturator's forward keeps every step's allpass states;
-its backward reruns each step from them and takes the adjoint of the 8
-Newton steps, the cascade and the feedback sum, as jax.grad does through
-lax.scan. The comb's forward keeps u; its backward scatters each step's
-adjoint back to the step it read, u's adjoint, and the feedback's and the
-mix's gradients follow from u in PyTorch.
+The backward is the adjoint of each loop (SaturatorMultinotch, CombSwept:
+torch.autograd.Functions used on both devices, plain versions on the CPU
+and kernels on the card, as ops/scan.py's recurrences). The saturator's
+forward keeps every step's allpass states. The adjoint it carries from
+step to step is linear, so its backward (saturator_backward_plain,
+saturator_backward_cuda) builds each step's map from the rerun step, runs
+the affine recurrence of the maps in reverse time on the k x k scan, and
+reads each step's gradients out; saturator_backward_ref, the adjoint of
+the 8 Newton steps, the cascade and the feedback sum step by step in
+reverse time as jax.grad takes it through lax.scan, is the tests' oracle.
+The comb's forward keeps u; its backward scatters each step's adjoint back
+to the step it read, u's adjoint, and the feedback's and the mix's
+gradients follow from u in PyTorch.
 
 Dispatch by device: a CPU tensor goes to the plain version, a CUDA tensor
 to the kernel or the call raises. LAUNCHES counts each wrapper's kernel
@@ -38,11 +44,15 @@ from __future__ import annotations
 
 import torch
 
+from flan_tpu_torch.ops import scan_kernels
 from flan_tpu_torch.ops.build import check_cuda, load_library, raise_on
 from flan_tpu_torch.ops.scan import _on_cpu, _wants_grad
 
 LAUNCHES = {"saturator_1pole": 0, "saturator_2pole": 0, "comb_swept": 0,
-            "saturator_1pole_backward": 0, "saturator_2pole_backward": 0,
+            "saturator_1pole_backward_maps": 0,
+            "saturator_1pole_backward_readout": 0,
+            "saturator_2pole_backward_maps": 0,
+            "saturator_2pole_backward_readout": 0,
             "comb_swept_backward": 0}
 
 
@@ -207,8 +217,15 @@ def _back_1pole(gout, gs, s, prev, xt, g, G_f, G_ap, k, mix, inv, order):
     """The adjoint of _step_1pole: from the cotangents of the output and
     the new states to those of the old states, the last output, x and the
     planes (g, G_f, G_ap, k, mix)."""
-    _, _, (msum0, msum, gn, fwd, xbar, ys, yv) = _step_1pole(
-        s, prev, xt, g, G_f, G_ap, k, mix, inv, order)
+    _, _, trace = _step_1pole(s, prev, xt, g, G_f, G_ap, k, mix, inv, order)
+    return _adjoint_1pole(trace, gout, gs, s, xt, g, G_f, G_ap, k, mix, inv,
+                          order)
+
+
+def _adjoint_1pole(trace, gout, gs, s, xt, g, G_f, G_ap, k, mix, inv, order):
+    """_back_1pole's adjoint on the step's trace (what _step_1pole
+    returns third): linear in (gout, gs)."""
+    msum0, msum, gn, fwd, xbar, ys, yv = trace
     gmix = gout * (xbar - yv)
     gy = gout * (1 - mix) * inv
     gGf = 0.0
@@ -234,8 +251,14 @@ def _back_1pole(gout, gs, s, prev, xt, g, G_f, G_ap, k, mix, inv, order):
 
 def _back_2pole(gout, gs, s, prev, xt, g, G, k, mix, R, d, inv, order):
     """The adjoint of _step_2pole; the planes are (g, G, k, mix, R, d)."""
-    _, _, (msum, gn, fwd, xbar, ys, yv) = _step_2pole(
-        s, prev, xt, g, G, k, mix, R, d, inv, order)
+    _, _, trace = _step_2pole(s, prev, xt, g, G, k, mix, R, d, inv, order)
+    return _adjoint_2pole(trace, gout, gs, s, xt, g, G, k, mix, R, d, inv,
+                          order)
+
+
+def _adjoint_2pole(trace, gout, gs, s, xt, g, G, k, mix, R, d, inv, order):
+    """_back_2pole's adjoint on the step's trace."""
+    msum, gn, fwd, xbar, ys, yv = trace
     gmix = gout * (xbar - yv)
     gy = gout * (1 - mix) * inv
     gg = gR = gd = 0.0
@@ -301,6 +324,126 @@ def saturator_backward_ref(gy, x, planes, y, states, inv: float, order: int,
         gx[:, t] = gxt
         for i, v in enumerate(gpt):
             gp[:, i, t] = v
+    return gx, gp
+
+
+# The saturator's backward as a scan: the adjoint carried from step n to
+# step n - 1, lam_n = (the new states' cotangent, the output's from the
+# steps after), K = nstates + 1 values, enters step n's adjoint as v_n =
+# lam_n + gy_n e_K-1 and leaves it as lam_{n-1} = M_n v_n, linear in v_n
+# (every operation of _adjoint_1pole / _adjoint_2pole is). So the backward
+# is (a) the maps M_n, one step's rerun and K adjoints of unit vectors each,
+# independent of one another; (b) the affine recurrence lam_{n-1} = M_n
+# lam_n + gy_n M_n e_K-1 run in reverse time by the k x k scan; (c) each
+# step's gradients from the adjoint on its own v_n. Over chunks of frames
+# from the end, the carry lam between them, so that the maps of one chunk
+# are in memory at a time.
+ADJOINT_CHUNK_BYTES = 1 << 30   # the maps, b and the scan's states a chunk
+
+
+def adjoint_chunk(channels: int, nstates: int) -> int:
+    """Frames a chunk of the saturator's backward: its maps [C, K*K, L], b
+    and the scan's states [C, K, L] in ADJOINT_CHUNK_BYTES."""
+    k = nstates + 1
+    return max(1, ADJOINT_CHUNK_BYTES // (4 * channels * (k * k + 2 * k)))
+
+
+def _chunk_inputs(gy, x, planes, y, states, first: int, length: int):
+    """Frames [first, first + length) of gy, x and the planes, and the old
+    states and last outputs each step starts from (zeros before frame 0)."""
+    sl = slice(first, first + length)
+
+    def before(t):
+        lo = max(first - 1, 0)
+        prev = t[..., lo:first + length - 1]
+        if first == 0:
+            prev = torch.cat([torch.zeros_like(t[..., :1]), prev], dim=-1)
+        return prev
+    old = before(states)
+    return (gy[:, sl], x[:, sl], [p[sl] for p in planes], before(y),
+            [old[:, i] for i in range(old.shape[1])])
+
+
+def _chunk_adjoint(gy, x, planes, y, states, inv: float, order: int,
+                   two_pole: bool, first: int, length: int):
+    """(K, the step's adjoint on (gout, gs), gy over the chunk): every step
+    of the chunk rerun at once, vectorised over time."""
+    gyc, xc, pc, prev, s = _chunk_inputs(gy, x, planes, y, states, first,
+                                         length)
+    step, adj = ((_step_2pole, _adjoint_2pole) if two_pole
+                 else (_step_1pole, _adjoint_1pole))
+    _, _, trace = step(s, prev, xc, *pc, inv, order)
+
+    def adjoint(gout, gs):
+        return adj(trace, gout, gs, s, xc, *pc, inv, order)
+    return len(s) + 1, adjoint, gyc
+
+
+def saturator_adjoint_maps_ref(gy, x, planes, y, states, inv: float,
+                               order: int, two_pole: bool, first: int,
+                               length: int):
+    """(a) of the chunk [first, first + length): A [C, K*K, L], row-major,
+    M_n at r = L - 1 - (n - first) (reversed in time), and b [C, K, L] =
+    gy_n M_n e_K-1 there; what saturator_backward_maps writes."""
+    k, adjoint, gyc = _chunk_adjoint(gy, x, planes, y, states, inv, order,
+                                     two_pole, first, length)
+    ns = k - 1
+    zero, one = torch.zeros_like(gyc), torch.ones_like(gyc)
+    cols = []
+    for c in range(k):
+        gs_in, gprev, _, _ = adjoint(one if c == ns else zero,
+                                     [one if i == c else zero
+                                      for i in range(ns)])
+        cols.append(list(gs_in) + [gprev])
+    A = torch.stack([cols[c][i] for i in range(k) for c in range(k)], dim=1)
+    b = torch.stack([gyc * v for v in cols[ns]], dim=1)
+    return A.flip(-1).contiguous(), b.flip(-1).contiguous()
+
+
+def saturator_adjoint_readout_ref(gy, x, planes, y, states, lam, carry,
+                                  inv: float, order: int, two_pole: bool,
+                                  first: int, length: int):
+    """(c) of the chunk: lam [C, K, L] from the scan of (a)'s maps (lam at
+    r holds lam_{n-1} for n = first + L - 1 - r), carry [C, K] the lam of
+    the chunk's last frame; returns the signal's gradient [C, L] and the
+    planes' [C, nplanes, L] over the chunk."""
+    k, adjoint, gyc = _chunk_adjoint(gy, x, planes, y, states, inv, order,
+                                     two_pole, first, length)
+    lam_n = torch.cat([lam[..., :-1].flip(-1), carry[..., None]], dim=-1)
+    _, _, gx, gp = adjoint(gyc + lam_n[:, k - 1],
+                           [lam_n[:, i] for i in range(k - 1)])
+    return gx, torch.stack([torch.broadcast_to(v, gx.shape) for v in gp],
+                           dim=1)
+
+
+def _adjoint_chunks(n: int, chunk: int):
+    """(first, length) of each chunk, from the end."""
+    for end in range(n, 0, -chunk):
+        first = max(end - chunk, 0)
+        yield first, end - first
+
+
+def saturator_backward_plain(gy, x, planes, y, states, inv: float,
+                             order: int, two_pole: bool, chunk=None):
+    """saturator_backward_ref's result by the backward kernels' passes in
+    PyTorch: per chunk from the end, the maps (saturator_adjoint_maps_ref),
+    the k x k scan's plain version from the carry (affine_kxk_ref), the
+    read-outs; the carry is the scan's last state. The CPU's backward."""
+    c, n = x.shape
+    k = states.shape[1] + 1
+    chunk = chunk or adjoint_chunk(c, k - 1)
+    gx = torch.empty_like(x)
+    gp = x.new_empty((c, len(planes), n))
+    carry = x.new_zeros((c, k))
+    args = (gy, x, planes, y, states)
+    for first, length in _adjoint_chunks(n, chunk):
+        A, b = saturator_adjoint_maps_ref(*args, inv, order, two_pole,
+                                          first, length)
+        lam = scan_kernels.affine_kxk_ref(A, b, carry)
+        gx[:, first:first + length], gp[..., first:first + length] = \
+            saturator_adjoint_readout_ref(*args, lam, carry, inv, order,
+                                          two_pole, first, length)
+        carry = lam[..., -1]
     return gx, gp
 
 
@@ -399,8 +542,9 @@ def saturator_cuda(x, planes, inv: float, order: int, two_pole: bool,
                    keep_states: bool = False):
     """The saturator kernel on float32 CUDA tensors, no autograd: x [C, N]
     and, each [N], (g, G_f, G_ap, k, mix) for the 1-pole or (g, G, k, mix,
-    R, d) for the 2-pole. With keep_states, returns (y, every step's new
-    states [C, nstates, N])."""
+    R, d) for the 2-pole. Orders 1 to build.SATURATOR_FIXED_ORDERS run
+    their own instantiation, any other the runtime-order one. With
+    keep_states, returns (y, every step's new states [C, nstates, N])."""
     name = "saturator_2pole" if two_pole else "saturator_1pole"
     _planes_on(x, name, planes)
     lib = load_library()
@@ -419,13 +563,10 @@ def saturator_cuda(x, planes, inv: float, order: int, two_pole: bool,
     return (y, states) if keep_states else y
 
 
-def saturator_backward_cuda(gy, x, planes, y, states, inv: float,
-                            order: int, two_pole: bool):
-    """The saturator's backward kernel (saturator_backward_ref's work):
-    returns the signal's gradient [C, N] and the planes' per channel [C,
-    nplanes, N], the planes in saturator_cuda's order."""
-    name = ("saturator_2pole_backward" if two_pole
-            else "saturator_1pole_backward")
+def _backward_checked(gy, x, planes, y, states, order: int,
+                      two_pole: bool) -> str:
+    """The backward's name, after checking its operands."""
+    name = f"saturator_{2 if two_pole else 1}pole_backward"
     _planes_on(x, name, planes)
     for t, what in ((gy, "gy"), (y, "y")):
         check_cuda(t, f"{name} {what}", 2)
@@ -436,18 +577,105 @@ def saturator_backward_cuda(gy, x, planes, y, states, inv: float,
         raise ValueError(f"{name}: gy {tuple(gy.shape)}, y {tuple(y.shape)} "
                          f"and states {tuple(states.shape)} for x "
                          f"{tuple(x.shape)} and order {order}")
-    lib = load_library()
+    return name
+
+
+def _backward_head(lib, gy, x, planes, y, states, order, two_pole, length):
+    """The arguments both backward passes start with, and their work
+    memory (runtime orders)."""
+    c = x.shape[0]
+    work = x.new_empty(lib.flan_saturator_backward_work_floats(
+        int(two_pole), order, c, length))
+    head = (int(two_pole), gy.data_ptr(), x.data_ptr(), y.data_ptr(),
+            states.data_ptr()) + tuple(
+        _ptr(p) for p in _kernel_planes(planes, two_pole))
+    return head, work
+
+
+def saturator_backward_maps_cuda(gy, x, planes, y, states, inv: float,
+                                 order: int, two_pole: bool, first: int,
+                                 length: int, out=None, lib=None):
+    """(a) on the card, saturator_adjoint_maps_ref's work: A [C, K*K, L]
+    and b [C, K, L] of the chunk [first, first + length), into out (A, b)
+    where given."""
+    name = _backward_checked(gy, x, planes, y, states, order, two_pole)
+    lib = lib or load_library()
+    c, n = x.shape
+    k = states.shape[1] + 1
+    with torch.cuda.device(x.device):
+        A, b = out if out is not None else (
+            x.new_empty((c, k * k, length)), x.new_empty((c, k, length)))
+        head, work = _backward_head(lib, gy, x, planes, y, states, order,
+                                    two_pole, length)
+        err = lib.flan_saturator_backward_maps(
+            *head, A.data_ptr(), b.data_ptr(),
+            _ptr(work) if work.numel() else None, c, n, first, length, order,
+            inv, torch.cuda.current_stream().cuda_stream)
+    raise_on(err, f"{name}_maps")
+    LAUNCHES[f"{name}_maps"] += 1
+    return A, b
+
+
+def saturator_backward_readout_cuda(gy, x, planes, y, states, lam, carry,
+                                    gx, gp, inv: float, order: int,
+                                    two_pole: bool, first: int, length: int,
+                                    lib=None):
+    """(c) on the card, saturator_adjoint_readout_ref's work: the signal's
+    and the planes' gradients over the chunk, written into gx [C, N] and gp
+    [C, nplanes, N], from the scan's lam [C, K, L] and the carry [C, K]."""
+    name = _backward_checked(gy, x, planes, y, states, order, two_pole)
+    c, n = x.shape
+    k = states.shape[1] + 1
+    for t, what, shape in ((lam, "lam", (c, k, length)),
+                           (carry, "carry", (c, k)), (gx, "gx", (c, n)),
+                           (gp, "gp", (c, len(planes), n))):
+        check_cuda(t, f"{name} {what}", len(shape))
+        if t.shape != shape:
+            raise ValueError(f"{name}: {what} {tuple(t.shape)}, not {shape}")
+    lib = lib or load_library()
+    with torch.cuda.device(x.device):
+        head, work = _backward_head(lib, gy, x, planes, y, states, order,
+                                    two_pole, length)
+        err = lib.flan_saturator_backward_readout(
+            *head, lam.data_ptr(), carry.data_ptr(), gx.data_ptr(),
+            gp.data_ptr(), _ptr(work) if work.numel() else None, c, n, first,
+            length, order, inv, torch.cuda.current_stream().cuda_stream)
+    raise_on(err, f"{name}_readout")
+    LAUNCHES[f"{name}_readout"] += 1
+
+
+def saturator_backward_cuda(gy, x, planes, y, states, inv: float,
+                            order: int, two_pole: bool, chunk=None,
+                            lib=None):
+    """The saturator's backward on the card (saturator_backward_ref's
+    work): per chunk from the end, the maps kernel, the k x k scan
+    (scan_affine_kxk) from the carry in reverse time, the read-out kernel,
+    as saturator_backward_plain does in PyTorch. Returns the signal's
+    gradient [C, N] and the planes' per channel [C, nplanes, N], the planes
+    in saturator_cuda's order. lib: another build of the kernels' library
+    (ops/spv_variants.py); the scan's is this one's."""
+    _backward_checked(gy, x, planes, y, states, order, two_pole)
+    c, n = x.shape
+    k = states.shape[1] + 1
+    chunk = min(chunk or adjoint_chunk(c, k - 1), n)
     with torch.cuda.device(x.device):
         gx = torch.empty_like(x)
         gp = x.new_empty((c, len(planes), n))
-        err = lib.flan_saturator_multinotch_backward(
-            int(two_pole), gy.data_ptr(), x.data_ptr(), y.data_ptr(),
-            states.data_ptr(),
-            *(_ptr(p) for p in _kernel_planes(planes, two_pole)),
-            gx.data_ptr(), gp.data_ptr(), c, n, order, inv,
-            torch.cuda.current_stream().cuda_stream)
-    raise_on(err, name)
-    LAUNCHES[name] += 1
+        maps = x.new_empty(c * (k * k + k) * chunk)
+        carry = x.new_zeros((c, k))
+        args = (gy, x, planes, y, states)
+        for first, length in _adjoint_chunks(n, chunk):
+            split = c * k * k * length
+            A, b = saturator_backward_maps_cuda(
+                *args, inv, order, two_pole, first, length,
+                out=(maps[:split].view(c, k * k, length),
+                     maps[split:split + c * k * length].view(c, k, length)),
+                lib=lib)
+            lam = scan_kernels.scan_affine_kxk(A, b, carry)
+            saturator_backward_readout_cuda(*args, lam, carry, gx, gp, inv,
+                                            order, two_pole, first, length,
+                                            lib=lib)
+            carry = lam[..., -1].contiguous()
     return gx, gp
 
 
@@ -520,7 +748,7 @@ class SaturatorMultinotch(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         x, y, states, *planes = ctx.saved_tensors
-        run = (saturator_backward_ref if _on_cpu(x)
+        run = (saturator_backward_plain if _on_cpu(x)
                else saturator_backward_cuda)
         gx, gp = run(gy.contiguous(), x, planes, y, states, *ctx.args)
         return (gx, None, None, None) + tuple(gp.sum(0).unbind(0))

@@ -1,14 +1,16 @@
 """What holds the hand-written kernels: time each launch with one part taken
 out.
 
-    python -m flan_tpu_torch.ops.spv_variants [--source spv scan kxk sqpv]
+    python -m flan_tpu_torch.ops.spv_variants [--source spv scan kxk sqpv
+                                                        saturator]
                                               [--first-version COMMIT CSRC_DIR]
                                               [--variants NAME ...]
                                               [--ks K ...]
 
-Needs one CUDA card and nvcc. For each source named (all four by default:
+Needs one CUDA card and nvcc. For each source named (all five by default:
 csrc/spv_kernels.cu, scan_kernels.cu, the k x k kernel in scan_kernels.cu,
-sqpv_kernels.cu) it copies the source
+sqpv_kernels.cu, the saturator multinotch in sequential_kernels.cu) it
+copies the source
 and common.cuh, applies one textual substitution set per variant (stores
 removed, table loads or gathers replaced by constants, cheap roundings put
 back to IEEE ones, ...), builds each copy into
@@ -22,8 +24,11 @@ channels; linear: a shared; max-affine: one row); one k x k call at k = 2
 A for 2 rows of 28.8 M steps); one SQPV forward and one inverse at their
 bench shape (10 s mono 48 kHz, 16-24000 Hz, 24 bins per
 octave; a variant named forward_* runs only the forward, inverse_* only the
-inverse, on the planes of the unchanged source). A variant computes
-something else than the kernel does: only its times mean anything.
+inverse, on the planes of the unchanged source); the saturator's forward and
+backward at phase 8's shape (10 s stereo 48 kHz, order 2, 1-pole and
+2-pole; backward_* runs only the backward, on the unchanged source's states).
+A variant computes something else than the kernel does: only its times mean
+anything.
 
 With --first-version the sources are read from CSRC_DIR instead, which must
 hold commit COMMIT's, and the variants written for that commit are applied
@@ -49,6 +54,7 @@ from flan_tpu_torch.ops import build
 SECONDS, SR, NBINS = 30.0, 48000.0, 512
 SCAN_FRAMES, SCAN_ROWS = 28_800_000, 2      # 600 s stereo at 48 kHz
 SQPV_SECONDS, SQPV_BAND, SQPV_BPO = 10.0, (16.0, 24000.0), 24.0
+SAT_SECONDS, SAT_ORDER = 10.0, 2      # phase 8's saturator calls
 
 # variant -> [(file, old, new[, count])]; file is "cu" or "cuh", count how
 # often old must occur (1 unless given)
@@ -329,6 +335,47 @@ SQPV_VARIANTS = {
     "inverse_look_back_first": [("cu", _look_back_first)],
 }
 
+# ---- the saturator multinotch (sequential_kernels.cu): what holds the
+# forward's chain (the Newton iteration's tanhf and division, the order of
+# its operations) and the backward's passes (timed apart by the profiler)
+_SAT_NEWTON = ("    const float t = tanhf(f.k * (f.gn * u + msum));\n"
+               "    float den = inv * (1.f - t * t) * f.k * f.gn - 1.f;\n")
+_SAT_DIVISION = "    u = u - div_fast(f.x + inv * t - u, den);\n"
+SATURATOR_VARIANTS = {
+    "as_shipped": [],
+    # the division with the compiler's range check and slow path
+    "forward_checked_division": [
+        ("cu", _SAT_DIVISION, "    u = u - (f.x + inv * t - u) / den;\n")],
+    "forward_approx_division": [
+        ("cu", _SAT_DIVISION,
+         "    u = u - __fdividef(f.x + inv * t - u, den);\n")],
+    "forward_no_tanhf": [
+        ("cu", "    const float t = tanhf(f.k * (f.gn * u + msum));",
+         "    const float t = 0.5f * (f.k * (f.gn * u + msum));")],
+    # the step's chain alone: no loads, no shuffles, each lane's first
+    # frame's terms for every step
+    "forward_chain_only": [
+        ("cu", "    fetch(base + 32 + lane);     // the next 32 frames, read "
+         "during these\n", ""),
+        ("cu", "    FrameTerms<kTwoPole, kOrder> cur = bcast_frame(mine, 0);",
+         "    FrameTerms<kTwoPole, kOrder> cur = mine;"),
+        ("cu", "      const FrameTerms<kTwoPole, kOrder> next =\n"
+         "          bcast_frame(mine, (j + 1) & 31);",
+         "      const FrameTerms<kTwoPole, kOrder> next = mine;")],
+    # k G^order and k msum taken out of each iteration: t = tanh(kgn u +
+    # kms), den = (1 - t^2) (inv kgn) - 1 (another rounding)
+    "forward_reassociated": [
+        ("cu", _SAT_NEWTON,
+         "    const float t = tanhf(kgn * u + kms);\n"
+         "    float den = (1.f - t * t) * ikgn - 1.f;\n"),
+        ("cu", "  float u = prev;\n#pragma unroll\n  for (int it = 0; "
+         "it < 8; ++it) {",
+         "  float u = prev;\n  const float kgn = f.k * f.gn, kms = f.k * "
+         "msum, ikgn = inv * kgn;\n#pragma unroll\n  for (int it = 0; "
+         "it < 8; ++it) {")],
+}
+
+
 def apply_variant(texts: dict, edits) -> dict:
     """texts with every edit applied: (file, old, new[, count]) replaces a
     text, (file, function) rewrites the file's text."""
@@ -347,8 +394,9 @@ def apply_variant(texts: dict, edits) -> dict:
 
 def source_file(source: str) -> str:
     """The csrc file a source's variants edit (the k x k kernel's are in
-    the scans' file)."""
-    return f"{'scan' if source == 'kxk' else source}_kernels.cu"
+    the scans' file, the saturator's in the sequential kernels')."""
+    return {"kxk": "scan", "saturator": "sequential"}.get(
+        source, source) + "_kernels.cu"
 
 
 def build_variants(csrc: Path, source: str, variants: dict,
@@ -403,6 +451,19 @@ def launch_times(fn) -> dict:
     return {ev.key.replace("(anonymous namespace)::", "").split("(")[0]:
             round(ev.device_time_total / ev.count, 1)
             for ev in prof.key_averages() if ev.device_time_total > 0}
+
+
+def event_us(fn, reps: int = 3) -> float:
+    """Device microseconds per call of fn by CUDA events, after one call:
+    for a call of one long kernel (the profiler drops some of those)."""
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return round(start.elapsed_time(end) * 1e3 / reps, 1)
 
 
 def report(source: str, name: str, times: dict) -> None:
@@ -622,11 +683,101 @@ def bench_sqpv(libs: dict, first) -> None:
         report("sqpv", name, times)
 
 
+def saturator_bench_inputs(two_pole: bool, dev):
+    """x [2, N] and the kernel-order planes (g, G, G_f or R, d or None, k,
+    mix) of phase 8's saturator calls at SAT_SECONDS stereo: a cutoff swept
+    300 -> 600 Hz, feedback 0.6 (1-pole) or damping 0.4 and feedback 0.7
+    (2-pole), mix 0.5."""
+    n = int(SAT_SECONDS * SR)
+    rng = np.random.default_rng(0)
+    t = np.arange(n, dtype=np.float32) / np.float32(SR)
+    tone = (0.4 * np.sin(2 * np.pi * 220.0 * t)
+            + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    x = torch.from_numpy(np.stack([tone, -0.5 * tone])).to(dev)
+    tt = torch.from_numpy(t).to(dev) / SAT_SECONDS
+    g = torch.tan((np.pi / SR) * (300.0 + 300.0 * tt))
+    mix = torch.full_like(g, 0.5)
+    if two_pole:
+        R = torch.full_like(g, 0.4)
+        d = 1.0 / (1.0 + 2.0 * R * g + g * g)
+        G = d * (1.0 - 2.0 * R * g + g * g)
+        return x, (g, G, R, d, torch.full_like(g, 0.7), mix)
+    return x, (g, (g - 1.0) / (g + 1.0), g / (1.0 + g), None,
+               torch.full_like(g, 0.6), mix)
+
+
+def saturator_backward_call(lib, args, stream):
+    """A call of this tree's saturator backward on a variant's library:
+    its per-step maps, the k x k scan of the main library in reverse time,
+    its read-outs (ops/sequential_kernels.py saturator_backward_cuda, one
+    chunk)."""
+    from flan_tpu_torch.ops import sequential_kernels
+    two_pole, gy, x, y, states, planes, _, _, order, inv = args
+    # the planes in the wrappers' order, from the kernel's
+    g, G, a, d, k, mix = planes
+    user = (g, G, k, mix, a, d) if two_pole else (g, a, G, k, mix)
+
+    def call():
+        sequential_kernels.saturator_backward_cuda(
+            gy, x, user, y, states, inv, order, two_pole, lib=lib)
+    return call
+
+
+def bench_saturator(libs: dict, first) -> None:
+    """The saturator's forward (no states kept, as the filter calls it; by
+    CUDA events, one kernel a call) and its backward (each kernel by the
+    profiler) at phase 8's shape: SAT_SECONDS stereo, order SAT_ORDER,
+    1-pole and 2-pole, inv 1. The backward runs on the states and output of
+    the unchanged source's forward. A variant named forward_* runs only the
+    forward, backward_* only the backward."""
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream().cuda_stream
+    backward_call = (first.saturator_backward_call if first
+                     else saturator_backward_call)
+    times = {name: {} for name in libs}
+    for two_pole in (False, True):
+        pole = "2pole" if two_pole else "1pole"
+        x, planes = saturator_bench_inputs(two_pole, dev)
+        c, n = x.shape
+        ns = (2 if two_pole else 1) * SAT_ORDER
+        y = torch.empty_like(x)
+        states = torch.empty((c, ns, n), device=dev)
+        gy = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (c, n)).astype(np.float32)).to(dev)
+        gx = torch.empty_like(x)
+        gp = torch.empty((c, 6 if two_pole else 5, n), device=dev)
+        kept = None
+        for name, lib in libs.items():
+            def forward(out=None, st=None):
+                build.raise_on(lib.flan_saturator_multinotch(
+                    int(two_pole), x.data_ptr(),
+                    *(None if p is None else p.data_ptr() for p in planes),
+                    (y if out is None else out).data_ptr(),
+                    None if st is None else st.data_ptr(), c, n, SAT_ORDER,
+                    1.0, stream), name)
+
+            if kept is None:    # the unchanged source's states and output
+                y_kept = torch.empty_like(x)
+                forward(y_kept, states)
+                torch.cuda.synchronize()
+                kept = (y_kept, states)
+            if not name.startswith("backward"):
+                times[name][f"forward_{pole}"] = event_us(forward)
+            if not name.startswith("forward"):
+                times[name][f"backward_{pole}"] = launch_times(backward_call(
+                    lib, (two_pole, gy, x, kept[0], kept[1], planes, gx, gp,
+                          SAT_ORDER, 1.0), stream))
+        del x, planes, y, states, gy, gx, gp, kept
+    for name in libs:
+        report("saturator", name, times[name])
+
+
 SOURCES = {
     "spv": (SPV_VARIANTS, bench_spv),
     "scan": (SCAN_VARIANTS, bench_scan),
     "kxk": (KXK_VARIANTS, bench_kxk),
     "sqpv": (SQPV_VARIANTS, bench_sqpv),
+    "saturator": (SATURATOR_VARIANTS, bench_saturator),
 }
 
 

@@ -12,13 +12,17 @@ reduction across the block every frame); the k x k map of
 csrc/scan_kernels.cu of commit 1f4e009 (the one pass with maps in
 registers for k <= 8, a block a row in time order above; its
 flan_scan_kxk_scratch_bytes takes no fourth argument, which the call
-ignores). `git archive COMMIT
+ignores); csrc/sequential_kernels.cu of commit 4441291 (the saturator
+multinotch one warp a channel with its states in shared memory and its
+backward rerunning every step beside the adjoint, one launch). `git archive
+COMMIT
 flan_tpu_torch/csrc | tar -x -C build/first` brings a source back. Beside
 the sets stand the entry points, scratch and constants of those sources
 where today's differ.
 """
 from __future__ import annotations
 
+import re
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -324,6 +328,132 @@ KXK_FIRST_VARIANTS = {
 }
 
 
+# ---- the saturator multinotch before its redesign (commit 4441291): one
+# warp a channel, the allpass states in shared memory, order known at run
+# time, Newton held at one iteration a loop trip; the backward reruns every
+# step on all 32 lanes beside the adjoint
+def _forward_kernel(cu: str) -> tuple:
+    """(start, end) of the forward kernel's text in commit 4441291's
+    csrc/sequential_kernels.cu."""
+    a = cu.index("template <bool kTwoPole>\n__global__ void __launch_bounds__"
+                 "(32)\nsaturator_multinotch(")
+    return a, cu.index("// The adjoint of saturator_multinotch", a)
+
+
+def _forward_order2_registers(cu: str) -> str:
+    """The forward with order fixed at 2 (the bench's), so that its loops
+    unroll, and the allpass states in registers instead of shared memory
+    (the snapshots stay there)."""
+    a, b = _forward_kernel(cu)
+    body = cu[a:b]
+    body = body.replace("float* __restrict__ states, int order, float inv,",
+                        "float* __restrict__ states, int order_, float inv,")
+    body = body.replace("  extern __shared__ float st[];\n",
+                        "  extern __shared__ float st_sh[];\n"
+                        "  constexpr int order = 2;\n  float st_r[4];\n")
+    body = body.replace("  float* snap = st + nstates * 32;",
+                        "  float* snap = st_sh;")
+    body = re.sub(r"st\[(\([^]]*?\)|\w+) \* 32 \+ lane\]", r"st_r[\1]", body)
+    if "st[" in body or body.count("st_r[") != 12:
+        raise ValueError("the forward's state indexing is not 4441291's")
+    return cu[:a] + body + cu[b:]
+
+
+_SAT_FIRST_UNROLLED = [("cu", "#pragma unroll 1\n  for (int it = 0; it < 8; "
+                        "++it) {", "#pragma unroll\n  for (int it = 0; "
+                        "it < 8; ++it) {")]
+
+
+def _backward_no_rerun(cu: str) -> str:
+    """The backward without its rerun of each step: the Newton iterates,
+    tanh values, denominators and stage inputs the adjoint reads are cheap
+    stand-ins."""
+    a = cu.index("      // the step again, from its old states and the last "
+                 "output\n")
+    b = cu.index("      const float yv = v * inv;\n", a)
+    b += len("      const float yv = v * inv;\n")
+    return cu[:a] + """      const float msum0 = s[0], msum = s[0];
+      const float gn = Gc * Gc;
+      float us[9], ts[8], dens[8];
+      bool guarded[8];
+      us[0] = prevc;
+#pragma unroll
+      for (int it = 0; it < 8; ++it) {
+        us[it + 1] = prevc + 0.125f * (float)it;
+        ts[it] = 0.5f * xc;
+        dens[it] = -1.f - 0.01f * (float)it;
+        guarded[it] = false;
+      }
+      const float xbar = us[8];
+      for (int jj = 0; jj < order; ++jj) ys[jj * 32 + lane] = xbar;
+      const float yv = xbar * inv;
+""" + cu[b:]
+
+
+def _backward_no_adjoint(cu: str) -> str:
+    """The backward without its adjoint: the rerun stays, the gradients are
+    stand-ins read from it, and the carried adjoint a cheap chain."""
+    a = cu.index("      // its adjoint: the mix, the cascade, Newton, the "
+                 "feedback sum\n")
+    b = cu.index("      if (lane == j) {\n        mine_gx = gxv;", a)
+    return cu[:a] + """      const float pg_g = us[8] + ts[7], pg_G = dens[7];
+      const float pg_k = msum0, pg_mix = gout * yv, pg_a = ys[lane];
+      const float pg_d = guarded[3];
+      const float gxv = yv + xbar;
+      gprev = gout * 0.5f;
+""" + cu[b:]
+
+
+SATURATOR_FIRST_VARIANTS = {
+    "as_shipped": [],
+    # the forward's step: tanhf and the IEEE division of each Newton
+    # iteration, the states in shared memory and the loops over a runtime
+    # order, the powers of G recomputed every step, Newton not unrolled
+    "forward_no_tanhf": [
+        ("cu", "    const float t = tanhf(kc * (gn * u + msum));",
+         "    const float t = 0.5f * (kc * (gn * u + msum));")],
+    "forward_approx_division": [
+        ("cu", "    u = u - (x + inv * t - u) / den;",
+         "    u = u - __fdividef(x + inv * t - u, den);")],
+    "forward_order2_registers": [("cu", _forward_order2_registers)],
+    # the powers as at order 2 with no loop: G^0 = 1, G^1, G^2 one product
+    "forward_ipow_hoisted": [
+        ("cu", "          msum = msum + ipow(Gc, i) * (gc * st[(2 * jj + 1) "
+         "* 32 + lane] -",
+         "          msum = msum + (i == 0 ? 1.f : Gc) * (gc * st[(2 * jj + 1)"
+         " * 32 + lane] -"),
+        ("cu", "          msum = msum + ipow(Gc, i) * st[jj * 32 + lane];",
+         "          msum = msum + (i == 0 ? 1.f : Gc) * st[jj * 32 + lane];"),
+        ("cu", "      const float gn = ipow(Gc, order);\n      const float "
+         "xbar = newton(",
+         "      const float gn = Gc * Gc;\n      const float xbar = newton(")],
+    "forward_newton_unrolled": _SAT_FIRST_UNROLLED,
+    "forward_order2_registers_unrolled": [
+        ("cu", _forward_order2_registers)] + _SAT_FIRST_UNROLLED,
+    "backward_no_rerun": [("cu", _backward_no_rerun)],
+    "backward_no_adjoint": [("cu", _backward_no_adjoint)],
+}
+# commit 4441291's backward: one launch (two_pole, gy, x, y, states, g, G,
+# G_f or R, d, k, mix, gx, gplanes, C, N, order, inv, stream)
+_SATURATOR_BACKWARD_FIRST = [_i] + [_p] * 12 + [_i, _ll, _i, _f, _p]
+
+
+def saturator_backward_call(lib, args, stream):
+    """A call of commit 4441291's saturator backward: args = (two_pole, gy,
+    x, y, states, kernel-order planes, gx, gplanes, order, inv)."""
+    two_pole, gy, x, y, states, planes, gx, gp, order, inv = args
+    c, n = x.shape
+
+    def call():
+        build.raise_on(lib.flan_saturator_multinotch_backward(
+            int(two_pole), gy.data_ptr(), x.data_ptr(), y.data_ptr(),
+            states.data_ptr(),
+            *(None if p is None else p.data_ptr() for p in planes),
+            gx.data_ptr(), gp.data_ptr(), c, n, order, inv, stream),
+            "saturator_backward")
+    return call
+
+
 class Version(NamedTuple):
     """The substitution sets of one commit's sources (source -> variant ->
     edits), its entry points where they differ from ops/build.py's, and the
@@ -333,6 +463,7 @@ class Version(NamedTuple):
     scan_scratch: Optional[Callable] = None
     sqpv_forward_consts: Optional[Callable] = None
     sqpv_inverse_call: Optional[Callable] = None
+    saturator_backward_call: Optional[Callable] = None
 
 
 VERSIONS = {
@@ -346,4 +477,8 @@ VERSIONS = {
                        {"flan_sqpv_inverse": _SQPV_INVERSE_FIRST},
                        sqpv_inverse_call=sqpv_inverse_call),
     "1f4e009": Version({"kxk": KXK_FIRST_VARIANTS}),
+    "4441291": Version({"saturator": SATURATOR_FIRST_VARIANTS},
+                       {"flan_saturator_multinotch_backward":
+                        _SATURATOR_BACKWARD_FIRST},
+                       saturator_backward_call=saturator_backward_call),
 }

@@ -783,29 +783,77 @@ def _saturator_planes(n, two_pole, seed=41):
     return (g, g / (1.0 + g), (g - 1.0) / (g + 1.0), k, mix)
 
 
+# the saturator's orders: 1 to 8 have their own instantiations, 10 runs on
+# the runtime-order kernel; inv alternates with the order
+SAT_ORDERS = [(1, 1.0), (2, -1.0), (3, 1.0), (4, -1.0), (5, 1.0),
+              (6, -1.0), (7, 1.0), (8, -1.0), (10, 1.0)]
+# lengths around one round of 32 frames; the long one on a few orders
+SAT_LENGTHS = (1, 31, 32, 33, 1500)
+SAT_LONG, SAT_LONG_ORDERS = 100_003, (2, 8, 10)
+SAT_CASES = ([(o, inv, n) for o, inv in SAT_ORDERS for n in SAT_LENGTHS]
+             + [(o, inv, SAT_LONG) for o, inv in SAT_ORDERS
+                if o in SAT_LONG_ORDERS])
+
+
+def _saturator_case(n, two_pole, seed=41):
+    x = torch.from_numpy(_signal(max(n, 2), 2)[:, :n] * 3.0).cuda()
+    return x, _saturator_planes(n, two_pole, seed)
+
+
+def _saturator_loop_from(x, planes, inv, order, two_pole, s0, prev0):
+    """The plain loop (the forward's step, sequential_kernels._step_*) over
+    x [C, M] from the states s0 [C, nstates] and the output prev0 [C]: its
+    outputs and new states."""
+    step = (sequential_kernels._step_2pole if two_pole
+            else sequential_kernels._step_1pole)
+    s, prev = list(s0.unbind(1)), prev0
+    out, states = [], []
+    for t in range(x.shape[1]):
+        s, prev, _ = step(s, prev, x[:, t], *(p[t] for p in planes), inv,
+                          order)
+        out.append(prev)
+        states.append(torch.stack(s, dim=1))
+    return torch.stack(out, dim=1), torch.stack(states, dim=2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("two_pole", [False, True])
-@pytest.mark.parametrize("order,inv", [(1, 1.0), (2, -1.0), (4, 1.0)])
-def test_saturator_kernel_matches_plain(cuda_device, two_pole, order, inv):
-    """The saturator kernel against its plain loop on the card: 1e-5 of the
-    peak (tanhf and fused multiply-adds against torch's float32 ops; the
-    Newton solve damps what they differ by), the same bits on three
-    calls."""
-    n = 1500
-    x = torch.from_numpy(_signal(n, 2) * 3.0).cuda()
-    planes = _saturator_planes(n, two_pole)
+@pytest.mark.parametrize("order,inv,n", SAT_CASES)
+def test_saturator_kernel_matches_plain(cuda_device, two_pole, order, inv,
+                                        n):
+    """The saturator kernel (orders 1 to 8 on their own instantiations, 10
+    on the runtime-order one) against its plain loop, run on the CPU on the
+    same inputs: output and every step's states 1e-5 of the peak (tanhf, a
+    division without its range check and fused multiply-adds against
+    torch's float32 ops; the Newton solve damps what they differ by); the
+    same bits on three calls, with and without the states. At 100,003
+    frames the loop runs the first and the last 1,000 frames, the last
+    from the kernel's states and output before them."""
+    x, planes = _saturator_case(n, two_pole)
     name = "saturator_2pole" if two_pole else "saturator_1pole"
     before = sequential_kernels.LAUNCHES[name]
-    got = sequential_kernels.saturator_cuda(x, planes, inv, order, two_pole)
+    got, states = sequential_kernels.saturator_cuda(
+        x, planes, inv, order, two_pole, keep_states=True)
     assert sequential_kernels.LAUNCHES[name] == before + 1
-    plain = (sequential_kernels.saturator_2pole_ref if two_pole
-             else sequential_kernels.saturator_1pole_ref)
-    want = plain(x, *planes, inv, order)
-    torch.cuda.synchronize()
-    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    cpu = [p.cpu() for p in planes]
+    ns = states.shape[1]
+    spans = [(0, n)] if n <= 1500 else [(0, 1000), (n - 1000, n)]
+    for lo, hi in spans:
+        s0 = (states[:, :, lo - 1].cpu() if lo else torch.zeros(2, ns))
+        prev0 = got[:, lo - 1].cpu() if lo else torch.zeros(2)
+        want, want_states = _saturator_loop_from(
+            x[:, lo:hi].cpu(), [p[lo:hi] for p in cpu], inv, order,
+            two_pole, s0, prev0)
+        assert (got[:, lo:hi].cpu() - want).abs().max() <= \
+            1e-5 * want.abs().max()
+        assert (states[..., lo:hi].cpu() - want_states).abs().max() <= \
+            1e-5 * want_states.abs().max()
     for _ in range(2):
         assert torch.equal(got, sequential_kernels.saturator_cuda(
             x, planes, inv, order, two_pole))
+        again = sequential_kernels.saturator_cuda(x, planes, inv, order,
+                                                  two_pole, keep_states=True)
+        assert torch.equal(got, again[0]) and torch.equal(states, again[1])
 
 
 @pytest.mark.cuda
@@ -833,46 +881,74 @@ def test_comb_kernel_matches_plain(cuda_device, lo, hi):
             x, d, k, a, -1.0, ring))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("two_pole", [False, True])
-@pytest.mark.parametrize("order,inv", [(1, 1.0), (2, -1.0), (4, 1.0)])
-def test_saturator_backward_kernel_matches_plain(cuda_device, two_pole,
-                                                 order, inv):
-    """The saturator's forward with its states and its backward kernel
-    against the plain loops on the card, on the kernel's own states: the
-    states 1e-5 of their peak (the forward's bound), each gradient (the
-    signal's, each plane's per channel) 1e-4 of its peak (the adjoint
-    divides by Newton's denominators: float32 in two orders); the same
-    bits on three calls."""
-    n = 700
-    x = torch.from_numpy(_signal(n, 2) * 3.0).cuda()
-    planes = _saturator_planes(n, two_pole)
-    y, states = sequential_kernels.saturator_cuda(x, planes, inv, order,
-                                                  two_pole, keep_states=True)
-    plain = (sequential_kernels.saturator_2pole_ref if two_pole
-             else sequential_kernels.saturator_1pole_ref)
-    y_ref, states_ref = plain(x, *planes, inv, order, keep_states=True)
-    assert torch.equal(y, sequential_kernels.saturator_cuda(
-        x, planes, inv, order, two_pole))
-    assert (states - states_ref).abs().max() <= 1e-5 * states_ref.abs().max()
-    gy = torch.from_numpy(_signal(n, 2, seed=9)).cuda()
-    name = ("saturator_2pole_backward" if two_pole
-            else "saturator_1pole_backward")
-    before = sequential_kernels.LAUNCHES[name]
-    gx, gp = sequential_kernels.saturator_backward_cuda(
-        gy, x, planes, y, states, inv, order, two_pole)
-    assert sequential_kernels.LAUNCHES[name] == before + 1
-    wx, wp = sequential_kernels.saturator_backward_ref(
-        gy, x, planes, y, states, inv, order, two_pole)
-    torch.cuda.synchronize()
-    assert (gx - wx).abs().max() <= 1e-4 * wx.abs().max()
+def _gradients_close(got, want, tol):
+    """Each gradient (the signal's, each plane's per channel) within tol of
+    its own peak."""
+    gx, gp = got
+    wx, wp = want
+    assert (gx - wx).abs().max() <= tol * wx.abs().max()
     for i in range(wp.shape[1]):
         assert (gp[:, i] - wp[:, i]).abs().max() <= \
-            1e-4 * wp[:, i].abs().max(), i
+            tol * wp[:, i].abs().max(), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_pole", [False, True])
+@pytest.mark.parametrize("order,inv,n", SAT_CASES)
+def test_saturator_backward_kernel_matches_plain(cuda_device, two_pole,
+                                                 order, inv, n):
+    """The saturator's backward on the card (the maps kernel, the k x k
+    scan in reverse time, the read-out kernel) on the kernel forward's own
+    states: each gradient (the signal's, each plane's per channel) 1e-4 of
+    its peak from the step-by-step loop (saturator_backward_ref, on the
+    CPU) over the last min(n, 400) frames (the adjoint runs from the end:
+    they need nothing before them) and from the backward's plain passes
+    (saturator_backward_plain, on the card) over all of them, whole and
+    in chunks of 32 frames (so 33 and 1,500 frames cross chunk borders) or
+    of 32,768 at 100,003 frames; the chunked call against the loop too;
+    the same bits on three calls. Counted: one launch of each kernel a
+    chunk."""
+    x, planes = _saturator_case(n, two_pole)
+    y, states = sequential_kernels.saturator_cuda(x, planes, inv, order,
+                                                  two_pole, keep_states=True)
+    gy = torch.from_numpy(_signal(max(n, 2), 2, seed=9)[:, :n].copy()).cuda()
+    args = (gy, x, planes, y, states, inv, order, two_pole)
+    name = ("saturator_2pole_backward" if two_pole
+            else "saturator_1pole_backward")
+    chunk = 32 if n <= 1500 else 32_768
+    before = dict(sequential_kernels.LAUNCHES)
+    whole = sequential_kernels.saturator_backward_cuda(*args)
+    for pass_ in ("maps", "readout"):
+        assert sequential_kernels.LAUNCHES[f"{name}_{pass_}"] == \
+            before[f"{name}_{pass_}"] + 1
+    chunked = sequential_kernels.saturator_backward_cuda(*args, chunk=chunk)
+    assert sequential_kernels.LAUNCHES[f"{name}_maps"] == \
+        before[f"{name}_maps"] + 1 + -(-n // chunk)
+    # the loop over the last p frames, from the frame before them
+    p = min(n, 400)
+    s0 = n - p - 1
+    if s0 < 0:
+        cut = tuple(t.cpu() for t in (gy, x)) + (
+            tuple(q.cpu() for q in planes), y.cpu(), states.cpu())
+        keep = slice(0, None)
+    else:
+        cut = (gy[:, s0:].cpu(), x[:, s0:].cpu(),
+               tuple(q[s0:].cpu() for q in planes), y[:, s0:].cpu(),
+               states[..., s0:].cpu())
+        keep = slice(1, None)
+    wx, wp = sequential_kernels.saturator_backward_ref(*cut, inv, order,
+                                                       two_pole)
+    loop = (wx[:, keep], wp[..., keep])
+    for got in (whole, chunked):
+        _gradients_close((got[0][:, n - p:].cpu(), got[1][..., n - p:].cpu()),
+                         loop, 1e-4)
+    plain = sequential_kernels.saturator_backward_plain(*args)
+    for got in (whole, chunked):
+        _gradients_close(got, plain, 1e-4)
     for _ in range(2):
-        again = sequential_kernels.saturator_backward_cuda(
-            gy, x, planes, y, states, inv, order, two_pole)
-        assert torch.equal(gx, again[0]) and torch.equal(gp, again[1])
+        again = sequential_kernels.saturator_backward_cuda(*args)
+        assert torch.equal(whole[0], again[0])
+        assert torch.equal(whole[1], again[1])
 
 
 @pytest.mark.cuda
@@ -913,9 +989,9 @@ def test_comb_backward_kernel_matches_plain(cuda_device, lo, hi):
 def test_sequential_kernels_refuse_grad(cuda_device):
     """The sequential kernels refuse grad no more: gradients through the
     swept comb and the saturator multinotch run their backward kernels on
-    the card (one launch each) and equal the CPU's plain adjoints, with
-    respect to the signal and to a parameter given as a 0-d tensor (the
-    feedback, the cutoff): 1e-4 of the peak."""
+    the card (one launch each; the saturator's maps kernel once) and equal
+    the CPU's plain adjoints, with respect to the signal and to a parameter
+    given as a 0-d tensor (the feedback, the cutoff): 1e-4 of the peak."""
     x = _signal(3000, 2) * 3.0
 
     def comb(a, c):
@@ -926,7 +1002,8 @@ def test_sequential_kernels_refuse_grad(cuda_device):
         return a.filter_2pole_multinotch(2, lambda t: c * (1.0 + t), 0.4,
                                          0.7, True, 0.5, True)
     for run, c0, kernel, n in ((comb, 0.5, "comb_swept_backward", 3000),
-                               (sat, 300.0, "saturator_2pole_backward", 300)):
+                               (sat, 300.0, "saturator_2pole_backward_maps",
+                                300)):
         grads = []
         for device in ("cpu", cuda_device):
             before = sequential_kernels.LAUNCHES[kernel]

@@ -797,7 +797,8 @@ def test_first_version_variants_are_well_formed():
     source of the tool and has its as_shipped, and every source has one."""
     from flan_tpu_torch.ops import spv_variants, spv_variants_first
     versions = spv_variants_first.VERSIONS
-    assert set(versions) == {"9089281", "9ad48d3", "91765eb", "1f4e009"}
+    assert set(versions) == {"9089281", "9ad48d3", "91765eb", "1f4e009",
+                             "4441291"}
     assert {src for v in versions.values() for src in v.variants} == set(
         spv_variants.SOURCES)
     for version in versions.values():
@@ -813,8 +814,10 @@ def test_first_version_variants_are_well_formed():
                         assert isinstance(old, str) and isinstance(rest[0],
                                                                    str)
                         assert len(rest) == 1 or isinstance(rest[1], int)
-    # the SQPV inverse of 91765eb is timed with its own entry point
+    # the SQPV inverse of 91765eb and the saturator backward of 4441291 are
+    # timed with their own entry points
     assert versions["91765eb"].sqpv_inverse_call is not None
+    assert versions["4441291"].saturator_backward_call is not None
     texts = {"cu": "a b a", "cuh": ""}
     assert spv_variants.apply_variant(
         texts, [("cu", "a", "c", 2), ("cu", str.upper)])["cu"] == "C B C"

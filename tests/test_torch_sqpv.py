@@ -435,7 +435,8 @@ def test_kernel_library_lists_every_source():
                                      "flan_sqpv_inverse", "flan_scan",
                                      "flan_scan_kxk", "flan_probe",
                                      "flan_saturator_multinotch",
-                                     "flan_saturator_multinotch_backward",
+                                     "flan_saturator_backward_maps",
+                                     "flan_saturator_backward_readout",
                                      "flan_comb_swept",
                                      "flan_comb_swept_backward"}
 
