@@ -82,8 +82,9 @@ build/parent`, then --package build/parent). Phases:
      sequential kernels to their plain loops on the card and ask three
      calls for the same bits; take the gradients through the saturators
      (their backward: a maps kernel, the k x k scan in reverse time, a
-     read-out kernel, each kernel held to its plain pass and the whole to
-     the step-by-step loop) and the comb; take the gradients of a swept
+     read-out kernel, each held to its plain pass over the whole call, and
+     the whole to the plain passes and, over its last frames, to the
+     step-by-step loop) and the comb; take the gradients of a swept
      2-pole lowpass
      and the compressor at 10 s, and of swept 2-pole multinotch filters of
      order 4 and 6 (k = 8 and 12) at 1 s, with respect to the signal and a
@@ -233,7 +234,7 @@ TOL_RESONATE_CELLS = 1e-3
 # its look-back reads at a time (the one pass's look-back window at k = 1)
 # on 2 rows, 64 rows in groups of one A; and a long row at the k of
 # KXK_LONG_ROW_KS, where its float32 and float64 plain runs take seconds
-KXK_KS = (1, 3, 4, 8, 12, 16, 20)
+KXK_KS = (1, 3, 4, 5, 8, 12, 16, 20)
 KXK_CASES = [(1, 1, True), (2, "R+1", True), (8, "T+1", False),
              (2, "B+1", True), (64, "T-1", True)]
 KXK_LONG_ROW, KXK_LONG_ROW_KS = (1, 1_000_003, True), (1, 3, 4)
@@ -1836,33 +1837,39 @@ def phase8_multinotch_gradients(torch, Audio, scan_kernels, dev, card):
 
 
 def saturator_pass_checks(torch, seq, args, back_args):
-    """The saturator backward's two kernels on one backward call's inputs
-    (args: saturator_backward_cuda's): the maps kernel over the whole call
-    (kept in back_args for timing, with the read-outs' call on the scan of
-    those maps) and over its last SEQ_BACK_PLAIN_FRAMES frames against
-    the plain maps there (A and b each within TOL_SATURATOR_BACK of its
-    peak), the read-out kernel over those frames on the kernel scan's
+    """The saturator backward's passes on one backward call's inputs (args:
+    saturator_backward_cuda's), each over the whole call against its plain
+    version on the card: the maps kernel against the plain maps (A and b
+    each within TOL_SATURATOR_BACK of its peak); the k x k scan of those
+    maps in reverse time against affine_kxk_ref on the same maps (as phase
+    8's k x k cases: within twice the float32 plain run's error against
+    float64, plus SCAN_FLOOR); the read-out kernel on the kernel scan's
     states against the plain read-outs on the same states (each gradient
     within TOL_SATURATOR_BACK of its peak); three calls of each for the
-    same bits. Returns kernel -> (largest absolute error, plain ms, plain
+    same bits. The maps' and read-outs' calls are kept in back_args for
+    timing. Returns kernel -> (largest absolute error, plain ms, plain
     frames)."""
     from flan_tpu_torch.ops import scan_kernels
     gy, x, planes, y, states, inv, order, two_pole = args
     c, n = x.shape
     k = states.shape[1] + 1
     back = f"saturator_{2 if two_pole else 1}pole_backward"
-    full = (gy, x, planes, y, states, inv, order, two_pole)
-    A, b = seq.saturator_backward_maps_cuda(*full, 0, n)
+    head, tail = (gy, x, planes, y, states), (inv, order, two_pole, 0, n)
+    A, b = seq.saturator_backward_maps_cuda(*head, *tail)
     carry = torch.zeros((c, k), device=x.device)
+    e = scan_errors(torch, scan_kernels.scan_affine_kxk,
+                    scan_kernels.affine_kxk_ref, (A, b, carry))
+    print(json.dumps({"phase": 8, "kernel": "scan_affine_kxk",
+                      "path": f"{back}_reversed", "k": k, "rows": c,
+                      "frames": n, "shared": False, **e}), flush=True)
+    check_scan(e, f"{back}: the k x k scan (k={k}) of its maps over "
+               f"{n} frames", SCAN_FLOOR)
+    check_same_bits(torch, lambda: scan_kernels.scan_affine_kxk(A, b, carry),
+                    f"{back}: the k x k scan of its maps")
     lam = scan_kernels.scan_affine_kxk(A, b, carry)
     gx, gp = torch.empty_like(x), x.new_empty((c, len(planes), n))
-    back_args[f"{back}_maps"] = full + (0, n)
-    back_args[f"{back}_readout"] = (gy, x, planes, y, states, lam, carry, gx,
-                                    gp, inv, order, two_pole, 0, n)
-    p = SEQ_BACK_PLAIN_FRAMES
-    head, tail = (gy, x, planes, y, states), (inv, order, two_pole, n - p, p)
-    lam_p = lam[..., :p].contiguous()     # lam in reversed time: the end's
-    gx_p, gp_p = torch.empty_like(x), torch.empty_like(gp)
+    back_args[f"{back}_maps"] = head + tail
+    back_args[f"{back}_readout"] = head + (lam, carry, gx, gp) + tail
 
     def peaks_err(got, want):
         return max(float((g - w).abs().max() / w.abs().max().clamp(
@@ -1872,9 +1879,9 @@ def saturator_pass_checks(torch, seq, args, back_args):
                  lambda: seq.saturator_adjoint_maps_ref(*head, *tail)),
         "readout": (
             lambda: (seq.saturator_backward_readout_cuda(
-                *head, lam_p, carry, gx_p, gp_p, *tail),
-                gx_p[:, n - p:].clone(), gp_p[..., n - p:].clone())[1:],
-            lambda: seq.saturator_adjoint_readout_ref(*head, lam_p, carry,
+                *head, lam, carry, gx, gp, *tail), gx.clone(),
+                gp.clone())[1:],
+            lambda: seq.saturator_adjoint_readout_ref(*head, lam, carry,
                                                       *tail))}
     out = {}
     for part, (kernel, plain) in calls.items():
@@ -1890,14 +1897,15 @@ def saturator_pass_checks(torch, seq, args, back_args):
         rel = peaks_err(got, want)
         check_same_bits(torch, kernel, f"{back}_{part}")
         print(json.dumps({"phase": 8, "kernel": f"{back}_{part}",
-                          "frames": p, "of_frames": n, "err_rel": rel,
+                          "frames": n, "of_frames": n, "err_rel": rel,
                           "plain_ms": plain_ms}), flush=True)
         check(rel <= TOL_SATURATOR_BACK,
-              f"{back}_{part} on the path vs its plain pass over the last "
-              f"{p} frames: {rel}")
+              f"{back}_{part} on the path vs its plain pass over {n} "
+              f"frames: {rel}")
         out[f"{back}_{part}"] = (max(float((g - w).abs().max())
                                      for g, w in zip(got, want)),
-                                 plain_ms, p)
+                                 plain_ms, n)
+        del got, want
     return out
 
 
@@ -1918,9 +1926,10 @@ def phase8_sequential_gradients(torch, Audio, seq, dev, card):
         nothing before them), and three calls on the cut inputs for the
         same bits.
     The saturator's backward is two kernels of its own with the k x k scan
-    between them: each is held to its plain pass (the maps, and the
-    read-outs on the kernel scan's states) over the last frames, on the
-    call's own inputs.
+    between them: each of the three is held to its plain pass (the maps,
+    the scan of those maps, and the read-outs on the kernel scan's states)
+    over the whole call, on the call's own inputs, and the whole call to
+    the plain passes run on the card (saturator_backward_plain).
     Returns the launches (kernel -> count, the forward's and the
     backward's, the k x k scan's under scan_affine_kxk), the backward
     kernels' calls (kernel -> arguments, a whole-length call each) and name
@@ -2034,6 +2043,20 @@ def phase8_sequential_gradients(torch, Audio, seq, dev, card):
                 return torch.cat([gx[:, 1:, None], gp[..., 1:].transpose(
                     1, 2)], dim=2)
             gx, gp = seq.saturator_backward_cuda(*args)
+            # the whole call against the plain passes on the card
+            wx, wp = seq.saturator_backward_plain(*args)
+            rel_whole = max(float((g - w).abs().max()
+                                  / w.abs().max().clamp(min=1e-30))
+                            for g, w in zip((gx,) + tuple(gp.unbind(1)),
+                                            (wx,) + tuple(wp.unbind(1))))
+            del wx, wp
+            print(json.dumps({"phase": 8, "kernel": f"{back}_call",
+                              "against": "saturator_backward_plain",
+                              "frames": int(gx.shape[1]),
+                              "err_rel": rel_whole}), flush=True)
+            check(rel_whole <= TOL_SATURATOR_BACK,
+                  f"{back}_call vs its plain passes over "
+                  f"{gx.shape[1]} frames: {rel_whole}")
             full = torch.cat([gx[:, -p:, None],
                               gp[..., -p:].transpose(1, 2)], dim=2)
             tol = TOL_SATURATOR_BACK

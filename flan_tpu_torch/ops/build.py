@@ -27,7 +27,6 @@ MAX_BINS = 2048         # 256 threads x 8 bins each in the epilogues
 SCAN_CHUNK_TILES = 256  # tiles per block of the prefix over tiles
 SQPV_CARRY_CHUNK = 32   # tiles per chunk of the SQPV forward's carry
 PROBE_SHAPE = (128, 512)  # rows and columns of the probe (probe_kernels.cu)
-SATURATOR_FIXED_ORDERS = 8  # orders with their own saturator kernels
 
 _p, _i, _ll, _d, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_double, ctypes.c_float)
@@ -55,15 +54,13 @@ SIGNATURES = {
 # functions of no argument that must return the constants the wrappers
 # size their tensors by (TILE_FRAMES, MAX_BINS and SCAN_CHUNK_TILES from
 # csrc/common.cuh, the SQPV carry's chunk from csrc/sqpv_kernels.cu, the
-# probe's shape from csrc/probe_kernels.cu, the saturator's highest order
-# with its own kernels from csrc/sequential_kernels.cu)
+# probe's shape from csrc/probe_kernels.cu)
 _LIMITS = {"flan_spv_tile_frames": TILE_FRAMES,
            "flan_spv_max_bins": MAX_BINS,
            "flan_scan_chunk_tiles": SCAN_CHUNK_TILES,
            "flan_sqpv_carry_chunk": SQPV_CARRY_CHUNK,
            "flan_probe_rows": PROBE_SHAPE[0],
-           "flan_probe_cols": PROBE_SHAPE[1],
-           "flan_saturator_max_fixed_order": SATURATOR_FIXED_ORDERS}
+           "flan_probe_cols": PROBE_SHAPE[1]}
 
 
 def sources() -> list[Path]:

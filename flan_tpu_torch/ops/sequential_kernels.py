@@ -424,19 +424,18 @@ def _adjoint_chunks(n: int, chunk: int):
 
 
 def saturator_backward_plain(gy, x, planes, y, states, inv: float,
-                             order: int, two_pole: bool, chunk=None):
+                             order: int, two_pole: bool):
     """saturator_backward_ref's result by the backward kernels' passes in
     PyTorch: per chunk from the end, the maps (saturator_adjoint_maps_ref),
     the k x k scan's plain version from the carry (affine_kxk_ref), the
     read-outs; the carry is the scan's last state. The CPU's backward."""
     c, n = x.shape
     k = states.shape[1] + 1
-    chunk = chunk or adjoint_chunk(c, k - 1)
     gx = torch.empty_like(x)
     gp = x.new_empty((c, len(planes), n))
     carry = x.new_zeros((c, k))
     args = (gy, x, planes, y, states)
-    for first, length in _adjoint_chunks(n, chunk):
+    for first, length in _adjoint_chunks(n, adjoint_chunk(c, k - 1)):
         A, b = saturator_adjoint_maps_ref(*args, inv, order, two_pole,
                                           first, length)
         lam = scan_kernels.affine_kxk_ref(A, b, carry)
@@ -542,8 +541,8 @@ def saturator_cuda(x, planes, inv: float, order: int, two_pole: bool,
                    keep_states: bool = False):
     """The saturator kernel on float32 CUDA tensors, no autograd: x [C, N]
     and, each [N], (g, G_f, G_ap, k, mix) for the 1-pole or (g, G, k, mix,
-    R, d) for the 2-pole. Orders 1 to build.SATURATOR_FIXED_ORDERS run
-    their own instantiation, any other the runtime-order one. With
+    R, d) for the 2-pole. Orders 1 to kMaxFixedOrder (8,
+    csrc/sequential_kernels.cu) run their own instantiation, any other the runtime-order one. With
     keep_states, returns (y, every step's new states [C, nstates, N])."""
     name = "saturator_2pole" if two_pole else "saturator_1pole"
     _planes_on(x, name, planes)
@@ -594,17 +593,15 @@ def _backward_head(lib, gy, x, planes, y, states, order, two_pole, length):
 
 def saturator_backward_maps_cuda(gy, x, planes, y, states, inv: float,
                                  order: int, two_pole: bool, first: int,
-                                 length: int, out=None, lib=None):
+                                 length: int):
     """(a) on the card, saturator_adjoint_maps_ref's work: A [C, K*K, L]
-    and b [C, K, L] of the chunk [first, first + length), into out (A, b)
-    where given."""
+    and b [C, K, L] of the chunk [first, first + length)."""
     name = _backward_checked(gy, x, planes, y, states, order, two_pole)
-    lib = lib or load_library()
+    lib = load_library()
     c, n = x.shape
     k = states.shape[1] + 1
     with torch.cuda.device(x.device):
-        A, b = out if out is not None else (
-            x.new_empty((c, k * k, length)), x.new_empty((c, k, length)))
+        A, b = x.new_empty((c, k * k, length)), x.new_empty((c, k, length))
         head, work = _backward_head(lib, gy, x, planes, y, states, order,
                                     two_pole, length)
         err = lib.flan_saturator_backward_maps(
@@ -618,8 +615,7 @@ def saturator_backward_maps_cuda(gy, x, planes, y, states, inv: float,
 
 def saturator_backward_readout_cuda(gy, x, planes, y, states, lam, carry,
                                     gx, gp, inv: float, order: int,
-                                    two_pole: bool, first: int, length: int,
-                                    lib=None):
+                                    two_pole: bool, first: int, length: int):
     """(c) on the card, saturator_adjoint_readout_ref's work: the signal's
     and the planes' gradients over the chunk, written into gx [C, N] and gp
     [C, nplanes, N], from the scan's lam [C, K, L] and the carry [C, K]."""
@@ -632,7 +628,7 @@ def saturator_backward_readout_cuda(gy, x, planes, y, states, lam, carry,
         check_cuda(t, f"{name} {what}", len(shape))
         if t.shape != shape:
             raise ValueError(f"{name}: {what} {tuple(t.shape)}, not {shape}")
-    lib = lib or load_library()
+    lib = load_library()
     with torch.cuda.device(x.device):
         head, work = _backward_head(lib, gy, x, planes, y, states, order,
                                     two_pole, length)
@@ -645,36 +641,28 @@ def saturator_backward_readout_cuda(gy, x, planes, y, states, lam, carry,
 
 
 def saturator_backward_cuda(gy, x, planes, y, states, inv: float,
-                            order: int, two_pole: bool, chunk=None,
-                            lib=None):
+                            order: int, two_pole: bool):
     """The saturator's backward on the card (saturator_backward_ref's
     work): per chunk from the end, the maps kernel, the k x k scan
     (scan_affine_kxk) from the carry in reverse time, the read-out kernel,
     as saturator_backward_plain does in PyTorch. Returns the signal's
     gradient [C, N] and the planes' per channel [C, nplanes, N], the planes
-    in saturator_cuda's order. lib: another build of the kernels' library
-    (ops/spv_variants.py); the scan's is this one's."""
+    in saturator_cuda's order."""
     _backward_checked(gy, x, planes, y, states, order, two_pole)
     c, n = x.shape
     k = states.shape[1] + 1
-    chunk = min(chunk or adjoint_chunk(c, k - 1), n)
     with torch.cuda.device(x.device):
         gx = torch.empty_like(x)
         gp = x.new_empty((c, len(planes), n))
-        maps = x.new_empty(c * (k * k + k) * chunk)
         carry = x.new_zeros((c, k))
         args = (gy, x, planes, y, states)
-        for first, length in _adjoint_chunks(n, chunk):
-            split = c * k * k * length
-            A, b = saturator_backward_maps_cuda(
-                *args, inv, order, two_pole, first, length,
-                out=(maps[:split].view(c, k * k, length),
-                     maps[split:split + c * k * length].view(c, k, length)),
-                lib=lib)
+        for first, length in _adjoint_chunks(n, adjoint_chunk(c, k - 1)):
+            A, b = saturator_backward_maps_cuda(*args, inv, order, two_pole,
+                                                first, length)
             lam = scan_kernels.scan_affine_kxk(A, b, carry)
+            del A, b
             saturator_backward_readout_cuda(*args, lam, carry, gx, gp, inv,
-                                            order, two_pole, first, length,
-                                            lib=lib)
+                                            order, two_pole, first, length)
             carry = lam[..., -1].contiguous()
     return gx, gp
 

@@ -26,9 +26,11 @@ bench shape (10 s mono 48 kHz, 16-24000 Hz, 24 bins per
 octave; a variant named forward_* runs only the forward, inverse_* only the
 inverse, on the planes of the unchanged source); the saturator's forward and
 backward at phase 8's shape (10 s stereo 48 kHz, order 2, 1-pole and
-2-pole; backward_* runs only the backward, on the unchanged source's states).
-A variant computes something else than the kernel does: only its times mean
-anything.
+2-pole; backward_* runs only the backward, on the unchanged source's states),
+and each forward's largest difference from the plain loop over the first
+SAT_ERR_FRAMES frames, over the loop's peak. A variant computes something
+else than the kernel does: only its times mean anything, apart from that
+error where a variant only rounds in another order.
 
 With --first-version the sources are read from CSRC_DIR instead, which must
 hold commit COMMIT's, and the variants written for that commit are applied
@@ -55,6 +57,7 @@ SECONDS, SR, NBINS = 30.0, 48000.0, 512
 SCAN_FRAMES, SCAN_ROWS = 28_800_000, 2      # 600 s stereo at 48 kHz
 SQPV_SECONDS, SQPV_BAND, SQPV_BPO = 10.0, (16.0, 24000.0), 24.0
 SAT_SECONDS, SAT_ORDER = 10.0, 2      # phase 8's saturator calls
+SAT_ERR_FRAMES = 2000   # the saturator forward's frames against its loop
 
 # variant -> [(file, old, new[, count])]; file is "cu" or "cuh", count how
 # often old must occur (1 unless given)
@@ -362,6 +365,14 @@ SATURATOR_VARIANTS = {
         ("cu", "      const FrameTerms<kTwoPole, kOrder> next =\n"
          "          bcast_frame(mine, (j + 1) & 31);",
          "      const FrameTerms<kTwoPole, kOrder> next = mine;")],
+    # the 1-pole's msum 2 / (1 + g) in the reference's order (filters.py:578,
+    # msum * 2 / (1 + g)) in place of msum (2 / (1 + g)): a division on the
+    # chain
+    "forward_reference_order": [
+        ("cu", "  if (!kTwoPole) msum = msum * f.c;",
+         "  if (!kTwoPole) msum = msum * 2.f / (1.f + f.g);"),
+        ("cu", "  o.g = kTwoPole ? bcast(f.g, j) : 0.f;",
+         "  o.g = bcast(f.g, j);")],
     # k G^order and k msum taken out of each iteration: t = tanh(kgn u +
     # kms), den = (1 - t^2) (inv kgn) - 1 (another rounding)
     "forward_reassociated": [
@@ -707,27 +718,68 @@ def saturator_bench_inputs(two_pole: bool, dev):
 
 
 def saturator_backward_call(lib, args, stream):
-    """A call of this tree's saturator backward on a variant's library:
+    """A call of this tree's saturator backward on a variant's library, in
+    one chunk as ops/sequential_kernels.py saturator_backward_cuda runs it:
     its per-step maps, the k x k scan of the main library in reverse time,
-    its read-outs (ops/sequential_kernels.py saturator_backward_cuda, one
-    chunk)."""
-    from flan_tpu_torch.ops import sequential_kernels
-    two_pole, gy, x, y, states, planes, _, _, order, inv = args
-    # the planes in the wrappers' order, from the kernel's
-    g, G, a, d, k, mix = planes
-    user = (g, G, k, mix, a, d) if two_pole else (g, a, G, k, mix)
+    its read-outs."""
+    from flan_tpu_torch.ops import scan_kernels
+    two_pole, gy, x, y, states, planes, gx, gp, order, inv = args
+    c, n = x.shape
+    k = states.shape[1] + 1
+    lib.flan_saturator_backward_work_floats.argtypes = [build._i, build._i,
+                                                        build._i, build._ll]
+    lib.flan_saturator_backward_work_floats.restype = ctypes.c_longlong
+    work = torch.empty(lib.flan_saturator_backward_work_floats(
+        int(two_pole), order, c, n), device=x.device)
+    work_ptr = work.data_ptr() if work.numel() else None
+    A = torch.empty((c, k * k, n), device=x.device)
+    b = torch.empty((c, k, n), device=x.device)
+    carry = torch.zeros((c, k), device=x.device)
+    head = (int(two_pole), gy.data_ptr(), x.data_ptr(), y.data_ptr(),
+            states.data_ptr()) + tuple(None if p is None else p.data_ptr()
+                                       for p in planes)
 
     def call():
-        sequential_kernels.saturator_backward_cuda(
-            gy, x, user, y, states, inv, order, two_pole, lib=lib)
+        build.raise_on(lib.flan_saturator_backward_maps(
+            *head, A.data_ptr(), b.data_ptr(), work_ptr, c, n, 0, n, order,
+            inv, stream), "saturator_backward_maps")
+        lam = scan_kernels.scan_affine_kxk(A, b, carry)
+        build.raise_on(lib.flan_saturator_backward_readout(
+            *head, lam.data_ptr(), carry.data_ptr(), gx.data_ptr(),
+            gp.data_ptr(), work_ptr, c, n, 0, n, order, inv, stream),
+            "saturator_backward_readout")
     return call
+
+
+def saturator_forward_err(lib, two_pole, x, planes, stream) -> float:
+    """A variant's forward over the first SAT_ERR_FRAMES frames against the
+    plain loop (ops/sequential_kernels.py) on the card: its largest
+    difference over the loop's peak."""
+    from flan_tpu_torch.ops import sequential_kernels
+    m = SAT_ERR_FRAMES
+    xm = x[:, :m].contiguous()
+    pm = tuple(None if p is None else p[:m].contiguous() for p in planes)
+    y = torch.empty_like(xm)
+    build.raise_on(lib.flan_saturator_multinotch(
+        int(two_pole), xm.data_ptr(),
+        *(None if p is None else p.data_ptr() for p in pm), y.data_ptr(),
+        None, xm.shape[0], m, SAT_ORDER, 1.0, stream), "saturator")
+    g, G, a, d, k, mix = pm      # the kernel's order -> the loop's
+    if two_pole:
+        want = sequential_kernels.saturator_2pole_ref(
+            xm, g, G, k, mix, a, d, 1.0, SAT_ORDER)
+    else:
+        want = sequential_kernels.saturator_1pole_ref(
+            xm, g, a, G, k, mix, 1.0, SAT_ORDER)
+    return float((y - want).abs().max() / want.abs().max())
 
 
 def bench_saturator(libs: dict, first) -> None:
     """The saturator's forward (no states kept, as the filter calls it; by
     CUDA events, one kernel a call) and its backward (each kernel by the
     profiler) at phase 8's shape: SAT_SECONDS stereo, order SAT_ORDER,
-    1-pole and 2-pole, inv 1. The backward runs on the states and output of
+    1-pole and 2-pole, inv 1, and each forward against its plain loop
+    (saturator_forward_err). The backward runs on the states and output of
     the unchanged source's forward. A variant named forward_* runs only the
     forward, backward_* only the backward."""
     dev = torch.device("cuda", 0)
@@ -735,6 +787,7 @@ def bench_saturator(libs: dict, first) -> None:
     backward_call = (first.saturator_backward_call if first
                      else saturator_backward_call)
     times = {name: {} for name in libs}
+    errs = {name: {} for name in libs}
     for two_pole in (False, True):
         pole = "2pole" if two_pole else "1pole"
         x, planes = saturator_bench_inputs(two_pole, dev)
@@ -763,6 +816,8 @@ def bench_saturator(libs: dict, first) -> None:
                 kept = (y_kept, states)
             if not name.startswith("backward"):
                 times[name][f"forward_{pole}"] = event_us(forward)
+                errs[name][f"forward_{pole}"] = saturator_forward_err(
+                    lib, two_pole, x, planes, stream)
             if not name.startswith("forward"):
                 times[name][f"backward_{pole}"] = launch_times(backward_call(
                     lib, (two_pole, gy, x, kept[0], kept[1], planes, gx, gp,
@@ -770,6 +825,10 @@ def bench_saturator(libs: dict, first) -> None:
         del x, planes, y, states, gy, gx, gp, kept
     for name in libs:
         report("saturator", name, times[name])
+        if errs[name]:
+            print(json.dumps({"source": "saturator", "variant": name,
+                              "err_rel_vs_loop": errs[name],
+                              "frames": SAT_ERR_FRAMES}), flush=True)
 
 
 SOURCES = {

@@ -895,19 +895,19 @@ def _gradients_close(got, want, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("two_pole", [False, True])
 @pytest.mark.parametrize("order,inv,n", SAT_CASES)
-def test_saturator_backward_kernel_matches_plain(cuda_device, two_pole,
-                                                 order, inv, n):
+def test_saturator_backward_kernel_matches_plain(cuda_device, monkeypatch,
+                                                 two_pole, order, inv, n):
     """The saturator's backward on the card (the maps kernel, the k x k
     scan in reverse time, the read-out kernel) on the kernel forward's own
     states: each gradient (the signal's, each plane's per channel) 1e-4 of
     its peak from the step-by-step loop (saturator_backward_ref, on the
-    CPU) over the last min(n, 400) frames (the adjoint runs from the end:
-    they need nothing before them) and from the backward's plain passes
-    (saturator_backward_plain, on the card) over all of them, whole and
-    in chunks of 32 frames (so 33 and 1,500 frames cross chunk borders) or
-    of 32,768 at 100,003 frames; the chunked call against the loop too;
-    the same bits on three calls. Counted: one launch of each kernel a
-    chunk."""
+    CPU) over every frame, or at 100,003 frames over the last 400 (the
+    adjoint runs from the end: they need nothing before them), and from
+    the backward's plain passes (saturator_backward_plain, on the card)
+    over all of them, whole and in chunks of 32 frames (so 33 and 1,500
+    frames cross chunk borders) or of 32,768 at 100,003 frames
+    (ADJOINT_CHUNK_BYTES); the chunked call against the loop too; the same
+    bits on three calls. Counted: one launch of each kernel a chunk."""
     x, planes = _saturator_case(n, two_pole)
     y, states = sequential_kernels.saturator_cuda(x, planes, inv, order,
                                                   two_pole, keep_states=True)
@@ -921,11 +921,16 @@ def test_saturator_backward_kernel_matches_plain(cuda_device, two_pole,
     for pass_ in ("maps", "readout"):
         assert sequential_kernels.LAUNCHES[f"{name}_{pass_}"] == \
             before[f"{name}_{pass_}"] + 1
-    chunked = sequential_kernels.saturator_backward_cuda(*args, chunk=chunk)
+    k = states.shape[1] + 1
+    with monkeypatch.context() as m:
+        m.setattr(sequential_kernels, "ADJOINT_CHUNK_BYTES",
+                  chunk * 4 * x.shape[0] * (k * k + 2 * k))
+        assert sequential_kernels.adjoint_chunk(x.shape[0], k - 1) == chunk
+        chunked = sequential_kernels.saturator_backward_cuda(*args)
     assert sequential_kernels.LAUNCHES[f"{name}_maps"] == \
         before[f"{name}_maps"] + 1 + -(-n // chunk)
     # the loop over the last p frames, from the frame before them
-    p = min(n, 400)
+    p = n if n < SAT_LONG else 400
     s0 = n - p - 1
     if s0 < 0:
         cut = tuple(t.cpu() for t in (gy, x)) + (

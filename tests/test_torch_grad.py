@@ -331,10 +331,12 @@ def _float64_planes(n, two_pole, seed):
 @pytest.mark.parametrize("case", ["sat1_o1", "sat1_o3_inv", "sat2_o1_inv",
                                   "sat2_o3", "comb"])
 def test_sequential_backward_matches_autograd(case):
-    """The hand-written adjoints (saturator_backward_ref,
-    comb_swept_backward_ref: what the backward kernels compute) against
-    autograd through the plain forward loops, in float64 on random planes:
-    bound 1e-12 of each gradient's peak (6e-16 read, CPU)."""
+    """The hand-written adjoints that the autograd Functions run on the CPU
+    (saturator_backward_plain, the saturator's adjoint as per-step maps on
+    the k x k scan; comb_swept_backward_ref: what the backward kernels
+    compute) against autograd through the plain forward loops, in float64
+    on random planes: bound 1e-12 of each gradient's peak (9.3e-16 read,
+    CPU)."""
     rng = np.random.default_rng(len(case))
     n = 80 if case != "comb" else 600
     x = torch.from_numpy(rng.standard_normal((2, n)) * 2.0).requires_grad_()

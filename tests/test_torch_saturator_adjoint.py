@@ -86,6 +86,12 @@ def _errors(got, want):
         for i in range(wp.shape[1])]
 
 
+def chunk_bytes(frames, channels, nstates):
+    """ADJOINT_CHUNK_BYTES for the backward's chunks of `frames` frames."""
+    k = nstates + 1
+    return frames * 4 * channels * (k * k + 2 * k)
+
+
 # (two_pole, order, inv, swept, guard): orders 1 to 4 on each cascade,
 # swept and constant, inv alternating; a guarded case on each cascade
 LOOP_CASES = ([(two, o, -1.0 if (o + sw) % 2 else 1.0, bool(sw), False)
@@ -95,7 +101,8 @@ LOOP_CASES = ([(two, o, -1.0 if (o + sw) % 2 else 1.0, bool(sw), False)
 
 
 @pytest.mark.parametrize("two_pole,order,inv,swept,guard", LOOP_CASES)
-def test_plain_backward_matches_loop(two_pole, order, inv, swept, guard):
+def test_plain_backward_matches_loop(monkeypatch, two_pole, order, inv,
+                                     swept, guard):
     """The scan form (whole, and in chunks of 37 frames whose carries cross
     the borders) against the step-by-step loop on the float32 forward's
     states: each gradient within TOL_LOOP of its peak; against the float64
@@ -110,10 +117,14 @@ def test_plain_backward_matches_loop(two_pole, order, inv, swept, guard):
         xt, gyt = (torch.from_numpy(a).to(dtype) for a in (x, gy))
         y, states = ref(xt, *planes, inv, order, keep_states=True)
         args = (gyt, xt, planes, y, states, inv, order, two_pole)
-        runs[dtype] = (sequential_kernels.saturator_backward_ref(*args),
-                       sequential_kernels.saturator_backward_plain(*args),
-                       sequential_kernels.saturator_backward_plain(
-                           *args, chunk=37))
+        loop = sequential_kernels.saturator_backward_ref(*args)
+        whole = sequential_kernels.saturator_backward_plain(*args)
+        with monkeypatch.context() as m:
+            m.setattr(sequential_kernels, "ADJOINT_CHUNK_BYTES",
+                      chunk_bytes(37, *states.shape[:2]))
+            assert sequential_kernels.adjoint_chunk(*states.shape[:2]) == 37
+            chunked = sequential_kernels.saturator_backward_plain(*args)
+        runs[dtype] = (loop, whole, chunked)
         if guard:       # t = 0 there, so den = inv k G^order - 1
             gn = sequential_kernels.ipow(planes[1 if two_pole else 2], order)
             den = inv * planes[2 if two_pole else 3] * gn - 1.0
