@@ -9,8 +9,9 @@ toolkit (nvcc). It imports nothing of JAX. With --time-calls it only builds
 the library, drives the filter path and times the scan kernels and the SQPV
 forward and inverse as phases 5 and 6 do (time_kernels, the profiler per
 launch and inside the path), the k x k kernel on phase 8's swept
-multinotch planes at k = 4, 8 and 12, and the saturator's forward,
-backward and gradient at 10 s stereo; with --package DIR it takes
+multinotch planes at k = 4, 8 and 12, the saturator's forward, backward
+and gradient at 10 s stereo, and the swept comb's forward and backward on
+phase 8's calls at 600 s stereo; with --package DIR it takes
 flan_tpu_torch from DIR, so that another commit's kernels are timed by this
 script's yardstick (`git archive COMMIT flan_tpu_torch | tar -x -C
 build/parent`, then --package build/parent). Phases:
@@ -79,13 +80,16 @@ build/parent`, then --package build/parent). Phases:
      swept comb at 600 s and the saturator
      multinotch (1-pole and 2-pole, order 2) at 10 s, counted, each held
      to the CPU (at 10 s; the saturator over 2000 frames); hold the
-     sequential kernels to their plain loops on the card and ask three
-     calls for the same bits; take the gradients through the saturators
+     sequential kernels to their plain loops on the card over their first
+     frames, every frame of each call to one step from the call's own
+     earlier outputs (in float64), and ask three calls for the same bits;
+     take the gradients through the saturators
      (their backward: a maps kernel, the k x k scan in reverse time, a
      read-out kernel, each held to its plain pass over the whole call, and
      the whole to the plain passes and, over its last frames, to the
-     step-by-step loop) and the comb; take the gradients of a swept
-     2-pole lowpass
+     step-by-step loop) and the comb (its backward over its last frames
+     against its loop and over every frame by one step); take the
+     gradients of a swept 2-pole lowpass
      and the compressor at 10 s, and of swept 2-pole multinotch filters of
      order 4 and 6 (k = 8 and 12) at 1 s, with respect to the signal and a
      0-d cutoff on the card and the CPU (the backward's launches counted);
@@ -301,15 +305,21 @@ IR_SECONDS = 2.0
 # each at the 4 cycles of a dependent FP32 instruction, the least any of
 # them takes (the MUFU ones take longer), so a floor. The compiled chain
 # alone, the forward without its loads and shuffles (spv_variants
-# forward_chain_only), reads within 2% of the kernel. A round of the comb
-# (as many steps as the least delay ahead, at most 32) ~150 cycles (a
-# five-step shuffle minimum, a shared-memory read, two FMAs, a
-# shared-memory write, two warp barriers), an estimate; its backward's
-# ~200 (the forward's, a warp match and the adds of the lanes that send to
-# one sample)
+# forward_chain_only), reads within 2% of the kernel. The comb's least
+# time is its depth in the loop's order: step n reads u[n - d[n]], so at
+# most the d steps from n on can run at once, and any schedule that keeps
+# each step's operations needs about sum(1 / d) rounds over the call's
+# own delays (the rounds of d steps a greedy schedule takes), each the
+# latency of one dependent step: a ring read, the step's FMAs, a ring
+# write and a barrier. Measured as the chain alone (spv_variants --source
+# comb, chain_only_idle_producers: rounds of 32 steps with no round
+# starts, inputs or outputs read or written and the producer warps idle;
+# H100 80GB HBM3, 700 W, the SM at 1,980 MHz): 54.2-55.2 cycles a round
+# forward, 91.8-92.5 backward (the forward's, with two more dependent
+# float operations and the add into the slot sent to)
 SAT_CHAIN_CYCLES = {False: 4 * (8 * 23 + 11), True: 4 * (8 * 23 + 17)}
-COMB_ROUND_CYCLES = 150
-COMB_BACK_ROUND_CYCLES = 200
+COMB_STEP_CYCLES = 55
+COMB_BACK_STEP_CYCLES = 92
 # Operations of one saturator step at order 2, counted from the source's
 # arithmetic (a tanhf as 10, a division as 9, an FMA as 2): the rerun
 # (the forward's step) and one adjoint (the backward's read-out; the maps
@@ -1532,6 +1542,13 @@ def kxk_sweep(t):
     return 200.0 * 10.0 ** (t / MULTINOTCH_SECONDS)   # 200 -> 2000 Hz
 
 
+def comb_cut(t):
+    """The comb gradient's cutoff: delays of 12 + floor(10 t) samples and a
+    half (12 -> 6012 over 600 s), which no rounding moves across an
+    integer."""
+    return SR / (2.0 * ((12.0 + 10.0 * t).floor() + 0.5))
+
+
 def multinotch_runs():
     """Phase 8's multinotch calls: (name, k, step)."""
     return [
@@ -1554,7 +1571,8 @@ def phase8_filters(torch, Audio, scan, scan_kernels, seq, dev, card):
     SEQ_PLAIN_FRAMES frames). Returns the launches, the report, the
     captured k x k calls (k -> arguments), the sequential kernels' calls
     (kernel -> arguments) and the first frames of their outputs (kernel ->
-    array), which phase8_sequential_checks holds to the plain loops."""
+    (first frames as an array, every frame on the card), which
+    phase8_sequential_checks holds to the plain loops and to one step."""
     x = stereo_signal(MULTINOTCH_SECONDS)
     x10 = stereo_signal(FILTER_CPU_SECONDS)
     x_mn = x10[:, :int(MULTINOTCH_CPU_SECONDS * SR)].copy()
@@ -1596,13 +1614,14 @@ def phase8_filters(torch, Audio, scan, scan_kernels, seq, dev, card):
         for key, count in run_launches.items():
             launches[key] += count
         y_np = y.to_numpy()
-        del y
         # the sequential kernels' outputs are causal: their first frames
-        # are held to the plain loops on the call's own inputs
+        # are held to the plain loops on the call's own inputs, and every
+        # frame to one step from the call's own earlier outputs
         if name.startswith("saturator"):
-            seq_out[name[:15]] = y_np[:, :SEQ_PLAIN_FRAMES]
+            seq_out[name[:15]] = (y_np[:, :SEQ_PLAIN_FRAMES], y.data)
         elif name == "comb_swept":
-            seq_out[name] = y_np[:, :int(COMB_PLAIN_SECONDS * SR)]
+            seq_out[name] = (y_np[:, :int(COMB_PLAIN_SECONDS * SR)], y.data)
+        del y
         # the saturator's plain loop on the CPU takes ~0.5 ms a step: it is
         # compared over its first SEQ_PLAIN_FRAMES frames
         xc = (x10[:, :SEQ_PLAIN_FRAMES].copy() if name.startswith(
@@ -1652,14 +1671,19 @@ def phase8_filters(torch, Audio, scan, scan_kernels, seq, dev, card):
 
 def phase8_sequential_checks(torch, seq, seq_args, seq_out):
     """The sequential kernels' outputs on the path (the saturators' 10 s
-    calls, the comb's 600 s call: the calls that are timed) against the
-    plain loops on the card, run on the same call's inputs cut to the
-    first frames (the loops are causal), and three calls of each kernel on
-    the cut inputs for the same bits. Returns name -> (largest absolute
-    error, plain ms, plain frames)."""
+    calls, the comb's 600 s call: the calls that are timed):
+      - over the first frames, against the plain loops on the card, run on
+        the same call's inputs cut to those frames (the loops are causal),
+        and three calls of each kernel on the cut inputs for the same bits;
+      - over every frame, by one step: the call run again keeping its
+        states (u for the comb), its output the path's bit for bit, and
+        each frame recomputed in float64 from the call's own earlier
+        outputs (sequential_kernels.comb_step_errors,
+        saturator_step_errors) within the same tolerance.
+    Returns name -> (largest absolute error, plain ms, plain frames)."""
     out = {}
     for name, args in seq_args.items():
-        want_np = seq_out[name]
+        want_np, full = seq_out[name]
         n = want_np.shape[1]
         if name == "comb_swept":
             x, delays, k, a, f, ring = args
@@ -1667,6 +1691,8 @@ def phase8_sequential_checks(torch, seq, seq_args, seq_out):
                    k[:n].contiguous(), a[:n].contiguous(), f)
             kernel = (lambda: seq.comb_swept_cuda(*cut, ring))
             plain = (lambda: seq.comb_swept_ref(*cut))
+            again, kept = seq.comb_swept_cuda(*args, keep_u=True)
+            step = seq.comb_step_errors(x, delays, k, a, f, full, kept)
             tol = TOL_COMB
         else:
             x, planes, inv, order, two_pole = args
@@ -1677,7 +1703,20 @@ def phase8_sequential_checks(torch, seq, seq_args, seq_out):
                    else seq.saturator_1pole_ref)
             kernel = (lambda: seq.saturator_cuda(*cut))
             plain = (lambda: ref(cut[0], *cut[1], inv, order))
+            again, kept = seq.saturator_cuda(*args, keep_states=True)
+            step = seq.saturator_step_errors(*args, full, kept)
             tol = TOL_SATURATOR
+        same = torch.equal(again, full)
+        del again, kept
+        print(json.dumps({"phase": 8, "kernel": name, "check": "one_step",
+                          "frames": int(full.shape[1]),
+                          "of_frames": int(x.shape[1]),
+                          "same_bits_as_path": same,
+                          "err_rel": step}), flush=True)
+        check(same and int(full.shape[1]) == int(x.shape[1])
+              and max(step.values()) <= tol,
+              f"{name} on the path, every frame by one step: same bits "
+              f"{same}, {step}")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         want = plain()
@@ -1924,7 +1963,8 @@ def phase8_sequential_gradients(torch, Audio, seq, dev, card):
         plain loop on the card, run on the same call's inputs cut to those
         frames (the adjoint runs in reverse time: the last frames need
         nothing before them), and three calls on the cut inputs for the
-        same bits.
+        same bits; the comb's backward over every frame by one step from
+        the call's own later adjoints (comb_backward_step_error).
     The saturator's backward is two kernels of its own with the k x k scan
     between them: each of the three is held to its plain pass (the maps,
     the scan of those maps, and the read-outs on the kernel scan's states)
@@ -1932,7 +1972,9 @@ def phase8_sequential_gradients(torch, Audio, seq, dev, card):
     the plain passes run on the card (saturator_backward_plain).
     Returns the launches (kernel -> count, the forward's and the
     backward's, the k x k scan's under scan_affine_kxk), the backward
-    kernels' calls (kernel -> arguments, a whole-length call each) and name
+    kernels' calls (kernel -> arguments, a whole-length call each; the
+    comb's forward on the gradient's delays under
+    comb_swept_gradient_forward) and name
     -> (largest absolute error, plain ms, plain frames)."""
     def sat(two_pole):
         def run(a, c):
@@ -1943,8 +1985,6 @@ def phase8_sequential_gradients(torch, Audio, seq, dev, card):
             return a.filter_1pole_multinotch(2, cut, 0.6, True, 0.5, True)
         return run
 
-    def comb_cut(t):
-        return SR / (2.0 * (torch.floor(12.0 + 10.0 * t) + 0.5))
     paths = {
         "saturator_1pole": (sat(False), 300.0, SAT_GRAD_CPU_FRAMES,
                             SAT_SECONDS),
@@ -1984,9 +2024,11 @@ def phase8_sequential_gradients(torch, Audio, seq, dev, card):
         t0 = time.perf_counter()
         v = torch.from_numpy(xs).to(dev).requires_grad_()
         c = torch.tensor(c0, device=dev, requires_grad=True)
+        back_fn = ("comb_swept" if name == "comb_swept"
+                   else "saturator") + "_backward_cuda"
         (y, grad), calls = capture_calls(
-            [(seq, f"{'comb_swept' if name == 'comb_swept' else 'saturator'}"
-              "_backward_cuda")],
+            [(seq, back_fn)] + ([(seq, "comb_swept_cuda")]
+                                if name == "comb_swept" else []),
             lambda: (lambda y: (y, torch.autograd.grad(
                 (y * y).sum(), (v, c))))(run(Audio.create_from_array(v, SR),
                                              c).data))
@@ -2008,9 +2050,12 @@ def phase8_sequential_gradients(torch, Audio, seq, dev, card):
               and kxk == (0 if name == "comb_swept" else 1),
               f"{name}: {seconds} s forward and backward: launches "
               f"{counted}, finite {finite}")
-        args = next(iter(calls.values()))[0]
+        args = calls[back_fn][0]
         if name == "comb_swept":
             back_args[back] = args
+            # the forward on these delays, kept for timing
+            back_args["comb_swept_gradient_forward"] = \
+                calls["comb_swept_cuda"][0]
         else:
             out.update(saturator_pass_checks(torch, seq, args, back_args))
         # the backward's last frames against its plain loop
@@ -2025,7 +2070,17 @@ def phase8_sequential_gradients(torch, Audio, seq, dev, card):
 
             def plain():
                 return seq.comb_swept_backward_ref(*cut)
-            full = seq.comb_swept_backward_cuda(*args)[:, -p:]
+            full = seq.comb_swept_backward_cuda(*args)
+            # every frame by one step from the call's own later adjoints
+            step = seq.comb_backward_step_error(*args[:5], full)
+            print(json.dumps({"phase": 8, "kernel": back,
+                              "check": "one_step",
+                              "frames": int(full.shape[1]),
+                              "of_frames": int(gy.shape[1]),
+                              "err_rel": step}), flush=True)
+            check(full.shape == gy.shape and step <= TOL_COMB_BACK,
+                  f"{back} on the path, every frame by one step: {step}")
+            full = full[:, -p:]
             tol = TOL_COMB_BACK
         else:
             gy, x_, planes, y_, states, inv, order, two_pole = args
@@ -2242,21 +2297,23 @@ def saturator_backward_bound(two_pole: bool, frames: int, part=None):
 def sequential_bound(name: str, frames: int, delays=None, clock=1.98e9):
     """(bound_ms, bound_by, note) of a sequential forward (or the comb's
     backward) on stereo at order 2: the larger of its bytes over the memory
-    rate and the estimate of its chain of dependent steps
-    (SAT_CHAIN_CYCLES, COMB_ROUND_CYCLES); the saturator backward's passes
-    by saturator_backward_bound."""
+    rate and its chain of dependent steps (SAT_CHAIN_CYCLES; the comb's
+    depth in the loop's order times COMB_STEP_CYCLES or
+    COMB_BACK_STEP_CYCLES); the saturator backward's passes by
+    saturator_backward_bound."""
     if name.startswith("saturator") and "_backward_" in name:
         return saturator_backward_bound(name.startswith("saturator_2pole"),
                                         frames, name.rsplit("_", 1)[1])
     if name.startswith("comb_swept"):
-        d = delays.double().clamp(max=32)
-        per = (COMB_BACK_ROUND_CYCLES if name.endswith("_backward")
-               else COMB_ROUND_CYCLES)
-        cycles = float((1.0 / d).sum()) * per
+        depth = float((1.0 / delays.double()).sum())
+        per = (COMB_BACK_STEP_CYCLES if name.endswith("_backward")
+               else COMB_STEP_CYCLES)
+        cycles = depth * per
         # x (gy) in and y (gu) out per channel; the delays, k and a
         nbytes = 4 * frames * (2 * 2 + 3)
-        note = (f"estimate: {float((1.0 / d).sum()):.0f} rounds of at most "
-                f"32 steps x ~{per} cycles")
+        note = (f"{depth:.0f} rounds (sum of 1 / d: the depth in the "
+                f"loop's order) x {per} cycles (one dependent step, "
+                "measured alone)")
     else:
         two = name.startswith("saturator_2pole")
         per = SAT_CHAIN_CYCLES[two]
@@ -2374,12 +2431,58 @@ def saturator_timing(torch, Audio, seq, dev) -> dict:
     return out
 
 
+def comb_timing(torch, Audio, seq, dev) -> dict:
+    """The swept comb's kernels as phase 8 calls them, by the entry points
+    every version of the port has: the forward on the filter call (600 s
+    stereo, cutoff kxk_sweep: delays 120 -> 12), and the forward (keeping
+    u) and the backward on the gradient call (600 s stereo, comb_cut:
+    delays 12 -> 6012), each by CUDA events over two calls after the
+    captured one; the gradient through the filter call, forward and
+    backward, on the host's clock (wall_s, the second of two calls)."""
+    x = stereo_signal(MULTINOTCH_SECONDS)
+    _, calls = capture_calls([(seq, "comb_swept_cuda")], lambda: Audio.
+                             create_from_array(x, SR, device=dev).filter_comb(
+                                 kxk_sweep, 0.5))
+    args = calls["comb_swept_cuda"][0]
+    out = {"forward_filter_call_ms": cuda_ms(
+        torch, lambda: seq.comb_swept_cuda(*args), 2)}
+    del args, calls
+    x = x * 3.0
+
+    def grad():
+        v = torch.from_numpy(x).to(dev).requires_grad_()
+        c = torch.tensor(0.5, device=dev, requires_grad=True)
+        yv = Audio.create_from_array(v, SR).filter_comb(comb_cut, c, 0.5).data
+        return torch.autograd.grad((yv * yv).sum(), (v, c))
+    _, calls = capture_calls([(seq, "comb_swept_cuda"),
+                              (seq, "comb_swept_backward_cuda")], grad)
+    fwd, back = (calls[k][0] for k in ("comb_swept_cuda",
+                                       "comb_swept_backward_cuda"))
+    out["forward_gradient_call_ms"] = cuda_ms(
+        torch, lambda: seq.comb_swept_cuda(*fwd, keep_u=True), 2)
+    out["backward_gradient_call_ms"] = cuda_ms(
+        torch, lambda: seq.comb_swept_backward_cuda(*back), 2)
+    del fwd, back, calls
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grad()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    out["gradient_wall_s"] = walls[1]
+    out["frames"] = x.shape[1]
+    print(json.dumps({"comb_timing": out}), flush=True)
+    return out
+
+
 def time_calls(package) -> None:
     """The --time-calls mode: the scan kernels on the filter path's planes
     and the SQPV forward and inverse at their bench shape, timed as phases
     5 and 6 time them, the k x k kernel on phase 8's multinotch planes at
     k = 4, 8 and 12 (kxk_regimes), the saturator's forward, backward and
-    gradient at 10 s (saturator_timing), and nothing else."""
+    gradient at 10 s (saturator_timing), the swept comb's forward and
+    backward on phase 8's calls (comb_timing), and nothing else."""
     card, torch, dev, _ = start(package)
     from flan_tpu_torch import Audio
     from flan_tpu_torch.ops import scan, scan_kernels, sqpv_kernels
@@ -2410,9 +2513,10 @@ def time_calls(package) -> None:
     kxk = kxk_regimes(torch, Audio, scan, scan_kernels, dev)
     from flan_tpu_torch.ops import sequential_kernels
     sat = saturator_timing(torch, Audio, sequential_kernels, dev)
+    comb = comb_timing(torch, Audio, sequential_kernels, dev)
     print(f"card: {card}", flush=True)
     print(json.dumps({"package": package or ".", "kxk_regimes": kxk,
-                      "saturator": sat,
+                      "saturator": sat, "comb": comb,
                       "call_times": times,
                       "profile_us_per_launch": split,
                       "scans_in_path": report["scans_in_path"],
@@ -2657,14 +2761,22 @@ def main() -> None:
                     "readout":
                         sequential_kernels.saturator_backward_readout_cuda}
     for name, args in back_args.items():
-        fn = backward_fns[name.rsplit("_", 1)[1] if name.startswith(
-            "saturator") else "comb"]
+        if name == "comb_swept_gradient_forward":   # as the gradient runs it
+            fn = functools.partial(sequential_kernels.comb_swept_cuda,
+                                   keep_u=True)
+            times[name] = {}
+        else:
+            fn = backward_fns[name.rsplit("_", 1)[1] if name.startswith(
+                "saturator") else "comb"]
         # each ran at this shape in the path or in its check
         times[name]["ms"] = cuda_ms(torch, lambda: fn(*args), 2)
         times[name]["frames"] = int(args[0].shape[1])
         bounds[name] = sequential_bound(
             name, int(args[0].shape[1]),
-            args[1] if name == "comb_swept_backward" else None, clock)
+            args[1] if name.startswith("comb_swept") else None, clock)
+        if name == "comb_swept_gradient_forward":
+            (times[name]["bound_ms"], _,
+             times[name]["bound_note"]) = bounds.pop(name)
     # the saturator's whole backward (its two kernels and the k x k scan),
     # on the maps' call inputs
     for two in (False, True):

@@ -27,6 +27,7 @@ MAX_BINS = 2048         # 256 threads x 8 bins each in the epilogues
 SCAN_CHUNK_TILES = 256  # tiles per block of the prefix over tiles
 SQPV_CARRY_CHUNK = 32   # tiles per chunk of the SQPV forward's carry
 PROBE_SHAPE = (128, 512)  # rows and columns of the probe (probe_kernels.cu)
+COMB_TILE, COMB_WIDTH = 1024, 32    # the comb kernels' tile and round width
 
 _p, _i, _ll, _d, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_double, ctypes.c_float)
@@ -60,7 +61,9 @@ _LIMITS = {"flan_spv_tile_frames": TILE_FRAMES,
            "flan_scan_chunk_tiles": SCAN_CHUNK_TILES,
            "flan_sqpv_carry_chunk": SQPV_CARRY_CHUNK,
            "flan_probe_rows": PROBE_SHAPE[0],
-           "flan_probe_cols": PROBE_SHAPE[1]}
+           "flan_probe_cols": PROBE_SHAPE[1],
+           "flan_comb_tile": COMB_TILE,
+           "flan_comb_width": COMB_WIDTH}
 
 
 def sources() -> list[Path]:

@@ -6,8 +6,10 @@ Two per-sample loops have no parallel form: the tanh-feedback multinotch
 comb with a per-sample delay (filter_comb's ring buffer, :622-644). The
 JAX package runs both as lax.scan and differentiates them through it; no
 TPU kernel stands behind them. One CUDA source,
-csrc/sequential_kernels.cu, runs each forward as one warp a channel, the
-comb's backward likewise, and the saturator's backward as a parallel job:
+csrc/sequential_kernels.cu, runs the saturator's forward as one warp a
+channel, the comb's forward and backward as one block a channel (a warp
+on the chain, three staging its tiles and computing its rounds), and the
+saturator's backward as a parallel job:
 
   saturator_1pole / saturator_2pole    saturator_1pole_ref, saturator_2pole_ref
   saturator_*_backward_maps            saturator_adjoint_maps_ref
@@ -20,7 +22,11 @@ in the JAX package's order of operations (powers by binary exponentiation,
 as jax.lax.integer_pow); the saturator's backward passes are vectorised
 over time. The swept comb's loops take as many steps at once as read no
 output of each other (the least delay ahead), as the kernels do: each
-element's arithmetic is the same whatever the step count.
+element's arithmetic is the same whatever the step count. The kernels'
+own rounds (comb_round_lengths, comb_round_starts) and the one-step
+checks that hold a whole call to its own earlier outputs
+(comb_step_errors, comb_backward_step_error, saturator_step_errors) are
+here too.
 
 The backward is the adjoint of each loop (SaturatorMultinotch, CombSwept:
 torch.autograd.Functions used on both devices, plain versions on the CPU
@@ -44,7 +50,7 @@ from __future__ import annotations
 
 import torch
 
-from flan_tpu_torch.ops import scan_kernels
+from flan_tpu_torch.ops import build, scan_kernels
 from flan_tpu_torch.ops.build import check_cuda, load_library, raise_on
 from flan_tpu_torch.ops.scan import _on_cpu, _wants_grad
 
@@ -446,20 +452,80 @@ def saturator_backward_plain(gy, x, planes, y, states, inv: float,
     return gx, gp
 
 
-def _comb_rounds(d: torch.Tensor, n: int, reverse: bool):
+# The comb kernels' rounds (csrc/sequential_kernels.cu): at most
+# COMB_WIDTH steps, none crossing a tile of COMB_TILE frames (tiles from
+# frame 0; the backward takes them from the last).
+COMB_WIDTH, COMB_TILE = build.COMB_WIDTH, build.COMB_TILE
+
+
+def _comb_rounds(d: torch.Tensor, n: int, reverse: bool, width: int = 4096,
+                 tile: int = 0):
     """The comb loops' rounds: ranges of frames that read no output of each
-    other, as many as the least delay among the next 4096 frames (forward)
-    or the 4096 before (reverse)."""
+    other, as many as the least delay among the next `width` frames
+    (forward) or the `width` before (reverse), and none across a tile of
+    `tile` frames (0: no tiles). The plain loops take width 4096 and no
+    tiles; width COMB_WIDTH and tile COMB_TILE are the kernels' rounds."""
     pos = n - 1 if reverse else 0
     while 0 <= pos < n:
-        near = d[max(pos - 4095, 0):pos + 1] if reverse else d[pos:pos + 4096]
-        steps = min(int(near.min()), near.shape[0])
         if reverse:
+            lo = max(pos - width + 1, pos - pos % tile if tile else 0)
+            steps = min(int(d[lo:pos + 1].min()), pos + 1 - lo)
             yield torch.arange(pos - steps + 1, pos + 1, device=d.device)
             pos -= steps
         else:
+            hi = min(pos + width, (pos // tile + 1) * tile if tile else n, n)
+            steps = min(int(d[pos:hi].min()), hi - pos)
             yield torch.arange(pos, pos + steps, device=d.device)
             pos += steps
+
+
+def comb_round_lengths(delays: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """The kernels' round length from every frame [N] int64, as their
+    producer warps compute it for a tile at once: forward, a round from
+    frame p takes min(COMB_WIDTH, the least delay of frames p .. p +
+    COMB_WIDTH - 1, the frames left in p's tile); reverse, from p down,
+    the same over frames p - COMB_WIDTH + 1 .. p. The rounds a call runs
+    are the orbit from each tile's first frame (comb_round_starts)."""
+    d = delays.long()
+    n, w, t = d.shape[0], COMB_WIDTH, COMB_TILE
+    tiles = -(-n // t)
+    big = torch.iinfo(torch.int64).max
+    dt = torch.full((tiles * t,), big, dtype=torch.int64, device=d.device)
+    dt[:n] = d
+    dt = dt.view(tiles, t)
+    if reverse:
+        dt = dt.flip(1)
+    pad = torch.full((tiles, w - 1), big, dtype=torch.int64, device=d.device)
+    win = torch.cat([dt, pad], 1).unfold(1, w, 1).amin(-1)
+    off = torch.arange(t, device=d.device)
+    if reverse:     # frames from p down to its tile's first
+        win, left = win.flip(1), off + 1
+    else:           # frames from p up to its tile's last, or the call's
+        left = torch.minimum(t - off, n - torch.arange(
+            tiles * t, device=d.device).view(tiles, t))
+    return win.clamp(max=w).minimum(left).reshape(-1)[:n]
+
+
+def comb_round_starts(delays: torch.Tensor, reverse: bool) -> list:
+    """The first frame of every round the comb kernels run, in the order
+    they run (reverse: each round's last frame in time, from the end): the
+    orbit of comb_round_lengths from each tile's first frame."""
+    s = comb_round_lengths(delays, reverse).tolist()
+    n = len(s)
+    starts = []
+    if reverse:
+        for t1 in range(-(-n // COMB_TILE) * COMB_TILE, 0, -COMB_TILE):
+            p = min(t1, n) - 1
+            while p >= t1 - COMB_TILE:
+                starts.append(p)
+                p -= s[p]
+    else:
+        for t0 in range(0, n, COMB_TILE):
+            p = t0
+            while p < min(t0 + COMB_TILE, n):
+                starts.append(p)
+                p += s[p]
+    return starts
 
 
 def comb_swept_ref(x, delays, k, a, f: float, keep_u: bool = False):
@@ -508,6 +574,60 @@ def comb_param_grads(gy, gu, u, delays, f: float):
     src = torch.arange(u.shape[1], device=u.device) - d
     v = torch.where(src >= 0, u[:, src.clamp(min=0)], 0.0)
     return (f * v * gu).sum(0), ((u - f * v) * gy).sum(0)
+
+
+# One-step checks over a whole call: every frame recomputed in float64 from
+# the call's own earlier outputs (a step each, no chain), against the
+# call's value there; each returns the largest differences over the
+# recomputed values' peaks.
+
+def _rel(got, want) -> float:
+    return float((got.double() - want).abs().max()
+                 / want.abs().max().clamp(min=1e-300))
+
+
+def comb_step_errors(x, delays, k, a, f: float, y, u) -> dict:
+    """A comb call's u[n] against x[n] + k[n] f u[n - d[n]] and its y[n]
+    against a[n] u[n] + (1 - a[n]) f u[n - d[n]], each from the call's own
+    u: {"u": .., "y": ..}."""
+    d = delays.long()
+    src = torch.arange(x.shape[1], device=x.device) - d
+    u64 = u.double()
+    ud = torch.where(src >= 0, u64[:, src.clamp(min=0)], 0.0)
+    k64, a64 = k.double(), a.double()
+    return {"u": _rel(u, x.double() + k64 * f * ud),
+            "y": _rel(y, a64 * u64 + (1 - a64) * f * ud)}
+
+
+def comb_backward_step_error(gy, delays, k, a, f: float, gu) -> float:
+    """A comb backward call's gu[n] against a[n] gy[n] + the sum over the
+    steps m that read u[n] (m - d[m] = n) of (1 - a[m]) f gy[m] + k[m] f
+    gu[m], from the call's own gu (the sum by index_add)."""
+    d = delays.long()
+    tgt = torch.arange(gy.shape[1], device=gy.device) - d
+    ok = tgt >= 0
+    k64, a64, gy64 = k.double(), a.double(), gy.double()
+    sent = (1 - a64) * f * gy64 + k64 * f * gu.double()
+    want = a64 * gy64
+    want.index_add_(1, tgt[ok], sent[:, ok])
+    return _rel(gu, want)
+
+
+def saturator_step_errors(x, planes, inv: float, order: int,
+                          two_pole: bool, y, states) -> dict:
+    """A saturator call's every step rerun from its own states and last
+    output (the frame before; zeros at frame 0), as
+    saturator_adjoint_maps_ref reruns them: the output's and the new
+    states' largest differences, {"y": .., "states": ..}; the planes in
+    the loops' order, as saturator_cuda takes them."""
+    n = x.shape[1]
+    c64 = [t.double() for t in (x, y, states)]
+    _, xc, pc, prev, s = _chunk_inputs(c64[0], c64[0], [
+        p.double() for p in planes], c64[1], c64[2], 0, n)
+    step = _step_2pole if two_pole else _step_1pole
+    new, out, _ = step(s, prev, xc, *pc, inv, order)
+    return {"y": _rel(y, out), "states": max(
+        _rel(states[:, i], v) for i, v in enumerate(new))}
 
 
 # ------------------------------------------------------------------ kernels

@@ -2,14 +2,15 @@
 out.
 
     python -m flan_tpu_torch.ops.spv_variants [--source spv scan kxk sqpv
-                                                        saturator]
+                                                        saturator comb]
                                               [--first-version COMMIT CSRC_DIR]
                                               [--variants NAME ...]
                                               [--ks K ...]
 
-Needs one CUDA card and nvcc. For each source named (all five by default:
+Needs one CUDA card and nvcc. For each source named (all six by default:
 csrc/spv_kernels.cu, scan_kernels.cu, the k x k kernel in scan_kernels.cu,
-sqpv_kernels.cu, the saturator multinotch in sequential_kernels.cu) it
+sqpv_kernels.cu, the saturator multinotch and the swept comb in
+sequential_kernels.cu) it
 copies the source
 and common.cuh, applies one textual substitution set per variant (stores
 removed, table loads or gathers replaced by constants, cheap roundings put
@@ -28,7 +29,9 @@ inverse, on the planes of the unchanged source); the saturator's forward and
 backward at phase 8's shape (10 s stereo 48 kHz, order 2, 1-pole and
 2-pole; backward_* runs only the backward, on the unchanged source's states),
 and each forward's largest difference from the plain loop over the first
-SAT_ERR_FRAMES frames, over the loop's peak. A variant computes something
+SAT_ERR_FRAMES frames, over the loop's peak; the comb's forward and
+backward on phase 8's calls at 600 s stereo (bench_comb: the rounds, the
+cycles a round and a digest of the outputs). A variant computes something
 else than the kernel does: only its times mean anything, apart from that
 error where a variant only rounds in another order.
 
@@ -343,15 +346,23 @@ SQPV_VARIANTS = {
 # its operations) and the backward's passes (timed apart by the profiler)
 _SAT_NEWTON = ("    const float t = tanhf(f.k * (f.gn * u + msum));\n"
                "    float den = inv * (1.f - t * t) * f.k * f.gn - 1.f;\n")
-_SAT_DIVISION = "    u = u - div_fast(f.x + inv * t - u, den);\n"
+_SAT_DIVISION = ("      inexact |= !div_fast_exact(a, den);\n"
+                 "      u = u - div_fast(a, den);\n")
 SATURATOR_VARIANTS = {
     "as_shipped": [],
     # the division with the compiler's range check and slow path
     "forward_checked_division": [
-        ("cu", _SAT_DIVISION, "    u = u - (f.x + inv * t - u) / den;\n")],
+        ("cu", _SAT_DIVISION, "      u = u - a / den;\n")],
+    # the fast path alone, with no flag (the division before the flag)
+    "forward_unchecked_division": [
+        ("cu", _SAT_DIVISION, "      u = u - div_fast(a, den);\n")],
     "forward_approx_division": [
-        ("cu", _SAT_DIVISION,
-         "    u = u - __fdividef(f.x + inv * t - u, den);\n")],
+        ("cu", _SAT_DIVISION, "      u = u - __fdividef(a, den);\n")],
+    # the out-of-range flag beside the chain with no rerun behind it
+    "forward_flag_no_rerun": [
+        ("cu", "  if (inexact) xbar = newton<true>(f, prev, msum, inv, tr, "
+         "inexact);\n",
+         "  if (inexact && xbar == 123.456f) xbar = 0.f;\n")],
     "forward_no_tanhf": [
         ("cu", "    const float t = tanhf(f.k * (f.gn * u + msum));",
          "    const float t = 0.5f * (f.k * (f.gn * u + msum));")],
@@ -406,7 +417,8 @@ def apply_variant(texts: dict, edits) -> dict:
 def source_file(source: str) -> str:
     """The csrc file a source's variants edit (the k x k kernel's are in
     the scans' file, the saturator's in the sequential kernels')."""
-    return {"kxk": "scan", "saturator": "sequential"}.get(
+    return {"kxk": "scan", "saturator": "sequential",
+            "comb": "sequential"}.get(
         source, source) + "_kernels.cu"
 
 
@@ -831,12 +843,167 @@ def bench_saturator(libs: dict, first) -> None:
                               "frames": SAT_ERR_FRAMES}), flush=True)
 
 
+# ---- the swept comb (sequential_kernels.cu): phase 8's two calls
+COMB_SECONDS = 600.0
+_COMB_NO_STORES = [
+    ("cu", "          o[off + lane] = __fmaf_rn(c1, ud, __fmul_rn(a, u));\n"
+     "          o[2 * TP + off + lane] = u;\n", ""),
+    ("cu", "          o[off - lane] = g;\n", "")]
+# the chain alone: rounds of 32 steps on the tile's first inputs, no round
+# starts, inputs or outputs read or written, no match: one dependent
+# step's latency (chip_smoke.py's comb bound)
+_COMB_CHAIN = _COMB_NO_STORES + [
+    ("cu", "        int off = 0, noff = nq[0];",
+     "        int off = 0, noff = kCombWidth;"),
+    ("cu", "        int off = tl - 1, noff = nq[off];",
+     "        int off = tl - 1, noff = off - kCombWidth;"),
+    ("cu", "          const int nnoff = nq[noff];\n"
+     "          const float4 nv = q[noff + lane];\n",
+     "          const int nnoff = noff + kCombWidth;\n"
+     "          const float4 nv = v;\n"),
+    ("cu", "          const int nnoff = nq[noff];\n"
+     "          const float4 nv = q[noff - lane];\n",
+     "          const int nnoff = noff - kCombWidth;\n"
+     "          const float4 nv = v;\n"),
+    ("cu", "          if (!flag) {", "          if (true) {"),
+    ("cu", "            *(send ? ring + tg : junk) = __fadd_rn(rk, gv);",
+     "            *(send ? ring + (tg & mask) : junk) = __fadd_rn(rk, gv);")]
+# the producers' work in the loop over tiles: copies, round starts,
+# write-backs
+_COMB_PRODUCERS = (
+    "      copy_in(i + 2);\n"
+    "      asm volatile(\"cp.async.wait_group 1;\" ::: \"memory\");\n"
+    "      asm volatile(\"bar.sync 1, %0;\" ::\"n\"(kPT) : \"memory\");\n"
+    "      if (i + 1 < tiles) prepare(i + 1);\n"
+    "      if (i > 0) write_back(i - 1);\n")
+COMB_VARIANTS = {
+    "as_shipped": [],
+    "no_stores": _COMB_NO_STORES,
+    # every round of the backward on its fast path (no shuffle, vote or
+    # warp match): what the collision check and the flagged rounds cost
+    "backward_no_flag": [("cu", "          if (!flag) {", "          if (true) {")],
+    "chain_only": _COMB_CHAIN,
+    # the chain alone with the producers idle after the first tile: what
+    # their copies, round starts and write-backs cost the chain
+    "chain_only_idle_producers": _COMB_CHAIN + [("cu", _COMB_PRODUCERS, "")],
+}
+
+
+def comb_bench_calls(dev) -> dict:
+    """call -> (x or gy [2, N], delays, k, a, whether backward) of phase
+    8's comb calls at COMB_SECONDS stereo, the delays as Audio.filter_comb
+    takes them, int(sr / (2 w)): the filter call's forward (cutoff 200 x
+    10^(t / 600): delays 120 -> 12), the gradient call's forward (keeping
+    u) and backward (cutoff sr / (2 (12 + floor(10 t) + 1/2)): delays 12 ->
+    6012); feedback and mix 0.5."""
+    n = int(COMB_SECONDS * SR)
+    t = torch.arange(n, dtype=torch.float32, device=dev) / SR
+
+    def delays(w):
+        w = w.clamp(1.0, SR / 2.0)
+        return torch.clamp((torch.tensor(SR, device=dev) / (2.0 * w)).to(
+            torch.int32), 1, n)
+    filt = delays(200.0 * 10.0 ** (t / COMB_SECONDS))
+    grad = delays(SR / (2.0 * ((12.0 + 10.0 * t).floor() + 0.5)))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((2, n), device=dev, generator=gen)
+    half = torch.full((n,), 0.5, device=dev)
+    return {"forward_filter_call": (x, filt, half, half, False),
+            "forward_gradient_call": (x, grad, half, half, False),
+            "backward_gradient_call": (x, grad, half, half, True)}
+
+
+def _digest(*outs) -> str:
+    """The first 16 hex digits of the SHA-256 of the outputs' bytes: two
+    builds' outputs on the same inputs compared across runs."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in outs:
+        if t is not None:
+            h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _clock_during(run, calls: int = 8) -> str:
+    """The SM clock nvidia-smi reads while `calls` calls of run() are on
+    the card (the cycles a round above assume 1.98 GHz)."""
+    for _ in range(calls):
+        run()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True).stdout.strip()
+    torch.cuda.synchronize()
+    return out
+
+
+def bench_comb(libs: dict, first) -> None:
+    """One call of the comb's forward and backward per variant on phase 8's
+    calls (comb_bench_calls), by CUDA events, with the rounds the
+    version's schedule takes there and the cycles a round at the H100's
+    1.98 GHz boost clock (the card's own clock may be lower: the line names
+    its power limit), and a digest of its outputs (y, and u where kept;
+    gu): another build's on the same inputs tells whether the bits agree.
+    A variant named forward_* runs only the forwards, backward_* only the
+    backward."""
+    from flan_tpu_torch.ops import sequential_kernels
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream().cuda_stream
+    count = (first.comb_rounds if first and first.comb_rounds else
+             lambda d, rev: len(sequential_kernels.comb_round_starts(d, rev)))
+    calls = comb_bench_calls(dev)
+    rounds = {name: count(d, back) for name, (_, d, _, _, back)
+              in calls.items()}
+    for name, lib in libs.items():
+        lib.flan_comb_swept_ring_floats.argtypes = [build._i, build._i,
+                                                    build._i]
+        lib.flan_comb_swept_ring_floats.restype = ctypes.c_longlong
+        times = {}
+        for call, (x, d, k, a, back) in calls.items():
+            if name.startswith("backward" if not back else "forward"):
+                continue
+            c, n = x.shape
+            ring_len = int(d.max())
+            ring = torch.empty(lib.flan_comb_swept_ring_floats(
+                c, ring_len, int(back)), device=dev)
+            rp = ring.data_ptr() if ring.numel() else None
+            out = torch.empty_like(x)
+            u = torch.empty_like(x) if call == "forward_gradient_call" \
+                else None
+
+            def run():
+                if back:
+                    build.raise_on(lib.flan_comb_swept_backward(
+                        x.data_ptr(), d.data_ptr(), k.data_ptr(),
+                        a.data_ptr(), out.data_ptr(), rp, c, n, ring_len,
+                        1.0, stream), name)
+                else:
+                    build.raise_on(lib.flan_comb_swept(
+                        x.data_ptr(), d.data_ptr(), k.data_ptr(),
+                        a.data_ptr(), out.data_ptr(),
+                        None if u is None else u.data_ptr(), rp, c, n,
+                        ring_len, 1.0, stream), name)
+            us = event_us(run, 2)
+            mhz = _clock_during(run)
+            # chain_only: rounds of 32 steps (n a multiple of the tile)
+            r = -(-n // 32) if name.startswith("chain_only") else \
+                rounds[call]
+            times[call] = {"us": us, "rounds": r,
+                           "cycles_per_round_at_1980MHz": round(
+                               us * 1980.0 / r, 1),
+                           "digest": _digest(out, u),
+                           "clocks_sm_mhz_during": mhz}
+            del ring, out, u
+        print(json.dumps({"source": "comb", "variant": name, **times}),
+              flush=True)
+
+
 SOURCES = {
     "spv": (SPV_VARIANTS, bench_spv),
     "scan": (SCAN_VARIANTS, bench_scan),
     "kxk": (KXK_VARIANTS, bench_kxk),
     "sqpv": (SQPV_VARIANTS, bench_sqpv),
     "saturator": (SATURATOR_VARIANTS, bench_saturator),
+    "comb": (COMB_VARIANTS, bench_comb),
 }
 
 

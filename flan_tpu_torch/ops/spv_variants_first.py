@@ -14,7 +14,10 @@ registers for k <= 8, a block a row in time order above; its
 flan_scan_kxk_scratch_bytes takes no fourth argument, which the call
 ignores); csrc/sequential_kernels.cu of commit 4441291 (the saturator
 multinotch one warp a channel with its states in shared memory and its
-backward rerunning every step beside the adjoint, one launch). `git archive
+backward rerunning every step beside the adjoint, one launch); and
+csrc/sequential_kernels.cu of commit 0f06bc7 (the swept comb and its
+backward one warp a channel, each round's length a five-shuffle minimum
+of its frames' delays; comb_rounds counts that version's rounds). `git archive
 COMMIT
 flan_tpu_torch/csrc | tar -x -C build/first` brings a source back. Beside
 the sets stand the entry points, scratch and constants of those sources
@@ -438,6 +441,23 @@ SATURATOR_FIRST_VARIANTS = {
 _SATURATOR_BACKWARD_FIRST = [_i] + [_p] * 12 + [_i, _ll, _i, _f, _p]
 
 
+def _comb_warp_rounds(delays, reverse: bool) -> int:
+    """The rounds commit 0f06bc7's comb kernels take over a call: from each
+    round's first frame, min(32, the least delay of the 32 frames from it
+    on, forward, or down from it, reverse), no tiles."""
+    d = delays.long()
+    n = d.shape[0]
+    big = torch.iinfo(torch.int64).max
+    pad = torch.full((31,), big, dtype=torch.int64, device=d.device)
+    dd = d.flip(0) if reverse else d
+    s = torch.cat([dd, pad]).unfold(0, 32, 1).amin(-1).clamp(max=32).tolist()
+    pos = rounds = 0
+    while pos < n:
+        pos += s[pos]
+        rounds += 1
+    return rounds
+
+
 def saturator_backward_call(lib, args, stream):
     """A call of commit 4441291's saturator backward: args = (two_pole, gy,
     x, y, states, kernel-order planes, gx, gplanes, order, inv)."""
@@ -454,6 +474,85 @@ def saturator_backward_call(lib, args, stream):
     return call
 
 
+# ---- the swept comb before its redesign (commit 0f06bc7): one warp a
+# channel, a round of min(32, the least delay of its 32 frames) steps by a
+# five-shuffle minimum, the inputs kAhead = 4 chunks of 32 frames ahead by
+# cp.async with a wait on entering each chunk, y and u (gu) stored by
+# every round, two warp barriers a round (the backward's peers summed
+# through shared memory after __match_any_sync)
+_COMB_WAIT = ('      asm volatile("cp.async.wait_group %0;" ::"n"(kAhead - 2) '
+              ': "memory");\n      __syncwarp();\n    }\n  }')
+_COMB_AT_END = "    dv = reinterpret_cast<const int*>(q)[96];\n  }"
+_COMB_GIVEN_AT = (
+    "    dv = reinterpret_cast<const int*>(q)[96];\n"
+    "    const int off0 = (int)(kDir * (pos - first));\n"
+    "    int slot0 = head + (off0 >> 5);\n"
+    "    if (slot0 >= kAhead) slot0 -= kAhead;\n"
+    "    given = reinterpret_cast<const int*>(buf + slot0 * 128 + "
+    "(off0 & 31))[96];\n  }")
+_COMB_STEPS = "    const int steps = warp_min(dv < 32 ? dv : 32);\n"
+_COMB_FWD_AT = "    q.at(base, xv, kv, av, dv);\n"
+_COMB_BACK_AT = "    q.at(top, gyv, kv, av, dv);\n"
+
+
+def _comb_given(cu: str) -> str:
+    """The round's length read from shared memory (its first frame's
+    delay, at most 32, one load every lane makes) in place of the
+    five-shuffle minimum: another round where the delay falls within one
+    (a round may then read a slot written in it; only its time means
+    anything)."""
+    cu = cu.replace("  __device__ __forceinline__ void at(long long pos, "
+                    "float& sv, float& kv,\n"
+                    "                                     float& av, int& dv) "
+                    "const {",
+                    "  __device__ __forceinline__ void at(long long pos, "
+                    "float& sv, float& kv,\n"
+                    "                                     float& av, int& dv, "
+                    "int& given) const {")
+    cu = cu.replace(_COMB_AT_END, _COMB_GIVEN_AT)
+    for at in (_COMB_FWD_AT, _COMB_BACK_AT):
+        cu = cu.replace(at, at.replace("dv);", "dv, given);").replace(
+            "    q.at", "    int given;\n    q.at"))
+    return cu.replace(_COMB_STEPS, "    const int steps = given < 32 ? "
+                      "given : 32;\n")
+
+
+COMB_FIRST_VARIANTS = {
+    "as_shipped": [],
+    # the copies 16 chunks ahead in place of 4: the chunk a round enters
+    # was asked for 14 chunks before, so no round waits on device memory
+    "no_wait_ahead_16": [
+        ("cu", "constexpr int kAhead = 4; ", "constexpr int kAhead = 16;")],
+    "no_stores": [
+        ("cu", "      ring[slot] = u;\n      y[ch * n + t] = yv;\n"
+         "      if (u_out) u_out[ch * n + t] = u;\n",
+         "      ring[slot] = u;\n      if (yv == 123.456f) y[ch * n + t] "
+         "= yv;\n"),
+        ("cu", "      gu[ch * n + t] = g;\n",
+         "      if (g == 123.456f) gu[ch * n + t] = g;\n")],
+    "round_given": [("cu", _comb_given)],
+    "backward_no_match": [
+        ("cu", "    const unsigned peers = __match_any_sync(kFull, key);",
+         "    const unsigned peers = 1u << lane;")],
+    # the ring's read, the step's FMAs, the ring's write and the barriers
+    # alone: every round 32 steps of delay 32, no loads, no stores
+    "chain_only": [
+        ("cu", "    q.reach(base, xr, delays, kf, af, n);\n", ""),
+        ("cu", "    q.reach(top, gr, delays, kf, af, n);\n", ""),
+        ("cu", _COMB_FWD_AT, "    xv = (float)lane; kv = 0.5f; av = 0.5f; "
+         "dv = 32;\n"),
+        ("cu", _COMB_BACK_AT, "    gyv = (float)lane; kv = 0.5f; av = 0.5f;"
+         " dv = 32;\n"),
+        ("cu", _COMB_STEPS, "    const int steps = 32;\n", 2),
+        ("cu", "      ring[slot] = u;\n      y[ch * n + t] = yv;\n"
+         "      if (u_out) u_out[ch * n + t] = u;\n",
+         "      ring[slot] = u;\n      if (yv == 123.456f) y[ch * n + t] "
+         "= yv;\n"),
+        ("cu", "      gu[ch * n + t] = g;\n",
+         "      if (g == 123.456f) gu[ch * n + t] = g;\n")],
+}
+
+
 class Version(NamedTuple):
     """The substitution sets of one commit's sources (source -> variant ->
     edits), its entry points where they differ from ops/build.py's, and the
@@ -464,6 +563,7 @@ class Version(NamedTuple):
     sqpv_forward_consts: Optional[Callable] = None
     sqpv_inverse_call: Optional[Callable] = None
     saturator_backward_call: Optional[Callable] = None
+    comb_rounds: Optional[Callable] = None
 
 
 VERSIONS = {
@@ -481,4 +581,6 @@ VERSIONS = {
                        {"flan_saturator_multinotch_backward":
                         _SATURATOR_BACKWARD_FIRST},
                        saturator_backward_call=saturator_backward_call),
+    "0f06bc7": Version({"comb": COMB_FIRST_VARIANTS}, comb_rounds=(
+        lambda d, reverse: _comb_warp_rounds(d, reverse))),
 }

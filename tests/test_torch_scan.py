@@ -798,7 +798,7 @@ def test_first_version_variants_are_well_formed():
     from flan_tpu_torch.ops import spv_variants, spv_variants_first
     versions = spv_variants_first.VERSIONS
     assert set(versions) == {"9089281", "9ad48d3", "91765eb", "1f4e009",
-                             "4441291"}
+                             "4441291", "0f06bc7"}
     assert {src for v in versions.values() for src in v.variants} == set(
         spv_variants.SOURCES)
     for version in versions.values():
@@ -818,6 +818,9 @@ def test_first_version_variants_are_well_formed():
     # timed with their own entry points
     assert versions["91765eb"].sqpv_inverse_call is not None
     assert versions["4441291"].saturator_backward_call is not None
+    # the comb of 0f06bc7 counts its own rounds (no tiles)
+    assert versions["0f06bc7"].comb_rounds(
+        torch.tensor([40, 3, 40, 40] * 20, dtype=torch.int32), False) > 0
     texts = {"cu": "a b a", "cuh": ""}
     assert spv_variants.apply_variant(
         texts, [("cu", "a", "c", 2), ("cu", str.upper)])["cu"] == "C B C"
