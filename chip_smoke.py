@@ -10,8 +10,10 @@ the library, drives the filter path and times the scan kernels and the SQPV
 forward and inverse as phases 5 and 6 do (time_kernels, the profiler per
 launch and inside the path), the k x k kernel on phase 8's swept
 multinotch planes at k = 4, 8 and 12, the saturator's forward, backward
-and gradient at 10 s stereo, and the swept comb's forward and backward on
-phase 8's calls at 600 s stereo; with --package DIR it takes
+and gradient at 10 s stereo, the swept comb's forward and backward on
+phase 8's calls at 600 s stereo, the T3 probe (with a digest of its
+output) and the swept stereo delay on phase 9's calls where the package
+has it; with --package DIR it takes
 flan_tpu_torch from DIR, so that another commit's kernels are timed by this
 script's yardstick (`git archive COMMIT flan_tpu_torch | tar -x -C
 build/parent`, then --package build/parent). Phases:
@@ -94,11 +96,22 @@ build/parent`, then --package build/parent). Phases:
      order 4 and 6 (k = 8 and 12) at 1 s, with respect to the signal and a
      0-d cutoff on the card and the CPU (the backward's launches counted);
      drive Audio.resample 48 -> 44.1 kHz, add_moisture and convolve by a
-     2 s IR at 600 s, each held to the CPU at 10 s; time the new kernels.
+     2 s IR at 600 s, each held to the CPU at 10 s; time the new kernels;
+  9. drive the Audio effect chain at 600 s stereo 48 kHz (cut, fade,
+     reverse, mono and back, the energy, repitch by 1.5 and by a swept
+     factor, the stereo delays: constant, swept over 0.05-0.95 s with its
+     rings in device memory, over 5-40 ms in shared memory and over a
+     flanger's 0.2-0.6 ms on a warp's rounds, pan, widen,
+     the spatialiser's moving source, the pinna filter, the wavelengths of
+     one channel and the amplitude envelope; the host plans of repitch and
+     the spatialiser timed), each against the CPU at 10 s; hold the stereo delay kernel to
+     its plain loop on the card over the first 48,000 frames, every frame
+     of each path call by one step in float64, three calls for the same
+     bits; the repitched 440 Hz tone at 660 Hz.
 
 The launch counters are zeroed just before each main path (phases 3 and 4
 together, then phase 5, then phase 6, then resonate and perturb in phase
-7, then phase 8's filters) and read just after it, before any launch made for a comparison; the probe's counter runs over all of them
+7, then phase 8's filters, then phase 9's effect chain) and read just after it, before any launch made for a comparison; the probe's counter runs over all of them
 (it lies on no path). Every failed check raises, so the script exits nonzero
 without printing the result line. The line before the last is one JSON
 object describing the kernels (share_of_bound is bound_ms / ms; time_kernels
@@ -325,6 +338,18 @@ COMB_BACK_STEP_CYCLES = 92
 # (the forward's step) and one adjoint (the backward's read-out; the maps
 # take one a state and one for the output)
 SAT_STEP_OPS = {False: 302, True: 319}
+# phase 9: the effect chain at 600 s stereo 48 kHz, each call held to the
+# CPU at FILTER_CPU_SECONDS
+EFFECT_SECONDS = 600.0
+DELAY_PLAIN_FRAMES = 48_000     # the stereo delay's plain loop on the card
+# the stereo delay kernel against its plain loop and by one step, times
+# the peak: the same float32 operations a step (no fused multiply-add)
+TOL_DELAY = 1e-6
+# card wavelengths against the CPU's: a hop is equal within 1e-3 of its
+# wavelength (d''s float32 sums move a valley's vertex); a hop whose valley
+# choice flips is counted, and at most this share of hops may flip
+WAVELENGTH_REL = 1e-3
+WAVELENGTH_FLIPS = 0.005
 SAT_ADJOINT_OPS = {False: 521, True: 542}
 
 
@@ -2259,6 +2284,298 @@ def phase8_resample_convolve(torch, Audio, dev, card):
     return report
 
 
+def delay_sweeps():
+    """Phase 9's swept stereo delays: (name, l_time, r_time): 0.05-0.55 s
+    against 0.05-0.95 s (rings of ~26,400 and ~45,600 floats: in device
+    memory), 5-40 ms against 5-40 ms (in shared memory), and a flanger's
+    0.2-0.6 ms (10-29 samples: rounds shorter than a warp, which takes
+    them)."""
+    import torch
+    two_pi = 2.0 * math.pi
+    return [("stereo_delay_swept",
+             lambda t: 0.30 + 0.25 * torch.sin(two_pi * 0.05 * t),
+             lambda t: 0.50 + 0.45 * torch.sin(two_pi * 0.07 * t)),
+            ("stereo_delay_swept_short",
+             lambda t: 0.0225 + 0.0175 * torch.sin(two_pi * 0.05 * t),
+             lambda t: 0.0225 + 0.0175 * torch.cos(two_pi * 0.07 * t)),
+            ("stereo_delay_swept_flanger",
+             lambda t: 0.0004 + 0.0002 * torch.sin(two_pi * 0.25 * t),
+             lambda t: 0.0004 + 0.0002 * torch.cos(two_pi * 0.3 * t))]
+
+
+def effect_calls():
+    """Phase 9's calls: name -> call on an Audio."""
+    import torch
+    two_pi = 2.0 * math.pi
+    calls = {
+        "cut_fade_reverse_mono_stereo": lambda a: a.cut(
+            0.25, a.length - 0.25, 0.1, 0.1).fade(0.5, 0.7).reverse()
+        .convert_to_mono().convert_to_stereo(),
+        "repitch_constant": lambda a: a.repitch(1.5),
+        "repitch_swept": lambda a: a.repitch(
+            lambda t: 2.0 ** (0.5 * torch.sin(two_pi * 0.05 * t))),
+        "stereo_delay_constant": lambda a: a.stereo_delay(
+            a.length, 0.25, 0.4, 0.5),
+        "pan_swept": lambda a: a.pan(lambda t: torch.sin(two_pi * 0.1 * t)),
+        "widen": lambda a: a.widen(0.5),
+        "stereo_spatialize": lambda a: a.convert_to_mono().stereo_spatialize(
+            lambda t: (5.0 * math.cos(two_pi * 0.02 * t),
+                       0.5 + 3.0 * math.sin(two_pi * 0.02 * t))),
+        "filter_pinna": lambda a: a.filter_pinna(
+            lambda t: 2.0 * torch.sin(two_pi * 0.05 * t)),
+    }
+    for name, lt, rt in delay_sweeps():
+        calls[name] = (lambda a, lt=lt, rt=rt:
+                       a.stereo_delay(a.length, lt, rt, 0.5))
+    return calls
+
+
+def stereo_delay_depth(el: np.ndarray, er: np.ndarray) -> float:
+    """The rounds the stereo delay's loop order allows, as the comb's bound
+    counts them: the sum over frames of 1 / the nearer of the frame's two
+    reads (er, and el where it is not the frame's own write)."""
+    d = np.minimum(er, np.where(el > 0, el, np.iinfo(np.int64).max))
+    return float((1.0 / d).sum())
+
+
+def phase9_effects(torch, Audio, seq, dev, card):
+    """The effect chain at EFFECT_SECONDS stereo: each call once on a 10 s
+    cut on the card and on the CPU (within TOL_FILTER_CPU of the peak),
+    then at full size on the card, timed (wall, x realtime, peak memory),
+    its host plan (repitch's and the spatialiser's WDL loops) timed apart. Then the wavelengths and the amplitude envelope, and
+    the stereo delay kernel's checks on the path's own calls. Returns the
+    kernel's launches, its captured path calls and the report."""
+    from flan_tpu_torch.audio import spatial, temporal
+    x = stereo_signal(EFFECT_SECONDS)
+    x10 = stereo_signal(FILTER_CPU_SECONDS)
+    report = {"phase": 9, "path": "effect_chain_600s_stereo_48k",
+              "card": card}
+    plan_s = {}
+
+    def timing(module, name):
+        fn = getattr(module, name)
+
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            plan_s.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+        return call
+
+    plans = [(temporal, "_wdl_sinc_plan"), (spatial, "_wdl_feed_plan")]
+    originals = [(m, n, getattr(m, n)) for m, n in plans]
+    seq.reset_launch_counts()
+    delay_calls = []
+    seconds = EFFECT_SECONDS
+    for name, run in effect_calls().items():
+        want = run(Audio.create_from_array(x10, SR, device="cpu")).to_numpy()
+        got = run(Audio.create_from_array(x10, SR, device=dev)).to_numpy()
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        check(got.shape == want.shape and err < TOL_FILTER_CPU,
+              f"{name} on the card vs the CPU at 10 s: {err}")
+        for m, n, _ in originals:
+            setattr(m, n, timing(m, n))
+        plan_s.clear()
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            keep = name.startswith("stereo_delay_swept")
+            (y, calls), ms = timed(torch, lambda: capture_calls(
+                [(seq, "stereo_delay_swept_cuda")], lambda: run(
+                    Audio.create_from_array(x, SR, device=dev))))
+        finally:
+            for m, n, fn in originals:
+                setattr(m, n, fn)
+        if keep:
+            delay_calls.append((name, calls["stereo_delay_swept_cuda"][0],
+                                y.data))
+        entry = {"seconds": seconds, "wall_s": ms / 1e3,
+                 "x_realtime": seconds / (ms / 1e3),
+                 "peak_alloc_gb": (torch.cuda.max_memory_allocated() - base)
+                 / 1e9, "shape": tuple(y.data.shape),
+                 "card_vs_cpu_10s_err_rel": err,
+                 "host_plan_s": {k: sum(v) for k, v in plan_s.items()}}
+        check(bool(torch.isfinite(y.data).all()), f"{name}: not finite")
+        report[name] = entry
+        print(json.dumps({"phase": 9, name: entry}), flush=True)
+        del y
+    launches = dict(seq.LAUNCHES)
+    check(launches["stereo_delay_swept"] > 0,
+          "stereo_delay_swept was not launched on the effect chain")
+    report.update(phase9_information(torch, Audio, dev, x, x10))
+    # the energy, on the card and the CPU
+    a = Audio.create_from_array(x, SR, device=dev)
+    energy, ms = timed(torch, a.get_total_energy)
+    want = Audio.create_from_array(x, SR, device="cpu").get_total_energy()
+    err = float(np.abs(energy - want).max() / np.abs(want).max())
+    report["get_total_energy"] = {"wall_s": ms / 1e3, "err_rel_cpu": err}
+    check(err < TOL_FILTER_CPU, f"get_total_energy vs the CPU: {err}")
+    del a
+    # the constant repitch moves a 440 Hz tone to 660 Hz
+    tone = np.sin(2 * np.pi * 440.0 * np.arange(int(2 * SR)) / SR)
+    up = Audio.create_from_array(tone.astype(np.float32), SR,
+                                 device=dev).repitch(1.5).to_numpy()[0]
+    hz = dominant_hz(up[len(up) // 4:3 * len(up) // 4])
+    report["repitch_440_hz"] = hz
+    check(abs(hz - 660.0) < 2.0, f"440 Hz repitched by 1.5 sounds at {hz}")
+    report["stereo_delay_checks"] = phase9_delay_checks(torch, seq,
+                                                        delay_calls)
+    print(json.dumps(report), flush=True)
+    return launches, delay_calls, report
+
+
+def phase9_information(torch, Audio, dev, x, x10) -> dict:
+    """get_local_wavelengths of one channel (window 2048, hop 128) and the
+    amplitude envelope at EFFECT_SECONDS, timed; at 10 s against the CPU:
+    d' on the card within twice the float32 CPU run's error against
+    float64 (and a floor of 1e-6), the wavelengths equal within
+    WAVELENGTH_REL but for the hops whose valley flips, counted and
+    gated at WAVELENGTH_FLIPS; the envelope within TOL_FILTER_CPU."""
+    from flan_tpu_torch.ops import dsp_utility
+    out = {}
+    a = Audio.create_from_array(x, SR, device=dev)
+    wl, ms = timed(torch, lambda: a.get_local_wavelengths(0, 0, -1, 2048, 128))
+    out["get_local_wavelengths"] = {"wall_s": ms / 1e3, "hops": len(wl),
+                                    "x_realtime": EFFECT_SECONDS
+                                    / (ms / 1e3)}
+    check(np.isfinite(wl).all() and (wl > 0).mean() > 0.5,
+          "wavelengths at 600 s: not finite, or mostly unvoiced")
+    t = torch.arange(0, int(EFFECT_SECONDS * SR), 997, device=dev) / SR
+    env, ms = timed(torch, lambda: a.get_amplitude_envelope(0.1)(t))
+    out["get_amplitude_envelope"] = {"wall_s": ms / 1e3}
+    check(bool(torch.isfinite(env).all()), "amplitude envelope not finite")
+    del a, env
+    a_card = Audio.create_from_array(x10, SR, device=dev)
+    a_cpu = Audio.create_from_array(x10, SR, device="cpu")
+    got = a_card.get_local_wavelengths(0, 0, -1, 2048, 128)
+    want = a_cpu.get_local_wavelengths(0, 0, -1, 2048, 128)
+    check(got.shape == want.shape, "wavelength hops differ")
+    flips = int((np.abs(got - want) > WAVELENGTH_REL
+                 * np.maximum(np.abs(want), 1.0)).sum())
+    n = int(x10.shape[1])
+    starts = np.arange(0, n - 2048, 128)
+    win = np.stack([x10[0, s:s + 2048] for s in starts])
+    d_card = dsp_utility.yin_d_prime_batched(
+        torch.from_numpy(win).to(dev), window_size=2048).cpu().double()
+    d32 = dsp_utility.yin_d_prime_batched(torch.from_numpy(win),
+                                          window_size=2048).double()
+    d64 = dsp_utility.yin_d_prime_batched(
+        torch.from_numpy(win).double(), window_size=2048)
+    peak = float(d64.abs().max())
+    e_card = float((d_card - d64).abs().max()) / peak
+    e_cpu = float((d32 - d64).abs().max()) / peak
+    tg = torch.linspace(0.0, FILTER_CPU_SECONDS, 4001)
+    env_card = a_card.get_amplitude_envelope(0.1)(tg.to(dev)).cpu()
+    env_cpu = a_cpu.get_amplitude_envelope(0.1)(tg)
+    e_env = float((env_card - env_cpu).abs().max() / env_cpu.abs().max())
+    out["wavelengths_10s"] = {"hops": len(want), "flipped_hops": flips,
+                              "d_prime_err_card": e_card,
+                              "d_prime_err_cpu32": e_cpu,
+                              "envelope_err_rel": e_env}
+    check(flips <= WAVELENGTH_FLIPS * len(want),
+          f"{flips} of {len(want)} wavelength hops flip between card and CPU")
+    check(e_card <= 2.0 * e_cpu + 1e-6,
+          f"d' on the card {e_card} of the peak from float64, CPU {e_cpu}")
+    check(e_env < TOL_FILTER_CPU, f"envelope card vs CPU: {e_env}")
+    return out
+
+
+def phase9_delay_checks(torch, seq, delay_calls) -> dict:
+    """The stereo delay kernel on the path's own swept calls: rerun keeping
+    w (its output the path's bits), every frame by one step in float64
+    within TOL_DELAY, its writes and outputs over the first
+    DELAY_PLAIN_FRAMES frames against the plain loop on the card within
+    TOL_DELAY of the writes' peak, and three calls for the
+    same bits. Launches here are comparisons (counted already)."""
+    from flan_tpu_torch.ops import build
+    out = {}
+    for name, args, y in delay_calls:
+        x, g, el, er, starts, tile, lb, rb = args
+        got, w = seq.stereo_delay_swept_cuda(*args, keep_w=True)
+        check(torch.equal(got, y), f"{name}: rerun keeping w differs")
+        dl, dr = el.cpu().numpy(), er.cpu().numpy()   # the distances are
+        # delays in the loop's own terms: el in [0, lb), er in [1, rb]
+        step = seq.stereo_delay_step_errors(x, g, dl, dr, lb, rb, w)
+        m = DELAY_PLAIN_FRAMES
+        t0 = time.perf_counter()
+        want, w_want = seq.stereo_delay_ref(x[:, :m].contiguous(), g[:m],
+                                            dl[:m], dr[:m], lb, rb,
+                                            keep_w=True)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        # the outputs are the writes shifted by the rings (zeros for their
+        # first lb and rb frames): both held, to the writes' peak
+        abs_err = max(float((w[:, :m] - w_want).abs().max()),
+                      float((y[:, :m] - want).abs().max()))
+        err = abs_err / float(w_want.abs().max())
+        check_same_bits(torch, lambda: seq.stereo_delay_swept_cuda(*args),
+                        name)
+        out[name] = {"frames": int(x.shape[1]), "of_frames": int(w.shape[1]),
+                     "lb": lb, "rb": rb, "rounds": int(starts.shape[0] - 1),
+                     "tile": tile,
+                     "step_err": step, "plain_err": err,
+                     "plain_abs_err": abs_err,
+                     "plain_ms": plain_ms, "plain_frames": m,
+                     "shared_ring": bool(build.load_library()
+                                         .flan_stereo_delay_shared(lb, rb,
+                                                                   tile))}
+        check(max(step.values()) <= TOL_DELAY,
+              f"{name}: a frame off one step from its own writes: {step}")
+        check(err <= TOL_DELAY, f"{name} vs its plain loop: {err}")
+    check([(v["shared_ring"], v["tile"]) for v in out.values()] ==
+          [(False, seq.STEREO_TILE), (True, seq.STEREO_TILE),
+           (True, seq.STEREO_WARP_TILE)],
+          "the swept delays did not take the ring variants and tiles "
+          "delay_sweeps names")
+    return out
+
+
+def stereo_delay_bound(args, clock: float, step_cycles: float):
+    """(bound_ms, bound_by, note) of a stereo delay call: the larger of the
+    bytes it must move (x twice, g, the two delays and the two outputs, 4
+    bytes each a frame) over the memory rate and its chain: the rounds of
+    the loop's order (stereo_delay_depth) times one dependent step measured
+    alone (the kernel's warp on rounds of one step)."""
+    x, g, el, er = args[:4]
+    n = int(x.shape[1])
+    depth = stereo_delay_depth(el.cpu().numpy().astype(np.int64),
+                               er.cpu().numpy().astype(np.int64))
+    t_lat = depth * step_cycles / clock
+    t_bytes = 7 * 4 * n / HBM_BYTES_PER_S
+    note = (f"{depth:.0f} rounds in the loop's order (sum of 1 / the nearer "
+            f"read) x {step_cycles:.0f} cycles "
+            "(one dependent step: the warp on rounds of one step); bytes "
+            f"{7 * 4 * n / 1e9:.3f} GB")
+    return (max(t_lat, t_bytes) * 1e3,
+            "operations" if t_lat >= t_bytes else "bytes", note)
+
+
+def stereo_delay_step_cycles(torch, seq, dev, clock: float) -> float:
+    """Cycles a round of the stereo delay kernel takes when every round is
+    one step (both delays 1, the shared rings, a warp): its chain alone."""
+    n = 200_000
+    x = torch.zeros((2, n), device=dev)
+    g = torch.full((n,), 0.5, device=dev)
+    ones = np.ones(n, np.int64)
+    plan = seq.stereo_delay_plan(ones, ones, 1, 1, dev, seq.STEREO_WARP_TILE)
+    seq.stereo_delay_swept_cuda(x, g, *plan, 1, 1)
+    ms = cuda_ms(torch, lambda: seq.stereo_delay_swept_cuda(x, g, *plan, 1,
+                                                            1), 2)
+    return ms * 1e-3 * clock / n
+
+
+def stereo_delay_tile_ms(torch, seq, args, tile: int) -> float:
+    """The kernel on a call's own inputs with the given tile and its
+    rounds: a block against a warp."""
+    x, g, el, er, _, _, lb, rb = args
+    plan = seq.stereo_delay_plan(el.cpu().numpy(), er.cpu().numpy(), lb, rb,
+                                 x.device, tile)
+    seq.stereo_delay_swept_cuda(x, g, *plan, lb, rb)
+    return cuda_ms(torch, lambda: seq.stereo_delay_swept_cuda(
+        x, g, *plan, lb, rb), 2)
+
+
 def kxk_bound(A, b, k: int):
     """(bound_ms, bound_by) of one k x k call: A read once (one map for
     every row counts once), b read and y written per row; 2 k^2 operations
@@ -2476,13 +2793,57 @@ def comb_timing(torch, Audio, seq, dev) -> dict:
     return out
 
 
+def probe_timing(torch, dev) -> dict:
+    """T3 on its own inputs, as phase 6 times it (time_kernels), with a
+    digest of its output (two builds with the same digest gave the same
+    bits)."""
+    import hashlib
+    from flan_tpu_torch.ops import probe_kernels
+    xp, wp = (torch.from_numpy(a).to(dev)
+              for a in probe_kernels.probe_inputs())
+    out = time_kernels(torch, {"probe": (
+        lambda: probe_kernels.probe_cuda(xp, wp),
+        lambda: probe_kernels.probe_ref(xp, wp))})["probe"]
+    y = probe_kernels.probe_cuda(xp, wp).cpu().numpy()
+    out["sha256"] = hashlib.sha256(y.tobytes()).hexdigest()
+    print(json.dumps({"probe_timing": out}), flush=True)
+    return out
+
+
+def stereo_delay_timing(torch, Audio, seq, dev) -> dict:
+    """The swept stereo delay's kernel on phase 9's two swept calls at
+    EFFECT_SECONDS stereo (captured from Audio.stereo_delay), by CUDA
+    events over two calls after the captured one, on the tile the path
+    takes and on the warp's."""
+    x = stereo_signal(EFFECT_SECONDS)
+    out = {}
+    for name, lt, rt in delay_sweeps():
+        _, calls = capture_calls([(seq, "stereo_delay_swept_cuda")],
+                                 lambda: Audio.create_from_array(
+                                     x, SR, device=dev).stereo_delay(
+                                     EFFECT_SECONDS, lt, rt, 0.5))
+        args = calls["stereo_delay_swept_cuda"][0]
+        out[name] = {"ms": cuda_ms(torch, lambda: seq.stereo_delay_swept_cuda(
+            *args), 2), "rounds": int(args[4].shape[0] - 1),
+            "tile": args[5],
+            "ms_block": stereo_delay_tile_ms(torch, seq, args,
+                                             seq.STEREO_TILE),
+            "ms_warp": stereo_delay_tile_ms(torch, seq, args,
+                                            seq.STEREO_WARP_TILE)}
+        del args, calls
+    print(json.dumps({"stereo_delay_timing": out}), flush=True)
+    return out
+
+
 def time_calls(package) -> None:
     """The --time-calls mode: the scan kernels on the filter path's planes
     and the SQPV forward and inverse at their bench shape, timed as phases
     5 and 6 time them, the k x k kernel on phase 8's multinotch planes at
     k = 4, 8 and 12 (kxk_regimes), the saturator's forward, backward and
     gradient at 10 s (saturator_timing), the swept comb's forward and
-    backward on phase 8's calls (comb_timing), and nothing else."""
+    backward on phase 8's calls (comb_timing), T3 with a digest of its
+    output (probe_timing) and, where the package has it, the swept stereo
+    delay on phase 9's calls (stereo_delay_timing), and nothing else."""
     card, torch, dev, _ = start(package)
     from flan_tpu_torch import Audio
     from flan_tpu_torch.ops import scan, scan_kernels, sqpv_kernels
@@ -2514,9 +2875,14 @@ def time_calls(package) -> None:
     from flan_tpu_torch.ops import sequential_kernels
     sat = saturator_timing(torch, Audio, sequential_kernels, dev)
     comb = comb_timing(torch, Audio, sequential_kernels, dev)
+    probe = probe_timing(torch, dev)
+    delay = (stereo_delay_timing(torch, Audio, sequential_kernels, dev)
+             if hasattr(sequential_kernels, "stereo_delay_swept_cuda")
+             else None)
     print(f"card: {card}", flush=True)
     print(json.dumps({"package": package or ".", "kxk_regimes": kxk,
-                      "saturator": sat, "comb": comb,
+                      "saturator": sat, "comb": comb, "probe": probe,
+                      "stereo_delay": delay,
                       "call_times": times,
                       "profile_us_per_launch": split,
                       "scans_in_path": report["scans_in_path"],
@@ -2802,6 +3168,46 @@ def main() -> None:
                                                             "comb"))}}),
           flush=True)
     phase_done("8 timing")
+
+    # phase 9: the effect chain, counted; the stereo delay kernel on its
+    # path calls
+    launches9, delay_calls, report9 = phase9_effects(
+        torch, Audio, sequential_kernels, dev, card)
+    launches["stereo_delay_swept"] = launches9["stereo_delay_swept"]
+    phase_done("9 effect chain, checks")
+    checks9 = report9["stereo_delay_checks"]
+    worst["stereo_delay_swept"] = max(v["plain_abs_err"]
+                                      for v in checks9.values())
+    errs["stereo_delay_swept"] = 0.0
+    step_cycles = stereo_delay_step_cycles(torch, sequential_kernels, dev,
+                                           clock)
+    delay = {}
+    for name, args, _ in delay_calls:
+        delay[name] = {"ms": cuda_ms(torch, lambda: sequential_kernels
+                                     .stereo_delay_swept_cuda(*args), 2),
+                       "ms_block": stereo_delay_tile_ms(
+                           torch, sequential_kernels, args,
+                           sequential_kernels.STEREO_TILE),
+                       "ms_warp": stereo_delay_tile_ms(
+                           torch, sequential_kernels, args,
+                           sequential_kernels.STEREO_WARP_TILE),
+                       "bound": stereo_delay_bound(args, clock, step_cycles)}
+    name = delay_calls[0][0]            # rings in device memory
+    times["stereo_delay_swept"] = {
+        "ms": delay[name]["ms"], "frames": checks9[name]["frames"],
+        "plain_ms": checks9[name]["plain_ms"],
+        "plain_frames": checks9[name]["plain_frames"],
+        "step_cycles": step_cycles,
+        "calls": {n: {"ms": v["ms"], "ms_block": v["ms_block"],
+                      "ms_warp": v["ms_warp"],
+                      "tile": checks9[n]["tile"], "bound_ms": v["bound"][0],
+                      "bound_note": v["bound"][2],
+                      "rounds": checks9[n]["rounds"],
+                      "shared_ring": checks9[n]["shared_ring"]}
+                  for n, v in delay.items()}}
+    bounds["stereo_delay_swept"] = delay[name]["bound"]
+    del delay_calls
+    phase_done("9 timing")
     print(json.dumps({"profile_us_per_launch": split}), flush=True)
     print(json.dumps({"phase_seconds": seconds,
                       "seconds": round(sum(seconds.values()), 1)}), flush=True)
@@ -2811,7 +3217,8 @@ def main() -> None:
               "scan": "flan_tpu_torch/csrc/scan_kernels.cu",
               "probe": "flan_tpu_torch/csrc/probe_kernels.cu",
               "saturator": "flan_tpu_torch/csrc/sequential_kernels.cu",
-              "comb": "flan_tpu_torch/csrc/sequential_kernels.cu"}
+              "comb": "flan_tpu_torch/csrc/sequential_kernels.cu",
+              "stereo": "flan_tpu_torch/csrc/sequential_kernels.cu"}
     replaces = {"spv_forward": "flan_tpu/ops/spv_pallas.py:93",
                 "spv_inverse": "flan_tpu/ops/spv_pallas.py:239",
                 "sqpv_forward": "flan_tpu/ops/sqpv_pallas.py:139",
@@ -2835,7 +3242,8 @@ def main() -> None:
                     "flan_tpu/audio/filters.py:569",
                 "saturator_2pole_backward_readout":
                     "flan_tpu/audio/filters.py:569",
-                "comb_swept_backward": "flan_tpu/audio/filters.py:643"}
+                "comb_swept_backward": "flan_tpu/audio/filters.py:643",
+                "stereo_delay_swept": "flan_tpu/audio/temporal.py:511"}
     path = {"spv_forward": "spv", "spv_inverse": "spv",
             "sqpv_forward": "sqpv", "sqpv_inverse": "sqpv",
             "scan_linear": "filters, pv_algorithms, gradients",
@@ -2849,7 +3257,8 @@ def main() -> None:
             "saturator_1pole_backward_readout": "gradients",
             "saturator_2pole_backward_maps": "gradients",
             "saturator_2pole_backward_readout": "gradients",
-            "comb_swept_backward": "gradients"}
+            "comb_swept_backward": "gradients",
+            "stereo_delay_swept": "effect chain (stereo_delay)"}
     errs["probe"] = 0.0     # compared in phase 2 only
     kernels = [{"name": name, "route": "cuda",
                 "source": source[name.split("_")[0]],
@@ -2878,6 +3287,9 @@ def main() -> None:
                                 if calls_kind[case] == entry["name"]}
         if entry["name"] == "scan_affine_kxk":
             entry["regimes"] = regime8
+        if entry["name"] == "stereo_delay_swept":
+            entry["replaces_note"] = "a lax.scan: no TPU kernel"
+            entry["bound_note"] = bounds[entry["name"]][2]
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,23 +4,27 @@
 Audio is a frozen AudioBuffer; every method returns a new object on the
 same device as its input. Host data goes to the card unless the caller
 names a device (core/types.py DEFAULT_DEVICE). This module carries the
-constructors, WAV file I/O, mid/side conversion, resampling, the
-conversions to PV, SPV and SQPV, the frame time grid and the basic volume
-methods; audio/__init__.py binds the filter, dynamics and combination
-methods (audio/filters.py, audio/volume.py, audio/combination.py).
+constructors, WAV file I/O, the channel and mid/side conversions,
+resampling, the conversions to PV, SPV, SQPV and a Function, the energy
+readings, the frame time grid, the basic volume methods and the reference's
+*_in_place names; audio/__init__.py binds the filter, dynamics,
+combination, temporal, information and spatial methods (audio/filters.py,
+volume.py, combination.py, temporal.py, information.py, spatial.py).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
-from flan_tpu_torch.core.audio_buffer import AudioBuffer, SndfileStrings
+from flan_tpu_torch.core.audio_buffer import (AudioBuffer, AudioFormat,
+                                              SndfileStrings)
 from flan_tpu_torch.core.types import DEFAULT_DEVICE
-from flan_tpu_torch.func.function import as_function
+from flan_tpu_torch.func.function import Function, as_function
 from flan_tpu_torch.io.wav import read_wav, write_wav
 from flan_tpu_torch.ops import stft
 
@@ -52,6 +56,62 @@ class Audio(AudioBuffer):
         data = torch.atleast_2d(torch.as_tensor(array, dtype=torch.float32,
                                                 device=device))
         return Audio(data=data.contiguous(), sample_rate=float(sample_rate))
+
+    @staticmethod
+    def create_from_buffer(buffer, num_channels: int, sample_rate: float,
+                           device=None) -> "Audio":
+        """A channel-major flat buffer cut into num_channels rows; device as
+        create_from_array's."""
+        if device is None and not isinstance(buffer, torch.Tensor):
+            device = DEFAULT_DEVICE
+        data = torch.as_tensor(buffer, dtype=torch.float32, device=device)
+        return Audio(data=data.reshape(num_channels, -1).contiguous(),
+                     sample_rate=float(sample_rate))
+
+    @staticmethod
+    def create_from_format(fmt: AudioFormat, device=DEFAULT_DEVICE
+                           ) -> "Audio":
+        """Silence of the format's shape on `device`, the card unless
+        named."""
+        return Audio.create_empty_with_frames(fmt.num_frames, fmt.num_channels,
+                                              fmt.sample_rate, device)
+
+    @staticmethod
+    def create_empty_with_length(length: float, num_channels: int = 1,
+                                 sample_rate: float = 48000.0,
+                                 device=DEFAULT_DEVICE) -> "Audio":
+        """Silence of ceil(length sample_rate) frames."""
+        frames = int(math.ceil(length * sample_rate))
+        return Audio.create_empty_with_frames(frames, num_channels,
+                                              sample_rate, device)
+
+    @staticmethod
+    def create_empty_with_frames(num_frames: int, num_channels: int = 1,
+                                 sample_rate: float = 48000.0,
+                                 device=DEFAULT_DEVICE) -> "Audio":
+        return Audio(data=torch.zeros((num_channels, num_frames),
+                                      dtype=torch.float32, device=device),
+                     sample_rate=float(sample_rate))
+
+    @staticmethod
+    def match_sample_rates_or_return_null(ins) -> list:
+        """[] if every input has one sample rate, else every input resampled
+        to the highest (reference AudioCombination.cpp:17-35)."""
+        ins = list(ins)
+        if not ins:
+            return []
+        max_sr = max(a.sample_rate for a in ins)
+        if all(a.sample_rate == max_sr for a in ins):
+            return []
+        return [a.resample(max_sr) for a in ins]
+
+    def sample_function_over_domain(self, f):
+        """A Function sampled at every frame's time, on the audio's device
+        (reference Audio.h:34-38); a constant stays one number."""
+        from flan_tpu_torch.func.function_sample import FunctionSample
+        vals = as_function(f).sample(0, self.num_frames,
+                                     1.0 / self.sample_rate, self.device)
+        return FunctionSample(vals, self.num_frames, self.device)
 
     @staticmethod
     def load_from_file(filename: str, return_strings: bool = False,
@@ -171,6 +231,99 @@ class Audio(AudioBuffer):
         """M/S -> L/R; self-inverse (reference AudioConversions.cpp:53-56)."""
         return self.convert_to_mid_side()
 
+    def convert_to_stereo(self) -> "Audio":
+        """1 or 2 channels -> 2, mono scaled by 1/sqrt(2) (reference
+        AudioConversions.cpp:58-85); more channels raise."""
+        if self.is_null():
+            return Audio.create_null()
+        if self.num_channels == 2:
+            return self.copy()
+        if self.num_channels == 1:
+            mono = stft.true_div(self.data[0], _SQRT2)
+            return self._with(data=torch.stack([mono, mono]))
+        raise ValueError(
+            f"can't convert {self.num_channels} channels to stereo")
+
+    def convert_to_mono(self) -> "Audio":
+        """The channels' mean (reference AudioConversions.cpp:87-104)."""
+        if self.is_null():
+            return Audio.create_null()
+        return self._with(data=torch.mean(self.data, dim=0, keepdim=True))
+
+    def convert_to_function(self) -> Function:
+        """The mono mix as a Function of time, the sample at floor(t sr)
+        and 0 outside the audio (reference AudioConversions.cpp:106-123);
+        it answers on the audio's device."""
+        if self.is_null():
+            return Function(0.0)
+        mono = self.convert_to_mono().data[0]
+        sr, n = self.sample_rate, self.num_frames
+
+        def fn(t):
+            t = torch.as_tensor(t, dtype=torch.float32, device=mono.device)
+            frame = (t * sr).to(torch.int32)
+            valid = (frame >= 0) & (frame < n)
+            return torch.where(valid, mono[frame.clamp(0, n - 1).long()], 0.0)
+
+        return Function(fn)
+
+    # =======================================================================
+    # Channels (reference Audio.h:237-262, AudioChannels.cpp)
+    # =======================================================================
+    def split_channels(self) -> List["Audio"]:
+        return [self._with(data=self.data[c:c + 1])
+                for c in range(self.num_channels)]
+
+    @staticmethod
+    def combine_channels(channels: Sequence["Audio"]) -> "Audio":
+        """Every channel of every input, stacked (reference
+        AudioChannels.cpp:31); shorter inputs padded with zeros to the
+        longest. The result lies on the first input's device."""
+        ins = [a for a in channels if not a.is_null()]
+        if not ins:
+            return Audio.create_null()
+        max_frames = max(a.num_frames for a in ins)
+        rows = [torch.nn.functional.pad(a.data.to(ins[0].device),
+                                        (0, max_frames - a.num_frames))
+                for a in ins]
+        return Audio(data=torch.cat(rows, dim=0),
+                     sample_rate=ins[0].sample_rate)
+
+    # =======================================================================
+    # Information (reference Audio.h:266-373)
+    # =======================================================================
+    def get_total_energy(self) -> np.ndarray:
+        """Per-channel sum of squares, on the host (reference
+        AudioInformation.cpp)."""
+        return torch.sum(torch.square(self.data), dim=-1).cpu().numpy()
+
+    def get_energy_difference(self, other: "Audio") -> np.ndarray:
+        """Per-channel energy of the sample-wise difference over the common
+        channels and frames, the reference's unit-testing oracle
+        (Audio.h:275-279)."""
+        n = min(self.num_frames, other.num_frames)
+        c = min(self.num_channels, other.num_channels)
+        diff = self.data[:c, :n] - other.data[:c, :n].to(self.device)
+        return torch.sum(torch.square(diff), dim=-1).cpu().numpy()
+
+    def get_max_sample_magnitude(self, start_time: float = 0.0,
+                                 end_time: float = 0.0) -> float:
+        """The largest |sample| from start_time to end_time, an end of 0
+        meaning the last frame (reference AudioBuffer.h:164)."""
+        if self.is_null():
+            return 0.0
+        a = self.time_to_frame(start_time)
+        b = self.time_to_frame(end_time) if end_time != 0 \
+            else self.num_frames
+        return float(torch.max(torch.abs(self.data[:, a:b])))
+
+    def reverse(self) -> "Audio":
+        """Reverse in time and in channel order (reference
+        AudioTemporal.cpp:174-189: channel c is copied into the flat
+        buffer's reversed view at c F, so its samples land in channel C - 1
+        - c; golden-tested)."""
+        return self._with(data=torch.flip(self.data, (0, 1)))
+
     def time_grid(self) -> torch.Tensor:
         """Each frame's time, arange(N) / sample_rate in float32 on the
         audio's device, as the JAX package builds it: the float32 count is
@@ -201,3 +354,50 @@ class Audio(AudioBuffer):
         normalized = self._with(
             data=self.data / torch.where(peak > 0, peak, 1.0))
         return normalized.modify_volume(level)
+
+    def ring_modulate(self, other: "Audio") -> "Audio":
+        """The sample-wise product, the other audio repeated cyclically over
+        channels and frames (reference AudioVolume.cpp:15-30)."""
+        if self.is_null() or other.is_null():
+            return Audio.create_null()
+        dev = self.device
+        ch = torch.arange(self.num_channels, device=dev) % other.num_channels
+        fr = torch.arange(self.num_frames, device=dev) % other.num_frames
+        return self._with(data=self.data * other.data.to(dev)[ch][:, fr])
+
+    # The reference's *_in_place methods save a copy (Audio.h:541-592);
+    # tensors here are not shared between Audio objects, so these return
+    # the new object under the reference's names.
+    def modify_volume_in_place(self, gain):
+        return self.modify_volume(gain)
+
+    def set_volume_in_place(self, level):
+        return self.set_volume(level)
+
+    def fade_in_place(self, start=16.0 / 48000.0, end=16.0 / 48000.0,
+                      interp=None):
+        from flan_tpu_torch.func import interpolators
+        return self.fade(start, end, interp or interpolators.sqrt)
+
+    def fade_frames_in_place(self, start=16, end=16, interp=None):
+        from flan_tpu_torch.func import interpolators
+        return self.fade_frames(start, end, interp or interpolators.sqrt)
+
+    def pan_in_place(self, pan_position):
+        return self.pan(pan_position)
+
+    def mix_in_place(self, other, other_start_time: float = 0.0,
+                     other_amplitude=1.0):
+        """The other audio mixed in at a time and gain, this audio's
+        channels and length kept (reference AudioCombination.cpp:181-203)."""
+        mixed = Audio.mix([self, other], start_times=[0.0, other_start_time],
+                          gains=[1.0, other_amplitude])
+        return mixed._with(data=mixed.data[:self.num_channels,
+                                           :self.num_frames])
+
+    def play(self) -> None:
+        """The reference plays audio on win32 only (AudioBuffer.h:220-222);
+        as in the JAX package, there is no audio device here."""
+        raise NotImplementedError(
+            "Audio.play is not available (the reference supports it only "
+            "on win32); save_to_file and play externally")

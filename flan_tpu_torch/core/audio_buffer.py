@@ -81,5 +81,13 @@ class AudioBuffer:
     def frame_to_time(self, f: int) -> float:
         return f / self.sample_rate
 
+    def print_summary(self) -> None:
+        print(f"Audio: channels={self.num_channels} frames={self.num_frames} "
+              f"sample_rate={self.sample_rate} length={self.length:.3f}s")
+
+    def get_sample(self, channel: int, frame: int) -> float:
+        """One sample, read back to the host (not for hot paths)."""
+        return float(self.data[channel, frame])
+
     def to_numpy(self) -> np.ndarray:
         return self.data.detach().cpu().numpy()

@@ -88,6 +88,12 @@ class PVBuffer:
         return (self.num_channels == 0 or self.num_frames == 0
                 or self.num_bins == 0 or self.sample_rate <= 0)
 
+    def is_nan_or_inf(self) -> bool:
+        if self.is_null():
+            return False
+        return bool((~torch.isfinite(self.mag)).any()
+                    | (~torch.isfinite(self.freq)).any())
+
     def frame_to_time(self, f) -> float:
         return f / self.analysis_rate
 
@@ -99,6 +105,31 @@ class PVBuffer:
 
     def frequency_to_bin(self, f) -> float:
         return f / self.bin_width
+
+    @property
+    def max_frequency(self) -> float:
+        return self.bin_to_frequency(self.num_bins - 1)
+
+    def print_summary(self) -> None:
+        print(f"PV: channels={self.num_channels} frames={self.num_frames} "
+              f"bins={self.num_bins} sample_rate={self.sample_rate} "
+              f"hop={self.hop_size} window={self.window_size}")
+
+    def get_max_partial_magnitude(self, start_frame: int = 0,
+                                  end_frame: int = 0, start_bin: int = 0,
+                                  end_bin: int = 0) -> float:
+        """Max |magnitude| over a window of frames and bins, an end of 0
+        meaning the last (reference PVBuffer.h:164-171)."""
+        if self.is_null():
+            return 0.0
+        ef = end_frame if end_frame != 0 else self.num_frames
+        eb = end_bin if end_bin != 0 else self.num_bins
+        return float(self.mag[:, start_frame:ef, start_bin:eb].abs().max())
+
+    def get_MF(self, channel: int, frame: int, b: int):
+        """(magnitude, frequency) of one bin, read back to the host."""
+        return (float(self.mag[channel, frame, b]),
+                float(self.freq[channel, frame, b]))
 
     def to_numpy(self):
         return (self.mag.detach().cpu().numpy(),

@@ -6,6 +6,7 @@ Each takes and returns a float32 tensor, so `PV.stretch` and
 from __future__ import annotations
 
 import math
+from typing import Callable, Sequence, Tuple
 
 import torch
 
@@ -59,3 +60,35 @@ def sine2(x):
 def sqrt(x):
     return torch.sqrt(torch.clamp(_f32(x), min=0.0))
 
+
+
+def interpolate_points(points: Sequence[Tuple[float, float]],
+                       interp: Callable = linear) -> Callable:
+    """Piecewise function through (x, y) points sorted by x, each span
+    shaped by `interp`, held at the end values outside them (reference
+    Interpolator.cpp; flan_tpu/func/interpolators.py:63-80). The returned
+    callable takes a tensor and answers on its device."""
+    xs = torch.tensor([p[0] for p in points], dtype=torch.float32)
+    ys = torch.tensor([p[1] for p in points], dtype=torch.float32)
+
+    def fn(t):
+        t = _f32(t)
+        x_, y_ = xs.to(t.device), ys.to(t.device)
+        idx = torch.clamp(torch.searchsorted(x_, t, side="left"), 1,
+                          len(x_) - 1)
+        x0, x1 = x_[idx - 1], x_[idx]
+        y0, y1 = y_[idx - 1], y_[idx]
+        mix = interp(torch.clamp((t - x0) / torch.clamp(x1 - x0, min=1e-20),
+                                 0, 1))
+        out = (1.0 - mix) * y0 + mix * y1
+        out = torch.where(t <= x_[0], y_[0], out)
+        return torch.where(t >= x_[-1], y_[-1], out)
+
+    return fn
+
+
+def interpolate_intervals(delta_x: float, ys: Sequence[float],
+                          interp: Callable = linear) -> Callable:
+    """interpolate_points over points delta_x apart from 0."""
+    return interpolate_points([(i * delta_x, y) for i, y in enumerate(ys)],
+                              interp)

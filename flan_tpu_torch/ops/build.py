@@ -28,6 +28,8 @@ SCAN_CHUNK_TILES = 256  # tiles per block of the prefix over tiles
 SQPV_CARRY_CHUNK = 32   # tiles per chunk of the SQPV forward's carry
 PROBE_SHAPE = (128, 512)  # rows and columns of the probe (probe_kernels.cu)
 COMB_TILE, COMB_WIDTH = 1024, 32    # the comb kernels' tile and round width
+STEREO_TILE, STEREO_WARP_TILE = 1024, 32   # the stereo delay kernel's
+                                            # tiles: a block's, a warp's
 
 _p, _i, _ll, _d, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_double, ctypes.c_float)
@@ -41,7 +43,7 @@ SIGNATURES = {
     "flan_sqpv_inverse": [_p, _p, _p, _p, _p, _p, _i, _ll, _i, _d, _p],
     "flan_scan": [_i, _lla, _lla, _lla, _p, _p, _i, _ll, _p],
     "flan_scan_kxk": [_i, _p, _ll, _p, _p, _p, _p, _i, _ll, _p],
-    "flan_probe": [_p, _p, _p, _i, _p],
+    "flan_probe": [_p, _p, _p, _p, _i, _p],
     "flan_saturator_multinotch": [_i, _p, _p, _p, _p, _p, _p, _p, _p, _p,
                                   _i, _ll, _i, _f, _p],
     "flan_saturator_backward_maps": [_i] + [_p] * 13 + [_i, _ll, _ll, _ll,
@@ -51,11 +53,14 @@ SIGNATURES = {
     "flan_comb_swept": [_p, _p, _p, _p, _p, _p, _p, _i, _ll, _i, _f, _p],
     "flan_comb_swept_backward": [_p, _p, _p, _p, _p, _p, _i, _ll, _i, _f,
                                  _p],
+    "flan_stereo_delay_swept": [_p, _p, _p, _p, _p, _i, _p, _ll, _i, _i, _i,
+                                _p],
 }
 # functions of no argument that must return the constants the wrappers
 # size their tensors by (TILE_FRAMES, MAX_BINS and SCAN_CHUNK_TILES from
 # csrc/common.cuh, the SQPV carry's chunk from csrc/sqpv_kernels.cu, the
-# probe's shape from csrc/probe_kernels.cu)
+# probe's shape from csrc/probe_kernels.cu, the sequential kernels' tiles
+# from csrc/sequential_kernels.cu)
 _LIMITS = {"flan_spv_tile_frames": TILE_FRAMES,
            "flan_spv_max_bins": MAX_BINS,
            "flan_scan_chunk_tiles": SCAN_CHUNK_TILES,
@@ -63,7 +68,9 @@ _LIMITS = {"flan_spv_tile_frames": TILE_FRAMES,
            "flan_probe_rows": PROBE_SHAPE[0],
            "flan_probe_cols": PROBE_SHAPE[1],
            "flan_comb_tile": COMB_TILE,
-           "flan_comb_width": COMB_WIDTH}
+           "flan_comb_width": COMB_WIDTH,
+           "flan_stereo_delay_tile": STEREO_TILE,
+           "flan_stereo_delay_warp_tile": STEREO_WARP_TILE}
 
 
 def sources() -> list[Path]:
@@ -158,6 +165,12 @@ def load_library() -> ctypes.CDLL:
     # backward)
     lib.flan_comb_swept_ring_floats.argtypes = [_i, _i, _i]
     lib.flan_comb_swept_ring_floats.restype = ctypes.c_longlong
+    # the probe's scratch: (steps)
+    lib.flan_probe_scratch_floats.argtypes = [_i]
+    lib.flan_probe_scratch_floats.restype = ctypes.c_longlong
+    # whether the stereo delay's rings fit in shared memory: (lb, rb, tile)
+    lib.flan_stereo_delay_shared.argtypes = [_i, _i, _i]
+    lib.flan_stereo_delay_shared.restype = ctypes.c_int
     # the SQPV inverse's scratch: (channels, frames, bins); its frames per
     # tile: (bins)
     lib.flan_sqpv_inverse_scratch_bytes.argtypes = [_i, _ll, _i]

@@ -7,9 +7,10 @@ atan2 plus cos, a row shift with a carried row, a column shift with an
 edge fill, a wrap and mod 1, over 4 sequential steps that carry the last
 output row. It lies on no path of the library.
 
-  probe_cuda  CUDA csrc/probe_kernels.cu flan_probe: one block, one column
-              per thread, the triangular product as a running float32 FMA
-              sum down each column.
+  probe_cuda  CUDA csrc/probe_kernels.cu flan_probe: the triangular
+              product as a running float32 FMA sum down each column, for
+              every step and column at once; the chain of carried rows
+              alone in one block; then every output element at once.
   probe_ref   plain PyTorch, the TPU kernel's operations in their order
               (the triangular product as a matmul of tri * delta and w).
 
@@ -87,8 +88,11 @@ def probe_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     lib = load_library()
     with torch.cuda.device(x.device):
         out = torch.empty_like(x)
+        scratch = torch.empty(lib.flan_probe_scratch_floats(x.shape[0]),
+                              dtype=torch.float32, device=x.device)
         err = lib.flan_probe(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                             x.shape[0], torch.cuda.current_stream().cuda_stream)
+                             scratch.data_ptr(), x.shape[0],
+                             torch.cuda.current_stream().cuda_stream)
     raise_on(err, "probe")
     LAUNCHES["probe"] += 1
     return out

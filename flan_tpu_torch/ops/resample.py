@@ -124,13 +124,48 @@ def resample(x: torch.Tensor, sr_in: float, sr_out: float,
     return rational_resample(x, L, M, num_out, taps_per_phase, atten_db)
 
 
+def _tap_sum(p: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis of p as a fixed tree of elementwise adds
+    (halves added pairwise, the axis padded with zeros in front to a power
+    of two): every output's order of operations is the same whatever the
+    other axes hold, on either device."""
+    k = p.shape[-1]
+    width = 1 << (k - 1).bit_length()
+    if width != k:
+        p = torch.nn.functional.pad(p, (width - k, 0))
+    while width > 1:
+        width //= 2
+        p = p[..., :width] + p[..., width:]
+    return p[..., 0]
+
+
 def fractional_gather(x: torch.Tensor, positions: torch.Tensor,
                       cutoff: torch.Tensor, num_taps: int = 32
                       ) -> torch.Tensor:
     """Windowed-sinc interpolation of x [C, N] at fractional read positions
     [num_out] with a per-output cutoff [num_out] in (0, 1] (1 = the input's
     Nyquist; min(1, 1 / rate) antialiases downward sweeps); positions
-    outside the input read zeros (resample.py:150-183)."""
+    outside the input read zeros (resample.py:150-183). The outputs go in
+    chunks whose [C, O, K] gather takes at most _CHUNK_FLOATS floats (a
+    chunk's planes peak at about 6 times that many bytes: ~1.5 GB), each
+    output's taps summed in a fixed order (_tap_sum), so a chunk's outputs
+    have the same bits as in one call; the JAX package's einsum at
+    Precision.HIGHEST is a full float32 sum too."""
+    c = x.shape[0]
+    num_out = positions.shape[0]
+    step = max(1, _CHUNK_FLOATS // max(1, c * num_taps))
+    if num_out <= step:
+        return _gather_taps(x, positions, cutoff, num_taps)
+    out = torch.empty((c, num_out), dtype=x.dtype, device=x.device)
+    for o0 in range(0, num_out, step):
+        o1 = min(num_out, o0 + step)
+        out[:, o0:o1] = _gather_taps(x, positions[o0:o1], cutoff[o0:o1],
+                                     num_taps)
+    return out
+
+
+def _gather_taps(x, positions, cutoff, num_taps: int) -> torch.Tensor:
+    """fractional_gather over one chunk of outputs."""
     c, n = x.shape
     base = torch.floor(positions).to(torch.int64)
     frac = positions - base
@@ -149,7 +184,7 @@ def fractional_gather(x: torch.Tensor, positions: torch.Tensor,
     w = (0.35875 + 0.48829 * torch.cos(math.pi * u)
          + 0.14128 * torch.cos(2 * math.pi * u)
          + 0.01168 * torch.cos(3 * math.pi * u))
-    return torch.einsum("cok,ok->co", samples, sinc * w)
+    return _tap_sum(samples * (sinc * w)[None])
 
 
 def variable_rate_positions(rate_per_block: np.ndarray,

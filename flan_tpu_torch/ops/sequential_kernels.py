@@ -1,21 +1,25 @@
-"""Sequential recurrences of the filter family: Hopper kernels and plain
-versions.
+"""Sequential recurrences of the filter family and the stereo delay:
+Hopper kernels and plain versions.
 
-Two per-sample loops have no parallel form: the tanh-feedback multinotch
-(flan_tpu/audio/filters.py _multinotch_saturator_scan, :524-604) and the
-comb with a per-sample delay (filter_comb's ring buffer, :622-644). The
-JAX package runs both as lax.scan and differentiates them through it; no
-TPU kernel stands behind them. One CUDA source,
+Three per-sample loops have no parallel form: the tanh-feedback multinotch
+(flan_tpu/audio/filters.py _multinotch_saturator_scan, :524-604), the
+comb with a per-sample delay (filter_comb's ring buffer, :622-644) and the
+swept cross-feedback stereo delay (flan_tpu/audio/temporal.py:504-528).
+The JAX package runs them as lax.scan and differentiates the first two
+through it; no TPU kernel stands behind them. One CUDA source,
 csrc/sequential_kernels.cu, runs the saturator's forward as one warp a
 channel, the comb's forward and backward as one block a channel (a warp
-on the chain, three staging its tiles and computing its rounds), and the
-saturator's backward as a parallel job:
+on the chain, three staging its tiles and computing its rounds), the
+saturator's backward as a parallel job, and the stereo delay as one block
+(or one warp) whose rounds of up to 1024 (32) steps were planned on the
+host:
 
   saturator_1pole / saturator_2pole    saturator_1pole_ref, saturator_2pole_ref
   saturator_*_backward_maps            saturator_adjoint_maps_ref
   saturator_*_backward_readout         saturator_adjoint_readout_ref
   comb_swept                           comb_swept_ref
   comb_swept_backward                  comb_swept_backward_ref
+  stereo_delay_swept                   stereo_delay_ref
 
 The plain versions are PyTorch loops over time, vectorised over channels,
 in the JAX package's order of operations (powers by binary exponentiation,
@@ -42,12 +46,18 @@ The comb's forward keeps u; its backward scatters each step's adjoint back
 to the step it read, u's adjoint, and the feedback's and the mix's
 gradients follow from u in PyTorch.
 
+The stereo delay has no backward (the JAX package differentiates it
+through lax.scan; the port's is still to come). Its rounds
+(stereo_delay_round_starts) and its one-step check
+(stereo_delay_step_errors) are here too.
+
 Dispatch by device: a CPU tensor goes to the plain version, a CUDA tensor
 to the kernel or the call raises. LAUNCHES counts each wrapper's kernel
 launches.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from flan_tpu_torch.ops import build, scan_kernels
@@ -59,7 +69,7 @@ LAUNCHES = {"saturator_1pole": 0, "saturator_2pole": 0, "comb_swept": 0,
             "saturator_1pole_backward_readout": 0,
             "saturator_2pole_backward_maps": 0,
             "saturator_2pole_backward_readout": 0,
-            "comb_swept_backward": 0}
+            "comb_swept_backward": 0, "stereo_delay_swept": 0}
 
 
 def reset_launch_counts() -> None:
@@ -630,6 +640,104 @@ def saturator_step_errors(x, planes, inv: float, order: int,
         _rel(states[:, i], v) for i, v in enumerate(new))}
 
 
+# The swept stereo delay (flan_tpu/audio/temporal.py:504-528). Its loop
+# keeps two rings of lb and rb floats; step t reads out_l = l_buf[t mod lb]
+# and out_r = r_buf[t mod rb], writes l_buf[t mod lb] = x_l + r_buf[(t -
+# dr) mod rb] g, then r_buf[t mod rb] = x_r + l_buf[(t - dl) mod lb] g,
+# reading l_buf after that write. In the values w_L[t], w_R[t] that step t
+# writes (0 before the start): out_l[t] = w_L[t - lb], out_r[t] = w_R[t -
+# rb], w_L[t] = x_l[t] + w_R[t - er[t]] g[t], w_R[t] = x_r[t] + w_L[t -
+# el[t]] g[t], with the distances el = dl mod lb (0: the step's own L
+# write, for dl in {0, lb}) and er = dr, or rb for dr = 0.
+# The kernel's rounds: at most a tile of frames, none across one; a block's
+# tile, or a warp's where the block's rounds would be shorter than a warp.
+STEREO_TILE, STEREO_WARP_TILE = build.STEREO_TILE, build.STEREO_WARP_TILE
+
+
+def stereo_delay_distances(dl: np.ndarray, dr: np.ndarray, lb: int, rb: int):
+    """(el, er) int64: how far back each step's two ring reads land, for
+    delays dl in [0, lb] and dr in [0, rb] (see above)."""
+    dl, dr = np.asarray(dl, np.int64), np.asarray(dr, np.int64)
+    return dl % lb, np.where(dr == 0, rb, dr)
+
+
+def stereo_delay_round_starts(el: np.ndarray, er: np.ndarray,
+                              tile: int) -> np.ndarray:
+    """The first frame of every round of the stereo delay's steps, then n,
+    int32: a round from frame s holds the frames after it for as long as
+    each reads only values written before s (t - er[t] < s, and t - el[t]
+    < s where el[t] > 0: its own L write it does first) and it stays in
+    s's tile of `tile` frames (tiles from frame 0). Worked out for every
+    tile at once, one frame offset at a time."""
+    n = len(el)
+    t = np.arange(n, dtype=np.int64)
+    lim = np.maximum(t - er, np.where(el > 0, t - el, -1))
+    tiles = -(-n // tile)
+    big = np.iinfo(np.int64).max
+    limt = np.full(tiles * tile, big, np.int64)
+    limt[:n] = lim
+    limt = np.ascontiguousarray(limt.reshape(tiles, tile).T)
+    base = np.arange(tiles, dtype=np.int64) * tile
+    flags = np.zeros((tile, tiles), bool)
+    flags[0] = True
+    s = base.copy()
+    for j in range(1, tile):
+        new = limt[j] >= s      # a padded frame past n starts a round too
+        s = np.where(new, base + j, s)
+        flags[j] = new
+    starts = np.nonzero(flags.T.reshape(-1)[:n])[0]
+    return np.append(starts, n).astype(np.int32)
+
+
+def stereo_delay_ref(x, g, dl, dr, lb: int, rb: int, keep_w: bool = False,
+                     tile: int = 4096):
+    """The swept stereo delay's plain version: x [2, n] and g [n] float32
+    tensors, dl and dr [n] integer delays in [0, lb] and [0, rb] on the
+    host. Each round of stereo_delay_round_starts(.., tile) is computed at
+    once, every step in the loop's operations (x + r g, no fused
+    multiply-add); the outputs are w_L and w_R shifted by lb and rb. With
+    keep_w, returns (out, w), w [2, n] the values each step wrote."""
+    el, er = stereo_delay_distances(dl, dr, lb, rb)
+    starts = stereo_delay_round_starts(el, er, tile).tolist()
+    dev = x.device
+    el_t, er_t = (torch.from_numpy(v).to(dev) for v in (el, er))
+    w = torch.zeros_like(x)
+    for s, e in zip(starts[:-1], starts[1:]):
+        t = torch.arange(s, e, device=dev)
+        src = t - er_t[t]
+        rv = torch.where(src >= 0, w[1, src.clamp(min=0)], 0.0)
+        w[0, t] = x[0, t] + rv * g[t]
+        src = t - el_t[t]       # el = 0: the w_L[t] just written
+        lv = torch.where(src >= 0, w[0, src.clamp(min=0)], 0.0)
+        w[1, t] = x[1, t] + lv * g[t]
+    out = stereo_delay_outputs(w, lb, rb)
+    return (out, w) if keep_w else out
+
+
+def stereo_delay_outputs(w: torch.Tensor, lb: int, rb: int) -> torch.Tensor:
+    """The outputs from the values the steps wrote: [w_L shifted by lb, w_R
+    by rb], zeros before."""
+    n = w.shape[1]
+    pad = torch.nn.functional.pad
+    return torch.stack([pad(w[0], (lb, 0))[:n], pad(w[1], (rb, 0))[:n]])
+
+
+def stereo_delay_step_errors(x, g, dl, dr, lb: int, rb: int, w) -> dict:
+    """A stereo delay call's w_L[t] against x_l[t] + g[t] w_R[t - er[t]]
+    and its w_R[t] against x_r[t] + g[t] w_L[t - el[t]], each in float64
+    from the call's own w: {"w_l": .., "w_r": ..}, over the peaks."""
+    el, er = (torch.from_numpy(v).to(x.device)
+              for v in stereo_delay_distances(dl, dr, lb, rb))
+    t = torch.arange(x.shape[1], device=x.device)
+    w64, x64, g64 = w.double(), x.double(), g.double()
+
+    def read(row, d):
+        src = t - d
+        return torch.where(src >= 0, w64[row, src.clamp(min=0)], 0.0)
+    return {"w_l": _rel(w[0], x64[0] + read(1, er) * g64),
+            "w_r": _rel(w[1], x64[1] + read(0, el) * g64)}
+
+
 # ------------------------------------------------------------------ kernels
 
 def _planes_on(x: torch.Tensor, name: str, planes, dtypes=None) -> None:
@@ -833,6 +941,48 @@ def comb_swept_backward_cuda(gy, delays, k, a, f: float, ring_len: int):
     return gu
 
 
+def stereo_delay_swept_cuda(x, g, el, er, starts, tile: int, lb: int,
+                            rb: int, keep_w: bool = False):
+    """The swept stereo delay kernel: x [2, n] and g [n] float32, el and er
+    [n] int32 (stereo_delay_distances), starts the rounds
+    (stereo_delay_round_starts(.., tile)) int32, all on one CUDA device;
+    tile STEREO_TILE (a block) or STEREO_WARP_TILE (a warp). Returns the
+    outputs [2, n], with keep_w also w [2, n]."""
+    check_cuda(x, "stereo_delay_swept x", 2)
+    if x.shape[0] != 2:
+        raise ValueError(f"stereo_delay_swept takes 2 rows, got {x.shape[0]}")
+    _planes_on(x, "stereo_delay_swept", (g, el, er),
+               (torch.float32, torch.int32, torch.int32))
+    check_cuda(starts, "stereo_delay_swept starts", 1, torch.int32)
+    lib = load_library()
+    n = x.shape[1]
+    with torch.cuda.device(x.device):
+        w = torch.empty_like(x)
+        err = lib.flan_stereo_delay_swept(
+            x.data_ptr(), g.data_ptr(), el.data_ptr(), er.data_ptr(),
+            starts.data_ptr(), starts.shape[0] - 1, w.data_ptr(), n, lb, rb,
+            tile, torch.cuda.current_stream().cuda_stream)
+    raise_on(err, "stereo_delay_swept")
+    LAUNCHES["stereo_delay_swept"] += 1
+    out = stereo_delay_outputs(w, lb, rb)
+    return (out, w) if keep_w else out
+
+
+def stereo_delay_plan(dl, dr, lb: int, rb: int, device, tile=None):
+    """The kernel's operands from the host delays: (el, er, starts) int32
+    on `device` and the tile. Without a tile, the block's, unless its
+    rounds would be shorter than a warp on average: then the warp's."""
+    el, er = stereo_delay_distances(dl, dr, lb, rb)
+    starts = stereo_delay_round_starts(el, er, tile or STEREO_TILE)
+    if tile is None:
+        tile = STEREO_TILE
+        if len(starts) - 1 > len(el) / STEREO_WARP_TILE:
+            tile = STEREO_WARP_TILE
+            starts = stereo_delay_round_starts(el, er, tile)
+    return tuple(torch.from_numpy(v.astype(np.int32)).to(device)
+                 for v in (el, er, starts)) + (tile,)
+
+
 # ----------------------------------------------------------------- autograd
 
 class SaturatorMultinotch(torch.autograd.Function):
@@ -922,3 +1072,13 @@ def comb_swept(x, delays, k, a, f: float):
     if x.device.type == "cpu":
         return comb_swept_ref(x, delays, k, a, f)
     return comb_swept_cuda(x, delays, k, a, f, int(delays.max()))
+
+
+def stereo_delay_swept(x, g, dl, dr, lb: int, rb: int):
+    """The swept stereo delay on x [2, n] with the decay g [n] and the host
+    delays dl, dr [n] (integers in [0, lb], [0, rb]): the plain version on
+    the CPU, the kernel on the card. No gradient."""
+    if x.device.type == "cpu":
+        return stereo_delay_ref(x, g, dl, dr, lb, rb)
+    return stereo_delay_swept_cuda(x, g, *stereo_delay_plan(
+        dl, dr, lb, rb, x.device), lb, rb)

@@ -52,6 +52,12 @@ class SPV:
     def bin_width(self) -> float:
         return self.sample_rate / (2 * self.num_bins)
 
+    def bin_to_frequency(self, b) -> float:
+        return b * self.bin_width
+
+    def frequency_to_bin(self, f) -> float:
+        return f / self.bin_width
+
     def is_null(self) -> bool:
         return (self.num_channels == 0 or self.num_frames == 0
                 or self.num_bins == 0 or self.sample_rate <= 0)
