@@ -101,12 +101,12 @@ build/parent`, then --package build/parent). Phases:
      reverse, mono and back, the energy, repitch by 1.5 and by a swept
      factor, the stereo delays: constant, swept over 0.05-0.95 s with its
      rings in device memory, over 5-40 ms in shared memory and over a
-     flanger's 0.2-0.6 ms on a warp's rounds, pan, widen,
-     the spatialiser's moving source, the pinna filter, the wavelengths of
-     one channel and the amplitude envelope; the host plans of repitch and
-     the spatialiser timed), each against the CPU at 10 s; hold the stereo delay kernel to
-     its plain loop on the card over the first 48,000 frames, every frame
-     of each path call by one step in float64, three calls for the same
+     flanger's 0.2-0.6 ms, pan, widen, the spatialiser's moving source,
+     the pinna filter, the wavelengths of one channel and the amplitude
+     envelope; the host plans of repitch and the spatialiser timed), each
+     against the CPU at 10 s; hold the stereo delay kernel to its plain
+     loop on the card over the first 48,000 frames, every frame of each
+     path call by one step in float64, three calls for the same
      bits; the repitched 440 Hz tone at 660 Hz.
 
 The launch counters are zeroed just before each main path (phases 3 and 4
@@ -2288,8 +2288,7 @@ def delay_sweeps():
     """Phase 9's swept stereo delays: (name, l_time, r_time): 0.05-0.55 s
     against 0.05-0.95 s (rings of ~26,400 and ~45,600 floats: in device
     memory), 5-40 ms against 5-40 ms (in shared memory), and a flanger's
-    0.2-0.6 ms (10-29 samples: rounds shorter than a warp, which takes
-    them)."""
+    0.2-0.6 ms (10-29 samples: rounds of ~11 steps)."""
     import torch
     two_pi = 2.0 * math.pi
     return [("stereo_delay_swept",
@@ -2342,8 +2341,9 @@ def phase9_effects(torch, Audio, seq, dev, card):
     """The effect chain at EFFECT_SECONDS stereo: each call once on a 10 s
     cut on the card and on the CPU (within TOL_FILTER_CPU of the peak),
     then at full size on the card, timed (wall, x realtime, peak memory),
-    its host plan (repitch's and the spatialiser's WDL loops) timed apart. Then the wavelengths and the amplitude envelope, and
-    the stereo delay kernel's checks on the path's own calls. Returns the
+    its host plan (repitch's and the spatialiser's WDL loops) timed
+    apart. Then the wavelengths and the amplitude envelope, and the stereo
+    delay kernel's checks on the path's own calls. Returns the
     kernel's launches, its captured path calls and the report."""
     from flan_tpu_torch.audio import spatial, temporal
     x = stereo_signal(EFFECT_SECONDS)
@@ -2491,7 +2491,7 @@ def phase9_delay_checks(torch, seq, delay_calls) -> dict:
     from flan_tpu_torch.ops import build
     out = {}
     for name, args, y in delay_calls:
-        x, g, el, er, starts, tile, lb, rb = args
+        x, g, el, er, starts, lb, rb = args
         got, w = seq.stereo_delay_swept_cuda(*args, keep_w=True)
         check(torch.equal(got, y), f"{name}: rerun keeping w differs")
         dl, dr = el.cpu().numpy(), er.cpu().numpy()   # the distances are
@@ -2513,21 +2513,17 @@ def phase9_delay_checks(torch, seq, delay_calls) -> dict:
                         name)
         out[name] = {"frames": int(x.shape[1]), "of_frames": int(w.shape[1]),
                      "lb": lb, "rb": rb, "rounds": int(starts.shape[0] - 1),
-                     "tile": tile,
                      "step_err": step, "plain_err": err,
                      "plain_abs_err": abs_err,
                      "plain_ms": plain_ms, "plain_frames": m,
                      "shared_ring": bool(build.load_library()
-                                         .flan_stereo_delay_shared(lb, rb,
-                                                                   tile))}
+                                         .flan_stereo_delay_shared(lb, rb))}
         check(max(step.values()) <= TOL_DELAY,
               f"{name}: a frame off one step from its own writes: {step}")
         check(err <= TOL_DELAY, f"{name} vs its plain loop: {err}")
-    check([(v["shared_ring"], v["tile"]) for v in out.values()] ==
-          [(False, seq.STEREO_TILE), (True, seq.STEREO_TILE),
-           (True, seq.STEREO_WARP_TILE)],
-          "the swept delays did not take the ring variants and tiles "
-          "delay_sweeps names")
+    check([v["shared_ring"] for v in out.values()] == [False, True, True],
+          "the swept delays did not take the ring variants delay_sweeps "
+          "names")
     return out
 
 
@@ -2536,7 +2532,7 @@ def stereo_delay_bound(args, clock: float, step_cycles: float):
     bytes it must move (x twice, g, the two delays and the two outputs, 4
     bytes each a frame) over the memory rate and its chain: the rounds of
     the loop's order (stereo_delay_depth) times one dependent step measured
-    alone (the kernel's warp on rounds of one step)."""
+    alone (the kernel on rounds of one step)."""
     x, g, el, er = args[:4]
     n = int(x.shape[1])
     depth = stereo_delay_depth(el.cpu().numpy().astype(np.int64),
@@ -2545,7 +2541,7 @@ def stereo_delay_bound(args, clock: float, step_cycles: float):
     t_bytes = 7 * 4 * n / HBM_BYTES_PER_S
     note = (f"{depth:.0f} rounds in the loop's order (sum of 1 / the nearer "
             f"read) x {step_cycles:.0f} cycles "
-            "(one dependent step: the warp on rounds of one step); bytes "
+            "(one dependent step: the kernel on rounds of one step); bytes "
             f"{7 * 4 * n / 1e9:.3f} GB")
     return (max(t_lat, t_bytes) * 1e3,
             "operations" if t_lat >= t_bytes else "bytes", note)
@@ -2553,27 +2549,16 @@ def stereo_delay_bound(args, clock: float, step_cycles: float):
 
 def stereo_delay_step_cycles(torch, seq, dev, clock: float) -> float:
     """Cycles a round of the stereo delay kernel takes when every round is
-    one step (both delays 1, the shared rings, a warp): its chain alone."""
+    one step (both delays 1, the shared rings): its chain alone."""
     n = 200_000
     x = torch.zeros((2, n), device=dev)
     g = torch.full((n,), 0.5, device=dev)
     ones = np.ones(n, np.int64)
-    plan = seq.stereo_delay_plan(ones, ones, 1, 1, dev, seq.STEREO_WARP_TILE)
+    plan = seq.stereo_delay_plan(ones, ones, 1, 1, dev)
     seq.stereo_delay_swept_cuda(x, g, *plan, 1, 1)
     ms = cuda_ms(torch, lambda: seq.stereo_delay_swept_cuda(x, g, *plan, 1,
                                                             1), 2)
     return ms * 1e-3 * clock / n
-
-
-def stereo_delay_tile_ms(torch, seq, args, tile: int) -> float:
-    """The kernel on a call's own inputs with the given tile and its
-    rounds: a block against a warp."""
-    x, g, el, er, _, _, lb, rb = args
-    plan = seq.stereo_delay_plan(el.cpu().numpy(), er.cpu().numpy(), lb, rb,
-                                 x.device, tile)
-    seq.stereo_delay_swept_cuda(x, g, *plan, lb, rb)
-    return cuda_ms(torch, lambda: seq.stereo_delay_swept_cuda(
-        x, g, *plan, lb, rb), 2)
 
 
 def kxk_bound(A, b, k: int):
@@ -2811,10 +2796,9 @@ def probe_timing(torch, dev) -> dict:
 
 
 def stereo_delay_timing(torch, Audio, seq, dev) -> dict:
-    """The swept stereo delay's kernel on phase 9's two swept calls at
+    """The swept stereo delay's kernel on phase 9's three swept calls at
     EFFECT_SECONDS stereo (captured from Audio.stereo_delay), by CUDA
-    events over two calls after the captured one, on the tile the path
-    takes and on the warp's."""
+    events over two calls after the captured one."""
     x = stereo_signal(EFFECT_SECONDS)
     out = {}
     for name, lt, rt in delay_sweeps():
@@ -2824,12 +2808,7 @@ def stereo_delay_timing(torch, Audio, seq, dev) -> dict:
                                      EFFECT_SECONDS, lt, rt, 0.5))
         args = calls["stereo_delay_swept_cuda"][0]
         out[name] = {"ms": cuda_ms(torch, lambda: seq.stereo_delay_swept_cuda(
-            *args), 2), "rounds": int(args[4].shape[0] - 1),
-            "tile": args[5],
-            "ms_block": stereo_delay_tile_ms(torch, seq, args,
-                                             seq.STEREO_TILE),
-            "ms_warp": stereo_delay_tile_ms(torch, seq, args,
-                                            seq.STEREO_WARP_TILE)}
+            *args), 2), "rounds": int(args[4].shape[0] - 1)}
         del args, calls
     print(json.dumps({"stereo_delay_timing": out}), flush=True)
     return out
@@ -3185,12 +3164,6 @@ def main() -> None:
     for name, args, _ in delay_calls:
         delay[name] = {"ms": cuda_ms(torch, lambda: sequential_kernels
                                      .stereo_delay_swept_cuda(*args), 2),
-                       "ms_block": stereo_delay_tile_ms(
-                           torch, sequential_kernels, args,
-                           sequential_kernels.STEREO_TILE),
-                       "ms_warp": stereo_delay_tile_ms(
-                           torch, sequential_kernels, args,
-                           sequential_kernels.STEREO_WARP_TILE),
                        "bound": stereo_delay_bound(args, clock, step_cycles)}
     name = delay_calls[0][0]            # rings in device memory
     times["stereo_delay_swept"] = {
@@ -3198,9 +3171,7 @@ def main() -> None:
         "plain_ms": checks9[name]["plain_ms"],
         "plain_frames": checks9[name]["plain_frames"],
         "step_cycles": step_cycles,
-        "calls": {n: {"ms": v["ms"], "ms_block": v["ms_block"],
-                      "ms_warp": v["ms_warp"],
-                      "tile": checks9[n]["tile"], "bound_ms": v["bound"][0],
+        "calls": {n: {"ms": v["ms"], "bound_ms": v["bound"][0],
                       "bound_note": v["bound"][2],
                       "rounds": checks9[n]["rounds"],
                       "shared_ring": checks9[n]["shared_ring"]}

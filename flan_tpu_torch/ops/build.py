@@ -28,8 +28,7 @@ SCAN_CHUNK_TILES = 256  # tiles per block of the prefix over tiles
 SQPV_CARRY_CHUNK = 32   # tiles per chunk of the SQPV forward's carry
 PROBE_SHAPE = (128, 512)  # rows and columns of the probe (probe_kernels.cu)
 COMB_TILE, COMB_WIDTH = 1024, 32    # the comb kernels' tile and round width
-STEREO_TILE, STEREO_WARP_TILE = 1024, 32   # the stereo delay kernel's
-                                            # tiles: a block's, a warp's
+STEREO_TILE = 1024      # the stereo delay kernel's rounds: at most a tile
 
 _p, _i, _ll, _d, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_double, ctypes.c_float)
@@ -53,8 +52,7 @@ SIGNATURES = {
     "flan_comb_swept": [_p, _p, _p, _p, _p, _p, _p, _i, _ll, _i, _f, _p],
     "flan_comb_swept_backward": [_p, _p, _p, _p, _p, _p, _i, _ll, _i, _f,
                                  _p],
-    "flan_stereo_delay_swept": [_p, _p, _p, _p, _p, _i, _p, _ll, _i, _i, _i,
-                                _p],
+    "flan_stereo_delay_swept": [_p, _p, _p, _p, _p, _i, _p, _ll, _i, _i, _p],
 }
 # functions of no argument that must return the constants the wrappers
 # size their tensors by (TILE_FRAMES, MAX_BINS and SCAN_CHUNK_TILES from
@@ -69,8 +67,7 @@ _LIMITS = {"flan_spv_tile_frames": TILE_FRAMES,
            "flan_probe_cols": PROBE_SHAPE[1],
            "flan_comb_tile": COMB_TILE,
            "flan_comb_width": COMB_WIDTH,
-           "flan_stereo_delay_tile": STEREO_TILE,
-           "flan_stereo_delay_warp_tile": STEREO_WARP_TILE}
+           "flan_stereo_delay_tile": STEREO_TILE}
 
 
 def sources() -> list[Path]:
@@ -168,8 +165,8 @@ def load_library() -> ctypes.CDLL:
     # the probe's scratch: (steps)
     lib.flan_probe_scratch_floats.argtypes = [_i]
     lib.flan_probe_scratch_floats.restype = ctypes.c_longlong
-    # whether the stereo delay's rings fit in shared memory: (lb, rb, tile)
-    lib.flan_stereo_delay_shared.argtypes = [_i, _i, _i]
+    # whether the stereo delay's rings fit in shared memory: (lb, rb)
+    lib.flan_stereo_delay_shared.argtypes = [_i, _i]
     lib.flan_stereo_delay_shared.restype = ctypes.c_int
     # the SQPV inverse's scratch: (channels, frames, bins); its frames per
     # tile: (bins)

@@ -11,8 +11,7 @@ csrc/sequential_kernels.cu, runs the saturator's forward as one warp a
 channel, the comb's forward and backward as one block a channel (a warp
 on the chain, three staging its tiles and computing its rounds), the
 saturator's backward as a parallel job, and the stereo delay as one block
-(or one warp) whose rounds of up to 1024 (32) steps were planned on the
-host:
+whose rounds of up to 1024 steps were planned on the host:
 
   saturator_1pole / saturator_2pole    saturator_1pole_ref, saturator_2pole_ref
   saturator_*_backward_maps            saturator_adjoint_maps_ref
@@ -649,9 +648,8 @@ def saturator_step_errors(x, planes, inv: float, order: int,
 # rb], w_L[t] = x_l[t] + w_R[t - er[t]] g[t], w_R[t] = x_r[t] + w_L[t -
 # el[t]] g[t], with the distances el = dl mod lb (0: the step's own L
 # write, for dl in {0, lb}) and er = dr, or rb for dr = 0.
-# The kernel's rounds: at most a tile of frames, none across one; a block's
-# tile, or a warp's where the block's rounds would be shorter than a warp.
-STEREO_TILE, STEREO_WARP_TILE = build.STEREO_TILE, build.STEREO_WARP_TILE
+STEREO_TILE = build.STEREO_TILE     # the kernel's rounds: at most a tile of
+                                    # frames, none across one
 
 
 def stereo_delay_distances(dl: np.ndarray, dr: np.ndarray, lb: int, rb: int):
@@ -941,13 +939,12 @@ def comb_swept_backward_cuda(gy, delays, k, a, f: float, ring_len: int):
     return gu
 
 
-def stereo_delay_swept_cuda(x, g, el, er, starts, tile: int, lb: int,
-                            rb: int, keep_w: bool = False):
+def stereo_delay_swept_cuda(x, g, el, er, starts, lb: int, rb: int,
+                            keep_w: bool = False):
     """The swept stereo delay kernel: x [2, n] and g [n] float32, el and er
     [n] int32 (stereo_delay_distances), starts the rounds
-    (stereo_delay_round_starts(.., tile)) int32, all on one CUDA device;
-    tile STEREO_TILE (a block) or STEREO_WARP_TILE (a warp). Returns the
-    outputs [2, n], with keep_w also w [2, n]."""
+    (stereo_delay_round_starts(.., STEREO_TILE)) int32, all on one CUDA
+    device. Returns the outputs [2, n], with keep_w also w [2, n]."""
     check_cuda(x, "stereo_delay_swept x", 2)
     if x.shape[0] != 2:
         raise ValueError(f"stereo_delay_swept takes 2 rows, got {x.shape[0]}")
@@ -961,26 +958,20 @@ def stereo_delay_swept_cuda(x, g, el, er, starts, tile: int, lb: int,
         err = lib.flan_stereo_delay_swept(
             x.data_ptr(), g.data_ptr(), el.data_ptr(), er.data_ptr(),
             starts.data_ptr(), starts.shape[0] - 1, w.data_ptr(), n, lb, rb,
-            tile, torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream().cuda_stream)
     raise_on(err, "stereo_delay_swept")
     LAUNCHES["stereo_delay_swept"] += 1
     out = stereo_delay_outputs(w, lb, rb)
     return (out, w) if keep_w else out
 
 
-def stereo_delay_plan(dl, dr, lb: int, rb: int, device, tile=None):
+def stereo_delay_plan(dl, dr, lb: int, rb: int, device):
     """The kernel's operands from the host delays: (el, er, starts) int32
-    on `device` and the tile. Without a tile, the block's, unless its
-    rounds would be shorter than a warp on average: then the warp's."""
+    on `device`."""
     el, er = stereo_delay_distances(dl, dr, lb, rb)
-    starts = stereo_delay_round_starts(el, er, tile or STEREO_TILE)
-    if tile is None:
-        tile = STEREO_TILE
-        if len(starts) - 1 > len(el) / STEREO_WARP_TILE:
-            tile = STEREO_WARP_TILE
-            starts = stereo_delay_round_starts(el, er, tile)
+    starts = stereo_delay_round_starts(el, er, STEREO_TILE)
     return tuple(torch.from_numpy(v.astype(np.int32)).to(device)
-                 for v in (el, er, starts)) + (tile,)
+                 for v in (el, er, starts))
 
 
 # ----------------------------------------------------------------- autograd

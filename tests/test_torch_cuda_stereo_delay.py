@@ -50,9 +50,9 @@ def _delay_inputs(n: int, lb: int, rb: int, kind: str, seed: int = 5):
 
 
 # rings in shared memory (each a power of two of at least its distance +
-# the tile, 40 Ki floats together) and past it (the reads from device
-# memory), flagged for the block's tile; lengths of one frame, around a
-# tile of 1024 and past a few hundred rounds
+# 1024 slots, 40 Ki floats together) and past it (the reads from device
+# memory); lengths of one frame, around a tile of 1024 and past a few
+# hundred rounds
 DELAY_CASES = ([(n, 50, 70, "random", True) for n in (1, 1023, 1025, 3001)]
                + [(20_000, 1, 1, "ones", True), (20_000, 1, 5, "ends", True),
                   (20_000, 700, 1024, "ends", True),
@@ -68,34 +68,25 @@ DELAY_CASES = ([(n, 50, 70, "random", True) for n in (1, 1023, 1025, 3001)]
 @pytest.mark.parametrize("n,lb,rb,kind,shared", DELAY_CASES)
 def test_stereo_delay_kernel_matches_plain_loop(cuda_device, n, lb, rb,
                                                 kind, shared):
-    """The kernel on the block's tile and on the warp's, against the plain
-    version on the same inputs, TOL_DELAY of the peak; its writes over
-    every frame by one step in float64; one launch a call; the ring
-    variant by size; the same bits on three calls; the plan's own choice
-    of tile (the warp's where the block's rounds average under 32 steps)."""
+    """The kernel against the plain version on the same inputs, TOL_DELAY
+    of the peak; its writes over every frame by one step in float64; one
+    launch; the ring variant by size; the same bits on three calls."""
     x, g, dl, dr = _delay_inputs(n, lb, rb, kind)
+    plan = seq.stereo_delay_plan(dl, dr, lb, rb, x.device)
+    before = seq.LAUNCHES["stereo_delay_swept"]
+    out, w = seq.stereo_delay_swept_cuda(x, g, *plan, lb, rb, keep_w=True)
+    assert seq.LAUNCHES["stereo_delay_swept"] == before + 1
     want, w_ref = seq.stereo_delay_ref(x, g, dl, dr, lb, rb, keep_w=True)
     peak = w_ref.abs().max().clamp(min=1e-30)
-    lib = build.load_library()
-    assert lib.flan_stereo_delay_shared(lb, rb, seq.STEREO_TILE) == shared
-    for tile in (seq.STEREO_TILE, seq.STEREO_WARP_TILE):
-        plan = seq.stereo_delay_plan(dl, dr, lb, rb, x.device, tile)
-        before = seq.LAUNCHES["stereo_delay_swept"]
-        out, w = seq.stereo_delay_swept_cuda(x, g, *plan, lb, rb,
-                                             keep_w=True)
-        assert seq.LAUNCHES["stereo_delay_swept"] == before + 1
-        assert (w - w_ref).abs().max() <= TOL_DELAY * peak
-        assert torch.equal(out, seq.stereo_delay_outputs(w, lb, rb))
-        assert (out - want).abs().max() <= TOL_DELAY * peak
-        assert max(seq.stereo_delay_step_errors(x, g, dl, dr, lb, rb,
-                                                w).values()) <= TOL_DELAY
-        for _ in range(2):
-            again = seq.stereo_delay_swept_cuda(x, g, *plan, lb, rb)
-            assert torch.equal(again, out)
-    auto = seq.stereo_delay_plan(dl, dr, lb, rb, x.device)
-    block = seq.stereo_delay_plan(dl, dr, lb, rb, x.device, seq.STEREO_TILE)
-    short = block[2].shape[0] - 1 > n / seq.STEREO_WARP_TILE
-    assert auto[3] == (seq.STEREO_WARP_TILE if short else seq.STEREO_TILE)
+    assert (w - w_ref).abs().max() <= TOL_DELAY * peak
+    assert torch.equal(out, seq.stereo_delay_outputs(w, lb, rb))
+    assert (out - want).abs().max() <= TOL_DELAY * peak
+    assert max(seq.stereo_delay_step_errors(x, g, dl, dr, lb, rb,
+                                            w).values()) <= TOL_DELAY
+    assert build.load_library().flan_stereo_delay_shared(lb, rb) == shared
+    for _ in range(2):
+        again = seq.stereo_delay_swept_cuda(x, g, *plan, lb, rb)
+        assert torch.equal(again, out)
 
 
 @pytest.mark.cuda
