@@ -104,15 +104,20 @@ build/parent`, then --package build/parent). Phases:
      flanger's 0.2-0.6 ms, pan, widen, the spatialiser's moving source,
      the pinna filter, the wavelengths of one channel and the amplitude
      envelope; the host plans of repitch and the spatialiser timed), each
-     against the CPU at 10 s; hold the stereo delay kernel to its plain
-     loop on the card over the first 48,000 frames, every frame of each
-     path call by one step in float64, three calls for the same
-     bits; the repitched 440 Hz tone at 660 Hz.
+     held first to the CPU at 10 s; on the path's own calls, hold the
+     stereo delay kernel over the first 48,000 frames to the loop step by
+     step on the host and to its plain version on the card, every frame
+     of each call by one step in float64, three calls for the same bits,
+     and each scan kernel's calls (the constant delay's rows, the
+     spatialiser's lowpass, the pinna's bandshelves) to their plain scans
+     as phase 6 does; the repitched 440 Hz tone at 660 Hz.
 
 The launch counters are zeroed just before each main path (phases 3 and 4
 together, then phase 5, then phase 6, then resonate and perturb in phase
-7, then phase 8's filters, then phase 9's effect chain) and read just after it, before any launch made for a comparison; the probe's counter runs over all of them
-(it lies on no path). Every failed check raises, so the script exits nonzero
+7, then phase 8's filters, then phase 9's effect chain at full size, after
+its comparisons at 10 s) and read just after it, before any launch made
+for a comparison; the probe's counter runs over all of them (it lies on
+no path). Every failed check raises, so the script exits nonzero
 without printing the result line. The line before the last is one JSON
 object describing the kernels (share_of_bound is bound_ms / ms; time_kernels
 says what ms, ms_after_plain and ms_behind_work are); the last is the result
@@ -333,6 +338,14 @@ IR_SECONDS = 2.0
 SAT_CHAIN_CYCLES = {False: 4 * (8 * 23 + 11), True: 4 * (8 * 23 + 17)}
 COMB_STEP_CYCLES = 55
 COMB_BACK_STEP_CYCLES = 92
+# The swept stereo delay's the same way: its depth in the loop's order
+# (stereo_delay_depth) times one dependent step, measured as the chain
+# alone (spv_variants --source stereo_delay, chain_only: one warp on
+# rounds of 32 steps, each reading the round before from rings in shared
+# memory: the two ring reads, the steps' multiplies and adds, the ring
+# writes and a warp barrier, with no inputs, round ends or stores; H100
+# 80GB HBM3, 700 W, the SM at 1,980 MHz): 53.3 cycles a round
+STEREO_DELAY_STEP_CYCLES = 53
 # Operations of one saturator step at order 2, counted from the source's
 # arithmetic (a tanhf as 10, a division as 9, an FMA as 2): the rerun
 # (the forward's step) and one adjoint (the backward's read-out; the maps
@@ -2337,19 +2350,35 @@ def stereo_delay_depth(el: np.ndarray, er: np.ndarray) -> float:
     return float((1.0 / d).sum())
 
 
-def phase9_effects(torch, Audio, seq, dev, card):
-    """The effect chain at EFFECT_SECONDS stereo: each call once on a 10 s
-    cut on the card and on the CPU (within TOL_FILTER_CPU of the peak),
-    then at full size on the card, timed (wall, x realtime, peak memory),
-    its host plan (repitch's and the spatialiser's WDL loops) timed
-    apart. Then the wavelengths and the amplitude envelope, and the stereo
-    delay kernel's checks on the path's own calls. Returns the
-    kernel's launches, its captured path calls and the report."""
+def phase9_effects(torch, Audio, seq, scan, scan_kernels, dev, card):
+    """The effect chain at EFFECT_SECONDS stereo. First its comparisons:
+    each call on a 10 s cut on the card and on the CPU (within
+    TOL_FILTER_CPU of the peak) and the information's
+    (phase9_information_checks). Then the path, its launch counts zeroed
+    just before it and read just after it: each call once at full size on
+    the card, timed (wall, x realtime, peak memory), its host plan
+    (repitch's and the spatialiser's WDL loops) timed apart, then the
+    wavelengths, the amplitude envelope and the energy. Then the checks on
+    the path's own calls: the stereo delay kernel's (phase9_delay_checks)
+    and the first call of each scan kernel in each effect call against its
+    plain version (phase9_scan_checks). Returns the path's launches, the
+    stereo delay's captured kernel calls, each scan kernel's largest
+    absolute error and the report."""
     from flan_tpu_torch.audio import spatial, temporal
     x = stereo_signal(EFFECT_SECONDS)
     x10 = stereo_signal(FILTER_CPU_SECONDS)
     report = {"phase": 9, "path": "effect_chain_600s_stereo_48k",
               "card": card}
+    calls = effect_calls()
+    cpu_err = {}
+    for name, run in calls.items():
+        want = run(Audio.create_from_array(x10, SR, device="cpu")).to_numpy()
+        got = run(Audio.create_from_array(x10, SR, device=dev)).to_numpy()
+        cpu_err[name] = float(np.abs(got - want).max() / np.abs(want).max())
+        check(got.shape == want.shape and cpu_err[name] < TOL_FILTER_CPU,
+              f"{name} on the card vs the CPU at 10 s: {cpu_err[name]}")
+    report["wavelengths_10s"] = phase9_information_checks(torch, Audio, dev,
+                                                          x10)
     plan_s = {}
 
     def timing(module, name):
@@ -2364,15 +2393,14 @@ def phase9_effects(torch, Audio, seq, dev, card):
 
     plans = [(temporal, "_wdl_sinc_plan"), (spatial, "_wdl_feed_plan")]
     originals = [(m, n, getattr(m, n)) for m, n in plans]
+    # the first call of the stereo delay (the dispatch with its host
+    # delays, and the kernel) and of each scan kernel in each effect call
+    targets = [(seq, "stereo_delay_swept"), (seq, "stereo_delay_swept_cuda"),
+               (scan, "scan_linear"), (scan, "scan_affine2x2")]
+    delay_calls, scan_calls9 = [], []
     seq.reset_launch_counts()
-    delay_calls = []
-    seconds = EFFECT_SECONDS
-    for name, run in effect_calls().items():
-        want = run(Audio.create_from_array(x10, SR, device="cpu")).to_numpy()
-        got = run(Audio.create_from_array(x10, SR, device=dev)).to_numpy()
-        err = float(np.abs(got - want).max() / np.abs(want).max())
-        check(got.shape == want.shape and err < TOL_FILTER_CPU,
-              f"{name} on the card vs the CPU at 10 s: {err}")
+    scan_kernels.reset_launch_counts()
+    for name, run in calls.items():
         for m, n, _ in originals:
             setattr(m, n, timing(m, n))
         plan_s.clear()
@@ -2380,38 +2408,45 @@ def phase9_effects(torch, Audio, seq, dev, card):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
-            keep = name.startswith("stereo_delay_swept")
-            (y, calls), ms = timed(torch, lambda: capture_calls(
-                [(seq, "stereo_delay_swept_cuda")], lambda: run(
-                    Audio.create_from_array(x, SR, device=dev))))
+            (y, kept), ms = timed(torch, lambda: capture_calls(
+                targets, lambda: run(Audio.create_from_array(x, SR,
+                                                             device=dev))))
         finally:
             for m, n, fn in originals:
                 setattr(m, n, fn)
-        if keep:
-            delay_calls.append((name, calls["stereo_delay_swept_cuda"][0],
-                                y.data))
-        entry = {"seconds": seconds, "wall_s": ms / 1e3,
-                 "x_realtime": seconds / (ms / 1e3),
+        if name.startswith("stereo_delay_swept"):
+            delay_calls.append((name, kept["stereo_delay_swept"][0],
+                                kept["stereo_delay_swept_cuda"][0], y.data))
+        scans = [k for k in ("scan_linear", "scan_affine2x2") if kept[k]]
+        scan_calls9 += [(name, k, kept[k][0]) for k in scans]
+        entry = {"seconds": EFFECT_SECONDS, "wall_s": ms / 1e3,
+                 "x_realtime": EFFECT_SECONDS / (ms / 1e3),
                  "peak_alloc_gb": (torch.cuda.max_memory_allocated() - base)
                  / 1e9, "shape": tuple(y.data.shape),
-                 "card_vs_cpu_10s_err_rel": err,
-                 "host_plan_s": {k: sum(v) for k, v in plan_s.items()}}
+                 "card_vs_cpu_10s_err_rel": cpu_err[name],
+                 "host_plan_s": {k: sum(v) for k, v in plan_s.items()},
+                 "scans": scans}
         check(bool(torch.isfinite(y.data).all()), f"{name}: not finite")
         report[name] = entry
         print(json.dumps({"phase": 9, name: entry}), flush=True)
-        del y
-    launches = dict(seq.LAUNCHES)
-    check(launches["stereo_delay_swept"] > 0,
-          "stereo_delay_swept was not launched on the effect chain")
-    report.update(phase9_information(torch, Audio, dev, x, x10))
-    # the energy, on the card and the CPU
+        del y, kept
+    report.update(phase9_information(torch, Audio, dev, x))
     a = Audio.create_from_array(x, SR, device=dev)
     energy, ms = timed(torch, a.get_total_energy)
+    del a
+    launches = {"stereo_delay_swept": seq.LAUNCHES["stereo_delay_swept"],
+                **{k: scan_kernels.LAUNCHES[k] for k in SCANS}}
+    report["launches"] = launches
+    check(launches["stereo_delay_swept"] == len(delay_sweeps()),
+          f"the effect chain launched stereo_delay_swept "
+          f"{launches['stereo_delay_swept']} times, not once a swept delay")
+    check(launches["scan_linear"] > 0 and launches["scan_affine2x2"] > 0,
+          f"the effect chain's scans did not both run: {launches}")
+    # the energy against the CPU's
     want = Audio.create_from_array(x, SR, device="cpu").get_total_energy()
     err = float(np.abs(energy - want).max() / np.abs(want).max())
     report["get_total_energy"] = {"wall_s": ms / 1e3, "err_rel_cpu": err}
     check(err < TOL_FILTER_CPU, f"get_total_energy vs the CPU: {err}")
-    del a
     # the constant repitch moves a 440 Hz tone to 660 Hz
     tone = np.sin(2 * np.pi * 440.0 * np.arange(int(2 * SR)) / SR)
     up = Audio.create_from_array(tone.astype(np.float32), SR,
@@ -2421,18 +2456,16 @@ def phase9_effects(torch, Audio, seq, dev, card):
     check(abs(hz - 660.0) < 2.0, f"440 Hz repitched by 1.5 sounds at {hz}")
     report["stereo_delay_checks"] = phase9_delay_checks(torch, seq,
                                                         delay_calls)
+    report["scan_checks"], scan_errs = phase9_scan_checks(
+        torch, scan_kernels, scan_calls9)
     print(json.dumps(report), flush=True)
-    return launches, delay_calls, report
+    return (launches, [(n, args, y) for n, _, args, y in delay_calls],
+            scan_errs, report)
 
 
-def phase9_information(torch, Audio, dev, x, x10) -> dict:
+def phase9_information(torch, Audio, dev, x) -> dict:
     """get_local_wavelengths of one channel (window 2048, hop 128) and the
-    amplitude envelope at EFFECT_SECONDS, timed; at 10 s against the CPU:
-    d' on the card within twice the float32 CPU run's error against
-    float64 (and a floor of 1e-6), the wavelengths equal within
-    WAVELENGTH_REL but for the hops whose valley flips, counted and
-    gated at WAVELENGTH_FLIPS; the envelope within TOL_FILTER_CPU."""
-    from flan_tpu_torch.ops import dsp_utility
+    amplitude envelope at EFFECT_SECONDS, timed."""
     out = {}
     a = Audio.create_from_array(x, SR, device=dev)
     wl, ms = timed(torch, lambda: a.get_local_wavelengths(0, 0, -1, 2048, 128))
@@ -2445,7 +2478,17 @@ def phase9_information(torch, Audio, dev, x, x10) -> dict:
     env, ms = timed(torch, lambda: a.get_amplitude_envelope(0.1)(t))
     out["get_amplitude_envelope"] = {"wall_s": ms / 1e3}
     check(bool(torch.isfinite(env).all()), "amplitude envelope not finite")
-    del a, env
+    return out
+
+
+def phase9_information_checks(torch, Audio, dev, x10) -> dict:
+    """The wavelengths (window 2048, hop 128) and the amplitude envelope at
+    10 s against the CPU: d' on the card within twice the float32 CPU
+    run's error against float64 (and a floor of 1e-6), the wavelengths
+    equal within WAVELENGTH_REL but for the hops whose valley flips,
+    counted and gated at WAVELENGTH_FLIPS; the envelope within
+    TOL_FILTER_CPU."""
+    from flan_tpu_torch.ops import dsp_utility
     a_card = Audio.create_from_array(x10, SR, device=dev)
     a_cpu = Audio.create_from_array(x10, SR, device="cpu")
     got = a_card.get_local_wavelengths(0, 0, -1, 2048, 128)
@@ -2469,10 +2512,9 @@ def phase9_information(torch, Audio, dev, x, x10) -> dict:
     env_card = a_card.get_amplitude_envelope(0.1)(tg.to(dev)).cpu()
     env_cpu = a_cpu.get_amplitude_envelope(0.1)(tg)
     e_env = float((env_card - env_cpu).abs().max() / env_cpu.abs().max())
-    out["wavelengths_10s"] = {"hops": len(want), "flipped_hops": flips,
-                              "d_prime_err_card": e_card,
-                              "d_prime_err_cpu32": e_cpu,
-                              "envelope_err_rel": e_env}
+    out = {"hops": len(want), "flipped_hops": flips,
+           "d_prime_err_card": e_card, "d_prime_err_cpu32": e_cpu,
+           "envelope_err_rel": e_env}
     check(flips <= WAVELENGTH_FLIPS * len(want),
           f"{flips} of {len(want)} wavelength hops flip between card and CPU")
     check(e_card <= 2.0 * e_cpu + 1e-6,
@@ -2484,18 +2526,17 @@ def phase9_information(torch, Audio, dev, x, x10) -> dict:
 def phase9_delay_checks(torch, seq, delay_calls) -> dict:
     """The stereo delay kernel on the path's own swept calls: rerun keeping
     w (its output the path's bits), every frame by one step in float64
-    within TOL_DELAY, its writes and outputs over the first
-    DELAY_PLAIN_FRAMES frames against the plain loop on the card within
-    TOL_DELAY of the writes' peak, and three calls for the
-    same bits. Launches here are comparisons (counted already)."""
-    from flan_tpu_torch.ops import build
+    within TOL_DELAY; over the first DELAY_PLAIN_FRAMES frames, its writes
+    and outputs against the loop itself step by step on the host
+    (stereo_delay_loop on the call's own host delays: it shares no
+    distance or round with the kernel) and against the plain version on
+    the card, each within TOL_DELAY of the writes' peak; three calls for
+    the same bits. These launches are comparisons, after the count."""
     out = {}
-    for name, args, y in delay_calls:
+    for name, (_, _, dl, dr, _, _), args, y in delay_calls:
         x, g, el, er, starts, lb, rb = args
         got, w = seq.stereo_delay_swept_cuda(*args, keep_w=True)
         check(torch.equal(got, y), f"{name}: rerun keeping w differs")
-        dl, dr = el.cpu().numpy(), er.cpu().numpy()   # the distances are
-        # delays in the loop's own terms: el in [0, lb), er in [1, rb]
         step = seq.stereo_delay_step_errors(x, g, dl, dr, lb, rb, w)
         m = DELAY_PLAIN_FRAMES
         t0 = time.perf_counter()
@@ -2504,61 +2545,77 @@ def phase9_delay_checks(torch, seq, delay_calls) -> dict:
                                             keep_w=True)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        loop, w_loop = seq.stereo_delay_loop(
+            x[:, :m].cpu().numpy(), g[:m].cpu().numpy(), dl[:m], dr[:m], lb,
+            rb)
+        loop_s = time.perf_counter() - t0
         # the outputs are the writes shifted by the rings (zeros for their
         # first lb and rb frames): both held, to the writes' peak
         abs_err = max(float((w[:, :m] - w_want).abs().max()),
                       float((y[:, :m] - want).abs().max()))
+        loop_abs = max(float(np.abs(w[:, :m].cpu().numpy() - w_loop).max()),
+                       float(np.abs(y[:, :m].cpu().numpy() - loop).max()))
         err = abs_err / float(w_want.abs().max())
+        loop_err = loop_abs / float(np.abs(w_loop).max())
         check_same_bits(torch, lambda: seq.stereo_delay_swept_cuda(*args),
                         name)
-        out[name] = {"frames": int(x.shape[1]), "of_frames": int(w.shape[1]),
-                     "lb": lb, "rb": rb, "rounds": int(starts.shape[0] - 1),
+        out[name] = {"frames": int(x.shape[1]), "lb": lb, "rb": rb,
+                     "rounds": int(starts.shape[0] - 1),
                      "step_err": step, "plain_err": err,
-                     "plain_abs_err": abs_err,
-                     "plain_ms": plain_ms, "plain_frames": m,
-                     "shared_ring": bool(build.load_library()
-                                         .flan_stereo_delay_shared(lb, rb))}
+                     "plain_abs_err": abs_err, "plain_ms": plain_ms,
+                     "loop_err": loop_err, "loop_abs_err": loop_abs,
+                     "loop_s": loop_s, "plain_frames": m,
+                     "shared_ring": seq.stereo_delay_shared_ring(lb, rb)}
         check(max(step.values()) <= TOL_DELAY,
               f"{name}: a frame off one step from its own writes: {step}")
-        check(err <= TOL_DELAY, f"{name} vs its plain loop: {err}")
+        check(err <= TOL_DELAY, f"{name} vs its plain version: {err}")
+        check(loop_err <= TOL_DELAY, f"{name} vs the loop: {loop_err}")
     check([v["shared_ring"] for v in out.values()] == [False, True, True],
           "the swept delays did not take the ring variants delay_sweeps "
           "names")
     return out
 
 
-def stereo_delay_bound(args, clock: float, step_cycles: float):
+def phase9_scan_checks(torch, scan_kernels, scan_calls9):
+    """The first call of each scan kernel in each effect call, on the
+    path's own operands (the constant delay's rows of ceil(n / rb) frames,
+    the pinna's bandshelves at full length): the kernel's error against
+    the float64 plain run at most twice the float32 plain run's, plus
+    SCAN_FLOOR on rows shorter than the call (where both sit at rounding,
+    as phase 2's short cases), and three calls for the same bits, as phase
+    6 holds the filters'. Returns the errors and each kernel's largest
+    absolute difference from its float32 plain run."""
+    out, errs = {}, {}
+    for call, name, args in scan_calls9:
+        kernel, plain = scan_calls(scan_kernels)[name]
+        e = scan_errors(torch, kernel, plain, args)
+        e["shape"] = tuple(torch.broadcast_shapes(*(a.shape for a in args)))
+        out[f"{call}/{name}"] = e
+        full = e["shape"][-1] >= int(EFFECT_SECONDS * SR)
+        check_scan(e, f"{name} in {call}", 0.0 if full else SCAN_FLOOR)
+        check_same_bits(torch, lambda: kernel(*args), f"{name} in {call}")
+        errs[name] = max(errs.get(name, 0.0), e["abs_err"])
+    return out, errs
+
+
+def stereo_delay_bound(args):
     """(bound_ms, bound_by, note) of a stereo delay call: the larger of the
     bytes it must move (x twice, g, the two delays and the two outputs, 4
     bytes each a frame) over the memory rate and its chain: the rounds of
     the loop's order (stereo_delay_depth) times one dependent step measured
-    alone (the kernel on rounds of one step)."""
+    alone, STEREO_DELAY_STEP_CYCLES at 1.98 GHz."""
     x, g, el, er = args[:4]
     n = int(x.shape[1])
     depth = stereo_delay_depth(el.cpu().numpy().astype(np.int64),
                                er.cpu().numpy().astype(np.int64))
-    t_lat = depth * step_cycles / clock
+    t_lat = depth * STEREO_DELAY_STEP_CYCLES / 1.98e9
     t_bytes = 7 * 4 * n / HBM_BYTES_PER_S
     note = (f"{depth:.0f} rounds in the loop's order (sum of 1 / the nearer "
-            f"read) x {step_cycles:.0f} cycles "
-            "(one dependent step: the kernel on rounds of one step); bytes "
-            f"{7 * 4 * n / 1e9:.3f} GB")
+            f"read) x {STEREO_DELAY_STEP_CYCLES} cycles (one dependent "
+            f"step, measured alone); bytes {7 * 4 * n / 1e9:.3f} GB")
     return (max(t_lat, t_bytes) * 1e3,
             "operations" if t_lat >= t_bytes else "bytes", note)
-
-
-def stereo_delay_step_cycles(torch, seq, dev, clock: float) -> float:
-    """Cycles a round of the stereo delay kernel takes when every round is
-    one step (both delays 1, the shared rings): its chain alone."""
-    n = 200_000
-    x = torch.zeros((2, n), device=dev)
-    g = torch.full((n,), 0.5, device=dev)
-    ones = np.ones(n, np.int64)
-    plan = seq.stereo_delay_plan(ones, ones, 1, 1, dev)
-    seq.stereo_delay_swept_cuda(x, g, *plan, 1, 1)
-    ms = cuda_ms(torch, lambda: seq.stereo_delay_swept_cuda(x, g, *plan, 1,
-                                                            1), 2)
-    return ms * 1e-3 * clock / n
 
 
 def kxk_bound(A, b, k: int):
@@ -3148,29 +3205,31 @@ def main() -> None:
           flush=True)
     phase_done("8 timing")
 
-    # phase 9: the effect chain, counted; the stereo delay kernel on its
-    # path calls
-    launches9, delay_calls, report9 = phase9_effects(
-        torch, Audio, sequential_kernels, dev, card)
+    # phase 9: the effect chain, counted; the stereo delay kernel and the
+    # scans on its path calls
+    launches9, delay_calls, scan_errs9, report9 = phase9_effects(
+        torch, Audio, sequential_kernels, scan, scan_kernels, dev, card)
     launches["stereo_delay_swept"] = launches9["stereo_delay_swept"]
+    for name in SCANS:
+        by_path[name]["effect_chain"] = launches9[name]
+        launches[name] += launches9[name]
+        errs[name] = max(errs[name], scan_errs9.get(name, 0.0))
     phase_done("9 effect chain, checks")
     checks9 = report9["stereo_delay_checks"]
-    worst["stereo_delay_swept"] = max(v["plain_abs_err"]
-                                      for v in checks9.values())
+    worst["stereo_delay_swept"] = max(
+        max(v["plain_abs_err"], v["loop_abs_err"]) for v in checks9.values())
     errs["stereo_delay_swept"] = 0.0
-    step_cycles = stereo_delay_step_cycles(torch, sequential_kernels, dev,
-                                           clock)
     delay = {}
     for name, args, _ in delay_calls:
         delay[name] = {"ms": cuda_ms(torch, lambda: sequential_kernels
                                      .stereo_delay_swept_cuda(*args), 2),
-                       "bound": stereo_delay_bound(args, clock, step_cycles)}
+                       "bound": stereo_delay_bound(args)}
     name = delay_calls[0][0]            # rings in device memory
     times["stereo_delay_swept"] = {
         "ms": delay[name]["ms"], "frames": checks9[name]["frames"],
         "plain_ms": checks9[name]["plain_ms"],
         "plain_frames": checks9[name]["plain_frames"],
-        "step_cycles": step_cycles,
+        "step_cycles": STEREO_DELAY_STEP_CYCLES,
         "calls": {n: {"ms": v["ms"], "bound_ms": v["bound"][0],
                       "bound_note": v["bound"][2],
                       "rounds": checks9[n]["rounds"],
@@ -3217,9 +3276,11 @@ def main() -> None:
                 "stereo_delay_swept": "flan_tpu/audio/temporal.py:511"}
     path = {"spv_forward": "spv", "spv_inverse": "spv",
             "sqpv_forward": "sqpv", "sqpv_inverse": "sqpv",
-            "scan_linear": "filters, pv_algorithms, gradients",
+            "scan_linear": "filters, pv_algorithms, gradients, "
+                           "effect chain",
             "scan_max_affine": "filters, pv_algorithms, gradients",
-            "scan_affine2x2": "filters, gradients", "probe": None,
+            "scan_affine2x2": "filters, gradients, effect chain",
+            "probe": None,
             "scan_affine_kxk": "multinotch filters",
             "saturator_1pole": "saturator multinotch, gradients",
             "saturator_2pole": "saturator multinotch, gradients",

@@ -47,8 +47,9 @@ gradients follow from u in PyTorch.
 
 The stereo delay has no backward (the JAX package differentiates it
 through lax.scan; the port's is still to come). Its rounds
-(stereo_delay_round_starts) and its one-step check
-(stereo_delay_step_errors) are here too.
+(stereo_delay_round_starts), its one-step check (stereo_delay_step_errors)
+and the loop itself step by step on the host (stereo_delay_loop: the
+oracle, too slow for a path) are here too.
 
 Dispatch by device: a CPU tensor goes to the plain version, a CUDA tensor
 to the kernel or the call raises. LAUNCHES counts each wrapper's kernel
@@ -712,6 +713,28 @@ def stereo_delay_ref(x, g, dl, dr, lb: int, rb: int, keep_w: bool = False,
     return (out, w) if keep_w else out
 
 
+def stereo_delay_loop(x, g, dl, dr, lb: int, rb: int):
+    """The loop of flan_tpu/audio/temporal.py:511-527 step by step in
+    float32 on the host: x [2, n] and g [n] float32, dl and dr [n] integer
+    delays in [0, lb] and [0, rb], numpy arrays. Returns (out, w) [2, n]:
+    the outputs and the values each step wrote into its two slots. It
+    shares nothing with the distances and rounds above, so it is the
+    oracle of stereo_delay_ref and the kernel; at a few microseconds a
+    step it is too slow for a long call."""
+    x, g = np.asarray(x, np.float32), np.asarray(g, np.float32)
+    n = x.shape[1]
+    lbuf, rbuf = np.zeros(lb, np.float32), np.zeros(rb, np.float32)
+    out = np.zeros((2, n), np.float32)
+    w = np.zeros((2, n), np.float32)
+    for t in range(n):
+        ll, rl = t % lb, t % rb
+        out[0, t], out[1, t] = lbuf[ll], rbuf[rl]
+        lbuf[ll] = x[0, t] + rbuf[(t - dr[t]) % rb] * g[t]
+        rbuf[rl] = x[1, t] + lbuf[(t - dl[t]) % lb] * g[t]
+        w[0, t], w[1, t] = lbuf[ll], rbuf[rl]
+    return out, w
+
+
 def stereo_delay_outputs(w: torch.Tensor, lb: int, rb: int) -> torch.Tensor:
     """The outputs from the values the steps wrote: [w_L shifted by lb, w_R
     by rb], zeros before."""
@@ -972,6 +995,12 @@ def stereo_delay_plan(dl, dr, lb: int, rb: int, device):
     starts = stereo_delay_round_starts(el, er, STEREO_TILE)
     return tuple(torch.from_numpy(v.astype(np.int32)).to(device)
                  for v in (el, er, starts))
+
+
+def stereo_delay_shared_ring(lb: int, rb: int) -> bool:
+    """Whether the kernel keeps a call's rings (for ring sizes lb, rb) in
+    shared memory, the variant it then takes, or reads device memory."""
+    return bool(load_library().flan_stereo_delay_shared(lb, rb))
 
 
 # ----------------------------------------------------------------- autograd

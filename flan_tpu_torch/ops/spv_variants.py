@@ -2,15 +2,16 @@
 out.
 
     python -m flan_tpu_torch.ops.spv_variants [--source spv scan kxk sqpv
-                                                        saturator comb]
+                                                        saturator comb
+                                                        stereo_delay]
                                               [--first-version COMMIT CSRC_DIR]
                                               [--variants NAME ...]
                                               [--ks K ...]
 
-Needs one CUDA card and nvcc. For each source named (all six by default:
+Needs one CUDA card and nvcc. For each source named (all seven by default:
 csrc/spv_kernels.cu, scan_kernels.cu, the k x k kernel in scan_kernels.cu,
-sqpv_kernels.cu, the saturator multinotch and the swept comb in
-sequential_kernels.cu) it
+sqpv_kernels.cu, the saturator multinotch, the swept comb and the swept
+stereo delay in sequential_kernels.cu) it
 copies the source
 and common.cuh, applies one textual substitution set per variant (stores
 removed, table loads or gathers replaced by constants, cheap roundings put
@@ -31,7 +32,9 @@ backward at phase 8's shape (10 s stereo 48 kHz, order 2, 1-pole and
 and each forward's largest difference from the plain loop over the first
 SAT_ERR_FRAMES frames, over the loop's peak; the comb's forward and
 backward on phase 8's calls at 600 s stereo (bench_comb: the rounds, the
-cycles a round and a digest of the outputs). A variant computes something
+cycles a round and a digest of the outputs); the stereo delay on rounds
+of 32 steps (bench_stereo_delay: the cycles a round, the chain alone
+among the variants). A variant computes something
 else than the kernel does: only its times mean anything, apart from that
 error where a variant only rounds in another order.
 
@@ -418,7 +421,7 @@ def source_file(source: str) -> str:
     """The csrc file a source's variants edit (the k x k kernel's are in
     the scans' file, the saturator's in the sequential kernels')."""
     return {"kxk": "scan", "saturator": "sequential",
-            "comb": "sequential"}.get(
+            "comb": "sequential", "stereo_delay": "sequential"}.get(
         source, source) + "_kernels.cu"
 
 
@@ -997,6 +1000,107 @@ def bench_comb(libs: dict, first) -> None:
               flush=True)
 
 
+# ---- the swept stereo delay (sequential_kernels.cu): one dependent step
+STEREO_FRAMES = 1 << 22
+STEREO_WIDTH = 32
+# the chain in the shipped block: rounds of STEREO_WIDTH steps, each
+# reading the round before (both distances STEREO_WIDTH, rings in shared
+# memory), every lane on its tile's first inputs, no round ends read, no
+# device-memory stores
+_STEREO_CHAIN = [
+    ("cu", "  long long e = p.starts[1];        // this round's end\n",
+     f"  long long e = {STEREO_WIDTH};\n"),
+    ("cu", "      const long long e2 = r + 2 <= p.rounds ? p.starts[r + 2] "
+     ": n;\n", f"      const long long e2 = e + {STEREO_WIDTH};\n"),
+    ("cu", "        const int j = (int)(t - t0);\n",
+     "        const int j = i;\n"),
+    ("cu", "        wl_out[t] = wl;\n        wr_out[t] = wr;\n", "")]
+# on one warp, a warp barrier a round
+_STEREO_WARP = [
+    ("cu", "      __syncthreads();\n      s = e;\n",
+     "      __syncwarp();\n      s = e;\n"),
+    ("cu", "<<<1, kDelayTile, bytes, s>>>", "<<<1, 32, bytes, s>>>")]
+# the step's inputs in registers (the distances STEREO_WIDTH, unknown to
+# the compiler): left on the chain, the ring reads, the two steps'
+# multiplies and adds, the ring writes and the barrier
+_STEREO_NO_INPUTS = [
+    ("cu", "  int r = 0;\n",
+     f"  int r = 0;\n  const int d_reg = {STEREO_WIDTH} + (int)(p.n >> 40);"
+     "\n"),
+    ("cu", "        const float x0 = q[j], x1 = q[kTile + j], gt = q[2 * kTile "
+     "+ j];\n        const int dl = qi[3 * kTile + j], dr = qi[4 * kTile + "
+     "j];\n", "        const float x0 = 0.25f, x1 = 0.5f, gt = 0.5f;\n"
+     "        const int dl = d_reg, dr = d_reg;\n")]
+
+
+def _stereo_chain_loop(cu: str) -> str:
+    """The round loop of a tile replaced by the chain itself: rounds of
+    STEREO_WIDTH steps, 32-bit indices, nothing but the ring reads, the
+    two steps' multiplies and adds, the ring writes and a warp barrier."""
+    a = cu.index("    long long s = t0;                 // a round starts")
+    b = cu.index("      ++r;\n    }\n", a) + len("      ++r;\n    }\n")
+    return cu[:a] + f"""    for (int k32 = 0; k32 < kTile / {STEREO_WIDTH}; ++k32) {{
+      const int t = (int)t0 + k32 * {STEREO_WIDTH} + i;
+      const float rv = ring_r[(t - d_reg) & p.mask_r];
+      const float lv = ring_l[(t - d_reg) & p.mask_l];
+      ring_l[t & p.mask_l] = __fadd_rn(0.25f, __fmul_rn(rv, 0.5f));
+      ring_r[t & p.mask_r] = __fadd_rn(0.5f, __fmul_rn(lv, 0.5f));
+      __syncwarp();
+    }}
+""" + cu[b:]
+
+
+STEREO_VARIANTS = {
+    "as_shipped": [],
+    "chain_only_block": _STEREO_CHAIN,
+    "chain_only_warp_input_loads": _STEREO_CHAIN + _STEREO_WARP,
+    # the shipped round loop's control and indices left
+    "chain_only_warp_loop": _STEREO_CHAIN + _STEREO_WARP + _STEREO_NO_INPUTS,
+    # the chain alone: one dependent step (chip_smoke.py's stereo delay
+    # bound)
+    "chain_only": _STEREO_CHAIN + _STEREO_WARP + _STEREO_NO_INPUTS + [
+        ("cu", _stereo_chain_loop)],
+}
+
+
+def bench_stereo_delay(libs: dict, first) -> None:
+    """One call per variant on STEREO_FRAMES frames of rounds of
+    STEREO_WIDTH steps (both distances STEREO_WIDTH, shared rings), by
+    CUDA events, with the cycles a round at the H100's 1.98 GHz boost
+    clock (the card's own clock during the calls beside it); the shipped
+    kernel also on rounds of one step (both distances 1)."""
+    from flan_tpu_torch.ops import sequential_kernels as seq
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream().cuda_stream
+    n, ring = STEREO_FRAMES, STEREO_WIDTH + 1
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((2, n), device=dev, generator=gen)
+    g = torch.full((n,), 0.5, device=dev)
+    inputs = {f"rounds_of_{d}": seq.stereo_delay_plan(
+        np.full(n, d), np.full(n, d), ring, ring, dev)
+        for d in (STEREO_WIDTH, 1)}
+    w = torch.empty_like(x)
+    for name, lib in libs.items():
+        times = {}
+        for case, (el, er, starts) in inputs.items():
+            if case != f"rounds_of_{STEREO_WIDTH}" and name != "as_shipped":
+                continue
+            rounds = starts.shape[0] - 1
+
+            def run():
+                build.raise_on(lib.flan_stereo_delay_swept(
+                    x.data_ptr(), g.data_ptr(), el.data_ptr(), er.data_ptr(),
+                    starts.data_ptr(), rounds, w.data_ptr(), n, ring, ring,
+                    stream), name)
+            us = event_us(run, 2)
+            times[case] = {"us": us, "rounds": rounds,
+                           "cycles_per_round_at_1980MHz": round(
+                               us * 1980.0 / rounds, 1),
+                           "clocks_sm_mhz_during": _clock_during(run)}
+        print(json.dumps({"source": "stereo_delay", "variant": name,
+                          **times}), flush=True)
+
+
 SOURCES = {
     "spv": (SPV_VARIANTS, bench_spv),
     "scan": (SCAN_VARIANTS, bench_scan),
@@ -1004,6 +1108,7 @@ SOURCES = {
     "sqpv": (SQPV_VARIANTS, bench_sqpv),
     "saturator": (SATURATOR_VARIANTS, bench_saturator),
     "comb": (COMB_VARIANTS, bench_comb),
+    "stereo_delay": (STEREO_VARIANTS, bench_stereo_delay),
 }
 
 

@@ -13,7 +13,7 @@ import torch
 from flan_tpu_torch import Audio
 from flan_tpu_torch.audio import temporal
 from flan_tpu_torch.func.function import as_function
-from flan_tpu_torch.ops import build, resample
+from flan_tpu_torch.ops import resample
 from flan_tpu_torch.ops import sequential_kernels as seq
 
 # the kernel against its plain loop, times the peak: every step in the
@@ -69,8 +69,9 @@ DELAY_CASES = ([(n, 50, 70, "random", True) for n in (1, 1023, 1025, 3001)]
 def test_stereo_delay_kernel_matches_plain_loop(cuda_device, n, lb, rb,
                                                 kind, shared):
     """The kernel against the plain version on the same inputs, TOL_DELAY
-    of the peak; its writes over every frame by one step in float64; one
-    launch; the ring variant by size; the same bits on three calls."""
+    of the peak; its writes over every frame by one step in float64, and
+    over the first 5000 against the loop step by step; one launch; the
+    ring variant by size; the same bits on three calls."""
     x, g, dl, dr = _delay_inputs(n, lb, rb, kind)
     plan = seq.stereo_delay_plan(dl, dr, lb, rb, x.device)
     before = seq.LAUNCHES["stereo_delay_swept"]
@@ -83,7 +84,14 @@ def test_stereo_delay_kernel_matches_plain_loop(cuda_device, n, lb, rb,
     assert (out - want).abs().max() <= TOL_DELAY * peak
     assert max(seq.stereo_delay_step_errors(x, g, dl, dr, lb, rb,
                                             w).values()) <= TOL_DELAY
-    assert build.load_library().flan_stereo_delay_shared(lb, rb) == shared
+    assert seq.stereo_delay_shared_ring(lb, rb) == shared
+    # the first frames against the loop itself, step by step on the host
+    m = min(n, 5000)
+    _, w_loop = seq.stereo_delay_loop(x[:, :m].cpu().numpy(),
+                                      g[:m].cpu().numpy(), dl[:m], dr[:m],
+                                      lb, rb)
+    assert (w[:, :m].cpu() - torch.from_numpy(w_loop)).abs().max() \
+        <= TOL_DELAY * peak.cpu()
     for _ in range(2):
         again = seq.stereo_delay_swept_cuda(x, g, *plan, lb, rb)
         assert torch.equal(again, out)

@@ -794,13 +794,14 @@ def test_first_version_variants_are_well_formed():
     (ops/spv_variants_first.py VERSIONS, by commit) fit no source of this
     tree, so only their form is checked here: every edit is (file, old,
     new[, count]) or (file, function) on "cu" or "cuh", every set names a
-    source of the tool and has its as_shipped, and every source has one."""
+    source of the tool and has its as_shipped, and every source has one
+    but the stereo delay's, which no redesign has started from yet."""
     from flan_tpu_torch.ops import spv_variants, spv_variants_first
     versions = spv_variants_first.VERSIONS
     assert set(versions) == {"9089281", "9ad48d3", "91765eb", "1f4e009",
                              "4441291", "0f06bc7"}
     assert {src for v in versions.values() for src in v.variants} == set(
-        spv_variants.SOURCES)
+        spv_variants.SOURCES) - {"stereo_delay"}
     for version in versions.values():
         for source, variants in version.variants.items():
             assert source in spv_variants.SOURCES

@@ -183,31 +183,10 @@ def test_wdl_plan_is_flan_tpus_bit_for_bit(factor, gran):
         assert np.array_equal(a, b)
 
 
-def _ring_loop(x, g, dl, dr, lb, rb):
-    """The loop of flan_tpu/audio/temporal.py:511-527 step by step in
-    float32 (tests/test_dormant_activations.py:25 in float64 is its
-    model)."""
-    n = x.shape[1]
-    lbuf, rbuf = np.zeros(lb, np.float32), np.zeros(rb, np.float32)
-    out = np.zeros((2, n), np.float32)
-    for t in range(n):
-        ll, rl = t % lb, t % rb
-        out[0, t], out[1, t] = lbuf[ll], rbuf[rl]
-        lbuf[ll] = x[0, t] + np.float32(rbuf[(t + rb - dr[t]) % rb] * g[t])
-        rbuf[rl] = x[1, t] + np.float32(lbuf[(t + lb - dl[t]) % lb] * g[t])
-    return out
-
-
-@pytest.mark.parametrize("lb,rb,kind", [
-    (1, 1, "random"), (40, 3, "random"), (97, 250, "random"),
-    (64, 64, "ends"), (300, 17, "ends"), (200, 150, "ones")])
-def test_stereo_delay_plain_is_the_ring_loop(lb, rb, kind):
-    """The plain version against the literal loop, bit for bit, with
-    delays anywhere in [0, ring], at 0 and the ring size (the slot the
-    step reads or writes itself), at 1, and its rounds wide (4096, no
-    tiles) and one tile of the kernel's; every frame by one step."""
+def _delay_case(lb, rb, kind, n=1900):
+    """x [2, n], g [n] float32 and delays dl, dr [n]: anywhere in [0,
+    ring], only 0, 1 and the ring size ("ends"), or all 1 ("ones")."""
     rng = np.random.default_rng(lb * 7 + rb)
-    n = 1900
     x = _noise((2, n), seed=lb)
     g = rng.uniform(-0.95, 0.95, n).astype(np.float32)
     if kind == "random":
@@ -217,15 +196,47 @@ def test_stereo_delay_plain_is_the_ring_loop(lb, rb, kind):
         dr = rng.choice([0, 1, rb], n)
     else:
         dl, dr = np.ones(n, np.int64), np.ones(n, np.int64)
-    want = _ring_loop(x, g, dl, dr, lb, rb)
+    return x, g, dl, dr
+
+
+DELAY_RINGS = [(1, 1, "random"), (40, 3, "random"), (97, 250, "random"),
+               (64, 64, "ends"), (300, 17, "ends"), (200, 150, "ones")]
+
+
+@pytest.mark.parametrize("lb,rb,kind", DELAY_RINGS)
+def test_stereo_delay_plain_is_the_ring_loop(lb, rb, kind):
+    """The plain version against the literal loop, bit for bit, outputs
+    and writes, with delays anywhere in [0, ring], at 0 and the ring size
+    (the slot the step reads or writes itself), at 1, and its rounds wide
+    (4096, no tiles) and one tile of the kernel's; every frame by one
+    step."""
+    x, g, dl, dr = _delay_case(lb, rb, kind)
+    want, w_want = seq.stereo_delay_loop(x, g, dl, dr, lb, rb)
     xt, gt = torch.from_numpy(x), torch.from_numpy(g)
     for tile in (4096, seq.STEREO_TILE, 5):
         got, w = seq.stereo_delay_ref(xt, gt, dl, dr, lb, rb, keep_w=True,
                                       tile=tile)
         assert np.array_equal(got.numpy(), want)
+        assert np.array_equal(w.numpy(), w_want)
     step = seq.stereo_delay_step_errors(xt, gt, dl, dr, lb, rb, w)
     assert max(step.values()) < 1e-6    # 4e-8 to 7e-8 read
     assert seq.LAUNCHES["stereo_delay_swept"] == 0
+
+
+@pytest.mark.parametrize("lb,rb,kind", DELAY_RINGS)
+def test_stereo_delay_loop_is_the_float64_ring_loop(lb, rb, kind):
+    """The literal loop (the kernel's oracle on the card) against the
+    float64 transcription of tests/test_dormant_activations.py, its model,
+    within float32's rounding carried through the rings (4.6e-8 to
+    9.2e-8 of the peak read; bound 1e-5); its writes, shifted by the
+    rings, are its outputs."""
+    from test_dormant_activations import _ring_reference
+    x, g, dl, dr = _delay_case(lb, rb, kind)
+    out, w = seq.stereo_delay_loop(x, g, dl, dr, lb, rb)
+    want = _ring_reference(x, x.shape[1], dl, dr, g, lb, rb)
+    assert np.abs(out - want).max() <= TOL * np.abs(want).max()
+    shifted = seq.stereo_delay_outputs(torch.from_numpy(w), lb, rb)
+    assert np.array_equal(shifted.numpy(), out)
 
 
 @pytest.mark.parametrize("n,tile", [(1, 1024), (1023, 1024), (1025, 1024),
@@ -265,7 +276,8 @@ def test_stereo_delay_constant_matches_flan_tpu(l_time, r_time, decay):
     g = np.asarray(flan_tpu.func.function.as_function(decay).sample_device(
         out_n, 1.0 / SR), np.float32)
     xp = np.pad(x, ((0, 0), (0, out_n - x.shape[1])))
-    ring = _ring_loop(xp, g, np.full(out_n, lb), np.full(out_n, rb), lb, rb)
+    ring = seq.stereo_delay_loop(xp, g, np.full(out_n, lb), np.full(out_n, rb),
+                                  lb, rb)[0]
     assert _rel(got, ring) < TOL
 
 
@@ -296,7 +308,8 @@ def test_stereo_delay_swept_matches_flan_tpu(l_time, r_time):
     dl = np.clip((lt * SR).astype(np.int64), 0, lb)
     dr = np.clip((rt * SR).astype(np.int64), 0, rb)
     xp = np.pad(x, ((0, 0), (0, out_n - x.shape[1])))
-    ring = _ring_loop(xp, np.full(out_n, 0.6, np.float32), dl, dr, lb, rb)
+    ring = seq.stereo_delay_loop(xp, np.full(out_n, 0.6, np.float32), dl, dr,
+                                  lb, rb)[0]
     assert np.array_equal(got.to_numpy(), ring)
 
 
