@@ -339,13 +339,18 @@ SAT_CHAIN_CYCLES = {False: 4 * (8 * 23 + 11), True: 4 * (8 * 23 + 17)}
 COMB_STEP_CYCLES = 55
 COMB_BACK_STEP_CYCLES = 92
 # The swept stereo delay's the same way: its depth in the loop's order
-# (stereo_delay_depth) times one dependent step, measured as the chain
-# alone (spv_variants --source stereo_delay, chain_only: one warp on
-# rounds of 32 steps, each reading the round before from rings in shared
-# memory: the two ring reads, the steps' multiplies and adds, the ring
-# writes and a warp barrier, with no inputs, round ends or stores; H100
-# 80GB HBM3, 700 W, the SM at 1,980 MHz): 53.3 cycles a round
+# (stereo_delay_depth) times one dependent step measured alone (H100 80GB
+# HBM3, 700 W, the SM at 1,980 MHz). The forward's: one warp on rounds of
+# 32 steps, each reading the round before from rings in shared memory,
+# the two ring reads, the steps' multiplies and adds, the ring writes and
+# a warp barrier and nothing else (spv_variants --source stereo_delay as
+# of PR 12, chain_only): 53.3 cycles. The backward's: its narrow kernel's
+# round with no round ends, inputs or values read or stored (chain_only:
+# the sums read, the adds, the sends' adds into their slots, the votes
+# beside them and a warp barrier), 213.5-219.0 cycles, an upper value of
+# its chain
 STEREO_DELAY_STEP_CYCLES = 53
+STEREO_DELAY_BACK_STEP_CYCLES = 214
 # Operations of one saturator step at order 2, counted from the source's
 # arithmetic (a tanhf as 10, a division as 9, an FMA as 2): the rerun
 # (the forward's step) and one adjoint (the backward's read-out; the maps
@@ -355,9 +360,11 @@ SAT_STEP_OPS = {False: 302, True: 319}
 # CPU at FILTER_CPU_SECONDS
 EFFECT_SECONDS = 600.0
 DELAY_PLAIN_FRAMES = 48_000     # the stereo delay's plain loop on the card
-# the stereo delay kernel against its plain loop and by one step, times
-# the peak: the same float32 operations a step (no fused multiply-add)
+# the stereo delay kernels against their plain loops and by one step, times
+# the peak: the same float32 operations a step (no fused multiply-add),
+# the sends to a slot in the same order
 TOL_DELAY = 1e-6
+TOL_DELAY_BACK = 1e-5
 # card wavelengths against the CPU's: a hop is equal within 1e-3 of its
 # wavelength (d''s float32 sums move a valley's vertex); a hop whose valley
 # choice flips is counted, and at most this share of hops may flip
@@ -2393,9 +2400,9 @@ def phase9_effects(torch, Audio, seq, scan, scan_kernels, dev, card):
 
     plans = [(temporal, "_wdl_sinc_plan"), (spatial, "_wdl_feed_plan")]
     originals = [(m, n, getattr(m, n)) for m, n in plans]
-    # the first call of the stereo delay (the dispatch with its host
-    # delays, and the kernel) and of each scan kernel in each effect call
-    targets = [(seq, "stereo_delay_swept"), (seq, "stereo_delay_swept_cuda"),
+    # the first call of the stereo delay kernel and of each scan kernel in
+    # each effect call
+    targets = [(seq, "stereo_delay_swept_cuda"),
                (scan, "scan_linear"), (scan, "scan_affine2x2")]
     delay_calls, scan_calls9 = [], []
     seq.reset_launch_counts()
@@ -2415,8 +2422,8 @@ def phase9_effects(torch, Audio, seq, scan, scan_kernels, dev, card):
             for m, n, fn in originals:
                 setattr(m, n, fn)
         if name.startswith("stereo_delay_swept"):
-            delay_calls.append((name, kept["stereo_delay_swept"][0],
-                                kept["stereo_delay_swept_cuda"][0], y.data))
+            delay_calls.append((name, kept["stereo_delay_swept_cuda"][0],
+                                y.data, seq.VARIANTS["stereo_delay_swept"]))
         scans = [k for k in ("scan_linear", "scan_affine2x2") if kept[k]]
         scan_calls9 += [(name, k, kept[k][0]) for k in scans]
         entry = {"seconds": EFFECT_SECONDS, "wall_s": ms / 1e3,
@@ -2459,7 +2466,7 @@ def phase9_effects(torch, Audio, seq, scan, scan_kernels, dev, card):
     report["scan_checks"], scan_errs = phase9_scan_checks(
         torch, scan_kernels, scan_calls9)
     print(json.dumps(report), flush=True)
-    return (launches, [(n, args, y) for n, _, args, y in delay_calls],
+    return (launches, [(n, args, y) for n, args, y, _ in delay_calls],
             scan_errs, report)
 
 
@@ -2523,25 +2530,52 @@ def phase9_information_checks(torch, Audio, dev, x10) -> dict:
     return out
 
 
+def delay_host_reads(name: str, n: int):
+    """(dl, dr, el, er, lb, rb) of delay_sweeps' call `name` over n frames
+    on the host, as the JAX package takes them (flan_tpu/audio/
+    temporal.py:457-461): the float32 samples widened, times the rate,
+    truncated, clamped; el and er by stereo_delay_distances."""
+    from flan_tpu_torch.audio import temporal
+    from flan_tpu_torch.func.function import as_function
+    from flan_tpu_torch.ops import sequential_kernels as seq
+    _, lt, rt = next(c for c in delay_sweeps() if c[0] == name)
+    lt_s, rt_s = (np.asarray(temporal.sample_delay_times(
+        as_function(f), n, SR), np.float64) for f in (lt, rt))
+    lb, rb = int(lt_s.max() * SR), int(rt_s.max() * SR)
+    dl = np.minimum(np.maximum((lt_s * SR).astype(np.int64), 0), lb)
+    dr = np.minimum(np.maximum((rt_s * SR).astype(np.int64), 0), rb)
+    return (dl, dr) + seq.stereo_delay_distances(dl, dr, lb, rb) + (lb, rb)
+
+
 def phase9_delay_checks(torch, seq, delay_calls) -> dict:
-    """The stereo delay kernel on the path's own swept calls: rerun keeping
-    w (its output the path's bits), every frame by one step in float64
-    within TOL_DELAY; over the first DELAY_PLAIN_FRAMES frames, its writes
-    and outputs against the loop itself step by step on the host
-    (stereo_delay_loop on the call's own host delays: it shares no
-    distance or round with the kernel) and against the plain version on
-    the card, each within TOL_DELAY of the writes' peak; three calls for
-    the same bits. These launches are comparisons, after the count."""
+    """The stereo delay kernel on the path's own swept calls: the reads'
+    distances the card worked out against the host's (the JAX package's
+    rule on the same samples) over every frame, and the rings; rerun
+    keeping w (its output the path's bits), every frame by one step in
+    float64 within TOL_DELAY; over the first DELAY_PLAIN_FRAMES frames,
+    its writes and outputs against the loop itself step by step on the
+    host (stereo_delay_loop on the host's delays: it shares no distance or
+    round with the kernel) and against the plain version on the card, each
+    within TOL_DELAY of the writes' peak; three calls for the same bits;
+    the variant each took. These launches are comparisons, after the
+    count."""
     out = {}
-    for name, (_, _, dl, dr, _, _), args, y in delay_calls:
-        x, g, el, er, starts, lb, rb = args
-        got, w = seq.stereo_delay_swept_cuda(*args, keep_w=True)
+    for name, args, y, variant in delay_calls:
+        x, g, el, er, lb, rb = args
+        n = int(x.shape[1])
+        dl, dr, el_h, er_h, lb_h, rb_h = delay_host_reads(name, n)
+        reads_equal = bool((lb, rb) == (lb_h, rb_h)
+                           and np.array_equal(el.cpu().numpy(), el_h)
+                           and np.array_equal(er.cpu().numpy(), er_h))
+        rounds = torch.zeros(1, dtype=torch.int32, device=x.device)
+        got, w = seq.stereo_delay_swept_cuda(*args, keep_w=True,
+                                             rounds=rounds)
         check(torch.equal(got, y), f"{name}: rerun keeping w differs")
-        step = seq.stereo_delay_step_errors(x, g, dl, dr, lb, rb, w)
+        step = seq.stereo_delay_step_errors(x, g, el, er, lb, rb, w)
         m = DELAY_PLAIN_FRAMES
         t0 = time.perf_counter()
         want, w_want = seq.stereo_delay_ref(x[:, :m].contiguous(), g[:m],
-                                            dl[:m], dr[:m], lb, rb,
+                                            el[:m], er[:m], lb, rb,
                                             keep_w=True)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
@@ -2560,20 +2594,137 @@ def phase9_delay_checks(torch, seq, delay_calls) -> dict:
         loop_err = loop_abs / float(np.abs(w_loop).max())
         check_same_bits(torch, lambda: seq.stereo_delay_swept_cuda(*args),
                         name)
-        out[name] = {"frames": int(x.shape[1]), "lb": lb, "rb": rb,
-                     "rounds": int(starts.shape[0] - 1),
+        out[name] = {"frames": n, "lb": lb, "rb": rb,
+                     "variant": variant, "rounds": int(rounds),
+                     "reads_equal_host": reads_equal,
                      "step_err": step, "plain_err": err,
                      "plain_abs_err": abs_err, "plain_ms": plain_ms,
                      "loop_err": loop_err, "loop_abs_err": loop_abs,
-                     "loop_s": loop_s, "plain_frames": m,
-                     "shared_ring": seq.stereo_delay_shared_ring(lb, rb)}
+                     "loop_s": loop_s, "plain_frames": m}
+        check(reads_equal, f"{name}: the card's reads differ from the "
+              "host's")
         check(max(step.values()) <= TOL_DELAY,
               f"{name}: a frame off one step from its own writes: {step}")
         check(err <= TOL_DELAY, f"{name} vs its plain version: {err}")
         check(loop_err <= TOL_DELAY, f"{name} vs the loop: {loop_err}")
-    check([v["shared_ring"] for v in out.values()] == [False, True, True],
-          "the swept delays did not take the ring variants delay_sweeps "
-          "names")
+    check([v["variant"] for v in out.values()] ==
+          ["wide_device", "wide_shared", "narrow_shared"],
+          "the swept delays did not take the variants delay_sweeps names")
+    return out
+
+
+def delay_gradient(torch, Audio, x, dev, lt, rt, weight, seconds):
+    """The gradient of sum(weight * y), y a swept Audio.stereo_delay of x
+    (decay 0.5 as a 0-d parameter), in the signal and the decay."""
+    v = torch.from_numpy(x).to(dev).requires_grad_()
+    d = torch.tensor(0.5, device=dev, requires_grad=True)
+    y = Audio.create_from_array(v, SR).stereo_delay(seconds, lt, rt, d).data
+    return torch.autograd.grad((y * weight.to(dev)).sum(), (v, d))
+
+
+def phase9_delay_gradients(torch, Audio, seq, dev) -> dict:
+    """The swept stereo delays' gradients. First each at FILTER_CPU_SECONDS
+    on the card against the CPU (the plain versions), within
+    TOL_GRAD_CPU of each gradient's peak. Then the path, its counts zeroed
+    just before it and read just after: one gradient call a sweep at
+    EFFECT_SECONDS stereo, timed (wall), each launching the forward kernel
+    and the backward kernel once; then the backward kernel on the path's
+    own calls (phase9_backward_checks). Returns the launches, the
+    backward's captured calls and the report."""
+    report = {}
+    x10 = stereo_signal(FILTER_CPU_SECONDS)
+    w10 = torch.from_numpy(stereo_signal(FILTER_CPU_SECONDS, seed=7))
+    for name, lt, rt in delay_sweeps():
+        got, want = (delay_gradient(torch, Audio, x10, d, lt, rt, w10,
+                                    FILTER_CPU_SECONDS) for d in (dev, "cpu"))
+        errs = [float((a.cpu() - b).abs().max()
+                      / b.abs().max().clamp(min=1e-30))
+                for a, b in zip(got, want)]
+        report[name] = {"card_vs_cpu_10s_grad_err_rel": {
+            "x": errs[0], "decay": errs[1]}}
+        check(max(errs) < TOL_GRAD_CPU,
+              f"{name}: the gradient on the card vs the CPU at 10 s: {errs}")
+    x = stereo_signal(EFFECT_SECONDS)
+    weight = torch.from_numpy(stereo_signal(EFFECT_SECONDS, seed=7))
+    calls = []
+    seq.reset_launch_counts()
+    for name, lt, rt in delay_sweeps():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads, kept = capture_calls(
+            [(seq, "stereo_delay_swept_backward_cuda")],
+            lambda: delay_gradient(torch, Audio, x, dev, lt, rt, weight,
+                                   EFFECT_SECONDS))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(all(bool(torch.isfinite(gr).all()) for gr in grads),
+              f"{name}: the gradient at 600 s is not finite")
+        report[name]["gradient_wall_s"] = wall
+        report[name]["variant_backward"] = seq.VARIANTS[
+            "stereo_delay_swept_backward"]
+        calls.append((name, kept["stereo_delay_swept_backward_cuda"][0]))
+        del grads
+    launches = {k: seq.LAUNCHES[k] for k in ("stereo_delay_swept",
+                                             "stereo_delay_swept_backward")}
+    report["launches"] = launches
+    check(launches == {"stereo_delay_swept": len(delay_sweeps()),
+                       "stereo_delay_swept_backward": len(delay_sweeps())},
+          f"the delays' gradients launched {launches}, not one forward and "
+          "one backward a sweep")
+    report["backward_checks"] = phase9_backward_checks(torch, seq, calls)
+    print(json.dumps({"phase": 9, "stereo_delay_gradients": report}),
+          flush=True)
+    return launches, calls, report
+
+
+def phase9_backward_checks(torch, seq, calls) -> dict:
+    """The backward kernel on the path's own gradient calls: rerun (three
+    calls, the same bits), every frame by one step in float64 from its own
+    later values within TOL_DELAY_BACK; over the last DELAY_PLAIN_FRAMES
+    frames (the adjoint runs in reverse time: nothing before them reaches
+    them) against its plain version on the card and against the adjoint
+    step by step on the host (stereo_delay_backward_loop on the host's
+    delays), each within TOL_DELAY_BACK of the peak."""
+    out = {}
+    for name, args in calls:
+        args = tuple(a.detach() if torch.is_tensor(a) else a for a in args)
+        gout, g, el, er, lb, rb = args
+        n = int(gout.shape[1])
+        rounds = torch.zeros(1, dtype=torch.int32, device=gout.device)
+        gw = seq.stereo_delay_swept_backward_cuda(*args, rounds=rounds)
+        step = seq.stereo_delay_backward_step_error(gout, g, el, er, lb, rb,
+                                                    gw)
+        m = min(DELAY_PLAIN_FRAMES, n)
+        sl = slice(n - m, n)
+        t0 = time.perf_counter()
+        want = seq.stereo_delay_backward_ref(
+            gout[:, sl].contiguous(), g[sl], el[sl], er[sl], lb, rb)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        dl, dr = delay_host_reads(name, n)[:2]
+        t0 = time.perf_counter()
+        loop = seq.stereo_delay_backward_loop(
+            gout[:, sl].cpu().numpy(), g[sl].cpu().numpy(), dl[sl], dr[sl],
+            lb, rb)
+        loop_s = time.perf_counter() - t0
+        abs_err = float((gw[:, sl] - want).abs().max())
+        loop_abs = float(np.abs(gw[:, sl].cpu().numpy() - loop).max())
+        err = abs_err / max(float(want.abs().max()), 1e-30)
+        loop_err = loop_abs / max(float(np.abs(loop).max()), 1e-30)
+        check_same_bits(torch, lambda: seq.stereo_delay_swept_backward_cuda(
+            *args), f"{name} backward")
+        out[name] = {"frames": n, "rounds": int(rounds),
+                     "variant": seq.VARIANTS["stereo_delay_swept_backward"],
+                     "step_err": step, "plain_err": err,
+                     "plain_abs_err": abs_err, "plain_ms": plain_ms,
+                     "loop_err": loop_err, "loop_abs_err": loop_abs,
+                     "loop_s": loop_s, "plain_frames": m}
+        check(max(step.values()) <= TOL_DELAY_BACK,
+              f"{name} backward: a frame off one step: {step}")
+        check(err <= TOL_DELAY_BACK,
+              f"{name} backward vs its plain version: {err}")
+        check(loop_err <= TOL_DELAY_BACK,
+              f"{name} backward vs the loop: {loop_err}")
     return out
 
 
@@ -2599,21 +2750,25 @@ def phase9_scan_checks(torch, scan_kernels, scan_calls9):
     return out, errs
 
 
-def stereo_delay_bound(args):
-    """(bound_ms, bound_by, note) of a stereo delay call: the larger of the
-    bytes it must move (x twice, g, the two delays and the two outputs, 4
-    bytes each a frame) over the memory rate and its chain: the rounds of
-    the loop's order (stereo_delay_depth) times one dependent step measured
-    alone, STEREO_DELAY_STEP_CYCLES at 1.98 GHz."""
+def stereo_delay_bound(args, backward: bool = False):
+    """(bound_ms, bound_by, note) of a stereo delay call (forward, or the
+    backward): the larger of the bytes it must move (x twice, g, the two
+    distances and the two rows written, 4 bytes each a frame; the
+    backward's gout for x and gw for w) over the memory rate and its
+    chain: the rounds of the loop's order (stereo_delay_depth) times one
+    dependent step measured alone, STEREO_DELAY_STEP_CYCLES (backward:
+    STEREO_DELAY_BACK_STEP_CYCLES) at 1.98 GHz."""
     x, g, el, er = args[:4]
     n = int(x.shape[1])
     depth = stereo_delay_depth(el.cpu().numpy().astype(np.int64),
                                er.cpu().numpy().astype(np.int64))
-    t_lat = depth * STEREO_DELAY_STEP_CYCLES / 1.98e9
+    cycles = STEREO_DELAY_BACK_STEP_CYCLES if backward else \
+        STEREO_DELAY_STEP_CYCLES
+    t_lat = depth * cycles / 1.98e9
     t_bytes = 7 * 4 * n / HBM_BYTES_PER_S
     note = (f"{depth:.0f} rounds in the loop's order (sum of 1 / the nearer "
-            f"read) x {STEREO_DELAY_STEP_CYCLES} cycles (one dependent "
-            f"step, measured alone); bytes {7 * 4 * n / 1e9:.3f} GB")
+            f"read) x {cycles} cycles (one dependent step, measured alone); "
+            f"bytes {7 * 4 * n / 1e9:.3f} GB")
     return (max(t_lat, t_bytes) * 1e3,
             "operations" if t_lat >= t_bytes else "bytes", note)
 
@@ -2853,10 +3008,25 @@ def probe_timing(torch, dev) -> dict:
 
 
 def stereo_delay_timing(torch, Audio, seq, dev) -> dict:
-    """The swept stereo delay's kernel on phase 9's three swept calls at
-    EFFECT_SECONDS stereo (captured from Audio.stereo_delay), by CUDA
-    events over two calls after the captured one."""
+    """The swept stereo delay's kernels on phase 9's three swept calls at
+    EFFECT_SECONDS stereo, by the entry points every version of the port
+    has: the forward kernel on the call's own operands (captured from
+    Audio.stereo_delay), by CUDA events over two calls after the captured
+    one, with a digest of its output (the same digest from two builds:
+    the same bits) and the rounds it ran. Where the version has them, the
+    other regime's variant on the same operands, the backward kernel on
+    the gradient call's own operands (timed and digested the same way) and
+    the gradient through the call, forward and backward, on the host's
+    clock (wall_s, the second of two calls)."""
+    import hashlib
+    import inspect
     x = stereo_signal(EFFECT_SECONDS)
+    weight = torch.from_numpy(stereo_signal(EFFECT_SECONDS, seed=7))
+    fwd = seq.stereo_delay_swept_cuda
+    new = "rounds" in inspect.signature(fwd).parameters
+
+    def digest(t):
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
     out = {}
     for name, lt, rt in delay_sweeps():
         _, calls = capture_calls([(seq, "stereo_delay_swept_cuda")],
@@ -2864,10 +3034,64 @@ def stereo_delay_timing(torch, Audio, seq, dev) -> dict:
                                      x, SR, device=dev).stereo_delay(
                                      EFFECT_SECONDS, lt, rt, 0.5))
         args = calls["stereo_delay_swept_cuda"][0]
-        out[name] = {"ms": cuda_ms(torch, lambda: seq.stereo_delay_swept_cuda(
-            *args), 2), "rounds": int(args[4].shape[0] - 1)}
+        entry = {"ms": cuda_ms(torch, lambda: fwd(*args), 2),
+                 "sha256_16": digest(fwd(*args))}
+        if new:
+            rounds = torch.zeros(1, dtype=torch.int32, device=dev)
+            fwd(*args, rounds=rounds)
+            variant = seq.VARIANTS["stereo_delay_swept"]
+            lib = seq.load_library()
+            wide = not variant.startswith("wide")
+            other = ("wide" if wide else "narrow") + (
+                "_shared" if lib.flan_stereo_delay_shared_bytes(
+                    int(wide), *args[4:6]) <= lib.flan_max_shared_bytes()
+                else "_device")
+            rounds_other = torch.zeros(1, dtype=torch.int32, device=dev)
+            fwd(*args, variant=other, rounds=rounds_other)
+            entry.update(rounds=int(rounds), variant=variant, other_regime={
+                "variant": other, "rounds": int(rounds_other),
+                "ms": cuda_ms(torch, lambda: fwd(*args, variant=other), 2)})
+        else:                       # rounds planned on the host (PR 12)
+            entry["rounds"] = int(args[4].shape[0] - 1)
         del args, calls
-    print(json.dumps({"stereo_delay_timing": out}), flush=True)
+        if hasattr(seq, "stereo_delay_swept_backward_cuda"):
+            back = seq.stereo_delay_swept_backward_cuda
+
+            def grad():
+                v = torch.from_numpy(x).to(dev).requires_grad_()
+                d = torch.tensor(0.5, device=dev, requires_grad=True)
+                y = Audio.create_from_array(v, SR).stereo_delay(
+                    EFFECT_SECONDS, lt, rt, d).data
+                return torch.autograd.grad((y * weight.to(dev)).sum(), (v, d))
+            _, calls = capture_calls([(seq, "stereo_delay_swept_backward_cuda")],
+                                     grad)
+            args = calls["stereo_delay_swept_backward_cuda"][0]
+            rounds = torch.zeros(1, dtype=torch.int32, device=dev)
+            back(*args, rounds=rounds)
+            entry["backward"] = {"ms": cuda_ms(torch, lambda: back(*args), 2),
+                                 "sha256_16": digest(back(*args)),
+                                 "rounds": int(rounds)}
+            del args, calls
+            walls = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                grad()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            entry["gradient_wall_s"] = walls[1]
+        # the call itself, sampling, distances and kernel (second of two)
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            Audio.create_from_array(x, SR, device=dev).stereo_delay(
+                EFFECT_SECONDS, lt, rt, 0.5)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        entry["call_wall_s"] = walls[1]
+        out[name] = entry
+        print(json.dumps({"stereo_delay_timing": {name: entry}}), flush=True)
     return out
 
 
@@ -3206,25 +3430,45 @@ def main() -> None:
     phase_done("8 timing")
 
     # phase 9: the effect chain, counted; the stereo delay kernel and the
-    # scans on its path calls
+    # scans on its path calls; the delays' gradients, counted
     launches9, delay_calls, scan_errs9, report9 = phase9_effects(
         torch, Audio, sequential_kernels, scan, scan_kernels, dev, card)
-    launches["stereo_delay_swept"] = launches9["stereo_delay_swept"]
     for name in SCANS:
         by_path[name]["effect_chain"] = launches9[name]
         launches[name] += launches9[name]
         errs[name] = max(errs[name], scan_errs9.get(name, 0.0))
     phase_done("9 effect chain, checks")
+    grad_launches9, back_calls, grads9 = phase9_delay_gradients(
+        torch, Audio, sequential_kernels, dev)
+    by_path["stereo_delay_swept"] = {
+        "effect_chain": launches9["stereo_delay_swept"],
+        "gradients": grad_launches9["stereo_delay_swept"]}
+    by_path["stereo_delay_swept_backward"] = {
+        "gradients": grad_launches9["stereo_delay_swept_backward"]}
+    launches["stereo_delay_swept"] = sum(
+        by_path["stereo_delay_swept"].values())
+    launches["stereo_delay_swept_backward"] = grad_launches9[
+        "stereo_delay_swept_backward"]
+    phase_done("9 stereo delay gradients, checks")
     checks9 = report9["stereo_delay_checks"]
+    back9 = grads9["backward_checks"]
     worst["stereo_delay_swept"] = max(
         max(v["plain_abs_err"], v["loop_abs_err"]) for v in checks9.values())
-    errs["stereo_delay_swept"] = 0.0
+    worst["stereo_delay_swept_backward"] = max(
+        max(v["plain_abs_err"], v["loop_abs_err"]) for v in back9.values())
+    errs["stereo_delay_swept"] = errs["stereo_delay_swept_backward"] = 0.0
     delay = {}
     for name, args, _ in delay_calls:
         delay[name] = {"ms": cuda_ms(torch, lambda: sequential_kernels
                                      .stereo_delay_swept_cuda(*args), 2),
                        "bound": stereo_delay_bound(args)}
-    name = delay_calls[0][0]            # rings in device memory
+    back = {}
+    for name, args in back_calls:
+        back[name] = {"ms": cuda_ms(torch, lambda: sequential_kernels
+                                    .stereo_delay_swept_backward_cuda(*args),
+                                    2),
+                      "bound": stereo_delay_bound(args, backward=True)}
+    name = delay_calls[0][0]            # the long sweep
     times["stereo_delay_swept"] = {
         "ms": delay[name]["ms"], "frames": checks9[name]["frames"],
         "plain_ms": checks9[name]["plain_ms"],
@@ -3233,10 +3477,22 @@ def main() -> None:
         "calls": {n: {"ms": v["ms"], "bound_ms": v["bound"][0],
                       "bound_note": v["bound"][2],
                       "rounds": checks9[n]["rounds"],
-                      "shared_ring": checks9[n]["shared_ring"]}
+                      "variant": checks9[n]["variant"]}
                   for n, v in delay.items()}}
+    times["stereo_delay_swept_backward"] = {
+        "ms": back[name]["ms"], "frames": back9[name]["frames"],
+        "plain_ms": back9[name]["plain_ms"],
+        "plain_frames": back9[name]["plain_frames"],
+        "step_cycles": STEREO_DELAY_BACK_STEP_CYCLES,
+        "calls": {n: {"ms": v["ms"], "bound_ms": v["bound"][0],
+                      "bound_note": v["bound"][2],
+                      "rounds": back9[n]["rounds"],
+                      "variant": back9[n]["variant"],
+                      "gradient_wall_s": grads9[n]["gradient_wall_s"]}
+                  for n, v in back.items()}}
     bounds["stereo_delay_swept"] = delay[name]["bound"]
-    del delay_calls
+    bounds["stereo_delay_swept_backward"] = back[name]["bound"]
+    del delay_calls, back_calls
     phase_done("9 timing")
     print(json.dumps({"profile_us_per_launch": split}), flush=True)
     print(json.dumps({"phase_seconds": seconds,
@@ -3273,7 +3529,9 @@ def main() -> None:
                 "saturator_2pole_backward_readout":
                     "flan_tpu/audio/filters.py:569",
                 "comb_swept_backward": "flan_tpu/audio/filters.py:643",
-                "stereo_delay_swept": "flan_tpu/audio/temporal.py:511"}
+                "stereo_delay_swept": "flan_tpu/audio/temporal.py:511",
+                "stereo_delay_swept_backward":
+                    "flan_tpu/audio/temporal.py:511"}
     path = {"spv_forward": "spv", "spv_inverse": "spv",
             "sqpv_forward": "sqpv", "sqpv_inverse": "sqpv",
             "scan_linear": "filters, pv_algorithms, gradients, "
@@ -3290,7 +3548,8 @@ def main() -> None:
             "saturator_2pole_backward_maps": "gradients",
             "saturator_2pole_backward_readout": "gradients",
             "comb_swept_backward": "gradients",
-            "stereo_delay_swept": "effect chain (stereo_delay)"}
+            "stereo_delay_swept": "effect chain (stereo_delay), gradients",
+            "stereo_delay_swept_backward": "gradients (stereo_delay)"}
     errs["probe"] = 0.0     # compared in phase 2 only
     kernels = [{"name": name, "route": "cuda",
                 "source": source[name.split("_")[0]],
@@ -3319,8 +3578,11 @@ def main() -> None:
                                 if calls_kind[case] == entry["name"]}
         if entry["name"] == "scan_affine_kxk":
             entry["regimes"] = regime8
-        if entry["name"] == "stereo_delay_swept":
-            entry["replaces_note"] = "a lax.scan: no TPU kernel"
+        if entry["name"].startswith("stereo_delay_swept"):
+            entry["replaces_note"] = (
+                "jax.grad through a lax.scan: no TPU kernel"
+                if entry["name"].endswith("_backward")
+                else "a lax.scan: no TPU kernel")
             entry["bound_note"] = bounds[entry["name"]][2]
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

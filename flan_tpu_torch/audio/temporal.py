@@ -394,15 +394,35 @@ def repitch(self, factor, granularity: float = 0.001,
     return self._with(data=data)
 
 
-def sample_delay_times(fn, out_n: int, sr: float) -> np.ndarray:
-    """A delay-time Function at every output frame as float64 on the host,
-    as flan_tpu/audio/temporal.py:467-473 samples it: a callable on the
-    float32 grid arange(out_n) / sr, its float32 values then widened (so
-    0.03f * 8000 truncates to 239, not 240)."""
+def sample_delay_times(fn, out_n: int, sr: float):
+    """A delay-time Function at every output frame, as
+    flan_tpu/audio/temporal.py:467-473 samples it: a constant as a number
+    (the JAX package's float64 fill), a callable on the float32 grid
+    arange(out_n) / sr as a float32 CPU tensor [out_n]. Everything after
+    (the widening to float64, the frames, the rings) is
+    stereo_delay_frames' and stereo_delay's, on the audio's device."""
     if fn.is_constant:
-        return np.full(out_n, float(fn.constant_value), np.float64)
-    t = true_div(torch.arange(out_n, dtype=torch.float32), sr).numpy()
-    return _host_sample(fn, t).astype(np.float64)
+        return float(fn.constant_value)
+    t = true_div(torch.arange(out_n, dtype=torch.float32), sr)
+    out = torch.as_tensor(fn(t), dtype=torch.float32)
+    return torch.broadcast_to(out.reshape(-1), (out_n,)).contiguous()
+
+
+def _delay_times_on(times, device):
+    """Sampled delay times on `device`: a number stays one; a tensor
+    crosses once, from pinned memory to the card."""
+    if not isinstance(times, torch.Tensor):
+        return times
+    if torch.device(device).type == "cuda":
+        return times.pin_memory().to(device, non_blocking=True)
+    return times.to(device)
+
+
+def _ring_frames(times, sr: float) -> int:
+    """The ring a delay time needs: int(max(time) * sr), the largest
+    float32 sample widened (the frame cast truncates, as the reference)."""
+    peak = float(times.max()) if isinstance(times, torch.Tensor) else times
+    return int(peak * sr)
 
 
 def stereo_delay(self, length: float, l_time, r_time, decay):
@@ -418,11 +438,16 @@ def stereo_delay(self, length: float, l_time, r_time, decay):
     (ops/scan.py, the scan kernel on the card), then w_L = x_L + g shift(
     w_R, rb) and the two outputs as shifts. Time-varying delays: the ring
     loop, on ops/sequential_kernels.py stereo_delay_swept (the plain loop
-    on the CPU, the kernel on the card). The decay is sampled on the
-    audio's device, the delay times on the host (they size the rings)."""
+    on the CPU, the kernel on the card), differentiable in the signal and
+    the decay. The delay times are sampled on the host (the Functions'
+    own float32 values) and cross once; their frames, the rings and the
+    reads' distances are worked out on the audio's device, as is the
+    decay."""
     from flan_tpu_torch.audio.audio import Audio
     from flan_tpu_torch.ops.scan import linear_recurrence
-    from flan_tpu_torch.ops.sequential_kernels import stereo_delay_swept
+    from flan_tpu_torch.ops.sequential_kernels import (stereo_delay_frames,
+                                                       stereo_delay_reads,
+                                                       stereo_delay_swept)
     if self.is_null() or self.num_channels != 2:
         return _null()
     sr = self.sample_rate
@@ -430,13 +455,12 @@ def stereo_delay(self, length: float, l_time, r_time, decay):
     if out_n <= 0:
         return _null()
     lt_fn, rt_fn, g_fn = (as_function(f) for f in (l_time, r_time, decay))
-    lt_s = sample_delay_times(lt_fn, out_n, sr)
-    rt_s = sample_delay_times(rt_fn, out_n, sr)
-    lb = int(lt_s.max() * sr)       # the frame cast truncates (reference)
-    rb = int(rt_s.max() * sr)
+    dev = self.device
+    lt, rt = (_delay_times_on(sample_delay_times(fn, out_n, sr), dev)
+              for fn in (lt_fn, rt_fn))
+    lb, rb = _ring_frames(lt, sr), _ring_frames(rt, sr)
     if lb <= 0 or rb <= 0:
         return _null()
-    dev = self.device
     x = torch.nn.functional.pad(
         self.data, (0, max(0, out_n - self.num_frames)))[:, :out_n]
     g = g_fn.sample(0, out_n, 1.0 / sr, dev)
@@ -457,9 +481,10 @@ def stereo_delay(self, length: float, l_time, r_time, decay):
         out = torch.stack([shift(w_l, lb), shift(w_r, rb)])
         return Audio(data=out, sample_rate=sr)
 
-    dl = np.minimum(np.maximum((lt_s * sr).astype(np.int64), 0), lb)
-    dr = np.minimum(np.maximum((rt_s * sr).astype(np.int64), 0), rb)
-    out = stereo_delay_swept(x.contiguous(), g.contiguous(), dl, dr, lb, rb)
+    el, er = stereo_delay_reads(stereo_delay_frames(lt, sr, lb, out_n, dev),
+                                stereo_delay_frames(rt, sr, rb, out_n, dev),
+                                lb, rb)
+    out = stereo_delay_swept(x.contiguous(), g.contiguous(), el, er, lb, rb)
     return Audio(data=out, sample_rate=sr)
 
 

@@ -10,8 +10,10 @@ through it; no TPU kernel stands behind them. One CUDA source,
 csrc/sequential_kernels.cu, runs the saturator's forward as one warp a
 channel, the comb's forward and backward as one block a channel (a warp
 on the chain, three staging its tiles and computing its rounds), the
-saturator's backward as a parallel job, and the stereo delay as one block
-whose rounds of up to 1024 steps were planned on the host:
+saturator's backward as a parallel job, and the stereo delay and its
+backward as one block that plans its own rounds (of at most a warp, or
+for the forward, where every read is far back, of up to a tile on eight
+warps):
 
   saturator_1pole / saturator_2pole    saturator_1pole_ref, saturator_2pole_ref
   saturator_*_backward_maps            saturator_adjoint_maps_ref
@@ -19,6 +21,7 @@ whose rounds of up to 1024 steps were planned on the host:
   comb_swept                           comb_swept_ref
   comb_swept_backward                  comb_swept_backward_ref
   stereo_delay_swept                   stereo_delay_ref
+  stereo_delay_swept_backward          stereo_delay_backward_ref
 
 The plain versions are PyTorch loops over time, vectorised over channels,
 in the JAX package's order of operations (powers by binary exponentiation,
@@ -31,8 +34,8 @@ checks that hold a whole call to its own earlier outputs
 (comb_step_errors, comb_backward_step_error, saturator_step_errors) are
 here too.
 
-The backward is the adjoint of each loop (SaturatorMultinotch, CombSwept:
-torch.autograd.Functions used on both devices, plain versions on the CPU
+The backward is the adjoint of each loop (SaturatorMultinotch, CombSwept,
+StereoDelaySwept: torch.autograd.Functions used on both devices, plain versions on the CPU
 and kernels on the card, as ops/scan.py's recurrences). The saturator's
 forward keeps every step's allpass states. The adjoint it carries from
 step to step is linear, so its backward (saturator_backward_plain,
@@ -45,11 +48,17 @@ The comb's forward keeps u; its backward scatters each step's adjoint back
 to the step it read, u's adjoint, and the feedback's and the mix's
 gradients follow from u in PyTorch.
 
-The stereo delay has no backward (the JAX package differentiates it
-through lax.scan; the port's is still to come). Its rounds
-(stereo_delay_round_starts), its one-step check (stereo_delay_step_errors)
-and the loop itself step by step on the host (stereo_delay_loop: the
-oracle, too slow for a path) are here too.
+The stereo delay's forward keeps w; its backward sends each step's
+adjoints back to the values it read, in reverse time, and the decay's
+gradient follows from w in PyTorch. Its distances from the delay times
+(stereo_delay_frames, stereo_delay_reads: PyTorch on the call's device),
+its rounds (stereo_delay_round_starts, the host's planner; the kernels'
+own, stereo_delay_narrow_starts and stereo_delay_wide_starts), its
+one-step checks
+(stereo_delay_step_errors, stereo_delay_backward_step_error) and the loop
+and its adjoint step by step on the host (stereo_delay_loop,
+stereo_delay_backward_loop: the oracles, too slow for a path) are here
+too.
 
 Dispatch by device: a CPU tensor goes to the plain version, a CUDA tensor
 to the kernel or the call raises. LAUNCHES counts each wrapper's kernel
@@ -69,7 +78,8 @@ LAUNCHES = {"saturator_1pole": 0, "saturator_2pole": 0, "comb_swept": 0,
             "saturator_1pole_backward_readout": 0,
             "saturator_2pole_backward_maps": 0,
             "saturator_2pole_backward_readout": 0,
-            "comb_swept_backward": 0, "stereo_delay_swept": 0}
+            "comb_swept_backward": 0, "stereo_delay_swept": 0,
+            "stereo_delay_swept_backward": 0}
 
 
 def reset_launch_counts() -> None:
@@ -489,15 +499,17 @@ def _comb_rounds(d: torch.Tensor, n: int, reverse: bool, width: int = 4096,
             pos += steps
 
 
-def comb_round_lengths(delays: torch.Tensor, reverse: bool) -> torch.Tensor:
+def comb_round_lengths(delays: torch.Tensor, reverse: bool,
+                       w: int = COMB_WIDTH, t: int = COMB_TILE
+                       ) -> torch.Tensor:
     """The kernels' round length from every frame [N] int64, as their
     producer warps compute it for a tile at once: forward, a round from
-    frame p takes min(COMB_WIDTH, the least delay of frames p .. p +
-    COMB_WIDTH - 1, the frames left in p's tile); reverse, from p down,
-    the same over frames p - COMB_WIDTH + 1 .. p. The rounds a call runs
-    are the orbit from each tile's first frame (comb_round_starts)."""
+    frame p takes min(w, the least delay of frames p .. p + w - 1, the
+    frames left in p's tile of t); reverse, from p down, the same over
+    frames p - w + 1 .. p. The rounds a call runs are the orbit from each
+    tile's first frame (comb_round_starts)."""
     d = delays.long()
-    n, w, t = d.shape[0], COMB_WIDTH, COMB_TILE
+    n = d.shape[0]
     tiles = -(-n // t)
     big = torch.iinfo(torch.int64).max
     dt = torch.full((tiles * t,), big, dtype=torch.int64, device=d.device)
@@ -516,23 +528,25 @@ def comb_round_lengths(delays: torch.Tensor, reverse: bool) -> torch.Tensor:
     return win.clamp(max=w).minimum(left).reshape(-1)[:n]
 
 
-def comb_round_starts(delays: torch.Tensor, reverse: bool) -> list:
+def comb_round_starts(delays: torch.Tensor, reverse: bool,
+                      w: int = COMB_WIDTH, tile: int = COMB_TILE) -> list:
     """The first frame of every round the comb kernels run, in the order
     they run (reverse: each round's last frame in time, from the end): the
-    orbit of comb_round_lengths from each tile's first frame."""
-    s = comb_round_lengths(delays, reverse).tolist()
+    orbit of comb_round_lengths from each tile's first frame (a width w
+    and tiles of `tile`: the comb's, or the stereo delay's)."""
+    s = comb_round_lengths(delays, reverse, w, tile).tolist()
     n = len(s)
     starts = []
     if reverse:
-        for t1 in range(-(-n // COMB_TILE) * COMB_TILE, 0, -COMB_TILE):
+        for t1 in range(-(-n // tile) * tile, 0, -tile):
             p = min(t1, n) - 1
-            while p >= t1 - COMB_TILE:
+            while p >= t1 - tile:
                 starts.append(p)
                 p -= s[p]
     else:
-        for t0 in range(0, n, COMB_TILE):
+        for t0 in range(0, n, tile):
             p = t0
-            while p < min(t0 + COMB_TILE, n):
+            while p < min(t0 + tile, n):
                 starts.append(p)
                 p += s[p]
     return starts
@@ -649,28 +663,79 @@ def saturator_step_errors(x, planes, inv: float, order: int,
 # rb], w_L[t] = x_l[t] + w_R[t - er[t]] g[t], w_R[t] = x_r[t] + w_L[t -
 # el[t]] g[t], with the distances el = dl mod lb (0: the step's own L
 # write, for dl in {0, lb}) and er = dr, or rb for dr = 0.
-STEREO_TILE = build.STEREO_TILE     # the kernel's rounds: at most a tile of
-                                    # frames, none across one
+#
+# Its adjoint in reverse time, gout the outputs' gradient: gw_R[t] =
+# gout_r[t + rb] + the sends of the later steps that read w_R[t]; g[t]
+# gw_R[t] is sent to gw_L[t - el[t]] (to gw_L[t] itself at el = 0, after
+# every later step's); gw_L[t] = gout_l[t + lb] + what it was sent; g[t]
+# gw_L[t] is sent to gw_R[t - er[t]]. A slot's sends are summed from 0, the
+# later step first, as the reversed loop adds them. gw is the signal's
+# gradient; the decay's is gw_L[t] w_R[t - er[t]] + gw_R[t] w_L[t - el[t]].
+STEREO_TILE = build.STEREO_TILE         # the narrow kernels' staged tiles
+STEREO_WIDTH = build.STEREO_WIDTH       # narrow rounds: at most a warp
+STEREO_WIDE_WIDTH = build.STEREO_WIDE_WIDTH  # wide rounds: at most a tile
+# the forward takes the wide regime when every step's nearer read is at
+# least this far back (narrow rounds would cut rounds of this many steps)
+STEREO_WIDE_FROM = 128
+# the variant each stereo delay wrapper took on its last launch
+# ("narrow_shared", "narrow_device", "wide_shared" or "wide_device")
+VARIANTS = {"stereo_delay_swept": None, "stereo_delay_swept_backward": None}
+
+
+def stereo_delay_frames(times, sr: float, ring: int, n: int,
+                        device) -> torch.Tensor:
+    """A delay time in frames at each of n steps, int64 on `device`, as
+    flan_tpu/audio/temporal.py:460-461 takes it: the time (a float32
+    tensor [n], or a number) widened to float64, times sr, truncated,
+    clamped to [0, ring]."""
+    if isinstance(times, torch.Tensor):
+        d = (times.to(device=device, dtype=torch.float64) * sr).long()
+        return d.clamp_(0, ring)
+    return torch.full((n,), min(max(int(float(times) * sr), 0), ring),
+                      dtype=torch.int64, device=device)
+
+
+def stereo_delay_reads(dl: torch.Tensor, dr: torch.Tensor, lb: int,
+                       rb: int):
+    """(el, er) int32 on dl's device: how far back each step's two ring
+    reads land, for delays dl in [0, lb] and dr in [0, rb] (see above)."""
+    el = torch.where(dl == lb, 0, dl).to(torch.int32)
+    er = torch.where(dr == 0, rb, dr).to(torch.int32)
+    return el, er
 
 
 def stereo_delay_distances(dl: np.ndarray, dr: np.ndarray, lb: int, rb: int):
-    """(el, er) int64: how far back each step's two ring reads land, for
-    delays dl in [0, lb] and dr in [0, rb] (see above)."""
+    """stereo_delay_reads on the host, int64 numpy (the card's oracle)."""
     dl, dr = np.asarray(dl, np.int64), np.asarray(dr, np.int64)
     return dl % lb, np.where(dr == 0, rb, dr)
 
 
-def stereo_delay_round_starts(el: np.ndarray, er: np.ndarray,
-                              tile: int) -> np.ndarray:
+def _np(v) -> np.ndarray:
+    return (v.cpu().numpy() if isinstance(v, torch.Tensor)
+            else np.asarray(v)).astype(np.int64)
+
+
+def stereo_delay_round_starts(el, er, tile: int, width: int = 0
+                              ) -> np.ndarray:
     """The first frame of every round of the stereo delay's steps, then n,
     int32: a round from frame s holds the frames after it for as long as
     each reads only values written before s (t - er[t] < s, and t - el[t]
-    < s where el[t] > 0: its own L write it does first) and it stays in
-    s's tile of `tile` frames (tiles from frame 0). Worked out for every
-    tile at once, one frame offset at a time."""
+    < s where el[t] > 0: its own L write it does first), stays in s's tile
+    of `tile` frames (tiles from frame 0; 0: no tiles) and, for a width,
+    holds at most `width` frames: the fewest rounds under those caps.
+    Tiles are worked out all at once, one frame offset at a time; with no
+    tiles, frame by frame."""
+    el, er = _np(el), _np(er)
     n = len(el)
     t = np.arange(n, dtype=np.int64)
     lim = np.maximum(t - er, np.where(el > 0, t - el, -1))
+    if tile == 0:
+        starts, s = [0], 0
+        for j in range(1, n):
+            if lim[j] >= s or (width and j - s >= width):
+                s = j
+                starts.append(j)
+        return np.array(starts + [n], np.int32)
     tiles = -(-n // tile)
     big = np.iinfo(np.int64).max
     limt = np.full(tiles * tile, big, np.int64)
@@ -681,25 +746,49 @@ def stereo_delay_round_starts(el: np.ndarray, er: np.ndarray,
     flags[0] = True
     s = base.copy()
     for j in range(1, tile):
-        new = limt[j] >= s      # a padded frame past n starts a round too
+        # a padded frame past n starts a round too
+        new = (limt[j] >= s) | ((base + j - s >= width) if width else False)
         s = np.where(new, base + j, s)
         flags[j] = new
     starts = np.nonzero(flags.T.reshape(-1)[:n])[0]
     return np.append(starts, n).astype(np.int32)
 
 
-def stereo_delay_ref(x, g, dl, dr, lb: int, rb: int, keep_w: bool = False,
+def stereo_delay_narrow_starts(el, er, reverse: bool = False) -> list:
+    """The rounds the narrow kernels run (csrc/sequential_kernels.cu
+    stereo_delay_narrow), in their order: the comb kernels' rule
+    (comb_round_starts) on each frame's nearer read a = min(er, el > 0 ?
+    el : inf), rounds of at most STEREO_WIDTH frames in tiles of
+    STEREO_TILE; reverse (the backward) each round's last frame, from the
+    end."""
+    el, er = _np(el), _np(er)
+    a = np.minimum(np.where(el > 0, np.minimum(el, er), er), 1 << 30)
+    return comb_round_starts(torch.from_numpy(a), reverse, STEREO_WIDTH,
+                             STEREO_TILE)
+
+
+def stereo_delay_wide_starts(el, er) -> np.ndarray:
+    """The rounds the wide kernel runs (stereo_delay_wide): the fewest
+    rounds of at most STEREO_WIDE_WIDTH frames, across tiles."""
+    return stereo_delay_round_starts(el, er, 0, STEREO_WIDE_WIDTH)
+
+
+def _as_index(v, device) -> torch.Tensor:
+    return (v if isinstance(v, torch.Tensor) else torch.from_numpy(
+        np.asarray(v))).to(device=device, dtype=torch.int64)
+
+
+def stereo_delay_ref(x, g, el, er, lb: int, rb: int, keep_w: bool = False,
                      tile: int = 4096):
     """The swept stereo delay's plain version: x [2, n] and g [n] float32
-    tensors, dl and dr [n] integer delays in [0, lb] and [0, rb] on the
-    host. Each round of stereo_delay_round_starts(.., tile) is computed at
-    once, every step in the loop's operations (x + r g, no fused
+    tensors, el and er [n] the reads' distances (stereo_delay_reads, or
+    numpy). Each round of stereo_delay_round_starts(.., tile) is computed
+    at once, every step in the loop's operations (x + r g, no fused
     multiply-add); the outputs are w_L and w_R shifted by lb and rb. With
     keep_w, returns (out, w), w [2, n] the values each step wrote."""
-    el, er = stereo_delay_distances(dl, dr, lb, rb)
     starts = stereo_delay_round_starts(el, er, tile).tolist()
     dev = x.device
-    el_t, er_t = (torch.from_numpy(v).to(dev) for v in (el, er))
+    el_t, er_t = _as_index(el, dev), _as_index(er, dev)
     w = torch.zeros_like(x)
     for s, e in zip(starts[:-1], starts[1:]):
         t = torch.arange(s, e, device=dev)
@@ -743,12 +832,93 @@ def stereo_delay_outputs(w: torch.Tensor, lb: int, rb: int) -> torch.Tensor:
     return torch.stack([pad(w[0], (lb, 0))[:n], pad(w[1], (rb, 0))[:n]])
 
 
-def stereo_delay_step_errors(x, g, dl, dr, lb: int, rb: int, w) -> dict:
+def _shifted_gout(gout: torch.Tensor, lb: int, rb: int) -> torch.Tensor:
+    """[gout_l[t + lb], gout_r[t + rb]], zeros past the end: each value's
+    own output's gradient."""
+    pad = torch.nn.functional.pad
+    return torch.stack([pad(gout[0, lb:], (0, min(lb, gout.shape[1]))),
+                        pad(gout[1, rb:], (0, min(rb, gout.shape[1])))])
+
+
+def stereo_delay_backward_ref(gout, g, el, er, lb: int, rb: int,
+                              tile: int = 4096):
+    """The adjoint's plain version (see above): gout [2, n] and g [n]
+    float32, el and er as stereo_delay_ref takes them; returns gw [2, n],
+    the signal's gradient. The rounds of stereo_delay_round_starts(..,
+    tile) from the last, each at once: gw_R, the sends to L (each step's
+    own last), gw_L, the sends to R, the sends of a round to one slot added
+    the later step first (index_add_ in that order)."""
+    n = gout.shape[1]
+    starts = stereo_delay_round_starts(el, er, tile).tolist()
+    dev = gout.device
+    el_t, er_t = _as_index(el, dev), _as_index(er, dev)
+    go = _shifted_gout(gout, lb, rb)
+    acc = torch.zeros_like(gout)
+    gw = torch.empty_like(gout)
+    for s, e in reversed(list(zip(starts[:-1], starts[1:]))):
+        t = torch.arange(s, e, device=dev)
+        gr = go[1, t] + acc[1, t]
+        s_l = g[t] * gr
+        own = el_t[t] == 0
+        gl = go[0, t] + torch.where(own, acc[0, t] + s_l, acc[0, t])
+        s_r = g[t] * gl
+        gw[0, t], gw[1, t] = gl, gr
+        tg = t - el_t[t]
+        ok = ~own & (tg >= 0)
+        acc[0].index_add_(0, tg[ok].flip(0), s_l[ok].flip(0))
+        tg = t - er_t[t]
+        ok = tg >= 0
+        acc[1].index_add_(0, tg[ok].flip(0), s_r[ok].flip(0))
+    return gw
+
+
+def stereo_delay_backward_loop(gout, g, dl, dr, lb: int, rb: int):
+    """The adjoint step by step in float32 on the host, in reverse time:
+    gout [2, n] and g [n] float32, dl and dr the delays as
+    stereo_delay_loop takes them, numpy. Which step's value each read
+    finds is followed through the loop's two rings (the writer of each
+    slot), sharing nothing with the distances or the rounds; returns gw
+    [2, n], the oracle of stereo_delay_backward_ref and the kernel."""
+    gout, g = np.asarray(gout, np.float32), np.asarray(g, np.float32)
+    n = gout.shape[1]
+    lown, rown = np.full(lb, -1, np.int64), np.full(rb, -1, np.int64)
+    src_l, src_r = np.empty(n, np.int64), np.empty(n, np.int64)
+    for t in range(n):
+        src_r[t] = rown[(t - dr[t]) % rb]
+        lown[t % lb] = t
+        src_l[t] = lown[(t - dl[t]) % lb]
+        rown[t % rb] = t
+    acc = np.zeros((2, n), np.float32)
+    gw = np.empty((2, n), np.float32)
+    zero = np.float32(0.0)
+    for t in range(n - 1, -1, -1):
+        gr = (gout[1, t + rb] if t + rb < n else zero) + acc[1, t]
+        s_l = g[t] * gr
+        if src_l[t] >= 0:
+            acc[0, src_l[t]] += s_l     # its own w_L[t] last
+        gl = (gout[0, t + lb] if t + lb < n else zero) + acc[0, t]
+        if src_r[t] >= 0:
+            acc[1, src_r[t]] += g[t] * gl
+        gw[0, t], gw[1, t] = gl, gr
+    return gw
+
+
+def stereo_delay_decay_grad(gw, w, el, er) -> torch.Tensor:
+    """The decay's gradient at every step [n]: gw_L[t] w_R[t - er[t]] +
+    gw_R[t] w_L[t - el[t]], reads before the start 0."""
+    t = torch.arange(w.shape[1], device=w.device)
+
+    def read(row, d):
+        src = t - d.long()
+        return torch.where(src >= 0, w[row, src.clamp(min=0)], 0.0)
+    return gw[0] * read(1, er) + gw[1] * read(0, el)
+
+
+def stereo_delay_step_errors(x, g, el, er, lb: int, rb: int, w) -> dict:
     """A stereo delay call's w_L[t] against x_l[t] + g[t] w_R[t - er[t]]
     and its w_R[t] against x_r[t] + g[t] w_L[t - el[t]], each in float64
     from the call's own w: {"w_l": .., "w_r": ..}, over the peaks."""
-    el, er = (torch.from_numpy(v).to(x.device)
-              for v in stereo_delay_distances(dl, dr, lb, rb))
+    el, er = _as_index(el, x.device), _as_index(er, x.device)
     t = torch.arange(x.shape[1], device=x.device)
     w64, x64, g64 = w.double(), x.double(), g.double()
 
@@ -757,6 +927,27 @@ def stereo_delay_step_errors(x, g, dl, dr, lb: int, rb: int, w) -> dict:
         return torch.where(src >= 0, w64[row, src.clamp(min=0)], 0.0)
     return {"w_l": _rel(w[0], x64[0] + read(1, er) * g64),
             "w_r": _rel(w[1], x64[1] + read(0, el) * g64)}
+
+
+def stereo_delay_backward_step_error(gout, g, el, er, lb: int, rb: int,
+                                     gw) -> dict:
+    """A backward call's gw_R[t] against gout_r[t + rb] + the sum over the
+    steps u that read w_R[t] (u - er[u] = t) of g[u] gw_L[u], and its
+    gw_L[t] against gout_l[t + lb] + the sum over the steps that read
+    w_L[t] (u - el[u] = t, u = t for el = 0) of g[u] gw_R[u], each in
+    float64 from the call's own gw (the sums by index_add):
+    {"gw_l": .., "gw_r": ..}."""
+    el, er = _as_index(el, gw.device), _as_index(er, gw.device)
+    t = torch.arange(gw.shape[1], device=gw.device)
+    want = _shifted_gout(gout, lb, rb).double()
+    g64, gw64 = g.double(), gw.double()
+    tg = t - el
+    ok = tg >= 0
+    want[0].index_add_(0, tg[ok], (g64 * gw64[1])[ok])
+    tg = t - er
+    ok = tg >= 0
+    want[1].index_add_(0, tg[ok], (g64 * gw64[0])[ok])
+    return {"gw_l": _rel(gw[0], want[0]), "gw_r": _rel(gw[1], want[1])}
 
 
 # ------------------------------------------------------------------ kernels
@@ -962,45 +1153,97 @@ def comb_swept_backward_cuda(gy, delays, k, a, f: float, ring_len: int):
     return gu
 
 
-def stereo_delay_swept_cuda(x, g, el, er, starts, lb: int, rb: int,
-                            keep_w: bool = False):
-    """The swept stereo delay kernel: x [2, n] and g [n] float32, el and er
-    [n] int32 (stereo_delay_distances), starts the rounds
-    (stereo_delay_round_starts(.., STEREO_TILE)) int32, all on one CUDA
-    device. Returns the outputs [2, n], with keep_w also w [2, n]."""
-    check_cuda(x, "stereo_delay_swept x", 2)
+def _delay_checked(x, g, el, er, name: str) -> None:
+    check_cuda(x, f"{name} x", 2)
     if x.shape[0] != 2:
-        raise ValueError(f"stereo_delay_swept takes 2 rows, got {x.shape[0]}")
-    _planes_on(x, "stereo_delay_swept", (g, el, er),
-               (torch.float32, torch.int32, torch.int32))
-    check_cuda(starts, "stereo_delay_swept starts", 1, torch.int32)
+        raise ValueError(f"{name} takes 2 rows, got {x.shape[0]}")
+    if x.shape[1] > np.iinfo(np.int32).max - 4 * STEREO_TILE:
+        raise ValueError(f"{name}: {x.shape[1]} frames is past the "
+                         "kernel's 32-bit indices")
+    _planes_on(x, name, (g, el, er), (torch.float32, torch.int32,
+                                      torch.int32))
+
+
+def _nearest_read(el, er) -> int:
+    """The call's nearest read: min(er, el > 0 ? el : inf) over its steps."""
+    return int(torch.where(el > 0, torch.minimum(el, er), er).min())
+
+
+def stereo_delay_variant(near: int, lb: int, rb: int,
+                         backward: bool = False) -> str:
+    """The kernel variant a call takes, from its nearest read (near) and
+    rings: "wide" when every step's nearer read is at least
+    STEREO_WIDE_FROM frames back and it is the forward, else "narrow";
+    "_shared" when its rings fit in the card's shared memory, else
+    "_device"."""
+    wide = not backward and near >= STEREO_WIDE_FROM
     lib = load_library()
-    n = x.shape[1]
-    with torch.cuda.device(x.device):
-        w = torch.empty_like(x)
-        err = lib.flan_stereo_delay_swept(
-            x.data_ptr(), g.data_ptr(), el.data_ptr(), er.data_ptr(),
-            starts.data_ptr(), starts.shape[0] - 1, w.data_ptr(), n, lb, rb,
+    fits = (lib.flan_stereo_delay_shared_bytes(int(wide), lb, rb)
+            <= lib.flan_max_shared_bytes())
+    return ("wide" if wide else "narrow") + ("_shared" if fits
+                                             else "_device")
+
+
+def _delay_launch(fn, name, inp, g, el, er, lb, rb, near, variant, out,
+                  rounds, backward):
+    lib = load_library()
+    wide, shared = variant.split("_")
+    if variant not in ("narrow_shared", "narrow_device", "wide_shared",
+                       "wide_device") or (backward and wide == "wide"):
+        raise ValueError(f"{name}: no variant {variant!r}")
+    if rounds is not None:
+        check_cuda(rounds, f"{name} rounds", 1, torch.int32)
+    head = (inp.data_ptr(), g.data_ptr(), el.data_ptr(), er.data_ptr(),
+            out.data_ptr(), _ptr(rounds), inp.shape[1], lb, rb)
+    tail = (int(shared == "shared"),
             torch.cuda.current_stream().cuda_stream)
-    raise_on(err, "stereo_delay_swept")
-    LAUNCHES["stereo_delay_swept"] += 1
+    # the wide kernel asks for a round's reads a round ahead where every
+    # read lies at least two rounds' width back
+    kind = (0 if wide == "narrow" else
+            2 if near >= 2 * STEREO_WIDE_WIDTH else 1)
+    err = getattr(lib, fn)(*head, *((kind,) if not backward else ()), *tail)
+    raise_on(err, name)
+    LAUNCHES[name] += 1
+    VARIANTS[name] = variant
+
+
+def stereo_delay_swept_cuda(x, g, el, er, lb: int, rb: int,
+                            keep_w: bool = False, variant: str = None,
+                            rounds: torch.Tensor = None):
+    """The swept stereo delay kernel: x [2, n] and g [n] float32, el and er
+    [n] int32 (stereo_delay_reads), all on one CUDA device; no autograd.
+    The variant is stereo_delay_variant's unless one is named; rounds, a
+    [1] int32 tensor on the card, receives the rounds the kernel ran.
+    Returns the outputs [2, n], with keep_w also w [2, n]."""
+    _delay_checked(x, g, el, er, "stereo_delay_swept")
+    with torch.cuda.device(x.device):
+        near = _nearest_read(el, er)
+        variant = variant or stereo_delay_variant(near, lb, rb)
+        w = torch.empty_like(x)
+        _delay_launch("flan_stereo_delay_swept", "stereo_delay_swept", x, g,
+                      el, er, lb, rb, near, variant, w, rounds, False)
     out = stereo_delay_outputs(w, lb, rb)
     return (out, w) if keep_w else out
 
 
-def stereo_delay_plan(dl, dr, lb: int, rb: int, device):
-    """The kernel's operands from the host delays: (el, er, starts) int32
-    on `device`."""
-    el, er = stereo_delay_distances(dl, dr, lb, rb)
-    starts = stereo_delay_round_starts(el, er, STEREO_TILE)
-    return tuple(torch.from_numpy(v.astype(np.int32)).to(device)
-                 for v in (el, er, starts))
-
-
-def stereo_delay_shared_ring(lb: int, rb: int) -> bool:
-    """Whether the kernel keeps a call's rings (for ring sizes lb, rb) in
-    shared memory, the variant it then takes, or reads device memory."""
-    return bool(load_library().flan_stereo_delay_shared(lb, rb))
+def stereo_delay_swept_backward_cuda(gout, g, el, er, lb: int, rb: int,
+                                     variant: str = None,
+                                     rounds: torch.Tensor = None):
+    """The swept stereo delay's backward kernel (stereo_delay_backward_ref's
+    work) on the narrow rounds from the end: gout [2, n], the outputs'
+    gradient, g, el and er as the forward takes them; returns gw [2, n],
+    the signal's gradient. variant and rounds as the forward's (the
+    "narrow" ones)."""
+    _delay_checked(gout, g, el, er, "stereo_delay_swept_backward")
+    with torch.cuda.device(gout.device):
+        variant = variant or stereo_delay_variant(0, lb, rb, True)
+        # the device-memory variant sums in gw itself
+        gw = (torch.zeros_like(gout) if variant.endswith("_device")
+              else torch.empty_like(gout))
+        _delay_launch("flan_stereo_delay_swept_backward",
+                      "stereo_delay_swept_backward", gout, g, el, er, lb, rb,
+                      0, variant, gw, rounds, True)
+    return gw
 
 
 # ----------------------------------------------------------------- autograd
@@ -1061,6 +1304,37 @@ class CombSwept(torch.autograd.Function):
         return gu, None, gk, ga, None
 
 
+class StereoDelaySwept(torch.autograd.Function):
+    """The swept stereo delay with its backward: the forward keeps w, the
+    backward runs the adjoint in reverse time (the plain version on the
+    CPU, the backward kernel on the card) and the decay's gradient from it
+    and w; the delays take no gradient (integers, as in the JAX
+    package)."""
+
+    @staticmethod
+    def forward(ctx, x, g, el, er, lb, rb):
+        if _on_cpu(x):
+            out, w = stereo_delay_ref(x, g, el, er, lb, rb, keep_w=True)
+        else:
+            out, w = stereo_delay_swept_cuda(x, g, el, er, lb, rb,
+                                             keep_w=True)
+        ctx.save_for_backward(g, el, er, w)
+        ctx.rings = (lb, rb)
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        g, el, er, w = ctx.saved_tensors
+        lb, rb = ctx.rings
+        gout = gout.contiguous()
+        gw = (stereo_delay_backward_ref(gout, g, el, er, lb, rb)
+              if _on_cpu(gout) else
+              stereo_delay_swept_backward_cuda(gout, g, el, er, lb, rb))
+        gg = (stereo_delay_decay_grad(gw, w, el, er)
+              if ctx.needs_input_grad[1] else None)
+        return gw, gg, None, None, None, None
+
+
 # ----------------------------------------------------------------- dispatch
 
 def saturator_multinotch(x, planes, inv: float, order: int, two_pole: bool):
@@ -1094,11 +1368,15 @@ def comb_swept(x, delays, k, a, f: float):
     return comb_swept_cuda(x, delays, k, a, f, int(delays.max()))
 
 
-def stereo_delay_swept(x, g, dl, dr, lb: int, rb: int):
-    """The swept stereo delay on x [2, n] with the decay g [n] and the host
-    delays dl, dr [n] (integers in [0, lb], [0, rb]): the plain version on
-    the CPU, the kernel on the card. No gradient."""
+def stereo_delay_swept(x, g, el, er, lb: int, rb: int):
+    """The swept stereo delay on x [2, n] with the decay g [n] and the
+    reads' distances el, er [n] int32 (stereo_delay_reads) on x's device:
+    the plain version on the CPU, the kernel on the card. Differentiable in
+    x and g on both (StereoDelaySwept)."""
+    if x.device.type != "cpu":
+        x, g, el, er = (t.contiguous() for t in (x, g, el, er))
+    if _wants_grad(x, g):
+        return StereoDelaySwept.apply(x, g, el, er, lb, rb)
     if x.device.type == "cpu":
-        return stereo_delay_ref(x, g, dl, dr, lb, rb)
-    return stereo_delay_swept_cuda(x, g, *stereo_delay_plan(
-        dl, dr, lb, rb, x.device), lb, rb)
+        return stereo_delay_ref(x, g, el, er, lb, rb)
+    return stereo_delay_swept_cuda(x, g, el, er, lb, rb)

@@ -32,9 +32,11 @@ backward at phase 8's shape (10 s stereo 48 kHz, order 2, 1-pole and
 and each forward's largest difference from the plain loop over the first
 SAT_ERR_FRAMES frames, over the loop's peak; the comb's forward and
 backward on phase 8's calls at 600 s stereo (bench_comb: the rounds, the
-cycles a round and a digest of the outputs); the stereo delay on rounds
-of 32 steps (bench_stereo_delay: the cycles a round, the chain alone
-among the variants). A variant computes something
+cycles a round and a digest of the outputs); the stereo delay's forward
+(narrow and wide) and backward on rounds of 32 steps and on phase 9's
+long sweep at 600 s (bench_stereo_delay: the rounds, the cycles a round,
+the chain alone and one block's copy rate among the variants). A variant
+computes something
 else than the kernel does: only its times mean anything, apart from that
 error where a variant only rounds in another order.
 
@@ -1000,103 +1002,148 @@ def bench_comb(libs: dict, first) -> None:
               flush=True)
 
 
-# ---- the swept stereo delay (sequential_kernels.cu): one dependent step
+# ---- the swept stereo delay (sequential_kernels.cu): one dependent step,
+# and what holds each regime
 STEREO_FRAMES = 1 << 22
 STEREO_WIDTH = 32
-# the chain in the shipped block: rounds of STEREO_WIDTH steps, each
-# reading the round before (both distances STEREO_WIDTH, rings in shared
-# memory), every lane on its tile's first inputs, no round ends read, no
-# device-memory stores
+STEREO_SECONDS = 600.0
+# the chain alone on the narrow kernels (chip_smoke.py's stereo delay
+# bounds): rounds of STEREO_WIDTH steps, each reading the round before
+# (both distances STEREO_WIDTH, shared rings), the inputs of the tile's
+# first frames, no round ends or inputs read a round ahead, no values
+# stored; the forward's and the backward's chain
 _STEREO_CHAIN = [
-    ("cu", "  long long e = p.starts[1];        // this round's end\n",
-     f"  long long e = {STEREO_WIDTH};\n"),
-    ("cu", "      const long long e2 = r + 2 <= p.rounds ? p.starts[r + 2] "
-     ": n;\n", f"      const long long e2 = e + {STEREO_WIDTH};\n"),
-    ("cu", "        const int j = (int)(t - t0);\n",
-     "        const int j = i;\n"),
-    ("cu", "        wl_out[t] = wl;\n        wr_out[t] = wr;\n", "")]
-# on one warp, a warp barrier a round
-_STEREO_WARP = [
-    ("cu", "      __syncthreads();\n      s = e;\n",
-     "      __syncwarp();\n      s = e;\n"),
-    ("cu", "<<<1, kDelayTile, bytes, s>>>", "<<<1, 32, bytes, s>>>")]
-# the step's inputs in registers (the distances STEREO_WIDTH, unknown to
-# the compiler): left on the chain, the ring reads, the two steps'
-# multiplies and adds, the ring writes and the barrier
-_STEREO_NO_INPUTS = [
-    ("cu", "  int r = 0;\n",
-     f"  int r = 0;\n  const int d_reg = {STEREO_WIDTH} + (int)(p.n >> 40);"
-     "\n"),
-    ("cu", "        const float x0 = q[j], x1 = q[kTile + j], gt = q[2 * kTile "
-     "+ j];\n        const int dl = qi[3 * kTile + j], dr = qi[4 * kTile + "
-     "j];\n", "        const float x0 = 0.25f, x1 = 0.5f, gt = 0.5f;\n"
-     "        const int dl = d_reg, dr = d_reg;\n")]
-
-
-def _stereo_chain_loop(cu: str) -> str:
-    """The round loop of a tile replaced by the chain itself: rounds of
-    STEREO_WIDTH steps, 32-bit indices, nothing but the ring reads, the
-    two steps' multiplies and adds, the ring writes and a warp barrier."""
-    a = cu.index("    long long s = t0;                 // a round starts")
-    b = cu.index("      ++r;\n    }\n", a) + len("      ++r;\n    }\n")
-    return cu[:a] + f"""    for (int k32 = 0; k32 < kTile / {STEREO_WIDTH}; ++k32) {{
-      const int t = (int)t0 + k32 * {STEREO_WIDTH} + i;
-      const float rv = ring_r[(t - d_reg) & p.mask_r];
-      const float lv = ring_l[(t - d_reg) & p.mask_l];
-      ring_l[t & p.mask_l] = __fadd_rn(0.25f, __fmul_rn(rv, 0.5f));
-      ring_r[t & p.mask_r] = __fadd_rn(0.5f, __fmul_rn(lv, 0.5f));
-      __syncwarp();
-    }}
-""" + cu[b:]
-
-
+    ("cu", "        int off = 0, nxt = nq[0];\n        In v = in(lane);\n",
+     "        int off = 0, nxt = kDelayWidth;\n        In v = in(lane);\n"),
+    ("cu", "          const int nnxt = nq[nxt];\n"
+     "          const In nv = in(nxt + lane);\n",
+     "          const int nnxt = nxt + kDelayWidth;\n"
+     "          const In nv = v;\n"),
+    ("cu", "              o[off + lane] = wl;\n"
+     "              o[TP + off + lane] = wr;\n", ""),
+    ("cu", "        int off = tl - 1, nxt = nq[off];\n"
+     "        In v = in(off - lane);\n",
+     "        int off = tl - 1, nxt = off - kDelayWidth;\n"
+     "        In v = in(off - lane);\n"),
+    ("cu", "          const int nnxt = nq[nxt];\n"
+     "          const In nv = in(nxt - lane);\n",
+     "          const int nnxt = nxt - kDelayWidth;\n"
+     "          const In nv = v;\n"),
+    ("cu", "            o[off - lane] = gl;\n"
+     "            o[TP + off - lane] = gr;\n", "")]
+# the wide kernel's consumers without their steps: the planner and the
+# barriers a round, beside the producers' staging
+_STEREO_NO_STEPS = [("cu", "      if (t < lim) {\n",
+                      "      if (t < lim && n < 0) {\n", 2)]
+# the narrow kernels' producers idle after the first tiles
+_STEREO_IDLE = [("cu", "      copy_in(i + 2);\n"
+                 "      asm volatile(\"cp.async.wait_group 1;\" ::: \"memory\");\n"
+                 "      arrived(i + 1);\n"
+                 "      asm volatile(\"bar.sync 1, %0;\" ::\"n\"(kPT) : \"memory\");\n"
+                 "      if (i + 1 < tiles) prepare(i + 1);\n"
+                 "      if (kShared && i > 0) write_back(i - 1);\n", "")]
+_STEREO_COPY_ONLY = _STEREO_NO_STEPS + [
+    ("cu", "    if ((ba | bb) == 0) return hi;\n",
+     "    if ((ba | bb | 1u) != 0) return hi;\n")]
 STEREO_VARIANTS = {
     "as_shipped": [],
-    "chain_only_block": _STEREO_CHAIN,
-    "chain_only_warp_input_loads": _STEREO_CHAIN + _STEREO_WARP,
-    # the shipped round loop's control and indices left
-    "chain_only_warp_loop": _STEREO_CHAIN + _STEREO_WARP + _STEREO_NO_INPUTS,
-    # the chain alone: one dependent step (chip_smoke.py's stereo delay
-    # bound)
-    "chain_only": _STEREO_CHAIN + _STEREO_WARP + _STEREO_NO_INPUTS + [
-        ("cu", _stereo_chain_loop)],
+    "chain_only": _STEREO_CHAIN,
+    "chain_only_idle_producers": _STEREO_CHAIN + _STEREO_IDLE,
+    "no_steps": _STEREO_NO_STEPS,
+    # and rounds a whole tile wide: the producers' copies and the epochs'
+    # barriers, one block's copy rate
+    "copy_only": _STEREO_COPY_ONLY,
+    # without working out lim and the chunks' maxima
+    "copy_only_no_process": _STEREO_COPY_ONLY + [
+        ("cu", "      process(j + 4);\n", "")],
+    # without the tiles asked into L2 ahead
+    "no_prefetch": [("cu", "          if (jp < tiles) {\n",
+                     "          if (jp < 0) {\n")],
+    # no copies either: the epochs' barriers and the rounds alone
+    "no_copies": _STEREO_COPY_ONLY + [
+        ("cu", "      process(j + 4);\n", ""),
+        ("cu", "      if (j < tiles) {\n        const int f0 = j * T, tl = "
+         "min(n - f0, T), o = (j % S) * T;\n",
+         "      if (j < 0) {\n        const int f0 = j * T, tl = "
+         "min(n - f0, T), o = (j % S) * T;\n")],
 }
 
 
-def bench_stereo_delay(libs: dict, first) -> None:
-    """One call per variant on STEREO_FRAMES frames of rounds of
-    STEREO_WIDTH steps (both distances STEREO_WIDTH, shared rings), by
-    CUDA events, with the cycles a round at the H100's 1.98 GHz boost
-    clock (the card's own clock during the calls beside it); the shipped
-    kernel also on rounds of one step (both distances 1)."""
+def stereo_bench_cases(dev) -> dict:
+    """case -> (x, g, el, er, lb, rb): STEREO_FRAMES frames of reads
+    STEREO_WIDTH back (rounds of STEREO_WIDTH steps, shared rings), and
+    phase 9's first sweep at STEREO_SECONDS stereo (0.05-0.55 s against
+    0.05-0.95 s: rings in device memory, its reads 2,400 to 45,600 frames
+    back), the distances as Audio.stereo_delay works them out."""
     from flan_tpu_torch.ops import sequential_kernels as seq
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    n, d = STEREO_FRAMES, STEREO_WIDTH
+    full = torch.full((n,), d, dtype=torch.int32, device=dev)
+    out[f"reads_{d}_back"] = (torch.randn((2, n), device=dev, generator=gen),
+                              torch.full((n,), 0.5, device=dev), full, full,
+                              d + 1, d)
+    n = int(STEREO_SECONDS * SR)
+    t = torch.arange(n, dtype=torch.float32) / SR
+    lt = (0.30 + 0.25 * torch.sin(2 * np.pi * 0.05 * t)).to(dev)
+    rt = (0.50 + 0.45 * torch.sin(2 * np.pi * 0.07 * t)).to(dev)
+    lb, rb = int(float(lt.max()) * SR), int(float(rt.max()) * SR)
+    el, er = seq.stereo_delay_reads(seq.stereo_delay_frames(lt, SR, lb, n, dev),
+                                    seq.stereo_delay_frames(rt, SR, rb, n, dev),
+                                    lb, rb)
+    out["long_sweep_600s"] = (torch.randn((2, n), device=dev, generator=gen),
+                              torch.full((n,), 0.5, device=dev), el, er, lb,
+                              rb)
+    return out
+
+
+def bench_stereo_delay(libs: dict, first) -> None:
+    """One call per variant, kernel and case (stereo_bench_cases), by CUDA
+    events: the forward in each variant its rings allow (narrow and wide,
+    shared or device rings), the backward (narrow); with the rounds the
+    kernel ran, the cycles a round at the H100's 1.98 GHz boost clock (the
+    card's own clock during the calls beside it) and a digest of the
+    output."""
     dev = torch.device("cuda", 0)
     stream = torch.cuda.current_stream().cuda_stream
-    n, ring = STEREO_FRAMES, STEREO_WIDTH + 1
-    gen = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randn((2, n), device=dev, generator=gen)
-    g = torch.full((n,), 0.5, device=dev)
-    inputs = {f"rounds_of_{d}": seq.stereo_delay_plan(
-        np.full(n, d), np.full(n, d), ring, ring, dev)
-        for d in (STEREO_WIDTH, 1)}
-    w = torch.empty_like(x)
+    cases = stereo_bench_cases(dev)
     for name, lib in libs.items():
+        lib.flan_stereo_delay_shared_bytes.argtypes = [build._i] * 3
+        lib.flan_stereo_delay_shared_bytes.restype = ctypes.c_longlong
+        lib.flan_max_shared_bytes.restype = ctypes.c_int
+        limit = lib.flan_max_shared_bytes()
         times = {}
-        for case, (el, er, starts) in inputs.items():
-            if case != f"rounds_of_{STEREO_WIDTH}" and name != "as_shipped":
-                continue
-            rounds = starts.shape[0] - 1
+        for case, (x, g, el, er, lb, rb) in cases.items():
+            n = x.shape[1]
+            out = torch.empty_like(x)
+            rounds = torch.zeros(1, dtype=torch.int32, device=dev)
+            for kernel in ("narrow", "wide", "backward"):
+                wide = kernel == "wide"
+                shared = lib.flan_stereo_delay_shared_bytes(
+                    int(wide), lb, rb) <= limit
 
-            def run():
-                build.raise_on(lib.flan_stereo_delay_swept(
-                    x.data_ptr(), g.data_ptr(), el.data_ptr(), er.data_ptr(),
-                    starts.data_ptr(), rounds, w.data_ptr(), n, ring, ring,
-                    stream), name)
-            us = event_us(run, 2)
-            times[case] = {"us": us, "rounds": rounds,
-                           "cycles_per_round_at_1980MHz": round(
-                               us * 1980.0 / rounds, 1),
-                           "clocks_sm_mhz_during": _clock_during(run)}
+                def run():
+                    if kernel == "backward":
+                        out.zero_()         # the device variant's sums
+                        err = lib.flan_stereo_delay_swept_backward(
+                            x.data_ptr(), g.data_ptr(), el.data_ptr(),
+                            er.data_ptr(), out.data_ptr(), rounds.data_ptr(),
+                            n, lb, rb, int(shared), stream)
+                    else:
+                        err = lib.flan_stereo_delay_swept(
+                            x.data_ptr(), g.data_ptr(), el.data_ptr(),
+                            er.data_ptr(), out.data_ptr(), rounds.data_ptr(),
+                            n, lb, rb, int(wide), int(shared), stream)
+                    build.raise_on(err, name)
+                us = event_us(run, 2)
+                r = int(rounds)
+                times[f"{case}/{kernel}_{'shared' if shared else 'device'}"] \
+                    = {"us": us, "rounds": r,
+                       "cycles_per_round_at_1980MHz": round(us * 1980.0 / r,
+                                                            1),
+                       "digest": _digest(out),
+                       "clocks_sm_mhz_during": _clock_during(run)}
+            del out
         print(json.dumps({"source": "stereo_delay", "variant": name,
                           **times}), flush=True)
 

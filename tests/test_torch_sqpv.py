@@ -439,7 +439,8 @@ def test_kernel_library_lists_every_source():
                                      "flan_saturator_backward_readout",
                                      "flan_comb_swept",
                                      "flan_comb_swept_backward",
-                                     "flan_stereo_delay_swept"}
+                                     "flan_stereo_delay_swept",
+                                     "flan_stereo_delay_swept_backward"}
 
 
 

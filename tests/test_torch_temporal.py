@@ -213,12 +213,14 @@ def test_stereo_delay_plain_is_the_ring_loop(lb, rb, kind):
     x, g, dl, dr = _delay_case(lb, rb, kind)
     want, w_want = seq.stereo_delay_loop(x, g, dl, dr, lb, rb)
     xt, gt = torch.from_numpy(x), torch.from_numpy(g)
+    el, er = seq.stereo_delay_reads(torch.from_numpy(dl), torch.from_numpy(dr),
+                                    lb, rb)
     for tile in (4096, seq.STEREO_TILE, 5):
-        got, w = seq.stereo_delay_ref(xt, gt, dl, dr, lb, rb, keep_w=True,
+        got, w = seq.stereo_delay_ref(xt, gt, el, er, lb, rb, keep_w=True,
                                       tile=tile)
         assert np.array_equal(got.numpy(), want)
         assert np.array_equal(w.numpy(), w_want)
-    step = seq.stereo_delay_step_errors(xt, gt, dl, dr, lb, rb, w)
+    step = seq.stereo_delay_step_errors(xt, gt, el, er, lb, rb, w)
     assert max(step.values()) < 1e-6    # 4e-8 to 7e-8 read
     assert seq.LAUNCHES["stereo_delay_swept"] == 0
 
@@ -302,8 +304,8 @@ def test_stereo_delay_swept_matches_flan_tpu(l_time, r_time):
     assert _rel(got, want) < TOL
     out_n = int(0.3 * SR)
     fn = flan_tpu_torch.func.function.as_function
-    lt = temporal.sample_delay_times(fn(l_time), out_n, SR)
-    rt = temporal.sample_delay_times(fn(r_time), out_n, SR)
+    lt, rt = (np.asarray(temporal.sample_delay_times(fn(f), out_n, SR),
+                         np.float64) for f in (l_time, r_time))
     lb, rb = int(lt.max() * SR), int(rt.max() * SR)
     dl = np.clip((lt * SR).astype(np.int64), 0, lb)
     dr = np.clip((rt * SR).astype(np.int64), 0, rb)
