@@ -340,17 +340,16 @@ COMB_STEP_CYCLES = 55
 COMB_BACK_STEP_CYCLES = 92
 # The swept stereo delay's the same way: its depth in the loop's order
 # (stereo_delay_depth) times one dependent step measured alone (H100 80GB
-# HBM3, 700 W, the SM at 1,980 MHz). The forward's: one warp on rounds of
-# 32 steps, each reading the round before from rings in shared memory,
-# the two ring reads, the steps' multiplies and adds, the ring writes and
-# a warp barrier and nothing else (spv_variants --source stereo_delay as
-# of PR 12, chain_only): 53.3 cycles. The backward's: its narrow kernel's
-# round with no round ends, inputs or values read or stored (chain_only:
-# the sums read, the adds, the sends' adds into their slots, the votes
-# beside them and a warp barrier), 213.5-219.0 cycles, an upper value of
-# its chain
-STEREO_DELAY_STEP_CYCLES = 53
-STEREO_DELAY_BACK_STEP_CYCLES = 214
+# HBM3, 700 W, the SM at 1,980 MHz): spv_variants --source stereo_delay,
+# chain_only, the narrow kernels' round loops rewritten as one warp on
+# rounds of 32 steps, each reading the round before from rings in shared
+# memory, the inputs register constants and the producer warps idle. Left
+# on the forward's chain: the two ring reads, the steps' multiplies and
+# adds, the ring writes and a warp barrier, 56.3-56.7 cycles a round; on
+# the backward's: the sums read, the two adds and multiplies, the slots
+# zeroed, the sends' adds into their slots and a warp barrier, 70.5-71.1
+STEREO_DELAY_STEP_CYCLES = 56
+STEREO_DELAY_BACK_STEP_CYCLES = 71
 # Operations of one saturator step at order 2, counted from the source's
 # arithmetic (a tanhf as 10, a division as 9, an FMA as 2): the rerun
 # (the forward's step) and one adjoint (the backward's read-out; the maps

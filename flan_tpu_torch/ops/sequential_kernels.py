@@ -675,7 +675,11 @@ STEREO_TILE = build.STEREO_TILE         # the narrow kernels' staged tiles
 STEREO_WIDTH = build.STEREO_WIDTH       # narrow rounds: at most a warp
 STEREO_WIDE_WIDTH = build.STEREO_WIDE_WIDTH  # wide rounds: at most a tile
 # the forward takes the wide regime when every step's nearer read is at
-# least this far back (narrow rounds would cut rounds of this many steps)
+# least this far back: on reads a constant d frames back (wide rounds of d
+# steps, the fewest a call with that nearest read can take) the narrow
+# kernel took 9.81 ms on 2^22 frames at every d, the wide one 12.59 at d =
+# 96, 9.58 at 128 and 8.01 at 160 (spv_variants --source stereo_delay,
+# H100 80GB HBM3)
 STEREO_WIDE_FROM = 128
 # the variant each stereo delay wrapper took on its last launch
 # ("narrow_shared", "narrow_device", "wide_shared" or "wide_device")
@@ -715,27 +719,25 @@ def _np(v) -> np.ndarray:
             else np.asarray(v)).astype(np.int64)
 
 
+def _round_limits(el, er) -> np.ndarray:
+    """lim[t] = max(t - er[t], el[t] > 0 ? t - el[t] : -1), int64: a round
+    from frame s may hold frame t while lim[t] < s."""
+    el, er = _np(el), _np(er)
+    t = np.arange(len(el), dtype=np.int64)
+    return np.maximum(t - er, np.where(el > 0, t - el, -1))
+
+
 def stereo_delay_round_starts(el, er, tile: int, width: int = 0
                               ) -> np.ndarray:
     """The first frame of every round of the stereo delay's steps, then n,
     int32: a round from frame s holds the frames after it for as long as
     each reads only values written before s (t - er[t] < s, and t - el[t]
     < s where el[t] > 0: its own L write it does first), stays in s's tile
-    of `tile` frames (tiles from frame 0; 0: no tiles) and, for a width,
-    holds at most `width` frames: the fewest rounds under those caps.
-    Tiles are worked out all at once, one frame offset at a time; with no
-    tiles, frame by frame."""
-    el, er = _np(el), _np(er)
-    n = len(el)
-    t = np.arange(n, dtype=np.int64)
-    lim = np.maximum(t - er, np.where(el > 0, t - el, -1))
-    if tile == 0:
-        starts, s = [0], 0
-        for j in range(1, n):
-            if lim[j] >= s or (width and j - s >= width):
-                s = j
-                starts.append(j)
-        return np.array(starts + [n], np.int32)
+    of `tile` frames (tiles from frame 0) and, for a width, holds at most
+    `width` frames: the fewest rounds under those caps. Worked out for
+    every tile at once, one frame offset at a time."""
+    lim = _round_limits(el, er)
+    n = len(lim)
     tiles = -(-n // tile)
     big = np.iinfo(np.int64).max
     limt = np.full(tiles * tile, big, np.int64)
@@ -768,9 +770,16 @@ def stereo_delay_narrow_starts(el, er, reverse: bool = False) -> list:
 
 
 def stereo_delay_wide_starts(el, er) -> np.ndarray:
-    """The rounds the wide kernel runs (stereo_delay_wide): the fewest
-    rounds of at most STEREO_WIDE_WIDTH frames, across tiles."""
-    return stereo_delay_round_starts(el, er, 0, STEREO_WIDE_WIDTH)
+    """The rounds the wide kernel runs (stereo_delay_wide), frame by frame:
+    the fewest rounds of at most STEREO_WIDE_WIDTH frames, across tiles
+    (the rule of stereo_delay_round_starts, with no tiles)."""
+    lim = _round_limits(el, er)
+    starts, s = [0], 0
+    for j in range(1, len(lim)):
+        if lim[j] >= s or j - s >= STEREO_WIDE_WIDTH:
+            s = j
+            starts.append(j)
+    return np.array(starts + [len(lim)], np.int32)
 
 
 def _as_index(v, device) -> torch.Tensor:
@@ -1184,8 +1193,8 @@ def stereo_delay_variant(near: int, lb: int, rb: int,
                                              else "_device")
 
 
-def _delay_launch(fn, name, inp, g, el, er, lb, rb, near, variant, out,
-                  rounds, backward):
+def _delay_launch(fn, name, inp, g, el, er, lb, rb, variant, out, rounds,
+                  backward):
     lib = load_library()
     wide, shared = variant.split("_")
     if variant not in ("narrow_shared", "narrow_device", "wide_shared",
@@ -1197,11 +1206,8 @@ def _delay_launch(fn, name, inp, g, el, er, lb, rb, near, variant, out,
             out.data_ptr(), _ptr(rounds), inp.shape[1], lb, rb)
     tail = (int(shared == "shared"),
             torch.cuda.current_stream().cuda_stream)
-    # the wide kernel asks for a round's reads a round ahead where every
-    # read lies at least two rounds' width back
-    kind = (0 if wide == "narrow" else
-            2 if near >= 2 * STEREO_WIDE_WIDTH else 1)
-    err = getattr(lib, fn)(*head, *((kind,) if not backward else ()), *tail)
+    kind = () if backward else (int(wide == "wide"),)
+    err = getattr(lib, fn)(*head, *kind, *tail)
     raise_on(err, name)
     LAUNCHES[name] += 1
     VARIANTS[name] = variant
@@ -1217,11 +1223,11 @@ def stereo_delay_swept_cuda(x, g, el, er, lb: int, rb: int,
     Returns the outputs [2, n], with keep_w also w [2, n]."""
     _delay_checked(x, g, el, er, "stereo_delay_swept")
     with torch.cuda.device(x.device):
-        near = _nearest_read(el, er)
-        variant = variant or stereo_delay_variant(near, lb, rb)
+        variant = variant or stereo_delay_variant(_nearest_read(el, er), lb,
+                                                  rb)
         w = torch.empty_like(x)
         _delay_launch("flan_stereo_delay_swept", "stereo_delay_swept", x, g,
-                      el, er, lb, rb, near, variant, w, rounds, False)
+                      el, er, lb, rb, variant, w, rounds, False)
     out = stereo_delay_outputs(w, lb, rb)
     return (out, w) if keep_w else out
 
@@ -1242,7 +1248,7 @@ def stereo_delay_swept_backward_cuda(gout, g, el, er, lb: int, rb: int,
               else torch.empty_like(gout))
         _delay_launch("flan_stereo_delay_swept_backward",
                       "stereo_delay_swept_backward", gout, g, el, er, lb, rb,
-                      0, variant, gw, rounds, True)
+                      variant, gw, rounds, True)
     return gw
 
 

@@ -33,7 +33,8 @@ and each forward's largest difference from the plain loop over the first
 SAT_ERR_FRAMES frames, over the loop's peak; the comb's forward and
 backward on phase 8's calls at 600 s stereo (bench_comb: the rounds, the
 cycles a round and a digest of the outputs); the stereo delay's forward
-(narrow and wide) and backward on rounds of 32 steps and on phase 9's
+(narrow and wide) and backward on rounds of 32 steps, on reads a
+constant 48 to 240 frames back (the regimes' crossover) and on phase 9's
 long sweep at 600 s (bench_stereo_delay: the rounds, the cycles a round,
 the chain alone and one block's copy rate among the variants). A variant
 computes something
@@ -1007,12 +1008,16 @@ def bench_comb(libs: dict, first) -> None:
 STEREO_FRAMES = 1 << 22
 STEREO_WIDTH = 32
 STEREO_SECONDS = 600.0
-# the chain alone on the narrow kernels (chip_smoke.py's stereo delay
-# bounds): rounds of STEREO_WIDTH steps, each reading the round before
-# (both distances STEREO_WIDTH, shared rings), the inputs of the tile's
-# first frames, no round ends or inputs read a round ahead, no values
-# stored; the forward's and the backward's chain
-_STEREO_CHAIN = [
+# reads a constant d frames back beside STEREO_WIDTH's: the narrow
+# kernel's rounds of 32 against the wide one's of d (the regime's choice,
+# sequential_kernels.STEREO_WIDE_FROM)
+STEREO_CROSSOVER = (48, 64, 96, 128, 160, 192, 240)
+# the narrow kernels' round with no round ends or inputs read a round
+# ahead and no values stored: rounds of STEREO_WIDTH steps, each reading
+# the round before (both distances STEREO_WIDTH, shared rings), on the
+# inputs of the tile's first frames; the round's control, its votes and
+# the backward's sends left
+_STEREO_ROUND_BARE = [
     ("cu", "        int off = 0, nxt = nq[0];\n        In v = in(lane);\n",
      "        int off = 0, nxt = kDelayWidth;\n        In v = in(lane);\n"),
     ("cu", "          const int nnxt = nq[nxt];\n"
@@ -1031,8 +1036,59 @@ _STEREO_CHAIN = [
      "          const In nv = v;\n"),
     ("cu", "            o[off - lane] = gl;\n"
      "            o[TP + off - lane] = gr;\n", "")]
-# the wide kernel's consumers without their steps: the planner and the
-# barriers a round, beside the producers' staging
+_STEREO_FWD_LOOP = ("        int off = 0, nxt = nq[0];\n",
+                    "        } while (off < tl);\n")
+_STEREO_BACK_LOOP = ("        float* junk = sent + 64 + lane;\n",
+                     "        } while (off >= 0);\n")
+
+
+def _stereo_chain_loops(cu: str) -> str:
+    """The narrow kernels' round loops replaced by the chain itself: one
+    warp on rounds of STEREO_WIDTH steps, each reading the round before
+    (both distances STEREO_WIDTH, unknown to the compiler), the inputs
+    register constants, 32-bit indices; left on the chain the ring reads,
+    the steps' multiplies and adds, the ring writes (the backward's: the
+    slots zeroed and the two sends added into theirs) and a warp
+    barrier."""
+    loops = {
+        _STEREO_FWD_LOOP: """\
+        const int d = kDelayWidth + (n >> 31);
+        for (int k = 0; k < T / kDelayWidth; ++k) {
+          const int t = f0 + k * kDelayWidth + lane;
+          const float rv = ring_r[(t - d) & mr];
+          const float lo = ring_l[(t - d) & ml];
+          ring_l[t & ml] = __fadd_rn(0.25f, __fmul_rn(rv, 0.5f));
+          ring_r[t & mr] = __fadd_rn(0.5f, __fmul_rn(lo, 0.5f));
+          ++rounds;
+          __syncwarp();
+        }
+""",
+        _STEREO_BACK_LOOP: """\
+        const int d = kDelayWidth + (n >> 31);
+        for (int k = 0; k < T / kDelayWidth; ++k) {
+          const int t = f0 + T - 1 - k * kDelayWidth - lane;
+          const float acc_r = ring_r[t & mr], acc_l = ring_l[t & ml];
+          const float rk_l = ring_l[(t - d) & ml];
+          const float rk_r = ring_r[(t - d) & mr];
+          const float gr = __fadd_rn(0.5f, acc_r);
+          const float gl = __fadd_rn(0.25f, acc_l);
+          ring_l[t & ml] = 0.f;
+          ring_r[t & mr] = 0.f;
+          ring_l[(t - d) & ml] = __fadd_rn(rk_l, __fmul_rn(0.5f, gr));
+          ring_r[(t - d) & mr] = __fadd_rn(rk_r, __fmul_rn(0.5f, gl));
+          ++rounds;
+          __syncwarp();
+        }
+"""}
+    for (start, end), loop in loops.items():
+        if cu.count(start) != 1 or end not in cu[cu.find(start):]:
+            raise ValueError(f"round loop not found once: {start!r}")
+        a = cu.index(start)
+        b = cu.index(end, a) + len(end)
+        cu = cu[:a] + loop + cu[b:]
+    return cu
+
+
 _STEREO_NO_STEPS = [("cu", "      if (t < lim) {\n",
                       "      if (t < lim && n < 0) {\n", 2)]
 # the narrow kernels' producers idle after the first tiles
@@ -1047,8 +1103,11 @@ _STEREO_COPY_ONLY = _STEREO_NO_STEPS + [
      "    if ((ba | bb | 1u) != 0) return hi;\n")]
 STEREO_VARIANTS = {
     "as_shipped": [],
-    "chain_only": _STEREO_CHAIN,
-    "chain_only_idle_producers": _STEREO_CHAIN + _STEREO_IDLE,
+    "round_bare": _STEREO_ROUND_BARE,
+    "round_bare_idle_producers": _STEREO_ROUND_BARE + _STEREO_IDLE,
+    # the chain alone, one dependent step (chip_smoke.py's stereo delay
+    # bounds): the round loops rewritten, the producers idle
+    "chain_only": _STEREO_IDLE + [("cu", _stereo_chain_loops)],
     "no_steps": _STEREO_NO_STEPS,
     # and rounds a whole tile wide: the producers' copies and the epochs'
     # barriers, one block's copy rate
@@ -1071,18 +1130,20 @@ STEREO_VARIANTS = {
 
 def stereo_bench_cases(dev) -> dict:
     """case -> (x, g, el, er, lb, rb): STEREO_FRAMES frames of reads
-    STEREO_WIDTH back (rounds of STEREO_WIDTH steps, shared rings), and
-    phase 9's first sweep at STEREO_SECONDS stereo (0.05-0.55 s against
-    0.05-0.95 s: rings in device memory, its reads 2,400 to 45,600 frames
-    back), the distances as Audio.stereo_delay works them out."""
+    STEREO_WIDTH back (rounds of STEREO_WIDTH steps, shared rings) and of
+    reads each STEREO_CROSSOVER distance back, and phase 9's first sweep
+    at STEREO_SECONDS stereo (0.05-0.55 s against 0.05-0.95 s: rings in
+    device memory, its reads 2,400 to 45,600 frames back), the distances
+    as Audio.stereo_delay works them out."""
     from flan_tpu_torch.ops import sequential_kernels as seq
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
-    n, d = STEREO_FRAMES, STEREO_WIDTH
-    full = torch.full((n,), d, dtype=torch.int32, device=dev)
-    out[f"reads_{d}_back"] = (torch.randn((2, n), device=dev, generator=gen),
-                              torch.full((n,), 0.5, device=dev), full, full,
-                              d + 1, d)
+    n = STEREO_FRAMES
+    for d in (STEREO_WIDTH, *STEREO_CROSSOVER):
+        full = torch.full((n,), d, dtype=torch.int32, device=dev)
+        out[f"reads_{d}_back"] = (
+            torch.randn((2, n), device=dev, generator=gen),
+            torch.full((n,), 0.5, device=dev), full, full, d + 1, d)
     n = int(STEREO_SECONDS * SR)
     t = torch.arange(n, dtype=torch.float32) / SR
     lt = (0.30 + 0.25 * torch.sin(2 * np.pi * 0.05 * t)).to(dev)
@@ -1097,13 +1158,26 @@ def stereo_bench_cases(dev) -> dict:
     return out
 
 
+def stereo_bench_kernels(variant: str, case: str) -> tuple:
+    """The kernels a variant runs on a case: the chain alone the narrow
+    forward and the backward on reads STEREO_WIDTH back; the crossover's
+    cases both forwards, as shipped; the rest the narrow and the wide
+    forward and the backward."""
+    if variant == "chain_only":
+        return (("narrow", "backward") if case == f"reads_{STEREO_WIDTH}_back"
+                else ())
+    if case in {f"reads_{d}_back" for d in STEREO_CROSSOVER}:
+        return ("narrow", "wide") if variant == "as_shipped" else ()
+    return ("narrow", "wide", "backward")
+
+
 def bench_stereo_delay(libs: dict, first) -> None:
-    """One call per variant, kernel and case (stereo_bench_cases), by CUDA
-    events: the forward in each variant its rings allow (narrow and wide,
-    shared or device rings), the backward (narrow); with the rounds the
-    kernel ran, the cycles a round at the H100's 1.98 GHz boost clock (the
-    card's own clock during the calls beside it) and a digest of the
-    output."""
+    """One call per variant, kernel and case (stereo_bench_cases,
+    stereo_bench_kernels), by CUDA events: the forward in each variant its
+    rings allow (narrow and wide, shared or device rings), the backward
+    (narrow); with the rounds the kernel ran, the cycles a round at the
+    H100's 1.98 GHz boost clock (the card's own clock during the calls
+    beside it) and a digest of the output."""
     dev = torch.device("cuda", 0)
     stream = torch.cuda.current_stream().cuda_stream
     cases = stereo_bench_cases(dev)
@@ -1117,7 +1191,7 @@ def bench_stereo_delay(libs: dict, first) -> None:
             n = x.shape[1]
             out = torch.empty_like(x)
             rounds = torch.zeros(1, dtype=torch.int32, device=dev)
-            for kernel in ("narrow", "wide", "backward"):
+            for kernel in stereo_bench_kernels(name, case):
                 wide = kernel == "wide"
                 shared = lib.flan_stereo_delay_shared_bytes(
                     int(wide), lb, rb) <= limit

@@ -40,8 +40,8 @@ def _delay_inputs(n: int, lb: int, rb: int, kind: str, seed: int = 5):
     """x [2, n] and g [n] on the card, dl and dr [n] on the host: random in
     [0, ring], only 0, 1 and the ring size ("ends"), all 1 ("ones"),
     sweeping through every distance up to the ring ("sweep"), or random
-    but at least two wide rounds back ("far": the wide kernel's reads a
-    round ahead); and the reads' distances el, er on the card."""
+    but at least two wide rounds back ("far", as on phase 9's long sweep);
+    and the reads' distances el, er on the card."""
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((2, n)).astype(np.float32))
     g = torch.from_numpy(rng.uniform(-0.9, 0.9, n).astype(np.float32))
