@@ -110,14 +110,29 @@ build/parent`, then --package build/parent). Phases:
      of each call by one step in float64, three calls for the same bits,
      and each scan kernel's calls (the constant delay's rows, the
      spatialiser's lowpass, the pinna's bandshelves) to their plain scans
-     as phase 6 does; the repitched 440 Hz tone at 660 Hz.
+     as phase 6 does; the repitched 440 Hz tone at 660 Hz;
+ 10. drive the PV family on phase 3's PV geometry: each call first on one
+     10 s PV on the card and on the CPU (desample, smear_time,
+     time_extrapolate, stretch_spline by 2 and by a ramp, modify,
+     get_salience, get_contours, prism), stretch_spline also against a
+     float64 dense solve of the same spline; then at 600 s stereo, counted
+     (two linear scan launches a plane for each stretch_spline, one
+     salience histogram), timed, its outputs finite and of the expected
+     shapes, a whole get_salience call twice for the same bits;
+     get_contours and prism at 30 s, counted; then on the path's own
+     calls the linear scan against its float64 plain run and for the same
+     bits, and the salience kernel against its plain version on the CPU
+     over its first frames, over every frame against the same order on
+     the card, for the same bits, timed beside its plain version and
+     index_add_ + conv1d.
 
 The launch counters are zeroed just before each main path (phases 3 and 4
 together, then phase 5, then phase 6, then resonate and perturb in phase
 7, then phase 8's filters, then phase 9's effect chain at full size, after
-its comparisons at 10 s) and read just after it, before any launch made
-for a comparison; the probe's counter runs over all of them (it lies on
-no path). Every failed check raises, so the script exits nonzero
+its comparisons at 10 s, then phase 10's PV family at 600 s and its
+contours and prism at 30 s, after their comparisons at 10 s) and read just
+after it, before any launch made for a comparison; the probe's counter
+runs over all of them (it lies on no path). Every failed check raises, so the script exits nonzero
 without printing the result line. The line before the last is one JSON
 object describing the kernels (share_of_bound is bound_ms / ms; time_kernels
 says what ms, ms_after_plain and ms_behind_work are); the last is the result
@@ -370,6 +385,37 @@ TOL_DELAY_BACK = 1e-5
 WAVELENGTH_REL = 1e-3
 WAVELENGTH_FLIPS = 0.005
 SAT_ADJOINT_OPS = {False: 521, True: 542}
+# phase 10: the PV family (pv/modify_extra.py, pv/information.py) on phase
+# 3's PV geometry (48 kHz stereo, window 2048, hop 128, dft 4096) at 600 s,
+# each call first held to the CPU on one 10 s PV; get_contours and prism at
+# 30 s, where their greedy loops (host Python over frames and contours, by
+# the reference's design) take seconds a channel
+PV_FAMILY_SECONDS = 600.0
+PV_FAMILY_CPU_SECONDS = 10.0
+CONTOUR_SECONDS = 30.0
+# the card against the CPU on the same 10 s PV, times each plane's peak:
+# the same float32 operations in the same order on both devices (0 read
+# where nothing else differs), but the spline's two scans (the kernel's
+# look-back against the plain doubling scan); and the salience (peak 1)
+# and what is built on it, where torch's sin of the amplitude correction
+# differs by an ulp between the devices (1.9e-7 read on the same peaks)
+TOL_PV_CPU = 1e-5
+TOL_SALIENCE_CPU = 1e-5
+# a contour's pitch, in 10-cent bins: each frame's parabolic vertex through
+# its salience peak and two neighbours, which turns their ulps into more
+# where the peak is flat
+TOL_PITCH_BINS = 1e-2
+# the salience kernel against its plain version on the CPU over the path
+# call's first frames (the plain version's [F, K, 20] planes at 600 s take
+# tens of GB); over every frame it is held to the same order on the card
+SALIENCE_PLAIN_FRAMES = 8192
+# modify's chunks of quads timed at 600 s, with their peak memory
+MODIFY_CHUNK_SWEEP = (1 << 21, 1 << 23, 1 << 25)
+# frames of the library call's operands built at a time
+SALIENCE_LIBRARY_CHUNK = 16384
+# the scan kernel's rows held to its float64 plain run on stretch_spline's
+# own call (every row is its own recurrence)
+SPLINE_SCAN_ROWS = 64
 
 
 def fail(msg: str):
@@ -2749,6 +2795,471 @@ def phase9_scan_checks(torch, scan_kernels, scan_calls9):
     return out, errs
 
 
+def spline_ramp(seconds: float):
+    """stretch_spline's swept expansion on a PV of `seconds`: 1 + t /
+    (seconds / 2), as a multiplication (torch's CUDA division by a number
+    multiplies by its rounded reciprocal, the CPU's divides)."""
+    inv = 2.0 / seconds
+
+    def ramp(t):
+        return 1.0 + t * inv
+    return ramp
+
+
+def pv_family_calls(seconds: float) -> dict:
+    """The PV family's calls on a PV of `seconds`, each a function of the
+    PV: desample by a per-bin ratio, a 50 ms smear of granularity 3,
+    time_extrapolate at 300 -> 310 s, 30 s on (scaled to the PV's length),
+    stretch_spline by 2 and by spline_ramp, and modify by the form of
+    algo_modify_warp (tests/test_algo_golden.py:133-138) scaled to the PV's
+    length: u = t / length, t' = 0.8 t (1 + 0.125 u) + 1.1e-4 f u, f' = f
+    (0.9 - 0.25 u) + 125 (under 600 s of output, about half a frame of time
+    shift a bin). The maps multiply by reciprocals, so that both devices
+    compute them alike: modify's inverse bilinear solve cancels on such
+    thin quads and turns an ulp of a mapped corner into whole percents of
+    a cell's weights."""
+    scale = seconds / 600.0
+    inv_len = 1.0 / seconds
+
+    def ratio(t, f):
+        return 0.25 + 0.5 * f * (1.0 / 24000.0)
+
+    def warp(t, f):
+        u = t * inv_len
+        return (0.8 * t * (1.0 + 0.125 * u) + 1.1e-4 * f * u,
+                f * (0.9 - 0.25 * u) + 125.0)
+    ramp = spline_ramp(seconds)
+    return {
+        "desample": lambda pv: pv.desample(ratio),
+        "smear_time": lambda pv: pv.smear_time(0.05, 3),
+        "time_extrapolate": lambda pv: pv.time_extrapolate(
+            300.0 * scale, 310.0 * scale, 30.0 * scale),
+        "stretch_spline_2": lambda pv: pv.stretch_spline(2.0),
+        "stretch_spline_ramp": lambda pv: pv.stretch_spline(ramp),
+        "modify": lambda pv: pv.modify(warp)}
+
+
+def natural_spline_matrix(xs: np.ndarray, ts: np.ndarray) -> np.ndarray:
+    """W [T, F] float64 with W @ y the natural cubic spline through (xs, y)
+    evaluated at ts, by a dense solve: a copy of the JAX package's
+    flan_tpu/pv/modify_extra.py _natural_spline_matrix, the check of the
+    port's band solve."""
+    n = len(xs)
+    h = np.diff(xs)
+    A = np.zeros((n, n))
+    B = np.zeros((n, n))
+    A[0, 0] = 1.0
+    A[-1, -1] = 1.0
+    for i in range(1, n - 1):
+        A[i, i - 1] = h[i - 1] / 6.0
+        A[i, i] = (h[i - 1] + h[i]) / 3.0
+        A[i, i + 1] = h[i] / 6.0
+        B[i, i - 1] = 1.0 / h[i - 1]
+        B[i, i] = -1.0 / h[i - 1] - 1.0 / h[i]
+        B[i, i + 1] = 1.0 / h[i]
+    Minv = np.linalg.solve(A, B)
+    idx = np.clip(np.searchsorted(xs, ts, side="right") - 1, 0, n - 2)
+    x0 = xs[idx]
+    hi = xs[idx + 1] - x0
+    u = (ts - x0) / hi
+    W = np.zeros((len(ts), n))
+    rows = np.arange(len(ts))
+    W[rows, idx] += (1 - u)
+    W[rows, idx + 1] += u
+    W += (hi * hi / 6.0 * ((1 - u) ** 3 - (1 - u)))[:, None] * Minv[idx]
+    W += (hi * hi / 6.0 * (u ** 3 - u))[:, None] * Minv[idx + 1]
+    return W
+
+
+def spline_expansions(torch, expansion, frames: int, rate: float):
+    """Per-frame integer expansions as stretch_spline takes them: a number,
+    or the function on the float32 frame times, truncated, at least 1."""
+    if not callable(expansion):
+        return np.full(frames, int(expansion), np.int64)
+    t = torch.tensor(np.arange(frames, dtype=np.float64) / rate,
+                     dtype=torch.float32)
+    return np.maximum(expansion(t).numpy().astype(np.int64), 1)
+
+
+def plane_errors(got, want) -> float:
+    """The largest difference of two PVs' planes, as a share of each of
+    want's planes' peak; inf where the shapes differ."""
+    if got.mag.shape != want.mag.shape:
+        return math.inf
+    return max(float((a.cpu() - b.cpu()).abs().max())
+               / max(float(b.abs().max()), 1e-30)
+               for a, b in ((got.mag, want.mag), (got.freq, want.freq)))
+
+
+def bins_apart(torch, pk, i_f, i_m, log2_min: float):
+    """(contributions, of them on another bin through the card's float32
+    log2 than through the float64 one the kernel and the plain version
+    take) for the peaks i_f, i_m [F, K] on the card."""
+    live = ((i_m > 0) & (i_f > 0))[..., None].expand(-1, -1, pk.NH)
+    h = torch.arange(1, pk.NH + 1, dtype=torch.float32, device=i_f.device)
+    sub = torch.clamp(i_f[..., None] / h, min=1e-9)
+    f32 = torch.round(120.0 * (torch.log2(sub) - log2_min)).long()
+    return (int(live.sum()),
+            int((f32 != pk.subharmonic_bins(i_f, log2_min))[live].sum()))
+
+
+def phase10_cpu_checks(torch, Audio, pv_from_numpy, pk, information, dev,
+                       card):
+    """The PV family on one 10 s PV on the card and the same planes on the
+    CPU: each call within TOL_PV_CPU of the CPU's planes, get_salience
+    within TOL_SALIENCE_CPU (its contributions that the card's float32
+    log2 would put on another bin counted), get_contours (the same
+    contours) and prism (within TOL_SALIENCE_CPU); and stretch_spline
+    against the float64 dense spline (the copy of _natural_spline_matrix):
+    the card's error at most twice the CPU's float32 plain run's. Prints
+    the report, then fails on any check that did not hold."""
+    x = stereo_signal(PV_FAMILY_CPU_SECONDS)
+    pv = Audio.create_from_array(x, SR, device=dev).convert_to_PV(
+        2048, 128, 4096)
+    m, f = pv.to_numpy()
+    cpu = pv_from_numpy(m, f, SR, 128, 2048, device="cpu")
+    report = {"phase": 10, "path": "pv_family_10s_card_vs_cpu", "card": card}
+    failed = []
+
+    def expect(cond, msg):
+        if not cond:
+            failed.append(msg)
+    outs = {}
+    for name, run in pv_family_calls(PV_FAMILY_CPU_SECONDS).items():
+        got, want = run(pv), run(cpu)
+        err = plane_errors(got, want)
+        report[name] = {"err_rel": err, "shape": tuple(got.mag.shape)}
+        expect(err <= TOL_PV_CPU, f"{name} on the card vs the CPU at 10 s: "
+               f"{err} (shapes {tuple(got.mag.shape)}, "
+               f"{tuple(want.mag.shape)})")
+        if name.startswith("stretch_spline"):
+            outs[name] = (got, want)
+        del got, want
+    # the spline against the float64 dense solve of the same system
+    for name, expansion in (("stretch_spline_2", 2.0),
+                            ("stretch_spline_ramp",
+                             spline_ramp(PV_FAMILY_CPU_SECONDS))):
+        exp = spline_expansions(torch, expansion, pv.num_frames,
+                                pv.analysis_rate)
+        xs = np.concatenate([[0.0], np.cumsum(exp[:-1], dtype=np.float64)])
+        w = torch.from_numpy(natural_spline_matrix(
+            xs, np.arange(int(xs[-1]), dtype=np.float64))).to(dev)
+        got, want = outs[name]
+        errs = {}
+        for plane in ("mag", "freq"):
+            y64 = torch.einsum("tf,cfb->ctb", w,
+                               getattr(pv, plane).double())
+            peak = float(y64.abs().max())
+            e_card = float((getattr(got, plane).double() - y64).abs().max())
+            e_cpu = float((getattr(want, plane).double().to(dev)
+                           - y64).abs().max())
+            errs[plane] = {"err_card": e_card / peak, "err_plain": e_cpu
+                           / peak}
+            expect(e_card <= 2.0 * e_cpu + 1e-7 * peak,
+                   f"{name} {plane} against float64: card {e_card / peak}, "
+                   f"plain {e_cpu / peak} of the peak")
+            del y64
+        report[name]["float64"] = errs
+        del w
+    del outs
+    # the salience, and the contours and prism built on it
+    got, want = pv.get_salience(0), cpu.get_salience(0)
+    i_f, i_m = information.salience_peaks(pv, 0)
+    n_live, n_apart = bins_apart(torch, pk, i_f, i_m, math.log2(55.0))
+    err = float(np.abs(got.buffer - want.buffer).max())
+    report["get_salience"] = {
+        "err_abs": err, "contributions": n_live,
+        "bins_apart_by_float32_log2": n_apart,
+        "same_bits": bool(np.array_equal(got.buffer, want.buffer))}
+    expect(got.buffer.shape == want.buffer.shape
+           and err <= TOL_SALIENCE_CPU,
+           f"get_salience on the card vs the CPU at 10 s: {err}")
+    cons = {d: p.get_contours(0) for d, p in (("card", pv), ("cpu", cpu))}
+    same = len(cons["card"]) == len(cons["cpu"]) and all(
+        a.start_frame == b.start_frame and a.bins.shape == b.bins.shape
+        for a, b in zip(cons["card"], cons["cpu"]))
+    apart = [np.abs(a.bins - b.bins).max(axis=0).tolist() for a, b in
+             zip(cons["card"], cons["cpu"])] if same else None
+    report["get_contours"] = {
+        **{d: [(c.start_frame, len(c.bins)) for c in v]
+           for d, v in cons.items()},
+        "pitch_and_salience_apart": apart}
+    expect(same and all(p <= TOL_PITCH_BINS and q <= TOL_SALIENCE_CPU
+                        for p, q in apart),
+           f"get_contours on the card vs the CPU: {report['get_contours']}")
+    got, want = pv.prism(prism_octave), cpu.prism(prism_octave)
+    err = plane_errors(got, want)
+    report["prism"] = {"err_rel": err, "null": got.is_null()}
+    expect(err <= TOL_SALIENCE_CPU, f"prism on the card vs the CPU: {err}")
+    print(json.dumps(report), flush=True)
+    check(not failed, "; ".join(failed))
+    return report
+
+
+def prism_octave(note, t, harmonic, base_freq, harmonic_mags):
+    """A prism callback: every harmonic an octave up, at its magnitude."""
+    return harmonic_mags[harmonic - 1], base_freq * harmonic * 2.0
+
+
+def salience_rows_in_order(torch, pk, i_f, i_m, width: int,
+                           log2_min: float):
+    """The salience histogram's rows in the kernel's order on the card,
+    without the kernel: for each peak k, then harmonic h, one index_add_
+    of every frame's contribution (one a frame, so no two in a step meet
+    on a cell and the step's order does not matter); then the plain
+    spread. The check of the kernel over a whole call."""
+    frames, k_cnt = i_f.shape
+    dev = i_f.device
+    alpha = torch.from_numpy(pk.alpha_powers()).to(dev)
+    rows = torch.zeros(frames * width, dtype=torch.float32, device=dev)
+    base = torch.arange(frames, device=dev) * width + pk.SPREAD
+    for k in range(k_cnt):
+        fk, mk = i_f[:, k:k + 1], i_m[:, k]
+        b_c = pk.subharmonic_bins(fk, log2_min)[:, 0]       # [F, NH]
+        valid = ((b_c >= 0) & (b_c < width - pk.SPREAD)
+                 & (fk > 0) & (mk > 0)[:, None])
+        cells = torch.where(valid, base[:, None] + b_c, 0)
+        vals = torch.where(valid, alpha * mk[:, None], 0.0)
+        for h in range(pk.NH):
+            rows.index_add_(0, cells[:, h], vals[:, h])
+    return pk.spread_ref(rows.reshape(frames, width))
+
+
+def salience_library_ms(torch, pk, i_f, i_m, width: int, log2_min: float):
+    """One index_add_ of every contribution into the rows and conv1d of
+    the spread, on the card, with torch's defaults (index_add_ adds by
+    atomics; cudnn may run the convolution in TF32): (ms, whether two
+    runs gave the same bits, the contributions). The operands (flat
+    indices and values, [F K 20]) are built beforehand in chunks of
+    frames, outside the timing."""
+    frames = i_f.shape[0]
+    flat, vals = [], []
+    for s in range(0, frames, SALIENCE_LIBRARY_CHUNK):
+        e = min(frames, s + SALIENCE_LIBRARY_CHUNK)
+        fl, co = pk.subharmonic_contributions(i_f[s:e], i_m[s:e], width,
+                                              log2_min)
+        flat.append((fl + s * width).reshape(-1))
+        vals.append(co.reshape(-1))
+        del fl, co
+    flat, vals = torch.cat(flat), torch.cat(vals)
+    g = torch.from_numpy(pk.spread_taps()).to(i_f.device)[None, None]
+    rows = torch.zeros(frames * width, dtype=torch.float32,
+                       device=i_f.device)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True        # torch's default
+
+    def call():
+        rows.zero_()
+        rows.index_add_(0, flat, vals)
+        return torch.nn.functional.conv1d(rows.reshape(frames, 1, width), g)
+    try:
+        first = call()
+        again = call()
+        same = bool(torch.equal(first, again))
+        del first, again
+        ms = cuda_ms(torch, call, 3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    n = int(flat.numel())
+    del flat, vals, rows
+    return ms, same, n
+
+
+def phase10_pv_family(torch, Audio, scan, scan_kernels, pk, dev, card):
+    """The PV family at PV_FAMILY_SECONDS stereo on phase 3's geometry, its
+    launch counts zeroed just before it and read just after it: each call
+    once on the card, timed (wall, x realtime, peak memory above the
+    input), its outputs finite and of the expected shapes; stretch_spline
+    by 2 runs the linear scan kernel twice a plane, both spline calls 8
+    times, get_salience the salience kernel once. The first linear scan
+    call of stretch_spline by 2 and the salience kernel's call are kept
+    (capture_calls, no launch of their own). Returns the launches, the kept
+    calls and the report."""
+    x = stereo_signal(PV_FAMILY_SECONDS)
+    pv = Audio.create_from_array(x, SR, device=dev).convert_to_PV(
+        2048, 128, 4096)
+    f, b = pv.num_frames, pv.num_bins
+    calls = pv_family_calls(PV_FAMILY_SECONDS)
+    calls["get_salience"] = lambda p: p.get_salience(0)
+    exp_ramp = spline_expansions(torch, spline_ramp(PV_FAMILY_SECONDS), f,
+                                 pv.analysis_rate)
+    rate = pv.analysis_rate
+    frames_out = {"desample": f, "smear_time": f - 1 + 2 * int(0.05 * rate),
+                  "time_extrapolate": int(PV_FAMILY_SECONDS * 310 / 600
+                                          * rate)
+                  + int(PV_FAMILY_SECONDS * 30 / 600 * rate),
+                  "stretch_spline_2": 2 * (f - 1),
+                  "stretch_spline_ramp": int(exp_ramp[:-1].sum())}
+    report = {"phase": 10, "path": "pv_family_600s_stereo_48k", "card": card,
+              "frames": f, "bins": b}
+    kept = {}
+    targets = [(scan, "scan_linear"), (pk, "salience_histogram_cuda")]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    scan_kernels.reset_launch_counts()
+    pk.reset_launch_counts()
+    for name, run in calls.items():
+        before = (scan_kernels.LAUNCHES["scan_linear"],
+                  pk.LAUNCHES["salience_histogram"])
+        torch.cuda.reset_peak_memory_stats()
+        (out, got), ms = timed(torch, lambda: capture_calls(
+            targets, lambda: run(pv)))
+        if name == "stretch_spline_2":
+            kept["scan_linear"] = got["scan_linear"][0]
+        if name == "get_salience":
+            kept["salience_histogram"] = got["salience_histogram_cuda"][0]
+        del got
+        entry = {"wall_s": ms / 1e3,
+                 "x_realtime": PV_FAMILY_SECONDS / (ms / 1e3),
+                 "peak_alloc_gb": (torch.cuda.max_memory_allocated() - base)
+                 / 1e9,
+                 "launches": {
+                     "scan_linear": scan_kernels.LAUNCHES["scan_linear"]
+                     - before[0],
+                     "salience_histogram": pk.LAUNCHES["salience_histogram"]
+                     - before[1]}}
+        if name == "get_salience":
+            entry["shape"] = out.buffer.shape
+            check(out.buffer.shape == (f, 600)
+                  and bool(np.isfinite(out.buffer).all()),
+                  f"get_salience: {out.buffer.shape}, finite "
+                  f"{np.isfinite(out.buffer).all()}")
+        else:
+            entry["shape"] = tuple(out.mag.shape)
+            want = (2, frames_out.get(name, out.mag.shape[1]), b)
+            check(tuple(out.mag.shape) == want
+                  and bool(torch.isfinite(out.mag).all())
+                  and bool(torch.isfinite(out.freq).all()),
+                  f"{name}: shape {tuple(out.mag.shape)}, want {want}, or "
+                  "not finite")
+        report[name] = entry
+        print(json.dumps({"phase": 10, name: entry}), flush=True)
+        del out
+    launches = {"scan_linear": scan_kernels.LAUNCHES["scan_linear"],
+                "salience_histogram": pk.LAUNCHES["salience_histogram"]}
+    report["launches"] = launches
+    check(launches == {"scan_linear": 8, "salience_histogram": 1},
+          f"the PV family launched {launches}: stretch_spline twice, two "
+          "linear scans a plane each, and one salience histogram")
+    report["profile_stretch_spline_us"] = profile_launches(torch, {
+        "stretch_spline": lambda: pv.stretch_spline(2.0)})["stretch_spline"]
+    # modify's chunk of quads against its wall and peak memory
+    from flan_tpu_torch.pv import modify_extra
+    chosen = modify_extra.MODIFY_CHUNK_QUADS
+    sweep = {}
+    try:
+        for quads in MODIFY_CHUNK_SWEEP:
+            modify_extra.MODIFY_CHUNK_QUADS = quads
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _, ms = timed(torch, lambda: calls["modify"](pv))
+            sweep[quads] = {"wall_s": ms / 1e3, "peak_alloc_gb": (
+                torch.cuda.max_memory_allocated() - base) / 1e9}
+    finally:
+        modify_extra.MODIFY_CHUNK_QUADS = chosen
+    report["modify_chunk_sweep"] = sweep
+    # a whole get_salience call repeats its bits
+    first = pv.get_salience(0).buffer
+    check(np.array_equal(first, pv.get_salience(0).buffer),
+          "two get_salience calls at 600 s differ")
+    del pv, first
+    print(json.dumps(report), flush=True)
+    return launches, kept, report
+
+
+def phase10_contours(torch, Audio, pk, dev, card):
+    """get_contours (channel 0) and prism (every harmonic an octave up) at
+    CONTOUR_SECONDS stereo, their salience launches counted: the contours
+    found, the prism's planes finite and of the input's shape."""
+    pv = Audio.create_from_array(stereo_signal(CONTOUR_SECONDS), SR,
+                                 device=dev).convert_to_PV(2048, 128, 4096)
+    pk.reset_launch_counts()
+    cons, ms_c = timed(torch, lambda: pv.get_contours(0))
+    out, ms_p = timed(torch, lambda: pv.prism(prism_octave))
+    launches = pk.LAUNCHES["salience_histogram"]
+    report = {"phase": 10, "path": "contours_prism_30s_stereo_48k",
+              "card": card, "get_contours_wall_s": ms_c / 1e3,
+              "contours": [(c.start_frame, len(c.bins),
+                            round(c.pitch_mean, 2)) for c in cons],
+              "prism_wall_s": ms_p / 1e3, "launches": launches}
+    check(len(cons) > 0, "no contour in 30 s of the test signal")
+    check(not out.is_null() and out.mag.shape == pv.mag.shape
+          and bool(torch.isfinite(out.mag).all()),
+          "prism: null, reshaped or not finite")
+    check(launches == 3, f"get_contours and prism launched the salience "
+          f"histogram {launches} times, not 1 + 2")
+    print(json.dumps(report), flush=True)
+    return launches, report
+
+
+def phase10_kernel_checks(torch, scan_kernels, pk, kept):
+    """The path's own kernel calls: stretch_spline's first linear scan call
+    on SPLINE_SCAN_ROWS of its rows against the float64 plain run (at most
+    twice the float32 plain run's error), and for the same bits over the
+    whole call; the salience kernel's call against the plain version on the
+    CPU over its first SALIENCE_PLAIN_FRAMES frames and over every frame
+    against the same order on the card (salience_rows_in_order), the same
+    bits both, and three calls for the same bits, timed with its plain
+    version's and the library call's times (the contributions that the
+    card's float32 log2 would have put on another bin counted). Returns the
+    report, the salience kernel's largest absolute error and the scan's."""
+    a, bb, y0 = kept["scan_linear"]
+    n = bb.shape[-1]
+    row = a[(0,) * (a.ndim - 1)] if a.stride()[0] == 0 else None
+    check(row is not None, "stretch_spline's coefficient row is not shared")
+    rows = SPLINE_SCAN_ROWS
+    sub = (row.expand(rows, n), bb.reshape(-1, n)[:rows],
+           y0.reshape(-1, 1)[:rows])
+    kernel, plain = scan_calls(scan_kernels)["scan_linear"]
+    e = scan_errors(torch, kernel, plain, sub)
+    e["shape"] = tuple(bb.shape)
+    check_scan(e, "scan_linear in stretch_spline", 0.0)
+    check_same_bits(torch, lambda: kernel(a, bb, y0),
+                    "scan_linear in stretch_spline")
+    report = {"scan_linear": e,
+              "scan_linear_ms": cuda_ms(torch, lambda: kernel(a, bb, y0), 3),
+              "scan_linear_bound": bound("scan_linear",
+                                         *scan_bytes((a, bb, y0), 2, 1))}
+    scan_err = e["abs_err"]
+    del a, bb, y0, sub
+    i_f, i_m, width, log2_min = kept["salience_histogram"]
+    out = pk.salience_histogram_cuda(i_f, i_m, width, log2_min)
+    nf = min(SALIENCE_PLAIN_FRAMES, i_f.shape[0])
+    want = pk.salience_histogram_ref(i_f[:nf].cpu(), i_m[:nf].cpu(), width,
+                                     log2_min)
+    n_live, n_apart = bins_apart(torch, pk, i_f, i_m, log2_min)
+    err_plain = float((out[:nf].cpu() - want).abs().max())
+    check(torch.equal(out[:nf].cpu(), want),
+          f"salience_histogram vs its plain version over {nf} frames: "
+          f"{err_plain} apart, not the same bits")
+    order = salience_rows_in_order(torch, pk, i_f, i_m, width, log2_min)
+    err_order = float((out - order).abs().max())
+    check(torch.equal(out, order),
+          f"salience_histogram vs its order on the card: {err_order}")
+    check_same_bits(torch, lambda: pk.salience_histogram_cuda(
+        i_f, i_m, width, log2_min), "salience_histogram")
+    ms = cuda_ms(torch, lambda: pk.salience_histogram_cuda(
+        i_f, i_m, width, log2_min), 3)
+    plain_ms = cuda_ms(torch, lambda: pk.salience_histogram_ref(
+        i_f[:nf], i_m[:nf], width, log2_min), 1)
+    lib_ms, lib_same, n_contrib = salience_library_ms(torch, pk, i_f, i_m,
+                                                      width, log2_min)
+    nbytes = 4 * (i_f.numel() + i_m.numel() + out.numel())
+    report["salience_histogram"] = {
+        "shape": (tuple(i_f.shape), tuple(out.shape)),
+        "plain_abs_err": err_plain, "plain_frames": nf,
+        "plain_same_bits": bool(torch.equal(out[:nf].cpu(), want)),
+        "contributions": n_live, "bins_apart_by_float32_log2": n_apart,
+        "order_abs_err": err_order,
+        "order_same_bits": bool(torch.equal(out, order)),
+        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+        "library_same_bits": lib_same, "library_contributions": n_contrib,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bytes": nbytes}
+    print(json.dumps({"phase": 10, "kernel_checks": report}), flush=True)
+    return report, max(err_plain, err_order), scan_err
+
+
 def stereo_delay_bound(args, backward: bool = False):
     """(bound_ms, bound_by, note) of a stereo delay call (forward, or the
     backward): the larger of the bytes it must move (x twice, g, the two
@@ -3493,6 +4004,50 @@ def main() -> None:
     bounds["stereo_delay_swept_backward"] = back[name]["bound"]
     del delay_calls, back_calls
     phase_done("9 timing")
+
+    # phase 10: the PV family, counted at 600 s and at 30 s (the contours
+    # and prism); the salience kernel and stretch_spline's linear scans on
+    # the path's own calls
+    from flan_tpu_torch.convert import pv_from_numpy
+    from flan_tpu_torch.ops import pv_info_kernels
+    from flan_tpu_torch.pv import information
+    phase10_cpu_checks(torch, Audio, pv_from_numpy, pv_info_kernels,
+                       information, dev, card)
+    phase_done("10 pv family at 10 s, card vs cpu")
+    launches10, kept10, _ = phase10_pv_family(
+        torch, Audio, scan, scan_kernels, pv_info_kernels, dev, card)
+    by_path["scan_linear"]["pv_family"] = launches10["scan_linear"]
+    launches["scan_linear"] += launches10["scan_linear"]
+    phase_done("10 pv family at 600 s")
+    contour_launches, _ = phase10_contours(torch, Audio, pv_info_kernels,
+                                           dev, card)
+    by_path["salience_histogram"] = {
+        "pv_family": launches10["salience_histogram"],
+        "contours_prism": contour_launches}
+    launches["salience_histogram"] = sum(
+        by_path["salience_histogram"].values())
+    phase_done("10 contours, prism at 30 s")
+    checks10, worst["salience_histogram"], scan_err10 = \
+        phase10_kernel_checks(torch, scan_kernels, pv_info_kernels, kept10)
+    del kept10
+    errs["scan_linear"] = max(errs["scan_linear"], scan_err10)
+    errs["salience_histogram"] = 0.0
+    sal = checks10["salience_histogram"]
+    times["salience_histogram"] = {
+        k: sal[k] for k in ("ms", "plain_ms", "plain_frames",
+                            "library_same_bits",
+                            "bins_apart_by_float32_log2",
+                            "order_same_bits", "plain_same_bits")}
+    bounds["salience_histogram"] = (
+        sal["bound_ms"], "bytes", "i_f and i_m read, the salience written, "
+        f"{sal['bytes']} bytes at 3.35 TB/s")
+    regime["stretch_spline"] = {
+        "ms": checks10["scan_linear_ms"],
+        "bound_ms": checks10["scan_linear_bound"][0],
+        "bound_by": checks10["scan_linear_bound"][1],
+        "shape": checks10["scan_linear"]["shape"]}
+    calls_kind["stretch_spline"] = "scan_linear"
+    phase_done("10 kernel checks, timing")
     print(json.dumps({"profile_us_per_launch": split}), flush=True)
     print(json.dumps({"phase_seconds": seconds,
                       "seconds": round(sum(seconds.values()), 1)}), flush=True)
@@ -3503,7 +4058,8 @@ def main() -> None:
               "probe": "flan_tpu_torch/csrc/probe_kernels.cu",
               "saturator": "flan_tpu_torch/csrc/sequential_kernels.cu",
               "comb": "flan_tpu_torch/csrc/sequential_kernels.cu",
-              "stereo": "flan_tpu_torch/csrc/sequential_kernels.cu"}
+              "stereo": "flan_tpu_torch/csrc/sequential_kernels.cu",
+              "salience": "flan_tpu_torch/csrc/pv_info_kernels.cu"}
     replaces = {"spv_forward": "flan_tpu/ops/spv_pallas.py:93",
                 "spv_inverse": "flan_tpu/ops/spv_pallas.py:239",
                 "sqpv_forward": "flan_tpu/ops/sqpv_pallas.py:139",
@@ -3530,11 +4086,13 @@ def main() -> None:
                 "comb_swept_backward": "flan_tpu/audio/filters.py:643",
                 "stereo_delay_swept": "flan_tpu/audio/temporal.py:511",
                 "stereo_delay_swept_backward":
-                    "flan_tpu/audio/temporal.py:511"}
+                    "flan_tpu/audio/temporal.py:511",
+                # no TPU kernel: XLA's scatter-add and convolution
+                "salience_histogram": "flan_tpu/pv/information.py:121"}
     path = {"spv_forward": "spv", "spv_inverse": "spv",
             "sqpv_forward": "sqpv", "sqpv_inverse": "sqpv",
             "scan_linear": "filters, pv_algorithms, gradients, "
-                           "effect chain",
+                           "effect chain, pv family (stretch_spline)",
             "scan_max_affine": "filters, pv_algorithms, gradients",
             "scan_affine2x2": "filters, gradients, effect chain",
             "probe": None,
@@ -3548,7 +4106,9 @@ def main() -> None:
             "saturator_2pole_backward_readout": "gradients",
             "comb_swept_backward": "gradients",
             "stereo_delay_swept": "effect chain (stereo_delay), gradients",
-            "stereo_delay_swept_backward": "gradients (stereo_delay)"}
+            "stereo_delay_swept_backward": "gradients (stereo_delay)",
+            "salience_histogram": "pv family (get_salience, get_contours, "
+                                  "prism)"}
     errs["probe"] = 0.0     # compared in phase 2 only
     kernels = [{"name": name, "route": "cuda",
                 "source": source[name.split("_")[0]],
@@ -3583,6 +4143,14 @@ def main() -> None:
                 if entry["name"].endswith("_backward")
                 else "a lax.scan: no TPU kernel")
             entry["bound_note"] = bounds[entry["name"]][2]
+        if entry["name"] == "salience_histogram":
+            entry["replaces_note"] = ("XLA's scatter-add and HIGHEST "
+                                      "convolution: no TPU kernel")
+            entry["bound_note"] = bounds[entry["name"]][2]
+            entry["library_ms"] = sal["library_ms"]
+            entry["library_note"] = (
+                "index_add_ of the precomputed contributions and conv1d, "
+                "torch's defaults (float atomics, cudnn TF32 allowed)")
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,12 @@ The port covers:
   the algorithms of pv/algorithms.py (select, freeze, replace / subtract
   amplitudes, synthesize, octaves and harmonics, shape, n loudest
   partials, resonate and perturb, whose recurrences run on the scan
-  kernels);
+  kernels), and the rest of the PV family: desample, smear_time,
+  time_extrapolate, stretch_spline (its spline's band solve on the scan
+  kernel), the quad modify, and get_salience (the salience histogram
+  kernel), get_contours and prism;
+- the Function layer (constants, callables, their arithmetic, the seeded
+  distributions) and Pipe;
 - the streamed pipelines, audio -> audio in O(chunk) device memory:
   pv_stretch_pipeline (the headline 2x stretch), pv_repitch_pipeline,
   pv_morph_pipeline and streamed_pv_process (pipelines/);
@@ -36,6 +41,7 @@ from flan_tpu_torch.core.pv_buffer import PVBuffer, PVFormat
 from flan_tpu_torch.func import interpolators
 from flan_tpu_torch.func.function import (Function, Function2d, adsr,
                                           as_function, as_function2d)
+from flan_tpu_torch.func.pipe import Pipe
 from flan_tpu_torch.pipelines import (pv_morph_pipeline, pv_repitch_pipeline,
                                       pv_stretch_pipeline,
                                       streamed_pv_process)
@@ -49,6 +55,6 @@ __all__ = [
     "Audio", "AudioBuffer", "AudioFormat", "SndfileStrings",
     "PV", "PVBuffer", "PVFormat", "SPV", "SQPV",
     "Function", "Function2d", "adsr", "as_function", "as_function2d",
-    "interpolators", "pv_stretch_pipeline", "pv_repitch_pipeline",
+    "interpolators", "Pipe", "pv_stretch_pipeline", "pv_repitch_pipeline",
     "pv_morph_pipeline", "streamed_pv_process",
 ]

@@ -15,6 +15,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Union
 
+import numpy as np
 import torch
 
 from flan_tpu_torch.ops.stft import true_div
@@ -85,6 +86,99 @@ class Function:
         grid = torch.arange(start, end, dtype=torch.float32,
                             device=device) * period
         return broadcast_f32(self._fn(grid), grid.shape, device)
+
+    def copy(self) -> "Function":
+        """Reference Function::copy (Function.h:65-72); Functions are
+        immutable, so this is a fresh wrapper over the same underlying."""
+        return Function(self)
+
+    def periodize(self, period: float = 1.0) -> "Function":
+        """Repeat this function with the given period (Function.h:128-137):
+        f(t mod period), the modulo taking the period's sign, as jnp.mod."""
+        if self._const is not None:
+            return self
+        fn = self._fn
+        return Function(lambda t: fn(t % period))
+
+    @staticmethod
+    def uniform_distribution(lower: FunctionLike, upper: FunctionLike,
+                             seed: int = 0) -> "Function":
+        """Stochastic Function drawing uniform values between the bounds,
+        evaluated per call (the reference's commented-out
+        Function::uniformDistribution, Function.h:105-112). The draw is on
+        the host from np.random.default_rng(seed), as the JAX package
+        draws it, so one seed gives both packages the same values; a tensor
+        grid gets a float32 tensor on its device."""
+        lo, hi = as_function(lower), as_function(upper)
+        rng = np.random.default_rng(seed)
+
+        def f(x):
+            u = rng.random(_shape(x)).astype(np.float32)
+            a, b = _host(lo(x)), _host(hi(x))
+            return _like(x, a + (b - a) * u)
+        return Function(f)
+
+    @staticmethod
+    def normal_distribution(mean: FunctionLike, sigma: FunctionLike,
+                            seed: int = 0) -> "Function":
+        """Stochastic Function drawing normal(mean, sigma) per call, with
+        the reference's sigma <= 0 -> mean short-circuit (the commented-out
+        Function::normalDistribution, Function.h:114-125); drawn on the
+        host as uniform_distribution is."""
+        m_f, s_f = as_function(mean), as_function(sigma)
+        rng = np.random.default_rng(seed)
+
+        def f(x):
+            m, s = _host(m_f(x)), _host(s_f(x))
+            z = rng.standard_normal(_shape(x)).astype(np.float32)
+            return _like(x, np.where(s > 0, m + s * z, m))
+        return Function(f)
+
+    # Arithmetic composition (flan_tpu/func/function.py:164-187)
+    def __mul__(self, other):
+        return _binary(self, other, lambda a, b: a * b)
+
+    def __add__(self, other):
+        return _binary(self, other, lambda a, b: a + b)
+
+    def __neg__(self):
+        if self._const is not None:
+            return Function(-self._const)
+        fn = self._fn
+        return Function(lambda t: -fn(t))
+
+
+# camelCase aliases of the reference's declared names
+Function.uniformDistribution = Function.uniform_distribution
+Function.normalDistribution = Function.normal_distribution
+
+
+def _binary(left: Function, right, op) -> Function:
+    """Compose two Functions (or a Function and a constant) pointwise."""
+    r = as_function(right)
+    if left.is_constant and r.is_constant:
+        return Function(float(op(left.constant_value, r.constant_value)))
+    return Function(lambda t: op(left(t), r(t)))
+
+
+def _shape(x) -> tuple:
+    return tuple(x.shape) if isinstance(x, torch.Tensor) else np.shape(x)
+
+
+def _host(v) -> np.ndarray:
+    """A Function's value as float32 numpy on the host."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return np.asarray(v, np.float32)
+
+
+def _like(x, out: np.ndarray):
+    """A host draw in x's kind: a float32 tensor on a tensor grid's device,
+    an array for an array grid, a float for a scalar."""
+    if isinstance(x, torch.Tensor):
+        out = np.array(np.broadcast_to(out, tuple(x.shape)), np.float32)
+        return torch.from_numpy(out).to(x.device)
+    return out if np.shape(x) else float(out)
 
 
 class Function2d:

@@ -58,6 +58,7 @@ SIGNATURES = {
                                 _p],
     "flan_stereo_delay_swept_backward": [_p, _p, _p, _p, _p, _p, _i, _i, _i,
                                          _i, _p],
+    "flan_salience_histogram": [_p, _p, _p, _p, _p, _ll, _i, _i, _f, _p],
 }
 # functions of no argument that must return the constants the wrappers
 # size their tensors by (TILE_FRAMES, MAX_BINS and SCAN_CHUNK_TILES from
@@ -177,6 +178,8 @@ def load_library() -> ctypes.CDLL:
     lib.flan_stereo_delay_shared_bytes.argtypes = [_i, _i, _i]
     lib.flan_stereo_delay_shared_bytes.restype = ctypes.c_longlong
     lib.flan_max_shared_bytes.restype = ctypes.c_int
+    # the salience histogram's widest row
+    lib.flan_salience_max_width.restype = ctypes.c_int
     # the SQPV inverse's scratch: (channels, frames, bins); its frames per
     # tile: (bins)
     lib.flan_sqpv_inverse_scratch_bytes.argtypes = [_i, _ll, _i]

@@ -65,13 +65,15 @@ def true_div(x: torch.Tensor, s: float) -> torch.Tensor:
 
 
 def cpu_exact(fn, x: torch.Tensor) -> torch.Tensor:
-    """fn(x) for fn torch.sqrt or torch.log2, with a float32 CPU tensor
-    evaluated in float64 and rounded back. torch's float32 CPU sqrt and
-    log2 can be off by up to 3e-4 relative in the part of a call that an
-    intra-op worker thread computes the first time it runs them (torch
+    """fn(x) for fn torch.sqrt, torch.log2 or torch.sin, with a float32 CPU
+    tensor evaluated in float64 and rounded back. torch's float32 CPU sqrt
+    and log2 can be off by up to 3e-4 relative in the part of a call that
+    an intra-op worker thread computes the first time it runs them (torch
     2.13 on an AVX-512 CPU, in one process in two to ten), so a plain
-    version gave two outputs for one input; rounded back from float64 the
-    result stays within one float32 ulp. On the card fn runs in float32."""
+    version gave two outputs for one input; its sin likewise (the second
+    half of a 2,400-element call up to 2,522 ulps off, in one fresh
+    process in 96 and one in 192). Rounded back from float64 the result
+    stays within one float32 ulp. On the card fn runs in float32."""
     if x.device.type == "cpu" and x.dtype == torch.float32:
         return fn(x.double()).to(x.dtype)
     return fn(x)

@@ -427,7 +427,8 @@ def test_plain_sqrt_and_log2_are_correctly_rounded_on_the_cpu():
 
 def test_kernel_library_lists_every_source():
     names = [p.name for p in build.sources()]
-    assert names == ["probe_kernels.cu", "scan_kernels.cu",
+    assert names == ["probe_kernels.cu", "pv_info_kernels.cu",
+                     "scan_kernels.cu",
                      "sequential_kernels.cu", "spv_kernels.cu",
                      "sqpv_kernels.cu"]
     assert set(build.SIGNATURES) == {"flan_spv_forward", "flan_spv_inverse",
@@ -440,7 +441,8 @@ def test_kernel_library_lists_every_source():
                                      "flan_comb_swept",
                                      "flan_comb_swept_backward",
                                      "flan_stereo_delay_swept",
-                                     "flan_stereo_delay_swept_backward"}
+                                     "flan_stereo_delay_swept_backward",
+                                     "flan_salience_histogram"}
 
 
 
