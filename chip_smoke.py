@@ -124,18 +124,34 @@ build/parent`, then --package build/parent). Phases:
      bits, and the salience kernel against its plain version on the CPU
      over its first frames, over every frame against the same order on
      the card, for the same bits, timed beside its plain version and
-     index_add_ + conv1d.
+     index_add_ + conv1d;
+ 11. drive the synthesis family, the granular engine, delay and the
+     Wavetable at 48 kHz: each call first at 10 s on the card and on the
+     CPU (psola on the card's local frequencies, the Wavetable's playback
+     on the card's table); then, counted, the sine at oversample 16 at a
+     constant 440 Hz and on a 220 + 2000 t / 600 Hz sweep, white noise at
+     oversample 16, pink noise, synthesize_spectrum (stereo, a 2^20 table),
+     granulate (stereo, 100 grains a second of 0.1 s) and texture at
+     600 s, psola and a modded texture at 30 s, trainlets and delay at
+     10 s, a Wavetable built from 30 s and played for 60 s (its pitch path
+     launches the 2 x 2 scan, T1/T2's counterpart), each timed (wall,
+     x realtime, peak memory) and finite; then on the path's own calls the
+     threefry, cycle-scan and grain overlap-add kernels against their
+     plain versions on the card over each whole call, bit for bit, three
+     calls for the same bits, timed beside their plain versions and
+     torch.rand, a float64 cumsum and index_add_.
 
 The launch counters are zeroed just before each main path (phases 3 and 4
-together, then phase 5, then phase 6, then resonate and perturb in phase
-7, then phase 8's filters, then phase 9's effect chain at full size, after
-its comparisons at 10 s, then phase 10's PV family at 600 s and its
-contours and prism at 30 s, after their comparisons at 10 s) and read just
-after it, before any launch made for a comparison; the probe's counter
-runs over all of them (it lies on no path). Every failed check raises, so the script exits nonzero
-without printing the result line. The line before the last is one JSON
-object describing the kernels (share_of_bound is bound_ms / ms; time_kernels
-says what ms, ms_after_plain and ms_behind_work are); the last is the result
+together, then phase 5, then phase 6, then resonate and perturb in phase 7,
+then phase 8's filters, then phase 9's effect chain at full size, after its
+comparisons at 10 s, then phase 10's PV family at 600 s and its contours
+and prism at 30 s, after their comparisons at 10 s, then phase 11's calls,
+after their comparisons at 10 s) and read just after it, before any launch
+made for a comparison; the probe's counter runs over all of them (it lies
+on no path). Every failed check raises, so the script exits nonzero without
+printing the result line. The line before the last is one JSON object
+describing the kernels (share_of_bound is bound_ms / ms; time_kernels says
+what ms, ms_after_plain and ms_behind_work are); the last is the result
 line.
 """
 import argparse
@@ -3260,6 +3276,342 @@ def phase10_kernel_checks(torch, scan_kernels, pk, kept):
     return report, max(err_plain, err_order), scan_err
 
 
+# phase 11: the synthesis family, the granular engine, Audio.delay and the
+# Wavetable (ROADMAP A.14) at 48 kHz; the long calls at SYNTH_SECONDS, the
+# per-grain paths at SYNTH_SHORT_SECONDS, the per-event ones at
+# SYNTH_TINY_SECONDS; each against the CPU at SYNTH_CPU_SECONDS
+SYNTH_SECONDS = 600.0
+SYNTH_SHORT_SECONDS = 30.0
+SYNTH_TINY_SECONDS = 10.0
+SYNTH_CPU_SECONDS = 10.0
+# a synthesis call on the card against the same call on the CPU, times the
+# peak: the kernels give the same bits on both; torch's sin, cos, FFTs and
+# the resampler's products differ by an ulp or so between the devices
+TOL_SYNTH_CPU = 1e-4
+# the card's issue rate for 32-bit integer work: four schedulers an SM each
+# issuing one 32-lane instruction a cycle, 132 SMs at 1.98 GHz (the float32
+# rate, 67e12, is the same issue counting an FMA as 2); threefry's
+# operations a draw at the fewest instructions (csrc/random_kernels.cu: 20
+# rounds of an add, a rotate and a xor; 5 key injections with the round
+# constant folded in; the counter, the float's bits and its 4 float ops)
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
+THREEFRY_OPS = 74
+SYNTH_KERNELS = ("threefry_uniform", "cycle_scan", "grain_overlap_add")
+
+
+def synth_sine(p):
+    """The sine waveform of a phase in cycles, its CPU sin correctly
+    rounded (stft.cpu_exact: torch's float32 CPU sin can be off by
+    thousands of ulps in a worker thread's first call, C.17)."""
+    import torch
+    from flan_tpu_torch.ops.stft import cpu_exact
+    return cpu_exact(torch.sin, 2.0 * math.pi * p)
+
+
+def glide_signal(seconds: float, channels: int = 2) -> np.ndarray:
+    """A harmonic tone gliding 110 -> 165 Hz, amplitude 0.5, a second
+    channel a fifth above: material for psola's and the Wavetable's pitch
+    trackers."""
+    n = int(seconds * SR)
+    t = np.arange(n, dtype=np.float64) / SR
+    rows = []
+    for ratio in (1.0, 1.5)[:channels]:
+        ph = 2 * np.pi * ratio * (110.0 * t + 27.5 * t * t / seconds)
+        rows.append(sum(0.5 / k * np.sin(k * ph) for k in range(1, 5)))
+    return np.asarray(rows, np.float32)
+
+
+def synth_calls(Audio, Wavetable, SnapMode, PitchMode, device,
+                long_s: float, short_s: float, tiny_s: float) -> dict:
+    """Phase 11's calls on `device`: name -> (seconds of output, run). The
+    control functions multiply by reciprocals: torch's CUDA t / s is a
+    reciprocal multiply, an ulp off the CPU's quotient, which the phase of
+    a sweep would integrate (1.3e-3 of the peak at 10 s)."""
+    x_long = Audio.create_from_array(stereo_signal(long_s), SR, device=device)
+    src = x_long.cut(0.0, 0.25)
+    x_tiny = Audio.create_from_array(stereo_signal(tiny_s), SR, device=device)
+    glide = Audio.create_from_array(glide_signal(short_s), SR, device=device)
+    mono = Audio.create_from_array(glide_signal(short_s, 1), SR,
+                                   device=device)
+    play = 2 * short_s
+
+    def wavetable():
+        wt = Wavetable(mono, SnapMode.ZERO, PitchMode.LOCAL)
+        return wt.synthesize(play, lambda t: 110.0 + t * (50.0 / play),
+                             lambda t: t * (1.0 / play))
+    return {
+        "waveform_const": (long_s, lambda: Audio.synthesize_waveform(
+            synth_sine, long_s, 440.0, SR, 16, device=device)),
+        "waveform_sweep": (long_s, lambda: Audio.synthesize_waveform(
+            synth_sine, long_s, lambda t: 220.0 + t * (2000.0 / long_s),
+            SR, 16, device=device)),
+        "white_noise": (long_s, lambda: Audio.synthesize_white_noise(
+            long_s, SR, 16, seed=1, device=device)),
+        "pink_noise": (long_s, lambda: Audio.synthesize_pink_noise(
+            long_s, SR, seed=2, device=device)),
+        "spectrum": (long_s, lambda: Audio.synthesize_spectrum(
+            long_s, lambda t: 110.0 + t * (220.0 / long_s), seed=3,
+            sample_rate=SR, device=device)),
+        "granulate": (long_s, lambda: x_long.granulate(
+            long_s, 100.0, 0.0, lambda t: 0.9 * t, 0.1, 0.01, seed=4)),
+        "texture": (long_s, lambda: src.texture(long_s, 20.0, 0.0, seed=5)),
+        "psola": (short_s, lambda: glide.psola(short_s, lambda t: 0.9 * t,
+                                               seed=6)),
+        "texture_mod": (short_s, lambda: src.texture(
+            short_s, 20.0, 0.01,
+            lambda a, t: a.modify_volume(0.5 + t * (0.5 / short_s)),
+            seed=7)),
+        "trainlets": (tiny_s, lambda: Audio.synthesize_trainlets(
+            tiny_s, 10.0, 0.01, (1.0, 0.5),
+            lambda t: 1.0 - t * (0.5 / tiny_s), 150.0, 0.08,
+            num_harmonics=64, chroma=0.9, impulse_harmonic_frequency=60.0,
+            sample_rate=SR, seed=8, device=device)),
+        "delay": (tiny_s + 5.0, lambda: x_tiny.delay(5.0, 0.25, 0.5)),
+        "wavetable": (play, wavetable),
+    }
+
+
+def phase11_cpu_checks(torch, Audio, dev, card) -> dict:
+    """Every phase-11 call at SYNTH_CPU_SECONDS on the card and on the CPU,
+    within TOL_SYNTH_CPU of the peak. psola runs on the CPU on the card's
+    local frequencies and the Wavetable's CPU playback on the card's table
+    (convert.wavetable_from_numpy): the pitch trackers' sums are taken in
+    another order on each device, which can move an event or a cycle
+    start by a frame."""
+    from flan_tpu_torch import PitchMode, SnapMode, Wavetable
+    from flan_tpu_torch.audio import information
+    from flan_tpu_torch.convert import wavetable_from_numpy
+    s = SYNTH_CPU_SECONDS
+    kept = {}
+
+    def keep_freqs(fn):
+        def call(*args, **kwargs):
+            kept["freqs"] = fn(*args, **kwargs)
+            return kept["freqs"]
+        return call
+
+    tables = []
+
+    class CardTable(Wavetable):
+        """The card's Wavetable, its table kept for the CPU's playback."""
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            tables.append(self)
+
+    class CpuTable(Wavetable):
+        """The card's table and starts, on the CPU."""
+        def __new__(cls, *args, **kwargs):
+            w = tables[-1]
+            return wavetable_from_numpy(
+                w.table.cpu().numpy(), w.waveform_starts, w.wavelength,
+                w.sample_rate, "cpu", num_source_frames=w.num_source_frames)
+
+    card_calls = synth_calls(Audio, CardTable, SnapMode, PitchMode, dev, s,
+                             s, s)
+    cpu_calls = synth_calls(Audio, CpuTable, SnapMode, PitchMode, "cpu", s,
+                            s, s)
+    report = {"phase": 11, "seconds": s, "card": card}
+    orig = information.get_local_frequencies
+    for name, (_, run) in card_calls.items():
+        information.get_local_frequencies = keep_freqs(orig)
+        try:
+            got = run()
+        finally:
+            information.get_local_frequencies = orig
+        if name == "psola":
+            information.get_local_frequencies = lambda *a, **k: kept["freqs"]
+        try:
+            want = cpu_calls[name][1]()
+        finally:
+            information.get_local_frequencies = orig
+        g, w = got.data.cpu().numpy(), want.data.numpy()
+        check(g.shape == w.shape and np.isfinite(g).all(),
+              f"phase 11 {name}: card {g.shape} against CPU {w.shape}, or "
+              "not finite")
+        rel = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+        report[name] = {"shape": g.shape, "card_vs_cpu": rel}
+        check(rel <= TOL_SYNTH_CPU, f"phase 11 {name}: card against CPU "
+              f"{rel:.3e} of the peak (> {TOL_SYNTH_CPU})")
+    print(json.dumps(report), flush=True)
+    return report
+
+
+def phase11_synthesis(torch, Audio, synth_mods, scan_kernels, dev, card):
+    """Phase 11's calls on the card, their launch counts zeroed just before
+    and read just after: each timed (wall, x realtime, peak memory), its
+    output finite; the kernels' calls kept (capture_calls, no launch of
+    their own): K1's of the white noise and the spectrum, K2's of both
+    waveforms, K3's of granulate, psola and the modded texture. Returns
+    the launches, the T1/T2 (2 x 2 scan) launches of the Wavetable call,
+    the kept calls and the report."""
+    from flan_tpu_torch import PitchMode, SnapMode, Wavetable
+    from flan_tpu_torch.ops import fir
+    rnd, cs, gm = synth_mods
+    calls = synth_calls(Audio, Wavetable, SnapMode, PitchMode, dev,
+                        SYNTH_SECONDS, SYNTH_SHORT_SECONDS,
+                        SYNTH_TINY_SECONDS)
+    keep_from = {"white_noise": "threefry_cuda", "spectrum": "threefry_cuda",
+                 "waveform_const": "cycle_scan_cuda",
+                 "waveform_sweep": "cycle_scan_cuda",
+                 "granulate": "grain_overlap_add_cuda",
+                 "psola": "grain_overlap_add_cuda",
+                 "texture_mod": "grain_overlap_add_cuda"}
+    targets = [(rnd, "threefry_cuda"), (cs, "cycle_scan_cuda"),
+               (gm, "grain_overlap_add_cuda")]
+    report = {"phase": 11, "card": card}
+    kept = {}
+    # the filters' impulse responses cached by the 10 s pass are dropped:
+    # the counted pass probes them on the scans as a first call does
+    fir._IR_CACHE.clear()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    rnd.reset_launch_counts()
+    cs.reset_launch_counts()
+    gm.reset_launch_counts()
+    scan_kernels.reset_launch_counts()
+    scan_wavetable = 0
+    for name, (seconds, run) in calls.items():
+        before = (rnd.LAUNCHES["threefry_uniform"], cs.LAUNCHES["cycle_scan"],
+                  gm.LAUNCHES["grain_overlap_add"],
+                  scan_kernels.LAUNCHES["scan_affine2x2"])
+        torch.cuda.reset_peak_memory_stats()
+        (out, got), ms = timed(torch, lambda: capture_calls(
+            targets, run, keep=lambda n, a, k: not k))
+        if name in keep_from:
+            # the white noise's one call; the spectrum's theta (its only)
+            kept[name] = got[keep_from[name]][-1]
+        del got
+        data = out.data
+        entry = {"wall_s": ms / 1e3, "x_realtime": seconds / (ms / 1e3),
+                 "peak_alloc_gb": (torch.cuda.max_memory_allocated() - base)
+                 / 1e9, "shape": tuple(data.shape),
+                 "launches": {
+                     "threefry_uniform": rnd.LAUNCHES["threefry_uniform"]
+                     - before[0],
+                     "cycle_scan": cs.LAUNCHES["cycle_scan"] - before[1],
+                     "grain_overlap_add": gm.LAUNCHES["grain_overlap_add"]
+                     - before[2],
+                     "scan_affine2x2": scan_kernels.LAUNCHES["scan_affine2x2"]
+                     - before[3]}}
+        check(data.numel() > 0 and bool(torch.isfinite(data).all()),
+              f"phase 11 {name}: empty or not finite")
+        if name == "wavetable":
+            scan_wavetable = entry["launches"]["scan_affine2x2"]
+        report[name] = entry
+        print(json.dumps({"phase": 11, name: entry}), flush=True)
+        del out, data
+    launches = {"threefry_uniform": rnd.LAUNCHES["threefry_uniform"],
+                "cycle_scan": cs.LAUNCHES["cycle_scan"],
+                "grain_overlap_add": gm.LAUNCHES["grain_overlap_add"]}
+    report["launches"] = launches
+    report["scan_affine2x2_wavetable"] = scan_wavetable
+    for k in SYNTH_KERNELS:
+        check(launches[k] > 0, f"{k} was not launched on phase 11's path")
+    check(scan_wavetable > 0, "the Wavetable's pitch path launched no 2 x 2 "
+          "scan (T1/T2's counterpart)")
+    print(json.dumps(report), flush=True)
+    return launches, scan_wavetable, kept, report
+
+
+def phase11_kernel_checks(torch, synth_mods, kept) -> dict:
+    """Each kept call of K1-K3, whole: the kernel (one more launch, not
+    counted) against its plain version on the card, bit for bit, and three
+    calls for the same bits; then the kernel's ms on the largest call
+    beside its plain version's and the nearest library call's, and its
+    bound. Returns name -> the kernel line's numbers."""
+    rnd, cs, gm = synth_mods
+    groups = {"threefry_uniform": (("white_noise", "spectrum"),
+                                   rnd.threefry_cuda, rnd.threefry_ref),
+              "cycle_scan": (("waveform_const", "waveform_sweep"),
+                             cs.cycle_scan_cuda, cs.cycle_scan_ref),
+              "grain_overlap_add": (("granulate", "psola", "texture_mod"),
+                                    gm.grain_overlap_add_cuda,
+                                    gm.grain_overlap_add_ref)}
+    out = {}
+    for kname, (names, kernel, plain) in groups.items():
+        checked = {}
+        for call in names:
+            args = kept[call]
+            y = kernel(*args)
+            (y_p, plain_ms) = timed(torch, lambda: plain(*args))
+            same = bool(torch.equal(y, y_p))
+            err = float((y.double() - y_p.double()).abs().max())
+            check(same, f"phase 11 {kname} on {call}'s call: kernel and "
+                  "plain version differ")
+            check_same_bits(torch, lambda: kernel(*args), f"{kname} {call}")
+            checked[call] = {"elements": int(y.numel()), "same_bits": same,
+                             "max_abs_err": err, "plain_ms": plain_ms}
+            del y, y_p
+        main = names[0] if kname != "cycle_scan" else "waveform_sweep"
+        args = kept[main]
+        ms = cuda_ms(torch, lambda: kernel(*args), 3)
+        out[kname] = {"ms": ms, "plain_ms": checked[main]["plain_ms"],
+                      "call": main, "checked": checked,
+                      "max_abs_err": max(c["max_abs_err"]
+                                         for c in checked.values()),
+                      **synth_bound_and_library(torch, kname, args, main)}
+        print(json.dumps({"phase": 11, kname: out[kname]}), flush=True)
+    return out
+
+
+def synth_bound_and_library(torch, kname: str, args, call: str) -> dict:
+    """bound_ms, bound_by, library_ms and their notes for one kernel on its
+    call's arguments (required bytes: each input read once, each output
+    written once)."""
+    if kname == "threefry_uniform":
+        k, n, lo, hi, dev = args
+        t_bytes = 4 * n / HBM_BYTES_PER_S
+        t_ops = THREEFRY_OPS * n / INT32_OPS_PER_S
+        lib_ms = cuda_ms(torch, lambda: torch.rand(n, device=dev), 3)
+        return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                "bound_note": f"{THREEFRY_OPS} integer operations a draw at "
+                f"{INT32_OPS_PER_S / 1e12:.1f} T/s against "
+                f"{4 * n / 1e9:.2f} GB written",
+                "library_ms": lib_ms,
+                "library_note": "torch.rand on the card (Philox: other bits "
+                "than JAX's threefry)"}
+    if kname == "cycle_scan":
+        f, inc, in_rate, n = args[:4]
+        nbytes = 4 * n + (0 if f is None else 4 * n)
+        from flan_tpu_torch.ops.cycle_scan import increments
+        inc_t = increments(f, in_rate)
+
+        def library():
+            return torch.frac(torch.cumsum(inc_t.double(), 0))
+        lib_ms = cuda_ms(torch, library, 3)
+        return {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes",
+                "bound_note": f"f read and the phase written, "
+                f"{nbytes / 1e9:.2f} GB",
+                "library_ms": lib_ms,
+                "library_note": "torch.cumsum in float64 of the increments "
+                "and torch.frac (an inclusive scan: not the same bits)"}
+    x, meta, offsets, entries, out_n = args[:5]
+    envp = args[5] if len(args) > 5 else None
+    ch = x.shape[0] if x.ndim == 2 else x.shape[1]
+    nbytes = (4 * x.numel() + 4 * meta.numel() + 8 * len(offsets)
+              + 4 * len(entries) + 4 * ch * out_n
+              + (0 if envp is None else 4 * envp.numel()))
+    # index_add_ of the grains' 128-sample rows (random values of the same
+    # shape) into the output's blocks, by the same block ids
+    from flan_tpu_torch.ops.grain_mix import grain_blocks
+    nblk_g = grain_blocks(int(meta[1].max()))
+    q = meta[5].to(torch.int64)
+    ids = (q[:, None] + torch.arange(nblk_g)[None, :]).reshape(-1).to(
+        x.device)
+    rows = torch.randn((ids.numel(), ch * 128), device=x.device)
+    acc = torch.zeros((int(ids.max()) + 1, ch * 128), device=x.device)
+    lib_ms = cuda_ms(torch, lambda: acc.index_add_(0, ids, rows), 3)
+    del rows, acc
+    return {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bound_note": f"the source, the plan and the output once, "
+            f"{nbytes / 1e9:.3f} GB",
+            "library_ms": lib_ms,
+            "library_note": "index_add_ of the grains' 128-sample rows into "
+            "the output's blocks (float atomics: no fixed order)"}
+
+
 def stereo_delay_bound(args, backward: bool = False):
     """(bound_ms, bound_by, note) of a stereo delay call (forward, or the
     backward): the larger of the bytes it must move (x twice, g, the two
@@ -4048,6 +4400,24 @@ def main() -> None:
         "shape": checks10["scan_linear"]["shape"]}
     calls_kind["stretch_spline"] = "scan_linear"
     phase_done("10 kernel checks, timing")
+
+    # phase 11: the synthesis family, the granular engine, delay and the
+    # Wavetable at 48 kHz, counted; K1-K3 on the path's own calls
+    from flan_tpu_torch.ops import cycle_scan as cycle_mod
+    from flan_tpu_torch.ops import grain_mix
+    from flan_tpu_torch.ops import random as random_mod
+    synth_mods = (random_mod, cycle_mod, grain_mix)
+    phase11_cpu_checks(torch, Audio, dev, card)
+    phase_done("11 synthesis at 10 s, card vs cpu")
+    launches11, scan11, kept11, _ = phase11_synthesis(
+        torch, Audio, synth_mods, scan_kernels, dev, card)
+    launches.update(launches11)
+    launches["scan_affine2x2"] += scan11
+    by_path["scan_affine2x2"]["wavetable"] = scan11
+    phase_done("11 synthesis at 600 s")
+    times11 = phase11_kernel_checks(torch, synth_mods, kept11)
+    del kept11
+    phase_done("11 kernel checks, timing")
     print(json.dumps({"profile_us_per_launch": split}), flush=True)
     print(json.dumps({"phase_seconds": seconds,
                       "seconds": round(sum(seconds.values()), 1)}), flush=True)
@@ -4094,7 +4464,8 @@ def main() -> None:
             "scan_linear": "filters, pv_algorithms, gradients, "
                            "effect chain, pv family (stretch_spline)",
             "scan_max_affine": "filters, pv_algorithms, gradients",
-            "scan_affine2x2": "filters, gradients, effect chain",
+            "scan_affine2x2": "filters, gradients, effect chain, "
+                              "wavetable (its lowpass's FIR probe)",
             "probe": None,
             "scan_affine_kxk": "multinotch filters",
             "saturator_1pole": "saturator multinotch, gradients",
@@ -4151,6 +4522,37 @@ def main() -> None:
             entry["library_note"] = (
                 "index_add_ of the precomputed contributions and conv1d, "
                 "torch's defaults (float atomics, cudnn TF32 allowed)")
+    synth_source = {"threefry_uniform":
+                    "flan_tpu_torch/csrc/random_kernels.cu",
+                    "cycle_scan": "flan_tpu_torch/csrc/synth_kernels.cu",
+                    "grain_overlap_add":
+                    "flan_tpu_torch/csrc/synth_kernels.cu"}
+    synth_replaces = {
+        "threefry_uniform": ("flan_tpu/audio/synthesis.py:74",
+                             "XLA's jax.random threefry: no TPU kernel"),
+        "cycle_scan": ("flan_tpu/audio/synthesis.py:57",
+                       "XLA's associative_scan: no TPU kernel"),
+        "grain_overlap_add": ("flan_tpu/audio/synthesis.py:709",
+                              "XLA's planned gathers (scatter-add): no TPU "
+                              "kernel")}
+    synth_path = {"threefry_uniform": "synthesis (noise, spectrum)",
+                  "cycle_scan": "synthesis (waveform, pulsars)",
+                  "grain_overlap_add": "granular engine (granulate, psola, "
+                                       "texture with a mod)"}
+    for name in SYNTH_KERNELS:
+        t = times11[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": synth_source[name],
+            "replaces": synth_replaces[name][0],
+            "replaces_note": synth_replaces[name][1],
+            "path": synth_path[name], "launches": launches[name],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "call": t["call"],
+            "checked": t["checked"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "bound_note": t["bound_note"],
+            "share_of_bound": t["bound_ms"] / t["ms"],
+            "library_ms": t["library_ms"],
+            "library_note": t["library_note"]})
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

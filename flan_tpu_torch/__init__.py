@@ -32,7 +32,12 @@ The port covers:
   filter_2pole_* / filter_comb / shift_frequency / halfband_* ->
   compress / apply_adsr_envelope), whose recurrences run on the scan
   kernels (counterparts of T1/T2); T3, the lowering probe, is a kernel on
-  no path (ops/probe_kernels.py).
+  no path (ops/probe_kernels.py);
+- the synthesis family and the granular engine (Audio.synthesize_*,
+  texture, texture_effect, granulate, psola, delay) and the Wavetable,
+  with three kernels of their own: JAX's threefry bits (ops/random.py),
+  the fixed-point mod-1 cycle scan (ops/cycle_scan.py) and the granular
+  overlap-add (ops/grain_mix.py).
 """
 from flan_tpu_torch.audio import Audio
 from flan_tpu_torch.core.audio_buffer import (AudioBuffer, AudioFormat,
@@ -48,6 +53,7 @@ from flan_tpu_torch.pipelines import (pv_morph_pipeline, pv_repitch_pipeline,
 from flan_tpu_torch.pv import PV
 from flan_tpu_torch.spv.spv import SPV
 from flan_tpu_torch.sqpv.sqpv import SQPV
+from flan_tpu_torch.wavetable import PitchMode, SnapMode, Wavetable
 
 __version__ = "0.1.0"
 
@@ -56,5 +62,6 @@ __all__ = [
     "PV", "PVBuffer", "PVFormat", "SPV", "SQPV",
     "Function", "Function2d", "adsr", "as_function", "as_function2d",
     "interpolators", "Pipe", "pv_stretch_pipeline", "pv_repitch_pipeline",
-    "pv_morph_pipeline", "streamed_pv_process",
+    "pv_morph_pipeline", "streamed_pv_process", "Wavetable", "SnapMode",
+    "PitchMode",
 ]

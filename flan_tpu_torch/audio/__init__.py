@@ -4,6 +4,7 @@ from flan_tpu_torch.audio import combination as _combination
 from flan_tpu_torch.audio import filters as _filters
 from flan_tpu_torch.audio import information as _information
 from flan_tpu_torch.audio import spatial as _spatial
+from flan_tpu_torch.audio import synthesis as _synthesis
 from flan_tpu_torch.audio import temporal as _temporal
 from flan_tpu_torch.audio import volume as _volume
 from flan_tpu_torch.audio.audio import Audio
@@ -14,14 +15,12 @@ def _bind(module, names):
         setattr(Audio, name, getattr(module, name))
 
 
-# flan_tpu binds `delay` here too; it runs on synthesis.texture, which the
-# port does not have yet
 _bind(_temporal, [
     "modify_boundaries_frames", "modify_boundaries", "cut", "cut_frames",
     "fade", "fade_frames", "remove_edge_silence", "get_loud_chunks",
     "remove_silence", "split_at_times", "split_with_lengths",
     "split_with_equal_lengths", "rearrange", "random_chunks", "repitch",
-    "iterate", "stereo_delay",
+    "iterate", "delay", "stereo_delay",
 ])
 _bind(_information, [
     "get_local_wavelength", "get_local_wavelengths",
@@ -30,6 +29,12 @@ _bind(_information, [
     "get_frequency_envelope",
 ])
 _bind(_spatial, ["pan", "widen", "stereo_spatialize", "filter_pinna"])
+_bind(_synthesis, ["texture", "texture_effect", "granulate", "psola"])
+for _name in ("synthesize_waveform", "synthesize_white_noise",
+              "synthesize_pink_noise", "synthesize_spectrum",
+              "synthesize_impulse", "synthesize_grains",
+              "synthesize_trainlets", "synthesize_pulsars"):
+    setattr(Audio, _name, staticmethod(getattr(_synthesis, _name)))
 _bind(_volume, ["waveshape", "add_moisture", "compress",
                 "apply_adsr_envelope", "apply_ar_envelope"])
 _bind(_filters, [

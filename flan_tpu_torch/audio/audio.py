@@ -23,7 +23,7 @@ import torch
 
 from flan_tpu_torch.core.audio_buffer import (AudioBuffer, AudioFormat,
                                               SndfileStrings)
-from flan_tpu_torch.core.types import DEFAULT_DEVICE
+from flan_tpu_torch.core.types import DEFAULT_DEVICE, float_iota
 from flan_tpu_torch.func.function import Function, as_function
 from flan_tpu_torch.io.wav import read_wav, write_wav
 from flan_tpu_torch.ops import stft
@@ -330,8 +330,7 @@ class Audio(AudioBuffer):
         exact up to 2^24 frames (349.5 s at 48 kHz) and rounds to even
         frame numbers above that."""
         n = self.num_frames
-        return stft.true_div(torch.arange(n, dtype=torch.float32,
-                                          device=self.device),
+        return stft.true_div(float_iota(n, device=self.device),
                              self.sample_rate)
 
     # =======================================================================

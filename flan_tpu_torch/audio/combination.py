@@ -10,6 +10,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from flan_tpu_torch.core.types import float_iota
 from flan_tpu_torch.func.function import as_function
 from flan_tpu_torch.ops.fft_conv import fft_convolve_full
 from flan_tpu_torch.ops.stft import true_div
@@ -60,8 +61,7 @@ def mix(ins: Sequence, start_times: Optional[Sequence[float]] = None,
         else:
             # the gain at global time over the input's span
             # (AudioCombination.cpp:134-139)
-            t = true_div(torch.arange(a.num_frames, dtype=torch.float32,
-                                      device=device) + s, sr)
+            t = true_div(float_iota(a.num_frames, device=device) + s, sr)
             contrib = data * torch.broadcast_to(torch.as_tensor(
                 g(t), dtype=torch.float32, device=device),
                 (a.num_frames,))[None, :]

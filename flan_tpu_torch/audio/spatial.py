@@ -16,6 +16,7 @@ import math
 import numpy as np
 import torch
 
+from flan_tpu_torch.core.types import float_iota
 from flan_tpu_torch.func import interpolators
 from flan_tpu_torch.func.function import as_function
 from flan_tpu_torch.ops.resample import fractional_gather
@@ -176,7 +177,7 @@ def _host_sample(fn, count: int, period: float) -> np.ndarray:
     """A Function over (0 .. count - 1) period, float64 on the host."""
     if fn.is_constant:
         return np.full(count, fn.constant_value, np.float64)
-    grid = torch.arange(count, dtype=torch.float32) * period
+    grid = float_iota(count) * period
     return torch.broadcast_to(torch.as_tensor(fn(grid), dtype=torch.float32),
                               (count,)).double().numpy()
 

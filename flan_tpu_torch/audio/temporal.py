@@ -21,6 +21,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from flan_tpu_torch.core.types import float_iota
 from flan_tpu_torch.func import interpolators
 from flan_tpu_torch.func.function import as_function
 from flan_tpu_torch.ops import resample as resample_ops
@@ -80,8 +81,7 @@ def cut(self, start: float, end: float, start_fade: float = 0.0,
 
 def _ramp(frames: int, interp, device) -> torch.Tensor:
     """interp over i / frames for i < frames, float32 on `device`."""
-    return interp(true_div(torch.arange(frames, dtype=torch.float32,
-                                        device=device), frames))
+    return interp(true_div(float_iota(frames, device=device), frames))
 
 
 def fade_frames(self, start: int = 16, end: int = 16,
@@ -403,7 +403,7 @@ def sample_delay_times(fn, out_n: int, sr: float):
     stereo_delay_frames' and stereo_delay's, on the audio's device."""
     if fn.is_constant:
         return float(fn.constant_value)
-    t = true_div(torch.arange(out_n, dtype=torch.float32), sr)
+    t = true_div(float_iota(out_n), sr)
     out = torch.as_tensor(fn(t), dtype=torch.float32)
     return torch.broadcast_to(out.reshape(-1), (out_n,)).contiguous()
 
@@ -423,6 +423,35 @@ def _ring_frames(times, sr: float) -> int:
     float32 sample widened (the frame cast truncates, as the reference)."""
     peak = float(times.max()) if isinstance(times, torch.Tensor) else times
     return int(peak * sr)
+
+
+def delay(self, added_length: float, delay_time, decay=0.5, mod=None,
+          *, seed: int = 0):
+    """A volume-decaying delay through the texture engine with feedback
+    (reference AudioTemporal.cpp:326-361; flan_tpu/audio/temporal.py:
+    406-435): echoes at the rate 1 / delay_time, each the mod of the one
+    before scaled by the decay at its time."""
+    from flan_tpu_torch.audio.synthesis import texture
+    if self.is_null():
+        return _null()
+    length = self.length + max(0.0, added_length)
+    dt_fn = as_function(delay_time)
+    decay_fn = as_function(decay)
+    sr = self.sample_rate
+
+    def events_per_second(t):
+        dt = torch.clamp(torch.as_tensor(dt_fn(t), dtype=torch.float32),
+                         min=1.0 / sr)
+        return 1.0 / dt
+
+    def delay_mod(audio, t):
+        if t == 0:
+            return audio
+        out = audio if mod is None else mod(audio, t)
+        return out.modify_volume(_eval_scalar(decay_fn, t))
+
+    return texture(self, length, events_per_second, 0.0, delay_mod,
+                   mod_feedback=True, seed=seed)
 
 
 def stereo_delay(self, length: float, l_time, r_time, decay):

@@ -14,6 +14,7 @@ import torch
 import math
 
 from flan_tpu_torch.audio.filters import _sample_over_frames
+from flan_tpu_torch.core.types import float_iota
 from flan_tpu_torch.func.function import adsr as adsr_fn, as_function
 from flan_tpu_torch.ops.scan import linear_recurrence, max_affine_recurrence
 from flan_tpu_torch.ops.stft import cpu_exact, true_div
@@ -28,8 +29,8 @@ def waveshape(self, shaper, oversample_factor: int = 4):
         return Audio.create_null()
     over = self if oversample_factor <= 1 else self.resample(
         self.sample_rate * oversample_factor)
-    t = true_div(torch.arange(over.num_frames, dtype=torch.float32,
-                              device=over.device), over.sample_rate)
+    t = true_div(float_iota(over.num_frames, device=over.device),
+                 over.sample_rate)
     shaped = torch.as_tensor(shaper(t[None, :], over.data),
                              dtype=torch.float32, device=over.device)
     shaped = over._with(data=torch.broadcast_to(shaped, over.data.shape))

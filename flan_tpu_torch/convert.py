@@ -61,3 +61,21 @@ def sqpv_from_numpy(mag, pitch, positive, sample_rate: float,
     return SQPV(mag=m, pitch=p, positive=s, sample_rate=float(sample_rate),
                 bins_per_octave=float(bins_per_octave),
                 bandwidth=(float(bandwidth[0]), float(bandwidth[1])))
+
+
+def wavetable_from_numpy(table, waveform_starts, wavelength: int,
+                         sample_rate: float, device=DEFAULT_DEVICE, *,
+                         num_source_frames: int):
+    """A Wavetable from its state as numpy: the table [channels, waves,
+    wavelength] (np.array(jax_wavetable.table)), the waveform starts per
+    channel, the wavelength, the sample rate and the source's length in
+    frames, so both packages play one table."""
+    from flan_tpu_torch.wavetable import Wavetable
+    t = torch.from_numpy(np.ascontiguousarray(table, np.float32)).to(device)
+    if t.ndim != 3 or t.shape[-1] != wavelength:
+        raise ValueError(f"table must be [channels, waves, {wavelength}], "
+                         f"got {tuple(t.shape)}")
+    return Wavetable(_table=t, _starts=[list(map(int, s))
+                                         for s in waveform_starts],
+                     _num_source_frames=int(num_source_frames),
+                     _sample_rate=float(sample_rate), wavelength=wavelength)

@@ -18,6 +18,19 @@ ArrayLike = Union[np.ndarray, torch.Tensor, float, int]
 DEFAULT_DEVICE = "cuda"
 
 
+def float_iota(start: int, end: int = None, device=None) -> torch.Tensor:
+    """The float32 grid start, start + 1, ..., end - 1 (end alone: 0 ..
+    start - 1) as jnp.arange(start, end, dtype=float32) makes it: each
+    index i rounded to float32 once, plus start in float32 where start is
+    not 0. torch.arange in float32 steps by repeated adds and lands up to
+    a few units off past 2^24 elements (ROADMAP C.18)."""
+    if end is None:
+        start, end = 0, start
+    grid = torch.arange(end - start, dtype=torch.int64,
+                        device=device).to(torch.float32)
+    return grid if start == 0 else grid + float(np.float32(start))
+
+
 def decibel_to_amplitude(db: ArrayLike) -> ArrayLike:
     """dB -> linear amplitude."""
     if isinstance(db, (float, int)):

@@ -18,6 +18,7 @@ from typing import Callable, Union
 import numpy as np
 import torch
 
+from flan_tpu_torch.core.types import float_iota
 from flan_tpu_torch.ops.stft import true_div
 
 FunctionLike = Union[float, int, "Function", Callable]
@@ -83,8 +84,18 @@ class Function:
         float; callables a float32 [end-start] tensor on `device`."""
         if self._const is not None:
             return self._const
-        grid = torch.arange(start, end, dtype=torch.float32,
-                            device=device) * period
+        grid = float_iota(start, end, device=device) * period
+        return broadcast_f32(self._fn(grid), grid.shape, device)
+
+    def sample_device(self, count: int, period: float, device=None
+                      ) -> torch.Tensor:
+        """The float32 [count] tensor on `device` of the grid (0 .. count -
+        1) * period (flan_tpu/func/function.py:76-87): a constant filled, a
+        callable evaluated on the grid, which is float_iota's."""
+        if self._const is not None:
+            return torch.full((count,), self._const, dtype=torch.float32,
+                              device=device)
+        grid = float_iota(count, device=device) * period
         return broadcast_f32(self._fn(grid), grid.shape, device)
 
     def copy(self) -> "Function":
@@ -221,10 +232,8 @@ class Function2d:
         tensor on `device`."""
         if self._const is not None:
             return self._const
-        t = torch.arange(num_frames, dtype=torch.float32,
-                         device=device)[:, None] * frame_period
-        f = torch.arange(num_bins, dtype=torch.float32,
-                         device=device)[None, :] * bin_width
+        t = float_iota(num_frames, device=device)[:, None] * frame_period
+        f = float_iota(num_bins, device=device)[None, :] * bin_width
         return broadcast_f32(self._fn(t, f), (num_frames, num_bins), device)
 
 

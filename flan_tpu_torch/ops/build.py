@@ -31,9 +31,12 @@ COMB_TILE, COMB_WIDTH = 1024, 32    # the comb kernels' tile and round width
 STEREO_TILE = 1024      # the stereo delay kernels' staged tiles
 STEREO_WIDTH = 32       # their narrow rounds' steps at most: a warp
 STEREO_WIDE_WIDTH = 1024    # the wide forward's, across tiles
+CYCLE_TILE = 4096       # elements a tile of the cycle scan (synth_kernels.cu)
+CYCLE_FRAC_BITS = 47    # its fixed point's fraction bits
+GRAIN_BLOCK = 128       # output samples a block of the grain overlap-add
 
-_p, _i, _ll, _d, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_double, ctypes.c_float)
+_p, _i, _ll, _d, _f, _u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                           ctypes.c_double, ctypes.c_float, ctypes.c_uint)
 _lla = ctypes.POINTER(ctypes.c_longlong)   # a host array of int64
 # entry point -> argument types; every one returns a CUDA error code
 SIGNATURES = {
@@ -59,12 +62,17 @@ SIGNATURES = {
     "flan_stereo_delay_swept_backward": [_p, _p, _p, _p, _p, _p, _i, _i, _i,
                                          _i, _p],
     "flan_salience_histogram": [_p, _p, _p, _p, _p, _ll, _i, _i, _f, _p],
+    "flan_threefry": [_u, _u, _ll, _i, _f, _f, _p, _p],
+    "flan_cycle_scan": [_p, _ll, _f, _ll, _p, _p, _p],
+    "flan_grain_overlap_add": [_p, _ll, _ll, _ll, _p, _i, _p, _i, _p, _p, _p,
+                               _i, _ll, _p],
 }
 # functions of no argument that must return the constants the wrappers
 # size their tensors by (TILE_FRAMES, MAX_BINS and SCAN_CHUNK_TILES from
 # csrc/common.cuh, the SQPV carry's chunk from csrc/sqpv_kernels.cu, the
 # probe's shape from csrc/probe_kernels.cu, the sequential kernels' tiles
-# from csrc/sequential_kernels.cu)
+# from csrc/sequential_kernels.cu, the synthesis kernels' tile, fixed point
+# and block from csrc/synth_kernels.cu)
 _LIMITS = {"flan_spv_tile_frames": TILE_FRAMES,
            "flan_spv_max_bins": MAX_BINS,
            "flan_scan_chunk_tiles": SCAN_CHUNK_TILES,
@@ -75,7 +83,10 @@ _LIMITS = {"flan_spv_tile_frames": TILE_FRAMES,
            "flan_comb_width": COMB_WIDTH,
            "flan_stereo_delay_tile": STEREO_TILE,
            "flan_stereo_delay_width": STEREO_WIDTH,
-           "flan_stereo_delay_wide_width": STEREO_WIDE_WIDTH}
+           "flan_stereo_delay_wide_width": STEREO_WIDE_WIDTH,
+           "flan_cycle_scan_tile": CYCLE_TILE,
+           "flan_cycle_scan_frac_bits": CYCLE_FRAC_BITS,
+           "flan_grain_block": GRAIN_BLOCK}
 
 
 def sources() -> list[Path]:

@@ -23,6 +23,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from flan_tpu_torch.core.types import float_iota
 from flan_tpu_torch.func import interpolators
 from flan_tpu_torch.ops.stft import true_div
 
@@ -65,7 +66,7 @@ def modify_time_gather(mag: torch.Tensor, freq: torch.Tensor,
     out_freq = torch.empty_like(out_mag)
     for x0 in range(0, out_frames, chunk_frames):
         nx = min(chunk_frames, out_frames - x0)
-        xs = torch.arange(x0, x0 + nx, dtype=torch.float32, device=dev)
+        xs = float_iota(x0, x0 + nx, device=dev)
         idx, valid = _pair_lookup(map_t, xs)                 # [X, Bm]
         l = torch.gather(time_map, 0, idx - 1)
         r = torch.gather(time_map, 0, idx)
@@ -177,7 +178,7 @@ def modify_frequency_gather(mag: torch.Tensor, freq_modified: torch.Tensor,
     bin's mapped position in output bins, monotonic in B per frame.
     Returns (mag, freq) [C, F, B] under the max-weight endpoint policy."""
     c, f, b = mag.shape
-    ys = torch.arange(b, dtype=torch.float32, device=mag.device)
+    ys = float_iota(b, device=mag.device)
     idx, valid = _pair_lookup_rows(bin_map, ys)            # [F, B_out]
     lo = torch.gather(bin_map, 1, idx - 1)
     hi = torch.gather(bin_map, 1, idx)

@@ -36,7 +36,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from flan_tpu_torch.core.types import DEFAULT_DEVICE
+from flan_tpu_torch.core.types import DEFAULT_DEVICE, float_iota
 from flan_tpu_torch.func.function import as_function2d, broadcast_f32
 from flan_tpu_torch.ops import pv_modify
 from flan_tpu_torch.ops.stft import (_TWO_PI, _cdiv, _wrap_radians,
@@ -320,9 +320,8 @@ def _frame_grid(f0: int, chunk: int, nbins: int, bin_width: float,
                 analysis_rate: float, device):
     """(t [chunk, 1], f [1, B]): the chunk's frame times (f0 + j) /
     analysis_rate and the bin frequencies, float32."""
-    t = true_div(f0 + torch.arange(chunk, dtype=torch.float32,
-                                   device=device), analysis_rate)
-    fr = torch.arange(nbins, dtype=torch.float32, device=device) * bin_width
+    t = true_div(f0 + float_iota(chunk, device=device), analysis_rate)
+    fr = float_iota(nbins, device=device) * bin_width
     return t[:, None], fr[None, :]
 
 

@@ -22,7 +22,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from flan_tpu_torch.core.types import DEFAULT_DEVICE
+from flan_tpu_torch.core.types import DEFAULT_DEVICE, float_iota
 from flan_tpu_torch.func import interpolators
 from flan_tpu_torch.func.function import (as_function, as_function2d,
                                           broadcast_f32)
@@ -39,10 +39,8 @@ def _null():
 def _grid(self, frames: int):
     """(t [frames], f [B]): t = frame / analysis_rate and the bin
     frequencies, float32 on the PV's device."""
-    t = true_div(torch.arange(frames, dtype=torch.float32,
-                              device=self.device), self.analysis_rate)
-    fr = torch.arange(self.num_bins, dtype=torch.float32,
-                      device=self.device) * self.bin_width
+    t = true_div(float_iota(frames, device=self.device), self.analysis_rate)
+    fr = float_iota(self.num_bins, device=self.device) * self.bin_width
     return t, fr
 
 

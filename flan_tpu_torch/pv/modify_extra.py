@@ -28,6 +28,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from flan_tpu_torch.core.types import float_iota
 from flan_tpu_torch.func import interpolators
 from flan_tpu_torch.func.function import (as_function, as_function2d,
                                           broadcast_f32)
@@ -66,7 +67,7 @@ def desample(self, decimation_ratio, interp: Callable = interpolators.linear):
     selected = torch.ones((f, b), dtype=torch.bool, device=self.device)
     selected[1:] = (crossings[1:] - crossings[:-1]) >= 1.0
     del crossings
-    f_row = torch.arange(f, dtype=torch.float32, device=self.device)
+    f_row = float_iota(f, device=self.device)
     f_idx = f_row[:, None]
     # lFrame: the last selected frame <= f; rFrame: the next one > f. The
     # running max and min run along the innermost axis (bins outermost),
@@ -125,7 +126,7 @@ def smear_time(self, smear_size, granularity=5, distribution=None,
     # weights keep the float smear
     exp_int = torch.trunc(smear * self.analysis_rate)
     max_exp = int(exp_int.max())
-    fr_ix = torch.arange(f, dtype=torch.float32, device=dev)[:, None]
+    fr_ix = float_iota(f, device=dev)[:, None]
     leftmost = int(min(0.0, float((fr_ix - exp_int).min())))
     rightmost = int(max(float(f - 1), float((fr_ix + exp_int).max())))
     left = -leftmost
@@ -484,9 +485,9 @@ def modify(self, mod, interp: Callable = interpolators.linear,
     fn = mod if callable(mod) else as_function2d(mod)
 
     # the float32 multiply grid the reference samples (Function.h:165-167)
-    t = torch.arange(f, dtype=torch.float32, device=dev) * np.float32(
+    t = float_iota(f, device=dev) * np.float32(
         1.0 / self.analysis_rate)
-    fr = torch.arange(b, dtype=torch.float32, device=dev) * self.bin_width
+    fr = float_iota(b, device=dev) * self.bin_width
 
     def split(mapped, shape):
         if isinstance(mapped, tuple):

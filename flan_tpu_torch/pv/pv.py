@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from flan_tpu_torch.core.pv_buffer import PVBuffer, PVFormat
-from flan_tpu_torch.core.types import DEFAULT_DEVICE
+from flan_tpu_torch.core.types import DEFAULT_DEVICE, float_iota
 from flan_tpu_torch.func import interpolators
 from flan_tpu_torch.func.function import (as_function, as_function2d,
                                           broadcast_f32)
@@ -236,8 +236,8 @@ class PV(PVBuffer):
         bin_map = stft.true_div(self._sample_grid(fn), self.bin_width)
         # the mod of each MF's own frequency at its frame's time, on the
         # grid of Function2d.sample_grid
-        t = torch.arange(self.num_frames, dtype=torch.float32,
-                         device=self.device) * (1.0 / self.analysis_rate)
+        t = float_iota(self.num_frames, device=self.device) * (
+            1.0 / self.analysis_rate)
         freq_modified = broadcast_f32(
             fn(torch.broadcast_to(t[None, :, None], self.freq.shape),
                self.freq), self.freq.shape, self.device)

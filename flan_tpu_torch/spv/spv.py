@@ -12,6 +12,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from flan_tpu_torch.core.types import float_iota
 from flan_tpu_torch.func.function import as_function2d
 from flan_tpu_torch.ops.spv_kernels import spv_forward, spv_inverse
 from flan_tpu_torch.ops.stft import true_div
@@ -79,8 +80,8 @@ class SPV:
         if self.is_null():
             return SPV.create_null()
         fn = as_function2d(mod)
-        t = true_div(torch.arange(self.num_frames, dtype=torch.float32,
-                                  device=self.device)[None, :, None],
+        t = true_div(float_iota(self.num_frames,
+                                device=self.device)[None, :, None],
                      self.sample_rate)
         tt = torch.broadcast_to(t, self.freq.shape)
         new_freq = torch.broadcast_to(

@@ -18,7 +18,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from flan_tpu_torch.core.types import DEFAULT_DEVICE
+from flan_tpu_torch.core.types import DEFAULT_DEVICE, float_iota
 from flan_tpu_torch.func.function import as_function2d
 from flan_tpu_torch.ops.stft import cpu_exact, true_div
 from flan_tpu_torch.sqpv.transform import sqpv_inverse
@@ -150,7 +150,7 @@ class SQPV:
     # --- Algorithms (activating the dormant reference SQPV/SQPV.cpp) ---------
     def _frame_times(self, num_frames: int) -> torch.Tensor:
         """Seconds of frames [0, num_frames) as float32 [1, F, 1]."""
-        t = torch.arange(num_frames, dtype=torch.float32, device=self.device)
+        t = float_iota(num_frames, device=self.device)
         return true_div(t, self.sample_rate)[None, :, None]
 
     def modify_pitch(self, mod) -> "SQPV":

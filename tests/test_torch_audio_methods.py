@@ -28,14 +28,9 @@ FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures", "reference")
 TOL = 1e-5
 
 # flan_tpu's public Audio names the port does not have yet, each waiting
-# for a later module: `delay` and the synthesis methods for
-# audio/synthesis.py (ROADMAP A.14), the graph and bitmap methods and
-# convert_to_spectrum for graph/ and spectrum.py (A.15)
+# for a later module: the graph and bitmap methods and convert_to_spectrum
+# for graph/ and spectrum.py (ROADMAP A.15)
 WAITING = {
-    "delay", "texture", "texture_effect", "granulate", "psola",
-    "synthesize_waveform", "synthesize_white_noise", "synthesize_pink_noise",
-    "synthesize_spectrum", "synthesize_impulse", "synthesize_grains",
-    "synthesize_trainlets", "synthesize_pulsars",
     "convert_to_graph", "save_to_bmp", "convert_to_spectrum_graph",
     "save_spectrum_to_bmp", "convert_to_spectrum",
 }
@@ -67,7 +62,7 @@ def _fixture(name):
 
 def test_audio_has_flan_tpus_public_names_but_the_waiting_ones():
     """Every public name of flan_tpu's Audio is on the port's, except the
-    stated list that waits for A.14 and A.15; none of those is there."""
+    stated list that waits for A.15; none of those is there."""
     want = {n for n in dir(flan_tpu.Audio) if not n.startswith("_")}
     have = {n for n in dir(flan_tpu_torch.Audio) if not n.startswith("_")}
     assert want - have == WAITING
