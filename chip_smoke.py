@@ -139,14 +139,33 @@ build/parent`, then --package build/parent). Phases:
      threefry, cycle-scan and grain overlap-add kernels against their
      plain versions on the card over each whole call, bit for bit, three
      calls for the same bits, timed beside their plain versions and
-     torch.rand, a float64 cumsum and index_add_.
+     torch.rand, a float64 cumsum and index_add_;
+ 12. drive the file surface and the command line on the card, in
+     build/phase12 of the checkout (removed at the end): C.21's sweep
+     written as a division, a multiplication and a division of the plain
+     tensor, 10 s each, card against CPU; each codec (WAV, AIFF-C, AU,
+     CAF, Wave64, FLAC, Ogg, MP3) writing and reading 10 s of stereo
+     through Audio.save_to_file / load_from_file on the card (the same
+     bits, FLAC's 16-bit quantisation, Ogg and MP3 within tests/test_io.py's
+     distances; an absent system library printed and skipped);
+     `python -m flan_tpu_torch stretch --factor 2` on 600 s in a
+     subprocess, its WAV the bits of pv_stretch_pipeline in this process
+     (wall, x realtime, the child's card memory sampled by nvidia-smi,
+     the in-process command's peak); every other subcommand at 10 s on
+     the card and on the CPU (each held to its path's earlier bound,
+     its kernels' launches counted, the scans and K3 required where the
+     path runs them); `spectrogram` on 600 s, its BMP the pixels of the
+     same PV rendered on the CPU, with the bytes that crossed to the
+     host; the prefetching loader on four inputs, and the 600 s clip's
+     host-to-device copy from pageable and from pinned memory (C.6).
 
 The launch counters are zeroed just before each main path (phases 3 and 4
 together, then phase 5, then phase 6, then resonate and perturb in phase 7,
 then phase 8's filters, then phase 9's effect chain at full size, after its
 comparisons at 10 s, then phase 10's PV family at 600 s and its contours
 and prism at 30 s, after their comparisons at 10 s, then phase 11's calls,
-after their comparisons at 10 s) and read just after it, before any launch
+after their comparisons at 10 s, then each phase-12 subcommand's card
+run) and read just after it, before any launch
 made for a comparison; the probe's counter runs over all of them (it lies
 on no path). Every failed check raises, so the script exits nonzero without
 printing the result line. The line before the last is one JSON object
@@ -3725,6 +3744,557 @@ def bound(name: str, elements: int, nbytes: int):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+FILES_SECONDS = 10.0        # phase 12: codec round trips and subcommands
+CLI_LONG_SECONDS = 600.0    # phase 12: the entry point's stretch, spectrogram
+CODECS = ("wav", "aiff", "au", "caf", "w64", "flac", "ogg", "mp3")
+LOSSLESS_CODECS = ("wav", "aiff", "au", "caf", "w64")
+# Ogg and MP3 on pure tones, as tests/test_io.py states their distances:
+# SNR above 25 dB (Vorbis at quality 0.4-0.5) and 20 dB (MP3 at 192 kb/s)
+LOSSY_SNR_DB = {"ogg": 25.0, "mp3": 20.0}
+# each subcommand on the card against the CPU at FILES_SECONDS, times the
+# peak, by the bound the earlier phase of its path states: the filter
+# path's (phase 6) for the lowpass, resample, convolve, the spectral EQ
+# (its rFFT and a mask) and the constant stereo delay (phase 9), the
+# synthesis bound (phase 11) for granulate and the wavetable. The streamed
+# pipelines (None) have no card-against-CPU bound at the CLI's window 2048
+# / hop 128 / dft 4096 (phase 3 holds the class path at 512 / 64 / 512 on
+# 0.75 s at 8 kHz): a wrapped phase difference near +-pi rounds to either
+# side, which moves that bin's frequency by a bin width and its summed
+# phase by hop / dft cycles for the rest of the call, so the distance
+# grows with the input. They are held instead as phase 7 holds them on
+# the card: the CLI's output is, bit for bit, the pipeline called in this
+# process on the card, and the stretch's within TOL_STREAM_CLASS of the
+# class path; the card-against-CPU distance is reported beside the CPU's
+# own distance under a one-ulp change of every input sample
+CLI_CASES = {
+    "stretch": (["--factor", "2"], ["a"], None),
+    "repitch": (["--factor", "1.5"], ["a"], None),
+    "morph": (["--amount", "0.5"], ["a", "b"], None),
+    "filter-lowpass": (["--cutoff", "2000", "--order", "2"], ["a"],
+                       "TOL_FILTER_CPU"),
+    "resample": (["--rate", "44100"], ["a"], "TOL_FILTER_CPU"),
+    "convolve": (["--ir", "ir"], ["a"], "TOL_FILTER_CPU"),
+    "granulate": (["--length", "10", "--grains-per-second", "100",
+                   "--scan-rate", "0.9", "--seed", "4"], ["a"],
+                  "TOL_SYNTH_CPU"),
+    "eq": (["--low", "100", "--high", "1000"], ["a"], "TOL_FILTER_CPU"),
+    "wavetable": (["--length", "10", "--freq", "110"], ["glide"],
+                  "TOL_SYNTH_CPU"),
+    "stereo-delay": (["--length", "10", "--l-time", "0.25", "--r-time",
+                      "0.4", "--decay", "0.5"], ["a"], "TOL_FILTER_CPU"),
+}
+# the kernels a subcommand's path must launch on the card
+CLI_MUST_LAUNCH = {"filter-lowpass": "scan_affine2x2",
+                   "stereo-delay": "scan_linear",
+                   "granulate": "grain_overlap_add"}
+# C.21's sweep, 220 -> 253 Hz over 10 s at oversample 16, written three
+# ways (phase12_c21)
+C21_SECONDS = 10.0
+
+
+def read_bmp(path: str) -> np.ndarray:
+    """A 24-bit bottom-up BMP as top-down [H, W, 3] uint8 RGB."""
+    b = open(path, "rb").read()
+    off = int.from_bytes(b[10:14], "little")
+    w = int.from_bytes(b[18:22], "little")
+    h = int.from_bytes(b[22:26], "little")
+    stride = (w * 3 + 3) & ~3
+    rows = np.frombuffer(b[off:off + stride * h], np.uint8).reshape(h, stride)
+    return rows[::-1, :3 * w].reshape(h, w, 3)[:, :, ::-1]
+
+
+def counter_modules() -> tuple:
+    """Every module of the port that counts its kernels' launches."""
+    from flan_tpu_torch.ops import (cycle_scan, grain_mix, probe_kernels,
+                                    pv_info_kernels, random, scan_kernels,
+                                    sequential_kernels, spv_kernels,
+                                    sqpv_kernels)
+    return (spv_kernels, sqpv_kernels, scan_kernels, sequential_kernels,
+            probe_kernels, pv_info_kernels, random, cycle_scan, grain_mix)
+
+
+def kernel_counts() -> dict:
+    """Every launch counter of the port, by kernel."""
+    out = {}
+    for mod in counter_modules():
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def reset_kernel_counts() -> None:
+    for mod in counter_modules():
+        mod.reset_launch_counts()
+
+
+def tones(seconds: float) -> np.ndarray:
+    """0.4-amplitude sines at 440 and 660 Hz, no noise: the lossy codecs'
+    material, as tests/test_io.py's."""
+    t = np.arange(int(seconds * SR), dtype=np.float64) / SR
+    return np.stack([0.4 * np.sin(2 * np.pi * 440.0 * t),
+                     0.4 * np.sin(2 * np.pi * 660.0 * t)]).astype(np.float32)
+
+
+def phase12_codecs(torch, Audio, dev, work: str) -> dict:
+    """Each codec writes FILES_SECONDS of stereo 48 kHz from the card through
+    Audio.save_to_file and reads it back onto the card through
+    Audio.load_from_file: the lossless ones the same bits, FLAC its 16-bit
+    quantisation, Ogg and MP3 within tests/test_io.py's distances on tones.
+    An absent system library for Ogg or MP3 is printed and skipped; any
+    other failure fails the phase."""
+    import os
+    from flan_tpu_torch.io import mp3, ogg
+    x = stereo_signal(FILES_SECONDS)
+    lossy_src = tones(FILES_SECONDS)
+    report = {}
+    for ext in CODECS:
+        if ext in LOSSY_SNR_DB and not {"ogg": ogg, "mp3": mp3}[ext
+                                                            ].available():
+            print(f"phase 12: {ext}: the system library is absent on this "
+                  f"machine; skipped", flush=True)
+            report[ext] = "system library absent"
+            continue
+        src = lossy_src if ext in LOSSY_SNR_DB else x
+        a = Audio.create_from_array(src, SR, device=dev)
+        path = os.path.join(work, f"codec.{ext}")
+        t0 = time.perf_counter()
+        a.save_to_file(path)
+        t1 = time.perf_counter()
+        b = Audio.load_from_file(path, device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(b.data.is_cuda, f"{ext}: load_from_file left the card")
+        got = b.to_numpy()
+        entry = {"write_s": t1 - t0, "read_s": t2 - t1,
+                 "bytes": os.path.getsize(path), "shape": got.shape}
+        if ext in LOSSLESS_CODECS:
+            check(np.array_equal(got, src), f"{ext}: not the same bits")
+            entry["same_bits"] = True
+        elif ext == "flac":
+            q = np.clip(np.rint(src.astype(np.float64) * 32768.0),
+                        -32768, 32767) / 32768.0
+            check(np.array_equal(got, q.astype(np.float32)),
+                  "flac: not the 16-bit quantisation")
+            entry["quantised_16_bit"] = True
+        else:
+            n, g = min(src.shape[1], got.shape[1]), 4096
+            check(got.shape[0] == 2 and abs(got.shape[1] - src.shape[1])
+                  < 2048, f"{ext}: shape {got.shape}")
+            err = ((got[:, g:n - g] - src[:, g:n - g]) ** 2).mean()
+            snr = float(10 * np.log10((src[:, g:n - g] ** 2).mean() / err))
+            entry["snr_db"] = snr
+            check(snr > LOSSY_SNR_DB[ext], f"{ext}: {snr:.1f} dB")
+        report[ext] = entry
+        os.remove(path)
+    return report
+
+
+def phase12_entry_point(torch, pipelines, dev, work: str, long_wav: str,
+                        x_long: np.ndarray) -> dict:
+    """python -m flan_tpu_torch stretch --factor 2 on CLI_LONG_SECONDS of
+    stereo 48 kHz in a subprocess: its WAV equals pv_stretch_pipeline run
+    in this process on the card on the same input, bit for bit. Wall,
+    x realtime, the child's card memory as nvidia-smi samples it, and the
+    allocator's peak of the same command run in this process."""
+    import os
+    import threading
+    from flan_tpu_torch.cli import main as cli_main
+    from flan_tpu_torch.io.wav import read_wav
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(work, "cli_stretch")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    torch.cuda.empty_cache()
+    peak_mib = {"child": None}
+    done = threading.Event()
+
+    def sample(pid):
+        while not done.is_set():
+            try:
+                q = subprocess.run(
+                    ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                     "--format=csv,noheader,nounits"], capture_output=True,
+                    text=True, timeout=30)
+            except (OSError, subprocess.TimeoutExpired):
+                return      # the reading stays "not measured" (None)
+            for line in q.stdout.strip().splitlines():
+                parts = [s.strip() for s in line.split(",")]
+                if len(parts) == 2 and parts[0] == str(pid) \
+                        and parts[1].isdigit():
+                    peak_mib["child"] = max(peak_mib["child"] or 0,
+                                            int(parts[1]))
+            done.wait(0.2)
+
+    cmd = [sys.executable, "-m", "flan_tpu_torch", "stretch", "--factor",
+           "2", out_dir, long_wav]
+    t0 = time.perf_counter()
+    child = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+    sampler = threading.Thread(target=sample, args=(child.pid,),
+                               daemon=True)
+    sampler.start()
+    try:
+        stdout, stderr = child.communicate(timeout=600)
+    finally:
+        done.set()
+        sampler.join()
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    wall = time.perf_counter() - t0
+    check(child.returncode == 0,
+          f"python -m flan_tpu_torch stretch: rc {child.returncode}: "
+          f"{stderr[-2000:]}")
+    got, sr, _ = read_wav(os.path.join(out_dir, "long.wav"))
+    want = pipelines.pv_stretch_pipeline(
+        torch.from_numpy(x_long).to(dev), 2.0, sample_rate=SR).cpu().numpy()
+    check(sr == SR and got.shape == want.shape and np.array_equal(got, want),
+          f"CLI stretch {got.shape} against in-process {want.shape}: "
+          "not the same bits")
+    check(np.isfinite(got).all(), "CLI stretch: not finite")
+    del got, want
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    cli_main(["stretch", "--factor", "2", out_dir + "_in_process",
+              long_wav], device=dev)
+    torch.cuda.synchronize()
+    wall_in = time.perf_counter() - t1
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    return {"command": " ".join(["python", "-m"] + cmd[2:6]),
+            "input_s": CLI_LONG_SECONDS, "wall_s": wall,
+            "x_realtime": CLI_LONG_SECONDS / wall,
+            "child_card_mib_sampled": peak_mib["child"],
+            "same_bits_as_in_process": True,
+            "in_process_wall_s": wall_in,
+            "in_process_x_realtime": CLI_LONG_SECONDS / wall_in,
+            "in_process_peak_alloc_gb": peak,
+            "stdout": stdout.strip()[-200:]}
+
+
+def phase12_subcommands(torch, dev, work: str, files: dict) -> tuple:
+    """Every other subcommand on FILES_SECONDS of stereo 48 kHz through
+    cli.main(..., device) on the card and on the CPU, each pair held to the
+    bound of its path's earlier phase (CLI_CASES); the card's launches of
+    every kernel counted per subcommand, the scan and K3 required where
+    the path runs them (CLI_MUST_LAUNCH). The wavetable's CPU run plays the
+    card's table, as phase 11 does: the pitch trackers sum in another order
+    on each device."""
+    import contextlib
+    import io
+    import os
+    import flan_tpu_torch.wavetable as wt_mod
+    from flan_tpu_torch import Audio
+    from flan_tpu_torch.cli import main as cli_main
+    from flan_tpu_torch.convert import wavetable_from_numpy
+    from flan_tpu_torch.ops import fir
+    tols = {"TOL_FILTER_CPU": TOL_FILTER_CPU, "TOL_SYNTH_CPU": TOL_SYNTH_CPU}
+    report, launches = {}, {}
+    tables = []
+    Wavetable = wt_mod.Wavetable
+
+    class CardTable(Wavetable):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            tables.append(self)
+
+    def cpu_table(*args, **kwargs):
+        """The card's last table and starts, on the CPU."""
+        w = tables[-1]
+        wt_mod.Wavetable = Wavetable    # wavetable_from_numpy builds one
+        try:
+            return wavetable_from_numpy(
+                w.table.cpu().numpy(), w.waveform_starts, w.wavelength,
+                w.sample_rate, "cpu", num_source_frames=w.num_source_frames)
+        finally:
+            wt_mod.Wavetable = cpu_table
+
+    for case, (args, ins, tol_name) in CLI_CASES.items():
+        name = case.split("_")[0]
+        args = [files.get(a, a) for a in args]
+        paths = [files[i] for i in ins]
+        outs = {}
+        for side, device in (("card", dev), ("cpu", "cpu")):
+            out_dir = os.path.join(work, f"cli_{case}_{side}")
+            if side == "card":
+                fir._IR_CACHE.clear()
+                wt_mod.Wavetable = CardTable
+                torch.cuda.synchronize()
+                reset_kernel_counts()
+            else:
+                wt_mod.Wavetable = cpu_table
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    cli_main([name] + args + [out_dir] + paths,
+                             device=device)
+            finally:
+                wt_mod.Wavetable = Wavetable
+            if side == "card":
+                torch.cuda.synchronize()
+                counts = {k: v for k, v in kernel_counts().items() if v}
+            outs[side] = (out_dir, time.perf_counter() - t0)
+        names = sorted(os.listdir(outs["card"][0]))
+        check(names == sorted(os.listdir(outs["cpu"][0])) and names,
+              f"{case}: outputs {names}")
+        err = rms = 0.0
+        for f in names:
+            got = Audio.load_from_file(os.path.join(outs["card"][0], f),
+                                       device="cpu").to_numpy()
+            want = Audio.load_from_file(os.path.join(outs["cpu"][0], f),
+                                        device="cpu").to_numpy()
+            check(got.shape == want.shape and np.isfinite(got).all(),
+                  f"{case}: {got.shape} against {want.shape}")
+            peak = np.abs(want).max()
+            err = max(err, float(np.abs(got - want).max() / peak))
+            rms = max(rms, float(np.sqrt(((got - want) ** 2).mean()) / peak))
+        report[case] = {"card_wall_s": outs["card"][1],
+                        "cpu_wall_s": outs["cpu"][1],
+                        "card_vs_cpu_err_rel": err,
+                        "card_vs_cpu_rms_rel": rms, "bound": tol_name,
+                        "launches": counts}
+        if tol_name is None:
+            report[case].update(pipeline_checks(
+                torch, dev, name, paths, args,
+                os.path.join(outs["card"][0], names[0])))
+        print(json.dumps({"phase": 12, "subcommand": case, **report[case]}),
+              flush=True)
+        launches[case] = counts
+        if tol_name is not None:
+            tol = tols[tol_name]
+            check(err < tol, f"{case}: card against CPU {err} (bound {tol})")
+        if name in CLI_MUST_LAUNCH:
+            check(counts.get(CLI_MUST_LAUNCH[name], 0) > 0,
+                  f"{name}: {CLI_MUST_LAUNCH[name]} never launched")
+    return report, launches
+
+
+def pipeline_checks(torch, dev, name: str, paths: list, args: list,
+                    card_out: str) -> dict:
+    """A streamed-pipeline subcommand's output on the card against the
+    pipeline called in this process on the card (the same bits), the
+    stretch's against the class path on the card (TOL_STREAM_CLASS, phase
+    7's bound), and the CPU's own distance under a one-ulp change of every
+    input sample (np.nextafter toward 2), max and RMS times the peak."""
+    from flan_tpu_torch import Audio, pipelines
+    got = Audio.load_from_file(card_out, device="cpu").to_numpy()
+    clips = [Audio.load_from_file(p, device="cpu") for p in paths]
+    value = float(args[1])
+    sr = float(clips[0].sample_rate)
+
+    def run(xs, device):
+        xs = [torch.from_numpy(x).to(device) for x in xs]
+        if name == "morph":
+            return pipelines.pv_morph_pipeline(xs[0], xs[1], value,
+                                               sample_rate=sr)
+        fn = (pipelines.pv_stretch_pipeline if name == "stretch"
+              else pipelines.pv_repitch_pipeline)
+        return fn(xs[0], value, sample_rate=sr)
+    xs = [c.to_numpy() for c in clips]
+    in_process = run(xs, dev).cpu().numpy()
+    check(np.array_equal(got, in_process),
+          f"{name}: the CLI's output is not the in-process pipeline's bits")
+    out = {"same_bits_as_in_process": True}
+    if name == "stretch":
+        want = (Audio.create_from_array(xs[0], sr, device=dev)
+                .convert_to_PV(2048, 128, 4096).stretch(value)
+                .convert_to_audio().to_numpy())
+        e = float(np.abs(got - want).max() / np.abs(want).max()) \
+            if got.shape == want.shape else math.inf
+        out["vs_class_path_err_rel"] = e
+        check(e <= TOL_STREAM_CLASS, f"stretch CLI vs the class path: {e}")
+    a = run(xs, "cpu").numpy()
+    b = run([np.nextafter(x, np.float32(2.0)) for x in xs], "cpu").numpy()
+    peak = np.abs(a).max()
+    out["cpu_one_ulp_err_rel"] = float(np.abs(a - b).max() / peak)
+    out["cpu_one_ulp_rms_rel"] = float(np.sqrt(((a - b) ** 2).mean()) / peak)
+    return out
+
+
+def phase12_spectrogram(torch, Audio, dev, work: str, long_wav: str) -> dict:
+    """The spectrogram subcommand on CLI_LONG_SECONDS on the card: its BMP
+    equals, pixel for pixel, the render of the same PV with its magnitude
+    plane copied to the CPU. Wall, and the bytes that crossed to the host
+    (the gathered blocks of graph/conversions.py gather_to_host and the
+    window's max)."""
+    import dataclasses
+    import os
+    from flan_tpu_torch.cli import main as cli_main
+    from flan_tpu_torch.graph import conversions
+    crossed = {"bytes": 0, "calls": 0}
+    gather = conversions.gather_to_host
+
+    def counted(plane, i, j):
+        out = gather(plane, i, j)
+        if plane.is_cuda:
+            crossed["bytes"] += (len(np.unique(i)) * len(np.unique(j))
+                                 * plane.element_size())
+            crossed["calls"] += 1
+        return out
+    out_dir = os.path.join(work, "cli_spectrogram")
+    conversions.gather_to_host = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli_main(["spectrogram", out_dir, long_wav], device=dev)
+        wall = time.perf_counter() - t0
+    finally:
+        conversions.gather_to_host = gather
+    card_bmp = read_bmp(os.path.join(out_dir, "long.bmp"))
+    pv = Audio.load_from_file(long_wav, device=dev).convert_to_PV()
+    plane_bytes = pv.mag.numel() * pv.mag.element_size()
+    mag = pv.mag.cpu()
+    pv_cpu = dataclasses.replace(pv, mag=mag, freq=mag)
+    del pv
+    t1 = time.perf_counter()
+    cpu_bmp = pv_cpu.convert_to_graph().to_uint8()
+    cpu_render = time.perf_counter() - t1
+    del pv_cpu, mag
+    diff = int((card_bmp != cpu_bmp).any(axis=-1).sum())
+    check(card_bmp.shape == cpu_bmp.shape and diff == 0,
+          f"spectrogram: {diff} pixels differ from the CPU render")
+    return {"input_s": CLI_LONG_SECONDS, "wall_s": wall,
+            "x_realtime": CLI_LONG_SECONDS / wall,
+            # the gathered blocks and the window's max, one float32
+            "bytes_to_host": crossed["bytes"] + 4,
+            "gathers": crossed["calls"],
+            "mag_plane_bytes": plane_bytes,
+            "cpu_render_of_copied_plane_s": cpu_render,
+            "pixels_differing": diff, "shape": card_bmp.shape}
+
+
+def phase12_loader(torch, dev, paths: list, x_long: np.ndarray) -> dict:
+    """The prefetching loader on four inputs onto the card (order and
+    bits), then the 600 s clip's host-to-device copy from pageable memory
+    against pinned, in turns (pageable, pinned, pinned, pageable): the
+    pin itself, the copy from pinned memory, and both (C.6)."""
+    from flan_tpu_torch import Audio
+    from flan_tpu_torch.io.loader import iter_audio_prefetched
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clips = list(iter_audio_prefetched(paths, depth=2, device=dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check([p for p, _ in clips] == paths, "loader: order")
+    for p, clip in clips:
+        want = Audio.load_from_file(p, device="cpu").data
+        check(clip.data.is_cuda and torch.equal(clip.data.cpu(), want),
+              f"loader: {p} not the file's bits")
+    del clips
+    host = torch.from_numpy(x_long)
+
+    def copy_ms(pinned: bool) -> dict:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        src = host.pin_memory() if pinned else host
+        t1 = time.perf_counter()
+        y = src.to(dev, non_blocking=pinned)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(torch.equal(y[:, :4096].cpu(), host[:, :4096]), "copy")
+        return {"pin_ms": (t1 - t0) * 1e3, "copy_ms": (t2 - t1) * 1e3,
+                "total_ms": (t2 - t0) * 1e3}
+    runs = [("pageable", copy_ms(False)), ("pinned", copy_ms(True)),
+            ("pinned", copy_ms(True)), ("pageable", copy_ms(False))]
+    gb = host.numel() * 4 / 1e9
+    return {"inputs": len(paths), "loader_wall_s": wall, "clip_gb": gb,
+            "h2d_runs": runs,
+            "pageable_copy_ms": min(r["copy_ms"] for k, r in runs
+                                    if k == "pageable"),
+            "pinned_copy_ms": min(r["copy_ms"] for k, r in runs
+                                  if k == "pinned"),
+            "pin_plus_copy_ms": min(r["total_ms"] for k, r in runs
+                                    if k == "pinned")}
+
+
+def phase12_c21(torch, Audio, dev) -> dict:
+    """C.21: a sweep written as a division (Function hands the callable a
+    TrueDivGrid, so the card divides as the CPU does), as a multiplication
+    by the reciprocal, and as a division of the plain tensor (how the card
+    divided before), each synthesised at C21_SECONDS on the card and on the
+    CPU; the first two held to phase 11's bound, the third reported."""
+    sweeps = {
+        "divide": lambda t: 220.0 + 2000.0 * t / 600.0,
+        "multiply": lambda t: 220.0 + t * (2000.0 / 600.0),
+        "divide_plain_tensor": lambda t: 220.0 + 2000.0 * t.as_subclass(
+            torch.Tensor) / 600.0,
+    }
+    out = {}
+    for name, f in sweeps.items():
+        card = Audio.synthesize_waveform(synth_sine, C21_SECONDS, f, SR, 16,
+                                         device=dev).to_numpy()
+        cpu = Audio.synthesize_waveform(synth_sine, C21_SECONDS, f, SR, 16,
+                                        device="cpu").to_numpy()
+        out[name] = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    for name in ("divide", "multiply"):
+        check(out[name] < TOL_SYNTH_CPU, f"C.21 {name}: {out[name]}")
+    return out
+
+
+def phase12_files_cli(torch, Audio, pipelines, dev, card) -> tuple:
+    """Phase 12: the file surface and the CLI on the card. Its files live
+    in build/phase12 of the checkout and are removed at the end."""
+    import os
+    import shutil
+    t_start = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "phase12")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    secs = {}
+    t = time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        now = time.perf_counter()
+        secs[name] = now - t
+        t = now
+    try:
+        report = {"phase": 12, "card": card}
+        report["c21"] = phase12_c21(torch, Audio, dev)
+        lap("c21")
+        report["codecs"] = phase12_codecs(torch, Audio, dev, work)
+        lap("codecs")
+        x_long = stereo_signal(CLI_LONG_SECONDS)
+        long_wav = os.path.join(work, "long.wav")
+        Audio.create_from_array(x_long, SR, device="cpu").save_to_file(
+            long_wav)
+        rng = np.random.default_rng(12)
+        m = int(IR_SECONDS * SR)
+        inputs = {
+            "a": (stereo_signal(FILES_SECONDS), SR),
+            "b": (stereo_signal(FILES_SECONDS, seed=1), SR),
+            "ir": ((rng.standard_normal((2, m))
+                    * np.exp(-np.arange(m) / (0.3 * SR))).astype(np.float32),
+                   SR),
+            "glide": (glide_signal(FILES_SECONDS, 1), SR)}
+        files = {key: os.path.join(work, key + ".wav") for key in inputs}
+        for key, (data, sr) in inputs.items():
+            Audio.create_from_array(data, sr, device="cpu").save_to_file(
+                files[key])
+        lap("inputs")
+        report["entry_point"] = phase12_entry_point(
+            torch, pipelines, dev, work, long_wav, x_long)
+        lap("entry_point")
+        report["subcommands"], launches = phase12_subcommands(
+            torch, dev, work, files)
+        lap("subcommands")
+        report["spectrogram"] = phase12_spectrogram(torch, Audio, dev, work,
+                                                    long_wav)
+        lap("spectrogram")
+        report["loader"] = phase12_loader(
+            torch, dev, [long_wav, files["a"], files["b"], files["glide"]],
+            x_long)
+        lap("loader")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    report["seconds"] = secs
+    report["phase_wall_s"] = time.perf_counter() - t_start
+    print(json.dumps(report, default=str), flush=True)
+    return report, launches
+
+
 def start(package):
     """Phases 0 and 1: the card, torch, the port (from `package` if given)
     and its kernel library. Returns the card's line, torch, the device and
@@ -4418,6 +4988,17 @@ def main() -> None:
     times11 = phase11_kernel_checks(torch, synth_mods, kept11)
     del kept11
     phase_done("11 kernel checks, timing")
+
+    # phase 12: the codecs, the entry point, every subcommand and the
+    # loader on the card; each subcommand's launches counted on its own
+    _, launches12 = phase12_files_cli(torch, Audio, pipelines, dev, card)
+    for sub, counts in launches12.items():
+        for name, n in counts.items():
+            if name in launches:
+                launches[name] += n
+            if name in by_path:
+                by_path[name]["cli " + sub] = n
+    phase_done("12 files, cli")
     print(json.dumps({"profile_us_per_launch": split}), flush=True)
     print(json.dumps({"phase_seconds": seconds,
                       "seconds": round(sum(seconds.values()), 1)}), flush=True)

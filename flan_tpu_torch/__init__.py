@@ -37,7 +37,14 @@ The port covers:
   texture, texture_effect, granulate, psola, delay) and the Wavetable,
   with three kernels of their own: JAX's threefry bits (ops/random.py),
   the fixed-point mod-1 cycle scan (ops/cycle_scan.py) and the granular
-  overlap-add (ops/grain_mix.py).
+  overlap-add (ops/grain_mix.py);
+- files: Audio.load_from_file / save_to_file read and write WAV, FLAC,
+  AIFF/AIFF-C, Ogg/Vorbis, AU, CAF, Wave64 and MP3 (io/), and the
+  prefetching loader stages clips onto the card from pinned memory on a
+  stream of its own (io/loader.py);
+- Spectrum, the Graph renderer and the convert_to_graph / save_to_bmp
+  family of Audio, PV, SQPV, Function and Wavetable (graph/);
+- the command line, python -m flan_tpu_torch (cli.py).
 """
 from flan_tpu_torch.audio import Audio
 from flan_tpu_torch.core.audio_buffer import (AudioBuffer, AudioFormat,
@@ -45,14 +52,20 @@ from flan_tpu_torch.core.audio_buffer import (AudioBuffer, AudioFormat,
 from flan_tpu_torch.core.pv_buffer import PVBuffer, PVFormat
 from flan_tpu_torch.func import interpolators
 from flan_tpu_torch.func.function import (Function, Function2d, adsr,
-                                          as_function, as_function2d)
+                                          as_function, as_function2d,
+                                          waveforms)
+from flan_tpu_torch.func.function_sample import (FunctionSample,
+                                                 FunctionSample2d)
 from flan_tpu_torch.func.pipe import Pipe
 from flan_tpu_torch.pipelines import (pv_morph_pipeline, pv_repitch_pipeline,
                                       pv_stretch_pipeline,
                                       streamed_pv_process)
+from flan_tpu_torch.graph import Graph, WaveformMode
 from flan_tpu_torch.pv import PV
+from flan_tpu_torch.spectrum import Spectrum
 from flan_tpu_torch.spv.spv import SPV
 from flan_tpu_torch.sqpv.sqpv import SQPV
+from flan_tpu_torch.utils.geometry import Color, Interval, Rect, View
 from flan_tpu_torch.wavetable import PitchMode, SnapMode, Wavetable
 
 __version__ = "0.1.0"
@@ -63,5 +76,6 @@ __all__ = [
     "Function", "Function2d", "adsr", "as_function", "as_function2d",
     "interpolators", "Pipe", "pv_stretch_pipeline", "pv_repitch_pipeline",
     "pv_morph_pipeline", "streamed_pv_process", "Wavetable", "SnapMode",
-    "PitchMode",
+    "PitchMode", "Graph", "WaveformMode", "Color", "Interval", "Rect",
+    "View", "FunctionSample", "FunctionSample2d", "Spectrum", "waveforms",
 ]

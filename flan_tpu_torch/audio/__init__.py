@@ -8,6 +8,7 @@ from flan_tpu_torch.audio import synthesis as _synthesis
 from flan_tpu_torch.audio import temporal as _temporal
 from flan_tpu_torch.audio import volume as _volume
 from flan_tpu_torch.audio.audio import Audio
+from flan_tpu_torch.graph import conversions as _graphing
 
 
 def _bind(module, names):
@@ -47,6 +48,21 @@ _bind(_filters, [
     "filter_1pole_multinotch", "filter_2pole_multinotch", "filter_comb",
     "halfband_modulate", "shift_frequency", "halfband_multiply",
 ])
+
+
+def _convert_to_spectrum(self):
+    """Whole-signal complex spectrum (Spectrum.from_audio), on the
+    audio's device; the reference forward-declares Spectrum on Audio
+    (Audio.h:12) and flan_tpu/spectrum.py activates it."""
+    from flan_tpu_torch.spectrum import Spectrum
+    return Spectrum.from_audio(self)
+
+
+Audio.convert_to_spectrum = _convert_to_spectrum
+Audio.convert_to_graph = _graphing.audio_convert_to_graph
+Audio.save_to_bmp = _graphing.audio_save_to_bmp
+Audio.convert_to_spectrum_graph = _graphing.audio_convert_to_spectrum_graph
+Audio.save_spectrum_to_bmp = _graphing.audio_save_spectrum_to_bmp
 Audio.convolve = _combination.convolve
 Audio.mix = staticmethod(_combination.mix)
 Audio.join = staticmethod(_combination.join)

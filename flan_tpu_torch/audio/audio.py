@@ -4,7 +4,7 @@
 Audio is a frozen AudioBuffer; every method returns a new object on the
 same device as its input. Host data goes to the card unless the caller
 names a device (core/types.py DEFAULT_DEVICE). This module carries the
-constructors, WAV file I/O, the channel and mid/side conversions,
+constructors, file I/O (io/files.py), the channel and mid/side conversions,
 resampling, the conversions to PV, SPV, SQPV and a Function, the energy
 readings, the frame time grid, the basic volume methods and the reference's
 *_in_place names; audio/__init__.py binds the filter, dynamics,
@@ -25,7 +25,7 @@ from flan_tpu_torch.core.audio_buffer import (AudioBuffer, AudioFormat,
                                               SndfileStrings)
 from flan_tpu_torch.core.types import DEFAULT_DEVICE, float_iota
 from flan_tpu_torch.func.function import Function, as_function
-from flan_tpu_torch.io.wav import read_wav, write_wav
+from flan_tpu_torch.io.files import read_audio_file, write_audio_file
 from flan_tpu_torch.ops import stft
 
 _SQRT2 = math.sqrt(2.0)
@@ -116,21 +116,32 @@ class Audio(AudioBuffer):
     @staticmethod
     def load_from_file(filename: str, return_strings: bool = False,
                        device=DEFAULT_DEVICE):
-        """Load a WAV file onto `device`, the card unless named (reference
-        AudioConstructors.cpp:35). Other codecs are not ported yet."""
-        with open(filename, "rb") as f:
-            head = f.read(12)
-        if head[:4] != b"RIFF" or head[8:12] != b"WAVE":
-            raise ValueError(f"{filename}: not a RIFF/WAVE file; "
-                             "flan_tpu_torch reads WAV only")
-        data, sr, strings = read_wav(filename)
-        audio = Audio(data=torch.from_numpy(data).to(device), sample_rate=sr)
+        """Load WAV, FLAC, AIFF/AIFF-C, Ogg/Vorbis, AU, CAF, Wave64 or MP3,
+        sniffed by stream magic as flan_tpu/audio/audio.py:76-120 does
+        (reference AudioConstructors.cpp:35, AudioBuffer.cpp:86-117). The
+        host codec decodes; the samples then go to `device`, the card
+        unless named, staged through pinned memory there (on an H100 a
+        600 s stereo clip's 230 MB took 21 ms to pin and copy against 45
+        ms from pageable memory: chip_smoke.py phase 12, PERF.md §5).
+        Only WAV carries metadata strings."""
+        data, sr, strings = read_audio_file(filename)
+        host = torch.from_numpy(data)
+        if torch.device(device).type == "cuda":
+            # the pinned block stays reserved until the copy has run
+            # (torch's caching host allocator records the copy's event)
+            host = host.pin_memory()
+        audio = Audio(data=host.to(device, non_blocking=True),
+                      sample_rate=sr)
         return (audio, strings) if return_strings else audio
 
     def save_to_file(self, filename: str,
                      strings: Optional[SndfileStrings] = None) -> None:
-        """Save as WAV float32 (reference AudioBuffer.cpp:139-190)."""
-        write_wav(filename, self.to_numpy(), self.sample_rate, strings)
+        """Save by extension as flan_tpu/audio/audio.py:122-157 does: FLAC
+        for .flac, AIFF-C float32 for .aiff/.aif/.aifc, Ogg/Vorbis for
+        .ogg/.oga, AU for .au/.snd, CAF for .caf, Wave64 for .w64, MP3 for
+        .mp3, else WAV float32 (reference AudioBuffer.cpp:139-190)."""
+        write_audio_file(filename, self.to_numpy(), self.sample_rate,
+                         strings)
 
     def resample(self, new_sample_rate: float) -> "Audio":
         """Whole-buffer SRC, the r8brain equivalent (reference

@@ -42,6 +42,42 @@ def _broadcaster(v: torch.Tensor):
     return fn
 
 
+class TrueDivGrid(torch.Tensor):
+    """The grid a Function hands its callable. A division of it (or of
+    anything computed from it) by a Python number, or of a Python number
+    by it, is a correctly rounded division, as in the JAX package: torch's
+    CUDA kernels multiply by the divisor's rounded reciprocal instead, and
+    torch's `number / tensor` is a reciprocal times the number on every
+    device. A swept frequency written 2000 t / 600 then samples the same
+    float32 values on the card as on the CPU and in the JAX package."""
+
+    _DIV = (torch.Tensor.__truediv__, torch.Tensor.div, torch.div,
+            torch.Tensor.true_divide, torch.true_divide)
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if (len(args) == 2 and isinstance(args[0], torch.Tensor)
+                and isinstance(args[1], (int, float))
+                and args[0].is_floating_point()):
+            x, s = args
+            s = torch.full((), s, dtype=x.dtype, device=x.device)
+            if func in cls._DIV:
+                args = (x, s)
+            elif func is torch.Tensor.__rtruediv__:
+                func, args = torch.div, (s, x)
+        return super().__torch_function__(func, types, args, kwargs)
+
+
+def _on_grid(fn, *grid):
+    """fn(*grid) with each tensor of the grid handed over as a TrueDivGrid,
+    and a TrueDivGrid it returns handed back as a plain tensor."""
+    out = fn(*(g.as_subclass(TrueDivGrid) if isinstance(g, torch.Tensor)
+               else g for g in grid))
+    return out.as_subclass(torch.Tensor) if isinstance(out, TrueDivGrid) \
+        else out
+
+
 def broadcast_f32(out, shape, device) -> torch.Tensor:
     """A Function's output (a tensor or a number) as a float32 tensor of
     `shape` on `device` (a broadcast view where it can be)."""
@@ -76,7 +112,7 @@ class Function:
                 return torch.full(x.shape, self._const, dtype=torch.float32,
                                   device=x.device)
             return self._const
-        return self._fn(x)
+        return _on_grid(self._fn, x)
 
     def sample(self, start: int, end: int, period: float, device=None):
         """Rasterize onto the grid (start..end-1) * period (reference
@@ -85,7 +121,7 @@ class Function:
         if self._const is not None:
             return self._const
         grid = float_iota(start, end, device=device) * period
-        return broadcast_f32(self._fn(grid), grid.shape, device)
+        return broadcast_f32(self(grid), grid.shape, device)
 
     def sample_device(self, count: int, period: float, device=None
                       ) -> torch.Tensor:
@@ -96,7 +132,7 @@ class Function:
             return torch.full((count,), self._const, dtype=torch.float32,
                               device=device)
         grid = float_iota(count, device=device) * period
-        return broadcast_f32(self._fn(grid), grid.shape, device)
+        return broadcast_f32(self(grid), grid.shape, device)
 
     def copy(self) -> "Function":
         """Reference Function::copy (Function.h:65-72); Functions are
@@ -157,6 +193,35 @@ class Function:
             return Function(-self._const)
         fn = self._fn
         return Function(lambda t: -fn(t))
+
+    def convert_to_graph(self, view=None, domain=None,
+                         width: int = -1, height: int = -1):
+        """Graph this function (reference Function.h:197-211: white fill,
+        unit linear grid in light grey, axes, function in black). The
+        host renderer evaluates it on a float32 CPU tensor of its pixel
+        columns' abscissae."""
+        from flan_tpu_torch.graph import Graph
+        from flan_tpu_torch.utils.geometry import Color, Rect
+        if view is None:
+            view = Rect(-5, -5, 5, 5)
+
+        def on_host(x):
+            y = self(torch.as_tensor(np.asarray(x, np.float32)))
+            return y.numpy() if isinstance(y, torch.Tensor) else y
+
+        g = Graph(width, height)
+        g.set_view(view)
+        g.fill_image(Color.white())
+        g.draw_linear_grid(1, 1, 0, Color(200 / 255, 200 / 255, 200 / 255))
+        g.draw_axes(0, Color.black())
+        g.draw_function(on_host, domain, -1, Color.black())
+        return g
+
+    def save_to_bmp(self, filename: str, view=None, domain=None,
+                    width: int = -1, height: int = -1) -> None:
+        """Graph and save (reference Function.h:222-231)."""
+        self.convert_to_graph(view, domain, width, height).save_image(
+            filename)
 
 
 # camelCase aliases of the reference's declared names
@@ -223,7 +288,7 @@ class Function2d:
             shape = torch.broadcast_shapes(t.shape, f.shape)
             return torch.full(shape, self._const, dtype=torch.float32,
                               device=t.device)
-        return self._fn(t, f)
+        return _on_grid(self._fn, t, f)
 
     def sample_grid(self, num_frames: int, frame_period: float,
                     num_bins: int, bin_width: float, device=None):
@@ -234,7 +299,7 @@ class Function2d:
             return self._const
         t = float_iota(num_frames, device=device)[:, None] * frame_period
         f = float_iota(num_bins, device=device)[None, :] * bin_width
-        return broadcast_f32(self._fn(t, f), (num_frames, num_bins), device)
+        return broadcast_f32(self(t, f), (num_frames, num_bins), device)
 
 
 def as_function(f: FunctionLike) -> Function:

@@ -36,7 +36,12 @@ WAVE_FORMAT_EXTENSIBLE = 0xFFFE
 
 def _decode_samples(raw: bytes, fmt_tag: int, bits: int,
                     num_channels: int) -> np.ndarray:
-    """Raw data chunk -> float32 [channels, frames] (channel-major)."""
+    """Raw data chunk -> float32 [channels, frames] (channel-major). A
+    chunk cut short (a truncated file) gives its whole frames, as
+    flan_tpu's native decoder and libsndfile read it."""
+    frame_bytes = num_channels * (bits // 8)
+    if frame_bytes > 0:
+        raw = raw[: len(raw) // frame_bytes * frame_bytes]
     if fmt_tag == WAVE_FORMAT_IEEE_FLOAT:
         if bits not in (32, 64):
             raise ValueError(f"Unsupported float bit depth: {bits}")

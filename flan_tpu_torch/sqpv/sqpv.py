@@ -231,3 +231,28 @@ class SQPV:
         """Inverse, then mid/side back to left/right (reference
         AudioSQPV.cpp:167-170, dormant upstream)."""
         return self.convert_to_audio().convert_to_left_right()
+
+    def convert_to_graph(self, width: int = -1, height: int = -1):
+        """Pitch-axis magnitude spectrogram, sqrt scaling to bring up dark
+        areas (reference SQPV.cpp:21-68, dormant upstream). The values
+        are computed on the SQPV's device with a correctly rounded
+        division and copied to the host renderer."""
+        from flan_tpu_torch.graph.graph import Graph
+        from flan_tpu_torch.utils.geometry import Rect
+        g = Graph(width, height)
+        if self.is_null():
+            return g
+        lo_p, hi_p = self.pitch_bandwidth
+        domain = Rect(0.0, lo_p, self.num_frames / self.sample_rate, hi_p)
+        max_mag = self.get_max_partial_magnitude()
+        g.add_full_split_view_y(domain, self.num_channels)
+        if max_mag > 0:
+            vals = cpu_exact(torch.sqrt, true_div(self.mag.abs(), max_mag))
+            vals_np = vals.clamp(0.0, 1.0).cpu().numpy()
+            g.draw_spectrograms(
+                [vals_np[c] for c in range(self.num_channels)], domain)
+        return g
+
+    def save_to_bmp(self, filename: str, width: int = -1,
+                    height: int = -1) -> None:
+        self.convert_to_graph(width, height).save_image(filename)

@@ -211,6 +211,26 @@ class Wavetable:
                 cutoff.astype(np.float32), total, smooth))
         return Audio(data=torch.stack(rows), sample_rate=sr)
 
+    # --- Observability (reference Wavetable.cpp:336-357) --------------------
+    def graph_waveform_range(self, channel: int, start: int, num: int):
+        """Stacked waveform plots of table entries [start, start+num)."""
+        from flan_tpu_torch.graph.graph import Graph, WaveformMode
+        from flan_tpu_torch.utils.geometry import Color, Rect
+        g = Graph(-1, -1)
+        if self.is_null():
+            return g
+        g.fill_image(Color.from_hsv(0, 0, 0.04))
+        g.add_full_split_view_y(Rect(0, -1, 1, 1), num)
+        rows = [self.get_waveform(i, channel)
+                for i in range(start, start + num)
+                if 0 <= i < self.get_num_waveforms(channel)]
+        g.draw_waveforms(rows, Rect(0, -1, 1, 1), 0, WaveformMode.DIRECT)
+        return g
+
+    def save_waveform_range_to_bmp(self, filename: str, channel: int,
+                                   start: int, num: int) -> None:
+        self.graph_waveform_range(channel, start, num).save_image(filename)
+
     # --- Edit ops (reference Wavetable.cpp:364-451) -------------------------
     def add_fades_in_place(self, fade_frames: int = 32) -> None:
         env = _edge_fade_env(self.wavelength, fade_frames, self.table.device)

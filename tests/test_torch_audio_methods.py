@@ -27,13 +27,10 @@ FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures", "reference")
 # channel mean's and the energy sums' orders); bound 1e-5
 TOL = 1e-5
 
-# flan_tpu's public Audio names the port does not have yet, each waiting
-# for a later module: the graph and bitmap methods and convert_to_spectrum
-# for graph/ and spectrum.py (ROADMAP A.15)
-WAITING = {
-    "convert_to_graph", "save_to_bmp", "convert_to_spectrum_graph",
-    "save_spectrum_to_bmp", "convert_to_spectrum",
-}
+# flan_tpu's public Audio names the port does not have yet: none since the
+# graph and bitmap methods and convert_to_spectrum came with graph/ and
+# spectrum.py (ROADMAP A.15)
+WAITING = set()
 
 
 def _noise(shape, seed=0, scale=0.5):
@@ -62,7 +59,8 @@ def _fixture(name):
 
 def test_audio_has_flan_tpus_public_names_but_the_waiting_ones():
     """Every public name of flan_tpu's Audio is on the port's, except the
-    stated list that waits for A.15; none of those is there."""
+    stated list of names still to port (now empty); none of those is
+    there."""
     want = {n for n in dir(flan_tpu.Audio) if not n.startswith("_")}
     have = {n for n in dir(flan_tpu_torch.Audio) if not n.startswith("_")}
     assert want - have == WAITING

@@ -29,9 +29,9 @@ from test_torch_pv_methods import FIXDIR, HOP, SR, WIN, _planes, assert_golden
 # uses; the taps' sum order); bound 1e-6
 TOL_SAL = 1e-6
 
-# flan_tpu's PV names the port does not have yet: the graph and bitmap
-# methods, for graph/ (ROADMAP A.15)
-WAITING = {"convert_to_graph", "save_to_bmp"}
+# flan_tpu's PV names the port does not have yet: none since the graph and
+# bitmap methods came with graph/ (ROADMAP A.15)
+WAITING = set()
 
 
 def tonal_pvs():
@@ -354,8 +354,8 @@ def test_prism_with_a_scalar_callback_and_null():
 
 def test_pv_has_flan_tpus_public_names_but_the_waiting_ones():
     """Every method flan_tpu/pv/__init__.py binds on PV (and every other
-    public name of flan_tpu's PV) is on the port's, except the graph and
-    bitmap methods that wait for A.15; none of those is there."""
+    public name of flan_tpu's PV) is on the port's, except the stated list
+    of names still to port (now empty); none of those is there."""
     want = {n for n in dir(flan_tpu.PV) if not n.startswith("_")}
     have = {n for n in dir(PV) if not n.startswith("_")}
     assert want - have == WAITING

@@ -145,9 +145,16 @@ def test_wav_pcm_round_trip(tmp_path, bits, step):
 
 
 def test_load_rejects_other_formats(tmp_path):
+    """A file no codec reads is refused by the WAV reader, and a file
+    whose magic names another codec by that codec (the port read WAV only
+    until the codecs came: tests/test_torch_codecs.py holds them)."""
+    path = tmp_path / "x.bin"
+    path.write_bytes(b"NOPE" + bytes(64))
+    with pytest.raises(ValueError, match="WAV"):
+        flan_tpu_torch.Audio.load_from_file(str(path), device="cpu")
     path = tmp_path / "x.flac"
     path.write_bytes(b"fLaC" + bytes(64))
-    with pytest.raises(ValueError, match="WAV"):
+    with pytest.raises(ValueError, match="flac"):
         flan_tpu_torch.Audio.load_from_file(str(path), device="cpu")
 
 

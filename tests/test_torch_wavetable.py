@@ -152,11 +152,10 @@ def test_against_flan_tpu():
 
 
 def test_wavetable_api():
-    """The names of flan_tpu's Wavetable, but the graph and bitmap pair
-    that waits for graph/ (ROADMAP A.15)."""
+    """The names of flan_tpu's Wavetable, the graph and bitmap pair
+    included since graph/ came (ROADMAP A.15)."""
     want = {n for n in dir(flan_tpu.Wavetable) if not n.startswith("_")}
     have = {n for n in dir(Wavetable) if not n.startswith("_")}
-    assert want - have == {"graph_waveform_range",
-                           "save_waveform_range_to_bmp"}
+    assert want - have == set()
     assert Wavetable().is_null()
     assert flan_tpu_torch.Wavetable is Wavetable
