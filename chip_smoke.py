@@ -157,7 +157,27 @@ build/parent`, then --package build/parent). Phases:
      path runs them); `spectrogram` on 600 s, its BMP the pixels of the
      same PV rendered on the CPU, with the bytes that crossed to the
      host; the prefetching loader on four inputs, and the 600 s clip's
-     host-to-device copy from pageable and from pinned memory (C.6).
+     host-to-device copy from pageable and from pinned memory (C.6);
+ 13. drive the parallel layer (flan_tpu_torch.parallel) on
+     torch.distributed, in build/phase13 of the checkout: with one card,
+     4 gloo ranks sharing it (NCCL takes one rank a card) and a world of
+     one rank on NCCL; with several, one NCCL rank a card up to 4. Each
+     group runs stretch_sp_streamed by 2 on phase 3's 600 s input (its
+     length, tones and RMS distance from the one-device pipeline, held to
+     twice that pipeline's own change under a one-ulp change of the input),
+     then at 10 s pv_forward_sp / pv_inverse_sp, filter_1pole_lowpass_sp on
+     a swept cutoff, matrix_affine_recurrence_sp at k = 2 and 4 and
+     convolve_sp by a 2 s impulse response (each against its one-device
+     function on the card; the scans and the convolution against float64,
+     at most twice the one-device float32 run's error), and map_sharded on
+     four 60 s clips (the one-device bits); each call's wall, x realtime,
+     peak memory, scan launches and collective bytes per rank, and each
+     rank's first uses (the library's load, a torch op, a scan launch)
+     timed apart. Then
+     `python -m torch.distributed.run --standalone --nproc-per-node 4 -m
+     flan_tpu_torch stretch` on four 10 s clips, its files the one-process
+     CLI's bytes. It prints the backend and the collectives staged through
+     pinned host memory.
 
 The launch counters are zeroed just before each main path (phases 3 and 4
 together, then phase 5, then phase 6, then resonate and perturb in phase 7,
@@ -165,7 +185,8 @@ then phase 8's filters, then phase 9's effect chain at full size, after its
 comparisons at 10 s, then phase 10's PV family at 600 s and its contours
 and prism at 30 s, after their comparisons at 10 s, then phase 11's calls,
 after their comparisons at 10 s, then each phase-12 subcommand's card
-run) and read just after it, before any launch
+run, then in each rank each sharded call of phase 13, whose counts the
+ranks return) and read just after it, before any launch
 made for a comparison; the probe's counter runs over all of them (it lies
 on no path). Every failed check raises, so the script exits nonzero without
 printing the result line. The line before the last is one JSON object
@@ -4295,6 +4316,431 @@ def phase12_files_cli(torch, Audio, pipelines, dev, card) -> tuple:
     return report, launches
 
 
+# ---------------------------------------------------------------- phase 13
+# the parallel layer: flan_tpu_torch.parallel on torch.distributed ranks
+PAR_RANKS = 4               # ranks on one card (gloo), or the cards (NCCL)
+PAR_SECONDS = 600.0         # the sharded streamed stretch, phase 3's input
+PAR_CHUNK = 4096            # its chunk of output frames (the pipelines')
+PAR_CHECK_SECONDS = 10.0    # the other sharded functions
+PAR_CLIP_SECONDS = 60.0     # map_sharded's four clips
+PAR_CLI_SECONDS = 10.0      # the launched CLI's four clips
+# The sharded stretch's RMS distance from the one-device pipeline, at most
+# this many times the one-device pipeline's own RMS change under a one-ulp
+# change of every input sample (C.22: a wrapped phase difference near +-pi
+# rounds to either side, and the sharded mod-1 prefix sums float32 totals
+# where one device carries its cycles from chunk to chunk)
+TOL_PAR_ULP = 2.0
+# ... and its largest distance, times the peak: 7.89e-7 read on 4 gloo
+# ranks on the H100 (700 W); a tail of overlap-add lost or misplaced at a
+# rank's edge is a whole sample's amplitude. At d = 1 the bits are equal.
+TOL_PAR_MAX = 1e-5
+# pv_forward_sp's magnitudes against pv_forward's, and pv_inverse_sp's
+# output against pv_inverse's on the same planes, times the peak; the
+# frequencies on bins above 1e-3 of the magnitude peak, in Hz
+TOL_PAR_MAG = 1e-5
+TOL_PAR_INV = 1e-4
+TOL_PAR_FREQ_HZ = 0.5
+# the scans' and the convolution's error against float64, at most twice
+# the one-device float32 run's (phase 6's yardstick) plus this share of the
+# peak (both sit at rounding on a contractive recurrence)
+PAR_FLOOR = 1e-7
+
+
+def par_cutoff(n: int) -> np.ndarray:
+    """phase 13's swept cutoff: 800 +- 600 Hz over six radians."""
+    return (800.0 + 600.0 * np.sin(np.linspace(0.0, 6.0, n))).astype(
+        np.float32)
+
+
+def par_inputs(seconds: float) -> dict:
+    """The 10 s inputs of phase 13's checks, from seeds: stereo audio,
+    contractive 2 x 2 and 4 x 4 maps a frame, a 2 s impulse response."""
+    n = int(seconds * SR)
+    rng = np.random.default_rng(13)
+    m = int(IR_SECONDS * SR)
+    out = {"x": stereo_signal(seconds, seed=13), "cutoff": par_cutoff(n),
+           "ir": (rng.standard_normal((2, m))
+                  * np.exp(-np.arange(m) / (0.3 * SR))).astype(np.float32)}
+    for k, scale in ((2, 0.3), (4, 0.2)):
+        out[f"A{k}"] = (rng.standard_normal((2, n, k, k)) * scale).astype(
+            np.float32)
+        out[f"b{k}"] = (rng.standard_normal((2, n, k)) * 0.1).astype(
+            np.float32)
+        out[f"y{k}"] = rng.standard_normal((2, k)).astype(np.float32)
+    return out
+
+
+def par_scan_error(torch, got, one32, one64) -> dict:
+    """The sharded result's and the one-device float32 run's largest
+    errors against the float64 run, as shares of its peak."""
+    ref = one64.double()
+    peak = float(ref.abs().max())
+    e_sharded = float((got.double() - ref).abs().max()) / peak
+    e_one = float((one32.double() - ref).abs().max()) / peak
+    ok = bool(torch.isfinite(got).all()) and e_sharded <= 2.0 * e_one \
+        + PAR_FLOOR
+    return {"err_sharded": e_sharded, "err_one_device_f32": e_one, "ok": ok}
+
+
+def par_onepole(torch, linear, x, cutoff, dtype):
+    """ops/filter_cores.py onepole_core's lowpass on the linear scan
+    `linear`, its coefficients formed in float32 as the path forms them
+    and the rest in `dtype`."""
+    g = torch.tan((math.pi / SR) * cutoff)
+    big_g = (g / (1.0 + g))[None, :].to(dtype)
+    x = x.to(dtype)
+    s = linear(1.0 - 2.0 * big_g, 2.0 * big_g * x)
+    s_prev = torch.nn.functional.pad(s[:, :-1], (1, 0))
+    return big_g * x + (1.0 - big_g) * s_prev
+
+
+def par_checks(torch, calls: dict, inp: dict, dev) -> dict:
+    """Rank 0's comparisons of the 10 s sharded calls with the one-device
+    functions on the card, after the counted run."""
+    from flan_tpu_torch.ops import scan_kernels, stft
+    from flan_tpu_torch.ops.fft_conv import fft_convolve_full
+    out = {}
+    x = torch.from_numpy(inp["x"]).to(dev)
+    mag, freq, y_inv = calls["pv_forward_sp"][0], calls["pv_forward_sp"][1], \
+        calls["pv_inverse_sp"]
+    m1, f1 = stft.pv_forward(x, window_size=2048, hop=128, dft_size=4096,
+                             sample_rate=SR)
+    nh = m1.shape[1]
+    peak = float(m1.abs().max())
+    live = m1 > 1e-3 * peak
+    e_mag = float((mag[:, :nh] - m1).abs().max()) / peak
+    e_freq = float((freq[:, :nh] - f1)[live].abs().max())
+    y1 = stft.pv_inverse(mag, freq, window_size=2048, hop=128,
+                         sample_rate=SR)
+    e_inv = float((y_inv - y1).abs().max() / y1.abs().max())
+    out["pv_forward_sp"] = {"err_mag_rel": e_mag, "err_freq_live_hz": e_freq,
+                            "padded_rows": int(mag.shape[1] - nh),
+                            "ok": e_mag <= TOL_PAR_MAG
+                            and e_freq <= TOL_PAR_FREQ_HZ}
+    out["pv_inverse_sp"] = {"err_rel": e_inv, "ok": e_inv <= TOL_PAR_INV}
+    cutoff = torch.from_numpy(inp["cutoff"]).to(dev)
+
+    def linear(a, b):
+        return scan_kernels.linear_ref(a, b, 0.0)
+    out["filter_1pole_lowpass_sp"] = par_scan_error(
+        torch, calls["filter_1pole_lowpass_sp"],
+        par_onepole(torch, linear, x, cutoff, torch.float32),
+        par_onepole(torch, linear, x, cutoff, torch.float64))
+    for k in (2, 4):
+        A, b, y0 = (torch.from_numpy(inp[f"{p}{k}"]).to(dev)
+                    for p in ("A", "b", "y"))
+
+        def plain(dtype):
+            y = scan_kernels.affine_kxk_ref(
+                torch.movedim(A, 1, -1).reshape(2, k * k, -1).to(dtype),
+                torch.movedim(b, 1, -1).contiguous().to(dtype), y0.to(dtype))
+            return torch.movedim(y, -1, 1)
+        out[f"matrix_affine_recurrence_sp_k{k}"] = par_scan_error(
+            torch, calls[f"matrix_affine_recurrence_sp_k{k}"],
+            plain(torch.float32), plain(torch.float64))
+        del A, b
+    h = torch.from_numpy(inp["ir"]).to(dev)
+    out["convolve_sp"] = par_scan_error(
+        torch, calls["convolve_sp"], fft_convolve_full(x, h),
+        fft_convolve_full(x.double(), h.double()))
+    return out
+
+
+def phase13_rank(plan: dict) -> dict:
+    """One rank of phase 13's group: the sharded calls on this rank's card,
+    each counted (the scan kernels' launches, zeroed just before it),
+    timed (wall, the allocator's peak) and its collectives' bytes; then on
+    rank 0 the comparisons with the one-device functions. The 600 s
+    stretch's result goes to plan["out"] (rank 0), the rest is returned."""
+    import functools as ft
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from flan_tpu_torch.ops import scan_kernels
+    from flan_tpu_torch.parallel import batch, conv_sp, scan_sp, stft_sp
+    from flan_tpu_torch.parallel.mesh import make_mesh
+    from flan_tpu_torch.pipelines import pv_stretch_pipeline
+    from flan_tpu_torch.ops.build import load_library
+    from flan_tpu_torch.ops.scan import linear_recurrence
+    sp = make_mesh(axis_name="sp")
+    dev = sp.device
+    # a process's first uses, timed apart from the calls' walls: the
+    # library's load, a torch elementwise op, one scan kernel launch
+    first = {}
+    for name, fn in (("library_load_s", load_library),
+                     ("torch_tan_s", lambda: torch.tan(
+                         torch.ones(8, device=dev))),
+                     ("scan_launch_s", lambda: linear_recurrence(
+                         torch.ones(1, 8, device=dev),
+                         torch.ones(1, 8, device=dev)))):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        first[name] = time.perf_counter() - t0
+    report = {"rank": sp.rank, "size": sp.size, "backend": sp.backend,
+              "staged": sorted(sp.staged), "device": str(dev), "calls": {},
+              "first_use_s": first}
+    results = {}
+    pv = dict(window_size=2048, hop=128, dft_size=4096, sample_rate=SR)
+
+    def run(name, seconds, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        scan_kernels.reset_launch_counts()
+        moved = dict(sp.moved)
+        t0 = time.perf_counter()
+        results[name] = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        report["calls"][name] = {
+            "wall_s": wall, "x_realtime": seconds / wall,
+            "peak_alloc_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": {k: v for k, v in scan_kernels.LAUNCHES.items()
+                         if v},
+            "collective_bytes": {k: sp.moved[k] - moved[k]
+                                 for k in moved}}
+
+    x = np.load(plan["x"])
+    run("stretch_sp_streamed", plan["seconds"],
+        lambda: stft_sp.stretch_sp_streamed(x, sp, factor=2.0,
+                                            chunk_out=plan["chunk"], **pv))
+    if sp.rank == 0:
+        np.save(plan["out"], results["stretch_sp_streamed"].cpu().numpy())
+    del results["stretch_sp_streamed"]
+    inp = par_inputs(plan["check_seconds"])
+    secs = plan["check_seconds"]
+    run("pv_forward_sp", secs,
+        lambda: stft_sp.pv_forward_sp(inp["x"], sp, **pv))
+    mag, freq = results["pv_forward_sp"]
+    run("pv_inverse_sp", secs, lambda: stft_sp.pv_inverse_sp(
+        mag, freq, sp, window_size=2048, hop=128, sample_rate=SR))
+    run("filter_1pole_lowpass_sp", secs,
+        lambda: scan_sp.filter_1pole_lowpass_sp(inp["x"], inp["cutoff"], SR,
+                                                sp))
+    for k in (2, 4):
+        run(f"matrix_affine_recurrence_sp_k{k}", secs,
+            lambda: scan_sp.matrix_affine_recurrence_sp(
+                inp[f"A{k}"], inp[f"b{k}"], inp[f"y{k}"], sp))
+    run("convolve_sp", secs,
+        lambda: conv_sp.convolve_sp(inp["x"], inp["ir"], sp))
+    clips = [stereo_signal(plan["clip_seconds"], seed=20 + i)
+             for i in range(4)]
+    fn = ft.partial(pv_stretch_pipeline, factor=2.0, sample_rate=SR)
+    run("map_sharded", 4 * plan["clip_seconds"],
+        lambda: batch.map_sharded(fn, clips, mesh=sp))
+    if sp.rank == 0:
+        report["checks"] = par_checks(torch, results, inp, dev)
+        report["checks"]["map_sharded"] = {"ok": all(
+            torch.equal(out, fn(torch.from_numpy(c).to(dev)))
+            for out, c in zip(results["map_sharded"], clips))}
+    return report
+
+
+def par_group(torch, n: int, x_path: str, out: str) -> dict:
+    """phase13_rank on a group of n ranks: the ranks' reports, the calls'
+    launches summed over the ranks, their slowest rank's wall."""
+    from flan_tpu_torch.parallel.mesh import spawn_ranks
+    plan = {"seconds": PAR_SECONDS, "chunk": PAR_CHUNK, "x": x_path,
+            "out": out, "check_seconds": PAR_CHECK_SECONDS,
+            "clip_seconds": PAR_CLIP_SECONDS}
+    t0 = time.perf_counter()
+    reports = spawn_ranks(phase13_rank, n, plan, device="cuda", timeout=600)
+    wall = time.perf_counter() - t0
+    calls = {}
+    for name in reports[0]["calls"]:
+        per_rank = [r["calls"][name] for r in reports]
+        launches = {}
+        for r in per_rank:
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        calls[name] = {
+            "wall_s": max(r["wall_s"] for r in per_rank),
+            "x_realtime": min(r["x_realtime"] for r in per_rank),
+            "peak_alloc_gb_per_rank": max(r["peak_alloc_gb"]
+                                          for r in per_rank),
+            "launches": launches,
+            "collective_bytes_per_rank": [r["collective_bytes"]
+                                          for r in per_rank]}
+    first = reports[0]
+    return {"ranks": n, "backend": first["backend"],
+            "staged": first["staged"],
+            "devices": [r["device"] for r in reports],
+            "group_wall_s": wall,
+            "first_use_s": {k: max(r["first_use_s"][k] for r in reports)
+                            for k in reports[0]["first_use_s"]},
+            "calls": calls, "checks": first["checks"]}
+
+
+def par_one_device(torch, dev) -> dict:
+    """The one-device pipeline on phase 13's 600 s input on the card, and
+    its output for the input one ulp up (np.nextafter toward 2): the
+    sharded stretches' reference and its yardstick, made once."""
+    from flan_tpu_torch.pipelines import pv_stretch_pipeline
+    x = stereo_signal(PAR_SECONDS)
+
+    def one(a):
+        return pv_stretch_pipeline(torch.from_numpy(a).to(dev), 2.0,
+                                   sample_rate=SR, chunk_out=PAR_CHUNK)
+    t0 = time.perf_counter()
+    y1 = one(x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ulp = (one(np.nextafter(x, np.float32(2.0))) - y1).double()
+    peak = float(y1.abs().max())
+    return {"y": y1, "peak": peak, "wall_s": wall,
+            "one_ulp_max_rel": float(ulp.abs().max()) / peak,
+            "one_ulp_rms_rel": float(ulp.pow(2).mean().sqrt()) / peak}
+
+
+def par_stretch_checks(torch, dev, sharded: np.ndarray, one: dict,
+                       ranks: int) -> dict:
+    """The 600 s sharded stretch against the one-device pipeline on the
+    card: length, finiteness, tones, its RMS distance against the
+    one-device pipeline's own RMS change under a one-ulp change of every
+    input sample, both times the peak, its largest distance, and on one
+    rank the one-device pipeline's bits."""
+    y1 = one["y"]
+    out = {"shape": list(sharded.shape), "one_device_shape": list(y1.shape),
+           "one_device_wall_s": one["wall_s"],
+           "finite": bool(np.isfinite(sharded).all())}
+    check(sharded.shape == tuple(y1.shape) and out["finite"],
+          f"phase 13: sharded stretch {sharded.shape}, one device "
+          f"{tuple(y1.shape)}")
+    mid = sharded.shape[1] // 2
+    out["tones_hz"] = [dominant_hz(sharded[ch, mid:mid + int(SR)])
+                       for ch in (0, 1)]
+    check(abs(out["tones_hz"][0] - 220.0) <= 2.0
+          and abs(out["tones_hz"][1] - 330.0) <= 2.0,
+          f"phase 13: sharded stretch tones {out['tones_hz']}")
+    diff = (torch.from_numpy(sharded).to(dev) - y1).double()
+    out["max_rel"] = float(diff.abs().max()) / one["peak"]
+    out["rms_rel"] = float(diff.pow(2).mean().sqrt()) / one["peak"]
+    out["one_ulp_max_rel"] = one["one_ulp_max_rel"]
+    out["one_ulp_rms_rel"] = one["one_ulp_rms_rel"]
+    check(out["rms_rel"] <= TOL_PAR_ULP * out["one_ulp_rms_rel"],
+          f"phase 13: sharded stretch RMS {out['rms_rel']} of the peak, "
+          f"one-ulp yardstick {out['one_ulp_rms_rel']}")
+    check(out["max_rel"] <= TOL_PAR_MAX,
+          f"phase 13: sharded stretch max {out['max_rel']} of the peak")
+    if ranks == 1:
+        out["same_bits_as_one_device"] = bool(np.array_equal(
+            sharded, y1.cpu().numpy()))
+        check(out["same_bits_as_one_device"],
+              "phase 13: the sharded stretch on one rank is not the "
+              "one-device pipeline's bits")
+    return out
+
+
+def par_cli(torch, dev, work: str, n: int) -> dict:
+    """python -m torch.distributed.run --standalone --nproc-per-node n -m
+    flan_tpu_torch stretch --factor 2 on four clips of one shape (the
+    sharded branch) against the CLI run in this process: the same files,
+    byte for byte."""
+    import os
+    from flan_tpu_torch import Audio
+    from flan_tpu_torch.cli import main as cli_main
+    root = os.path.dirname(os.path.abspath(__file__))
+    paths = []
+    for i in range(4):
+        p = os.path.join(work, f"clip{i}.wav")
+        Audio.create_from_array(stereo_signal(PAR_CLI_SECONDS, seed=30 + i),
+                                SR, device="cpu").save_to_file(p)
+        paths.append(p)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    launched = os.path.join(work, "launched")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(n), "-m", "flan_tpu_torch", "stretch",
+           "--factor", "2", launched, *paths]
+    t0 = time.perf_counter()
+    try:
+        done = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                              text=True, timeout=300)
+    except subprocess.TimeoutExpired:
+        fail("phase 13: the launched CLI ran past 300 s")
+    wall = time.perf_counter() - t0
+    check(done.returncode == 0, f"phase 13: launched CLI rc "
+          f"{done.returncode}: {done.stderr[-3000:]}")
+    one = os.path.join(work, "one")
+    t1 = time.perf_counter()
+    cli_main(["stretch", "--factor", "2", one, *paths], device=dev)
+    torch.cuda.synchronize()
+    wall_one = time.perf_counter() - t1
+    names = sorted(os.listdir(launched))
+    same = names == sorted(os.listdir(one)) and all(
+        open(os.path.join(launched, q), "rb").read()
+        == open(os.path.join(one, q), "rb").read() for q in names)
+    check(same and len(names) == 4,
+          f"phase 13: the launched CLI's files {names} are not the "
+          "one-process CLI's bytes")
+    printed = [line for line in done.stdout.split() if line.endswith(".wav")]
+    return {"command": " ".join(["python", "-m"] + cmd[2:9]),
+            "clips": 4, "clip_s": PAR_CLI_SECONDS, "wall_s": wall,
+            "one_process_in_process_wall_s": wall_one,
+            "files_equal_bytes": same, "printed": len(printed)}
+
+
+def phase13_parallel(torch, dev, card) -> tuple:
+    """Phase 13: the parallel layer on torch.distributed. Returns the
+    report and the scan kernels' launches summed over the ranks."""
+    import os
+    import shutil
+    from flan_tpu_torch.ops import build
+    t_start = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "phase13")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    count = torch.cuda.device_count()
+    report = {"phase": 13, "card": card, "cards": count}
+    build.build_library()     # once, before the ranks load it
+    try:
+        if count >= 2:
+            groups = [min(count, PAR_RANKS)]
+            report["nccl_multi_card"] = "checked"
+        else:
+            # NCCL refuses two ranks on one card: gloo ranks share it, and
+            # a world of one starts NCCL at d = 1
+            groups = [PAR_RANKS, 1]
+            report["nccl_multi_card"] = ("not checked: one card "
+                                         "(NCCL at W > 1 needs a card a rank)")
+        report["groups"] = []
+        launches = {}
+        x_path = os.path.join(work, "x.npy")
+        np.save(x_path, stereo_signal(PAR_SECONDS))
+        one = par_one_device(torch, dev)
+        for n in groups:
+            out = os.path.join(work, f"sharded_{n}.npy")
+            group = par_group(torch, n, x_path, out)
+            backend = group["backend"]
+            group["stretch_600s"] = par_stretch_checks(torch, dev,
+                                                       np.load(out), one, n)
+            os.remove(out)
+            for name, ok in ((k, v["ok"]) for k, v in
+                             group["checks"].items()):
+                check(ok, f"phase 13 ({backend}, {n} ranks): {name}: "
+                      f"{group['checks'][name]}")
+            for call in group["calls"].values():
+                for k, v in call["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+            report["groups"].append(group)
+            print(json.dumps({"phase": 13, "card": card, "group": group}),
+                  flush=True)
+        del one
+        report["cli"] = par_cli(torch, dev, work, min(count, PAR_RANKS)
+                                if count >= 2 else PAR_RANKS)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for name in ("scan_linear", "scan_affine2x2", "scan_affine_kxk"):
+        check(launches.get(name, 0) > 0,
+              f"phase 13: {name} was not launched by the sharded calls")
+    report["launches"] = launches
+    report["phase_wall_s"] = time.perf_counter() - t_start
+    print(json.dumps(report, default=str), flush=True)
+    return report, launches
+
+
 def start(package):
     """Phases 0 and 1: the card, torch, the port (from `package` if given)
     and its kernel library. Returns the card's line, torch, the device and
@@ -4999,6 +5445,15 @@ def main() -> None:
             if name in by_path:
                 by_path[name]["cli " + sub] = n
     phase_done("12 files, cli")
+
+    # phase 13: the parallel layer on torch.distributed, on ranks sharing
+    # the card (gloo) and a world of one (NCCL), or one rank a card (NCCL);
+    # the scans' launches of its sharded calls summed over the ranks
+    _, launches13 = phase13_parallel(torch, dev, card)
+    for name, n in launches13.items():
+        launches[name] += n
+        by_path[name]["parallel (phase 13)"] = n
+    phase_done("13 parallel")
     print(json.dumps({"profile_us_per_launch": split}), flush=True)
     print(json.dumps({"phase_seconds": seconds,
                       "seconds": round(sum(seconds.values()), 1)}), flush=True)
@@ -5043,12 +5498,15 @@ def main() -> None:
     path = {"spv_forward": "spv", "spv_inverse": "spv",
             "sqpv_forward": "sqpv", "sqpv_inverse": "sqpv",
             "scan_linear": "filters, pv_algorithms, gradients, "
-                           "effect chain, pv family (stretch_spline)",
+                           "effect chain, pv family (stretch_spline), "
+                           "parallel (filter_1pole_lowpass_sp)",
             "scan_max_affine": "filters, pv_algorithms, gradients",
             "scan_affine2x2": "filters, gradients, effect chain, "
-                              "wavetable (its lowpass's FIR probe)",
+                              "wavetable (its lowpass's FIR probe), "
+                              "parallel (matrix_affine_recurrence_sp, k = 2)",
             "probe": None,
-            "scan_affine_kxk": "multinotch filters",
+            "scan_affine_kxk": "multinotch filters, parallel "
+                               "(matrix_affine_recurrence_sp, k = 4)",
             "saturator_1pole": "saturator multinotch, gradients",
             "saturator_2pole": "saturator multinotch, gradients",
             "comb_swept": "swept comb, gradients",

@@ -14,6 +14,16 @@ Inputs are read by any codec Audio.load_from_file reads, outputs written
 as WAV float32 (BMP for spectrogram). The work runs on the card; `main`
 takes the device as a keyword for callers that want the CPU. Clips are
 rendered one by one, each at its own length and sample rate.
+
+Under a launcher that starts several ranks, e.g.
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m flan_tpu_torch stretch --factor 2.0 out_dir a.wav b.wav c.wav
+
+stretch and repitch shard clips of one (channels, frames, sample rate)
+over the ranks (parallel/batch.py map_sharded); rank 0 renders everything
+else, and rank 0 alone writes and prints: the files and the printed paths
+are a one-process run's.
 """
 from __future__ import annotations
 
@@ -65,17 +75,34 @@ def _save_all(clips, paths, out_dir: str) -> None:
         print(q)
 
 
-def _render_each(render, clips, paths, out_dir, cancel=None) -> None:
-    """render(clip) for every clip, one by one, polling cancel before each
-    (the host-side flan_CANCEL_POINT analog, utils/cancel.py), then save.
-    flan_tpu's CLI shards clips of one shape over several devices here;
-    this port renders clip by clip on one card."""
-    rendered = []
-    for c in clips:
+def _render_each(render, clips, paths, out_dir, cancel=None, mesh=None,
+                 batch_fn=None) -> None:
+    """Render and save the clips, polling cancel between dispatches (the
+    host-side flan_CANCEL_POINT analog, utils/cancel.py). On a mesh of
+    several ranks, clips of one (channels, frames, sample rate) go through
+    map_sharded with batch_fn(sample_rate), a [C, N] -> [C, M] transform,
+    as flan_tpu's CLI shards them over its devices (cli.py _maybe_batch);
+    otherwise rank 0 (or the one process) renders each clip alone with
+    render(clip). Only rank 0 saves."""
+    keys = {(c.num_channels, c.num_frames, c.sample_rate) for c in clips}
+    if (mesh is not None and mesh.size > 1 and batch_fn is not None
+            and len(clips) > 1 and len(keys) == 1):
+        from flan_tpu_torch.parallel.batch import map_sharded
         if cancel is not None:
             cancel.check()
-        rendered.append(render(c))
-    _save_all(rendered, paths, out_dir)
+        outs = map_sharded(batch_fn(clips[0].sample_rate),
+                           [c.data for c in clips], mesh)
+        rendered = [c._with(data=out) for c, out in zip(clips, outs)]
+    elif mesh is not None and mesh.rank != 0:
+        return
+    else:
+        rendered = []
+        for c in clips:
+            if cancel is not None:
+                cancel.check()
+            rendered.append(render(c))
+    if mesh is None or mesh.rank == 0:
+        _save_all(rendered, paths, out_dir)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -168,20 +195,34 @@ def main(argv=None, cancel=None, device=DEFAULT_DEVICE) -> int:
     honored between clip dispatches; device: where the work runs, the
     card unless named."""
     args = _parser().parse_args(argv)
+    from flan_tpu_torch.parallel.mesh import launcher_mesh
+    with launcher_mesh(device) as mesh:
+        if mesh is not None and mesh.rank != 0 \
+                and args.cmd not in ("stretch", "repitch"):
+            return 0    # rank 0 renders what is not sharded
+        return _run(args, cancel, device, mesh)
+
+
+def _run(args, cancel, device, mesh) -> int:
     out_dir = args.out_dir
 
-    def each(render):
+    def each(render, batch_fn=None):
         _render_each(render, _load(args.inputs, device), args.inputs,
-                     out_dir, cancel)
+                     out_dir, cancel, mesh, batch_fn)
+
+    def streamed(pipeline):
+        """(render, batch_fn) of a streamed pipeline at --factor."""
+        def batch_fn(sr):
+            return lambda x: pipeline(x, args.factor, sample_rate=float(sr))
+        return (lambda c: c._with(data=batch_fn(c.sample_rate)(c.data)),
+                batch_fn)
 
     if args.cmd == "stretch":
         from flan_tpu_torch.pipelines import pv_stretch_pipeline
-        each(lambda c: c._with(data=pv_stretch_pipeline(
-            c.data, args.factor, sample_rate=float(c.sample_rate))))
+        each(*streamed(pv_stretch_pipeline))
     elif args.cmd == "repitch":
         from flan_tpu_torch.pipelines import pv_repitch_pipeline
-        each(lambda c: c._with(data=pv_repitch_pipeline(
-            c.data, args.factor, sample_rate=float(c.sample_rate))))
+        each(*streamed(pv_repitch_pipeline))
     elif args.cmd == "morph":
         a, b = _load(args.inputs, device)
         if a.sample_rate != b.sample_rate:

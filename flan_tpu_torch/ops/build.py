@@ -10,6 +10,7 @@ when a module is imported: the first kernel launch builds the library.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -105,18 +106,38 @@ def build_library() -> tuple[Path, str]:
     BUILD_DIR/libflan_kernels.so, unless a build of the same sources and
     flags is there. Returns the library's path and the compilers' output
     (registers, shared memory and spills per kernel); raises if nvcc is
-    missing or fails."""
+    missing or fails. Processes that ask together (ranks, CLI processes
+    under a launcher) take turns on BUILD_DIR/build.lock, an flock that
+    the system releases if its holder dies: the first builds, the others
+    find its build."""
     digest = _digest()
     lib = BUILD_DIR / "libflan_kernels.so"
     stamp = BUILD_DIR / "libflan_kernels.sha256"
-    if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+
+    def built() -> bool:
+        return lib.exists() and stamp.exists() and stamp.read_text() == digest
+
+    if built():
         return lib, ""
+    nvcc = _nvcc()      # raises without the toolkit, before writing anything
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)    # released as the file closes
+        if built():
+            return lib, ""
+        return _build(nvcc, lib, stamp, digest)
+
+
+def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME is None:
         raise RuntimeError("nvcc not found: the kernels need the CUDA "
                            "toolkit to build")
-    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _build(nvcc: str, lib: Path, stamp: Path,
+           digest: str) -> tuple[Path, str]:
     tag = os.getpid()
     srcs = sources()
     objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]

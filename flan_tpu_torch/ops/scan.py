@@ -311,6 +311,42 @@ def affine_kxk_recurrence(A, b, y0=0.0) -> torch.Tensor:
     return _kxk_rows(A, b, y0)
 
 
+def matrix_affine_scanned_leaves(A, b):
+    """Composed prefix maps of y -> A @ y + b along the T axis
+    (scan.py:223-261): A [..., T, k, k], b [..., T, k]; returns k*k + k
+    leaves, each [..., T], leaf i*k + j AA[t][i, j] and leaf k*k + i
+    bb[t][i], so that y[t] = AA[t] @ y[-1] + bb[t].
+
+    k + 1 passes of the recurrence, as linear_scanned_maps runs two: from
+    y[-1] = e_j with b = 0, whose states are column j of AA, and from 0
+    with b, whose states are bb. On the card k = 2 runs the 2 x 2 kernel
+    (flan_scan kind 2) and any other k the k x k kernel; on the CPU their
+    plain versions. No autograd."""
+    b = torch.as_tensor(b)
+    A = torch.as_tensor(A, dtype=b.dtype, device=b.device)
+    k = A.shape[-1]
+    lead = torch.broadcast_shapes(A.shape[:-3], b.shape[:-2])
+    t = b.shape[-2]
+    At = torch.broadcast_to(torch.movedim(A, -3, -1), lead + (k, k, t))
+    bt = torch.broadcast_to(torch.movedim(b, -2, -1), lead + (k, t))
+    eye = torch.eye(k, dtype=b.dtype, device=b.device)
+
+    def states(bs, y0):                     # [..., k, T] from y0 [k]
+        if k == 2:
+            return torch.stack(_affine2x2_rows(
+                (At[..., 0, 0, :], At[..., 0, 1, :], At[..., 1, 0, :],
+                 At[..., 1, 1, :], bs[..., 0, :], bs[..., 1, :]),
+                (y0[0], y0[1])), dim=-2)
+        return _kxk_rows(At, bs, torch.broadcast_to(y0[:, None],
+                                                    lead + (k, 1)))
+
+    zero = torch.zeros((), dtype=b.dtype, device=b.device).expand(bt.shape)
+    cols = [states(zero, eye[j]) for j in range(k)]
+    bb = states(bt, torch.zeros(k, dtype=b.dtype, device=b.device))
+    return (tuple(cols[j][..., i, :] for i in range(k) for j in range(k))
+            + tuple(bb[..., i, :] for i in range(k)))
+
+
 def matrix_affine_recurrence(A, b, y0) -> torch.Tensor:
     """Solve y[n] = A[n] @ y[n-1] + b[n] for any state size k
     (scan.py:264-279). A: [..., T, k, k], b: [..., T, k], y0: [..., k];

@@ -230,16 +230,27 @@ def _remap(mag, freq, li, mix, valid):
             torch.where(v & pos, fsum / torch.where(pos, total, 1.0), 0.0))
 
 
+def _cycles(g: _Geometry, freq):
+    """The mod-1 phase cycles of planes [C, frames, B] from 0: the inclusive
+    sum of freq / analysis_rate modulo 1 along the frames."""
+    return cumsum_mod1_frames(
+        torch.remainder(true_div(freq, g.analysis_rate), 1.0))
+
+
+def _frames(g: _Geometry, mag, cycles):
+    """The polar irFFT of planes [C, frames, B] at `cycles` and the
+    synthesis window: [C, frames, wpad]."""
+    return irfft_polar(mag, cycles * _TWO_PI,
+                       g.dft_size)[..., :g.wpad] * g.inv_window
+
+
 def _synthesis(g: _Geometry, mag, freq, cycle):
     """The inverse of one chunk's planes [C, chunk, B]: mod-1 cycles from
     the offset the chunk before left (`cycle` [C, 1, B]), the polar irFFT,
     the synthesis window. Returns the frames [C, chunk, wpad] and the
     offset for the next chunk."""
-    inc = torch.remainder(true_div(freq, g.analysis_rate), 1.0)
-    cycles = torch.remainder(cumsum_mod1_frames(inc) + cycle, 1.0)
-    frames = irfft_polar(mag, cycles * _TWO_PI,
-                         g.dft_size)[..., :g.wpad] * g.inv_window
-    return frames, cycles[:, -1:]
+    cycles = torch.remainder(_cycles(g, freq) + cycle, 1.0)
+    return _frames(g, mag, cycles), cycles[:, -1:]
 
 
 def _overlap_add(g: _Geometry, frames, tail):
@@ -378,8 +389,19 @@ def pv_morph_pipeline(a, b, amount, *, window_size: int = 2048,
     a, b = _as_inputs([a, b], device)
     min_nh = min(num_hops(int(a.shape[-1]), hop),
                  num_hops(int(b.shape[-1]), hop))
+    chunk_op = _morph_chunk_op(amount, min_nh, sample_rate / dft_size,
+                               sample_rate / hop)
+    return streamed_pv_process(
+        [a, b], chunk_op, window_size=window_size, hop=hop, dft_size=dft_size,
+        sample_rate=sample_rate, chunk_out=chunk_out)
+
+
+def _morph_chunk_op(amount, min_nh: int, bin_width: float,
+                    analysis_rate: float):
+    """The morph chunk op (flan_tpu/pipelines/streamed.py _morph_chunk_op):
+    a's frequencies, magnitudes blended toward b's by amount(t, f) clipped
+    to [0, 1], zero from output frame min_nh on."""
     fn = as_function2d(amount)
-    bin_width, analysis_rate = sample_rate / dft_size, sample_rate / hop
 
     def chunk_op(mags, freqs, f0):
         _, _, chunk, nb = mags.shape
@@ -392,7 +414,4 @@ def pv_morph_pipeline(a, b, amount, *, window_size: int = 2048,
                 < min_nh)[:, None]
         return (torch.where(live, mag, 0.0),
                 torch.where(live, freqs[0], 0.0))
-
-    return streamed_pv_process(
-        [a, b], chunk_op, window_size=window_size, hop=hop, dft_size=dft_size,
-        sample_rate=sample_rate, chunk_out=chunk_out)
+    return chunk_op

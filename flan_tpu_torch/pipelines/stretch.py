@@ -31,20 +31,29 @@ def pv_stretch_pipeline(x, factor, *, window_size: int = 2048,
     device unless `device` is named; host data goes to `device` or the
     card."""
     (x,) = _as_inputs([x], device)
-    nh = num_hops(int(x.shape[1]), hop)
-    fn = as_function(factor)
-    if fn.is_constant:
-        factors = np.full(nh, fn.constant_value, np.float64)
-    else:
-        # sampled on float32 hop times, summed in float64 (as JAX does)
-        t = np.arange(nh, dtype=np.float64) * (hop / sample_rate)
-        out = fn(torch.from_numpy(t.astype(np.float32)).to(x.device))
-        if isinstance(out, torch.Tensor):
-            out = out.detach().cpu().numpy()
-        factors = np.broadcast_to(np.asarray(out, np.float64), (nh,))
-    if (factors <= 0).any():
-        raise ValueError("stretch pipeline requires positive factors")
+    factors = stretch_factors(factor, num_hops(int(x.shape[1]), hop), hop,
+                              sample_rate, x.device, "stretch pipeline")
     return streamed_pv_process(
         [x], None, time_map=np.cumsum(factors), window_size=window_size,
         hop=hop, dft_size=dft_size, sample_rate=float(sample_rate),
         chunk_out=chunk_out)
+
+
+def stretch_factors(factor, nh: int, hop: int, sample_rate: float, device,
+                    name: str) -> np.ndarray:
+    """The stretch factor of each of nh input hops, float64: a constant, or
+    a Function of time sampled on the float32 hop times as a tensor on
+    `device` (the JAX package samples it so and sums in float64). Raises
+    unless every factor is positive, naming the caller."""
+    fn = as_function(factor)
+    if fn.is_constant:
+        factors = np.full(nh, fn.constant_value, np.float64)
+    else:
+        t = np.arange(nh, dtype=np.float64) * (hop / sample_rate)
+        out = fn(torch.from_numpy(t.astype(np.float32)).to(device))
+        if isinstance(out, torch.Tensor):
+            out = out.detach().cpu().numpy()
+        factors = np.broadcast_to(np.asarray(out, np.float64), (nh,))
+    if (factors <= 0).any():
+        raise ValueError(f"{name} requires positive factors")
+    return factors

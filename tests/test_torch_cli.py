@@ -14,6 +14,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 import flan_tpu
 import flan_tpu_torch
@@ -21,6 +22,13 @@ from flan_tpu.cli import main as jax_main
 from flan_tpu_torch.cli import main
 from flan_tpu_torch.io.loader import iter_audio_prefetched
 from flan_tpu_torch.utils.cancel import CancelToken, Cancelled
+
+
+# One intra-op thread: on an 8-core x86 host torch 2.13's CPU kernels pay
+# ~10 ms to wake their worker pool for a call of a few thousand elements
+# (torch.round of 16,384 floats: 14 ms on 8 threads, 6 us on one), which
+# the plain versions' many small calls multiply.
+torch.set_num_threads(1)
 
 SR = 8000.0
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

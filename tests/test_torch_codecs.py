@@ -12,12 +12,20 @@ import struct
 
 import numpy as np
 import pytest
+import torch
 
 import flan_tpu
 import flan_tpu_torch
 from flan_tpu.io import flac as j_flac
 from flan_tpu.io.flac import _BitWriter, _crc8, _crc16, _utf8_number
 from flan_tpu_torch.io import aiff, au, caf, flac, mp3, ogg, w64
+
+
+# One intra-op thread: on an 8-core x86 host torch 2.13's CPU kernels pay
+# ~10 ms to wake their worker pool for a call of a few thousand elements
+# (torch.round of 16,384 floats: 14 ms on 8 threads, 6 us on one), which
+# the plain versions' many small calls multiply.
+torch.set_num_threads(1)
 
 SR = 8000.0
 

@@ -17,6 +17,13 @@ from flan_tpu_torch.pipelines import streamed as tst
 from flan_tpu_torch.pipelines import (pv_morph_pipeline, pv_repitch_pipeline,
                                       pv_stretch_pipeline)
 
+
+# One intra-op thread: on an 8-core x86 host torch 2.13's CPU kernels pay
+# ~10 ms to wake their worker pool for a call of a few thousand elements
+# (torch.round of 16,384 floats: 14 ms on 8 threads, 6 us on one), which
+# the plain versions' many small calls multiply.
+torch.set_num_threads(1)
+
 SR = 8000.0
 KW = dict(window_size=512, hop=64, dft_size=512, sample_rate=SR)
 

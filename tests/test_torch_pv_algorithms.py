@@ -17,6 +17,13 @@ from test_torch_pv_methods import (assert_golden, assert_like_jax,
                                    input_planes, input_pvs)
 
 
+# One intra-op thread: on an 8-core x86 host torch 2.13's CPU kernels pay
+# ~10 ms to wake their worker pool for a call of a few thousand elements
+# (torch.round of 16,384 floats: 14 ms on 8 threads, 6 us on one), which
+# the plain versions' many small calls multiply.
+torch.set_num_threads(1)
+
+
 def _both(method, *args, seed=0, **kw):
     """method on the port's and JAX's copy of the goldens' input PV."""
     tp, jp = input_pvs(seed)

@@ -24,6 +24,13 @@ from flan_tpu_torch.ops import pv_info_kernels as pk
 from flan_tpu_torch.pv import information
 from test_torch_pv_methods import FIXDIR, HOP, SR, WIN, _planes, assert_golden
 
+
+# One intra-op thread: on an 8-core x86 host torch 2.13's CPU kernels pay
+# ~10 ms to wake their worker pool for a call of a few thousand elements
+# (torch.round of 16,384 floats: 14 ms on 8 threads, 6 us on one), which
+# the plain versions' many small calls multiply.
+torch.set_num_threads(1)
+
 # salience against JAX, times its peak (1): 1.2e-7 read (four of the 21
 # spread taps are XLA's cos an ulp off the correctly rounded ones the port
 # uses; the taps' sum order); bound 1e-6

@@ -25,6 +25,13 @@ from flan_tpu_torch.func import interpolators as tinterp
 from flan_tpu_torch.io import flan_format as t_flan
 from flan_tpu_torch.ops import pv_modify as tmod
 
+
+# One intra-op thread: on an 8-core x86 host torch 2.13's CPU kernels pay
+# ~10 ms to wake their worker pool for a call of a few thousand elements
+# (torch.round of 16,384 floats: 14 ms on 8 threads, 6 us on one), which
+# the plain versions' many small calls multiply.
+torch.set_num_threads(1)
+
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures", "reference")
 
 # the goldens' input PV (tests/test_algo_golden.py:39-64): C=2 F=24 B=17,

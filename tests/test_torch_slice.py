@@ -17,6 +17,13 @@ from flan_tpu_torch.convert import audio_from_numpy, pv_from_numpy
 from flan_tpu_torch.io.wav import write_wav
 from flan_tpu_torch.ops import stft
 
+
+# One intra-op thread: on an 8-core x86 host torch 2.13's CPU kernels pay
+# ~10 ms to wake their worker pool for a call of a few thousand elements
+# (torch.round of 16,384 floats: 14 ms on 8 threads, 6 us on one), which
+# the plain versions' many small calls multiply.
+torch.set_num_threads(1)
+
 SR = 8000.0
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

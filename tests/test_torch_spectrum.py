@@ -11,6 +11,13 @@ import flan_tpu_torch
 from flan_tpu.spectrum import Spectrum as JSpectrum
 from flan_tpu_torch import Spectrum
 
+
+# One intra-op thread: on an 8-core x86 host torch 2.13's CPU kernels pay
+# ~10 ms to wake their worker pool for a call of a few thousand elements
+# (torch.round of 16,384 floats: 14 ms on 8 threads, 6 us on one), which
+# the plain versions' many small calls multiply.
+torch.set_num_threads(1)
+
 SR = 8000.0
 
 # the spectrum (and a filtered one) against flan_tpu's, times its peak: 0 to

@@ -25,6 +25,13 @@ from flan_tpu.spv.spv import (_spv_forward_scan, _spv_inverse_scan,
 from flan_tpu_torch.convert import audio_from_numpy, spv_from_numpy
 from flan_tpu_torch.ops import spv_kernels
 
+
+# One intra-op thread: on an 8-core x86 host torch 2.13's CPU kernels pay
+# ~10 ms to wake their worker pool for a call of a few thousand elements
+# (torch.round of 16,384 floats: 14 ms on 8 threads, 6 us on one), which
+# the plain versions' many small calls multiply.
+torch.set_num_threads(1)
+
 SR = 8000.0
 NBINS = 128
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures", "reference")

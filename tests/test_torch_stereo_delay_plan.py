@@ -15,6 +15,13 @@ from flan_tpu_torch.audio import temporal
 from flan_tpu_torch.func.function import as_function
 from flan_tpu_torch.ops import sequential_kernels as seq
 
+
+# One intra-op thread: on an 8-core x86 host torch 2.13's CPU kernels pay
+# ~10 ms to wake their worker pool for a call of a few thousand elements
+# (torch.round of 16,384 floats: 14 ms on 8 threads, 6 us on one), which
+# the plain versions' many small calls multiply.
+torch.set_num_threads(1)
+
 TILE, WIDTH, WIDE = seq.STEREO_TILE, seq.STEREO_WIDTH, seq.STEREO_WIDE_WIDTH
 
 

@@ -19,6 +19,13 @@ from flan_tpu_torch.ops import cycle_scan as cs
 from flan_tpu_torch.ops import grain_mix as gm
 from flan_tpu_torch.ops import random as rnd
 
+
+# One intra-op thread: on an 8-core x86 host torch 2.13's CPU kernels pay
+# ~10 ms to wake their worker pool for a call of a few thousand elements
+# (torch.round of 16,384 floats: 14 ms on 8 threads, 6 us on one), which
+# the plain versions' many small calls multiply.
+torch.set_num_threads(1)
+
 N_DRAWS = (1 << 17) + 3
 # K2's phases against the float64 scan of the same float32 increments, in
 # cycles: one float32 rounding of a phase below 1 (2^-25 = 3.0e-8)

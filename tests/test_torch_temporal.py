@@ -19,6 +19,25 @@ from flan_tpu_torch.audio import temporal
 from flan_tpu_torch.func import interpolators
 from flan_tpu_torch.ops import sequential_kernels as seq
 
+
+# One intra-op thread: on an 8-core x86 host torch 2.13's CPU kernels pay
+# ~10 ms to wake their worker pool for a call of a few thousand elements
+# (torch.round of 16,384 floats: 14 ms on 8 threads, 6 us on one), which
+# the plain versions' many small calls multiply.
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def torch_thread_pool():
+    """torch's intra-op pool (up to 8 threads) for one case, back to one
+    after it: a CPU fault that shows only where a worker thread computes
+    part of a call (C.17, torch's CPU sin on its first call) stays
+    visible."""
+    torch.set_num_threads(min(os.cpu_count() or 2, 8))
+    yield
+    torch.set_num_threads(1)
+
+
 SR = 8000.0
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures", "reference")
 
@@ -288,6 +307,7 @@ def test_stereo_delay_constant_matches_flan_tpu(l_time, r_time, decay):
     (lambda t: 0.02 + 0.015 * torch.sin(25.0 * t),
      lambda t: 0.03 - 0.02 * t),
     (lambda t: 0.0 * t + 0.01 * (t > 0.1), lambda t: 0.004 + 0.0 * t)])
+@pytest.mark.usefixtures("torch_thread_pool")
 def test_stereo_delay_swept_matches_flan_tpu(l_time, r_time):
     """The swept path (the plain version on the CPU) against flan_tpu's
     lax.scan, exactly (both are the loop's float32 operations), and
