@@ -461,6 +461,20 @@ TOL_SALIENCE_CPU = 1e-5
 # its salience peak and two neighbours, which turns their ulps into more
 # where the peak is flat
 TOL_PITCH_BINS = 1e-2
+# the salience histogram's operations a live contribution, the work the
+# function needs by the cheapest route known, counted from the build's SASS
+# (sm_90a, nvcc 12.8) for each part: the correctly rounded division (8),
+# the float32 log2 (32), the bin and the value (7) and the add (1); at
+# INT32_OPS_PER_S (one instruction a lane a slot). Left out: the loads of
+# i_f and i_m, which the function makes once a peak (20 contributions) and
+# the bytes bound counts, the kernel's own index arithmetic and its
+# shared-memory load and store around the add. Where the float32 log2
+# puts v = 120 (lg - log2_min) within SALIENCE_RECHECK of a half-integer,
+# the float64 log2 decides the bin: 33 float64 instructions
+# (SALIENCE_RECHECK_OPS) at FLOAT64_OPS_PER_S
+SALIENCE_CONTRIB_OPS = 48
+SALIENCE_RECHECK = 2.0 ** -10
+SALIENCE_RECHECK_OPS = 33
 # the salience kernel against its plain version on the CPU over the path
 # call's first frames (the plain version's [F, K, 20] planes at 600 s take
 # tens of GB); over every frame it is held to the same order on the card
@@ -2772,6 +2786,10 @@ def phase9_delay_gradients(torch, Audio, seq, dev) -> dict:
                        "stereo_delay_swept_backward": len(delay_sweeps())},
           f"the delays' gradients launched {launches}, not one forward and "
           "one backward a sweep")
+    check([report[name]["variant_backward"] for name, *_ in delay_sweeps()]
+          == ["wide_device", "wide_shared", "narrow_shared"],
+          "the swept delays' backwards did not take the variants "
+          "delay_sweeps names")
     report["backward_checks"] = phase9_backward_checks(torch, seq, calls)
     print(json.dumps({"phase": 9, "stereo_delay_gradients": report}),
           flush=True)
@@ -2780,12 +2798,14 @@ def phase9_delay_gradients(torch, Audio, seq, dev) -> dict:
 
 def phase9_backward_checks(torch, seq, calls) -> dict:
     """The backward kernel on the path's own gradient calls: rerun (three
-    calls, the same bits), every frame by one step in float64 from its own
-    later values within TOL_DELAY_BACK; over the last DELAY_PLAIN_FRAMES
-    frames (the adjoint runs in reverse time: nothing before them reaches
-    them) against its plain version on the card and against the adjoint
-    step by step on the host (stereo_delay_backward_loop on the host's
-    delays), each within TOL_DELAY_BACK of the peak."""
+    calls, the same bits), the narrow variant named on the same call (its
+    rings' variant: the same bits as the variant the call took), every
+    frame by one step in float64 from its own later values within
+    TOL_DELAY_BACK; over the last DELAY_PLAIN_FRAMES frames (the adjoint
+    runs in reverse time: nothing before them reaches them) against its
+    plain version on the card and against the adjoint step by step on the
+    host (stereo_delay_backward_loop on the host's delays), each within
+    TOL_DELAY_BACK of the peak."""
     out = {}
     for name, args in calls:
         args = tuple(a.detach() if torch.is_tensor(a) else a for a in args)
@@ -2793,6 +2813,11 @@ def phase9_backward_checks(torch, seq, calls) -> dict:
         n = int(gout.shape[1])
         rounds = torch.zeros(1, dtype=torch.int32, device=gout.device)
         gw = seq.stereo_delay_swept_backward_cuda(*args, rounds=rounds)
+        variant = seq.VARIANTS["stereo_delay_swept_backward"]
+        narrow = seq.stereo_delay_variant(0, lb, rb, backward=True)
+        narrow_same = bool(torch.equal(
+            gw, seq.stereo_delay_swept_backward_cuda(*args, variant=narrow)))
+        check(narrow_same, f"{name} backward: {variant} and {narrow} differ")
         step = seq.stereo_delay_backward_step_error(gout, g, el, er, lb, rb,
                                                     gw)
         m = min(DELAY_PLAIN_FRAMES, n)
@@ -2815,7 +2840,8 @@ def phase9_backward_checks(torch, seq, calls) -> dict:
         check_same_bits(torch, lambda: seq.stereo_delay_swept_backward_cuda(
             *args), f"{name} backward")
         out[name] = {"frames": n, "rounds": int(rounds),
-                     "variant": seq.VARIANTS["stereo_delay_swept_backward"],
+                     "variant": variant, "narrow_variant": narrow,
+                     "narrow_same_bits": narrow_same,
                      "step_err": step, "plain_err": err,
                      "plain_abs_err": abs_err, "plain_ms": plain_ms,
                      "loop_err": loop_err, "loop_abs_err": loop_abs,
@@ -2950,13 +2976,23 @@ def plane_errors(got, want) -> float:
 def bins_apart(torch, pk, i_f, i_m, log2_min: float):
     """(contributions, of them on another bin through the card's float32
     log2 than through the float64 one the kernel and the plain version
-    take) for the peaks i_f, i_m [F, K] on the card."""
-    live = ((i_m > 0) & (i_f > 0))[..., None].expand(-1, -1, pk.NH)
+    take, of them within SALIENCE_RECHECK of a half-integer bin through the
+    float32 log2: the kernel's float64 rechecks) for the peaks i_f, i_m
+    [F, K] on the card, SALIENCE_LIBRARY_CHUNK frames at a time."""
     h = torch.arange(1, pk.NH + 1, dtype=torch.float32, device=i_f.device)
-    sub = torch.clamp(i_f[..., None] / h, min=1e-9)
-    f32 = torch.round(120.0 * (torch.log2(sub) - log2_min)).long()
-    return (int(live.sum()),
-            int((f32 != pk.subharmonic_bins(i_f, log2_min))[live].sum()))
+    n_live = n_apart = n_recheck = 0
+    for s in range(0, i_f.shape[0], SALIENCE_LIBRARY_CHUNK):
+        fr = i_f[s:s + SALIENCE_LIBRARY_CHUNK]
+        mr = i_m[s:s + SALIENCE_LIBRARY_CHUNK]
+        live = ((mr > 0) & (fr > 0))[..., None].expand(-1, -1, pk.NH)
+        sub = torch.clamp(fr[..., None] / h, min=1e-9)
+        v = 120.0 * (torch.log2(sub) - log2_min)
+        f32 = torch.round(v).long()
+        near = (v - torch.floor(v) - 0.5).abs() < SALIENCE_RECHECK
+        n_live += int(live.sum())
+        n_apart += int((f32 != pk.subharmonic_bins(fr, log2_min))[live].sum())
+        n_recheck += int((near & live).sum())
+    return n_live, n_apart, n_recheck
 
 
 def phase10_cpu_checks(torch, Audio, pv_from_numpy, pk, information, dev,
@@ -3021,7 +3057,7 @@ def phase10_cpu_checks(torch, Audio, pv_from_numpy, pk, information, dev,
     # the salience, and the contours and prism built on it
     got, want = pv.get_salience(0), cpu.get_salience(0)
     i_f, i_m = information.salience_peaks(pv, 0)
-    n_live, n_apart = bins_apart(torch, pk, i_f, i_m, math.log2(55.0))
+    n_live, n_apart, _ = bins_apart(torch, pk, i_f, i_m, math.log2(55.0))
     err = float(np.abs(got.buffer - want.buffer).max())
     report["get_salience"] = {
         "err_abs": err, "contributions": n_live,
@@ -3283,7 +3319,7 @@ def phase10_kernel_checks(torch, scan_kernels, pk, kept):
     nf = min(SALIENCE_PLAIN_FRAMES, i_f.shape[0])
     want = pk.salience_histogram_ref(i_f[:nf].cpu(), i_m[:nf].cpu(), width,
                                      log2_min)
-    n_live, n_apart = bins_apart(torch, pk, i_f, i_m, log2_min)
+    n_live, n_apart, n_recheck = bins_apart(torch, pk, i_f, i_m, log2_min)
     err_plain = float((out[:nf].cpu() - want).abs().max())
     check(torch.equal(out[:nf].cpu(), want),
           f"salience_histogram vs its plain version over {nf} frames: "
@@ -3294,6 +3330,9 @@ def phase10_kernel_checks(torch, scan_kernels, pk, kept):
           f"salience_histogram vs its order on the card: {err_order}")
     check_same_bits(torch, lambda: pk.salience_histogram_cuda(
         i_f, i_m, width, log2_min), "salience_histogram")
+    digest = digest16(out)
+    print(f"phase 10: the salience kernel's whole 600 s call, sha256 "
+          f"{digest} (the parent kernel's, by --time-calls)", flush=True)
     ms = cuda_ms(torch, lambda: pk.salience_histogram_cuda(
         i_f, i_m, width, log2_min), 3)
     plain_ms = cuda_ms(torch, lambda: pk.salience_histogram_ref(
@@ -3301,17 +3340,24 @@ def phase10_kernel_checks(torch, scan_kernels, pk, kept):
     lib_ms, lib_same, n_contrib = salience_library_ms(torch, pk, i_f, i_m,
                                                       width, log2_min)
     nbytes = 4 * (i_f.numel() + i_m.numel() + out.numel())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (n_live * SALIENCE_CONTRIB_OPS / INT32_OPS_PER_S
+             + n_recheck * SALIENCE_RECHECK_OPS / FLOAT64_OPS_PER_S) * 1e3
     report["salience_histogram"] = {
         "shape": (tuple(i_f.shape), tuple(out.shape)),
         "plain_abs_err": err_plain, "plain_frames": nf,
         "plain_same_bits": bool(torch.equal(out[:nf].cpu(), want)),
         "contributions": n_live, "bins_apart_by_float32_log2": n_apart,
+        "rechecked_in_float64": n_recheck,
         "order_abs_err": err_order,
         "order_same_bits": bool(torch.equal(out, order)),
+        "sha256_16": digest,
         "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
         "library_same_bits": lib_same, "library_contributions": n_contrib,
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "bytes": nbytes}
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bytes": nbytes, "bound_bytes_ms": t_bytes,
+        "bound_operations_ms": t_ops}
     print(json.dumps({"phase": 10, "kernel_checks": report}), flush=True)
     return report, max(err_plain, err_order), scan_err
 
@@ -3335,6 +3381,9 @@ TOL_SYNTH_CPU = 1e-4
 # rounds of an add, a rotate and a xor; 5 key injections with the round
 # constant folded in; the counter, the float's bits and its 4 float ops)
 INT32_OPS_PER_S = 132 * 128 * 1.98e9
+# float64 work: half the float32 lanes (64 an SM), one instruction a lane
+# a cycle
+FLOAT64_OPS_PER_S = 132 * 64 * 1.98e9
 THREEFRY_OPS = 74
 SYNTH_KERNELS = ("threefry_uniform", "cycle_scan", "grain_overlap_add")
 
@@ -4896,15 +4945,13 @@ def stereo_delay_timing(torch, Audio, seq, dev) -> dict:
     the gradient call's own operands (timed and digested the same way) and
     the gradient through the call, forward and backward, on the host's
     clock (wall_s, the second of two calls)."""
-    import hashlib
     import inspect
     x = stereo_signal(EFFECT_SECONDS)
     weight = torch.from_numpy(stereo_signal(EFFECT_SECONDS, seed=7))
     fwd = seq.stereo_delay_swept_cuda
     new = "rounds" in inspect.signature(fwd).parameters
 
-    def digest(t):
-        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+    digest = digest16
     out = {}
     for name, lt, rt in delay_sweeps():
         _, calls = capture_calls([(seq, "stereo_delay_swept_cuda")],
@@ -4944,11 +4991,30 @@ def stereo_delay_timing(torch, Audio, seq, dev) -> dict:
             _, calls = capture_calls([(seq, "stereo_delay_swept_backward_cuda")],
                                      grad)
             args = calls["stereo_delay_swept_backward_cuda"][0]
+            # as the version's autograd calls it: with the forward's
+            # nearest read where the wrapper takes one
+            kw = ({"near": seq._nearest_read(args[2], args[3])}
+                  if "near" in inspect.signature(back).parameters else {})
             rounds = torch.zeros(1, dtype=torch.int32, device=dev)
             back(*args, rounds=rounds)
-            entry["backward"] = {"ms": cuda_ms(torch, lambda: back(*args), 2),
+            entry["backward"] = {"ms": cuda_ms(torch,
+                                               lambda: back(*args, **kw), 2),
                                  "sha256_16": digest(back(*args)),
                                  "rounds": int(rounds)}
+            if hasattr(seq, "STEREO_BACK_WIDE_FROM"):
+                # the regime the call did not take, on the same operands
+                variant = seq.VARIANTS["stereo_delay_swept_backward"]
+                wide = not variant.startswith("wide")
+                other = seq.stereo_delay_variant(
+                    seq.STEREO_BACK_WIDE_FROM if wide else 0, *args[4:6],
+                    backward=True)
+                rounds_other = torch.zeros(1, dtype=torch.int32, device=dev)
+                back(*args, variant=other, rounds=rounds_other)
+                entry["backward"].update(variant=variant, other_regime={
+                    "variant": other, "rounds": int(rounds_other),
+                    "ms": cuda_ms(torch, lambda: back(*args, variant=other),
+                                  2),
+                    "sha256_16": digest(back(*args, variant=other))})
             del args, calls
             walls = []
             for _ in range(2):
@@ -4973,6 +5039,32 @@ def stereo_delay_timing(torch, Audio, seq, dev) -> dict:
     return out
 
 
+def digest16(t) -> str:
+    """The first 16 hex digits of the sha256 of a tensor's bytes."""
+    import hashlib
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def salience_timing(torch, Audio, dev) -> dict:
+    """The salience histogram kernel on phase 10's 600 s call (channel 0 of
+    the PV of PV_FAMILY_SECONDS stereo, its peaks captured from
+    get_salience), by the entry point every version of the port has: ms by
+    CUDA events over three calls after one, and a digest of the output
+    (the same digest from two builds: the same bits)."""
+    from flan_tpu_torch.ops import pv_info_kernels as pk
+    pv = Audio.create_from_array(stereo_signal(PV_FAMILY_SECONDS), SR,
+                                 device=dev).convert_to_PV(2048, 128, 4096)
+    _, calls = capture_calls([(pk, "salience_histogram_cuda")],
+                             lambda: pv.get_salience(0))
+    del pv
+    args = calls["salience_histogram_cuda"][0]
+    out = {"shape": tuple(args[0].shape),
+           "sha256_16": digest16(pk.salience_histogram_cuda(*args)),
+           "ms": cuda_ms(torch, lambda: pk.salience_histogram_cuda(*args), 3)}
+    print(json.dumps({"salience_timing": out}), flush=True)
+    return out
+
+
 def time_calls(package) -> None:
     """The --time-calls mode: the scan kernels on the filter path's planes
     and the SQPV forward and inverse at their bench shape, timed as phases
@@ -4980,8 +5072,9 @@ def time_calls(package) -> None:
     k = 4, 8 and 12 (kxk_regimes), the saturator's forward, backward and
     gradient at 10 s (saturator_timing), the swept comb's forward and
     backward on phase 8's calls (comb_timing), T3 with a digest of its
-    output (probe_timing) and, where the package has it, the swept stereo
-    delay on phase 9's calls (stereo_delay_timing), and nothing else."""
+    output (probe_timing), where the package has it, the swept stereo
+    delay on phase 9's calls (stereo_delay_timing), and the salience
+    histogram on phase 10's (salience_timing), and nothing else."""
     card, torch, dev, _ = start(package)
     from flan_tpu_torch import Audio
     from flan_tpu_torch.ops import scan, scan_kernels, sqpv_kernels
@@ -5017,10 +5110,11 @@ def time_calls(package) -> None:
     delay = (stereo_delay_timing(torch, Audio, sequential_kernels, dev)
              if hasattr(sequential_kernels, "stereo_delay_swept_cuda")
              else None)
+    salience = salience_timing(torch, Audio, dev)
     print(f"card: {card}", flush=True)
     print(json.dumps({"package": package or ".", "kxk_regimes": kxk,
                       "saturator": sat, "comb": comb, "probe": probe,
-                      "stereo_delay": delay,
+                      "stereo_delay": delay, "salience": salience,
                       "call_times": times,
                       "profile_us_per_launch": split,
                       "scans_in_path": report["scans_in_path"],
@@ -5342,9 +5436,11 @@ def main() -> None:
                        "bound": stereo_delay_bound(args)}
     back = {}
     for name, args in back_calls:
+        # as StereoDelaySwept calls it: with the forward's nearest read
+        near = sequential_kernels._nearest_read(args[2], args[3])
         back[name] = {"ms": cuda_ms(torch, lambda: sequential_kernels
-                                    .stereo_delay_swept_backward_cuda(*args),
-                                    2),
+                                    .stereo_delay_swept_backward_cuda(
+                                        *args, near=near), 2),
                       "bound": stereo_delay_bound(args, backward=True)}
     name = delay_calls[0][0]            # the long sweep
     times["stereo_delay_swept"] = {
@@ -5405,10 +5501,18 @@ def main() -> None:
         k: sal[k] for k in ("ms", "plain_ms", "plain_frames",
                             "library_same_bits",
                             "bins_apart_by_float32_log2",
-                            "order_same_bits", "plain_same_bits")}
+                            "rechecked_in_float64", "order_same_bits",
+                            "plain_same_bits", "sha256_16")}
     bounds["salience_histogram"] = (
-        sal["bound_ms"], "bytes", "i_f and i_m read, the salience written, "
-        f"{sal['bytes']} bytes at 3.35 TB/s")
+        sal["bound_ms"], sal["bound_by"],
+        f"{SALIENCE_CONTRIB_OPS} operations a live contribution "
+        f"({sal['contributions']}) at {INT32_OPS_PER_S / 1e12:.1f} T/s, "
+        f"{SALIENCE_RECHECK_OPS} float64 ones a recheck "
+        f"({sal['rechecked_in_float64']}) at "
+        f"{FLOAT64_OPS_PER_S / 1e12:.1f} T/s "
+        f"({sal['bound_operations_ms']:.3f} ms) against i_f and i_m read, "
+        f"the salience written ({sal['bytes']} bytes at 3.35 TB/s, "
+        f"{sal['bound_bytes_ms']:.3f} ms)")
     regime["stretch_spline"] = {
         "ms": checks10["scan_linear_ms"],
         "bound_ms": checks10["scan_linear_bound"][0],

@@ -31,7 +31,7 @@ PROBE_SHAPE = (128, 512)  # rows and columns of the probe (probe_kernels.cu)
 COMB_TILE, COMB_WIDTH = 1024, 32    # the comb kernels' tile and round width
 STEREO_TILE = 1024      # the stereo delay kernels' staged tiles
 STEREO_WIDTH = 32       # their narrow rounds' steps at most: a warp
-STEREO_WIDE_WIDTH = 1024    # the wide forward's, across tiles
+STEREO_WIDE_WIDTH = 1024    # the wide kernels', across tiles
 CYCLE_TILE = 4096       # elements a tile of the cycle scan (synth_kernels.cu)
 CYCLE_FRAC_BITS = 47    # its fixed point's fraction bits
 GRAIN_BLOCK = 128       # output samples a block of the grain overlap-add
@@ -60,8 +60,8 @@ SIGNATURES = {
                                  _p],
     "flan_stereo_delay_swept": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
                                 _p],
-    "flan_stereo_delay_swept_backward": [_p, _p, _p, _p, _p, _p, _i, _i, _i,
-                                         _i, _p],
+    "flan_stereo_delay_swept_backward": [_p, _p, _p, _p, _p, _p, _p, _i, _i,
+                                         _i, _i, _i, _p],
     "flan_salience_histogram": [_p, _p, _p, _p, _p, _ll, _i, _i, _f, _p],
     "flan_threefry": [_u, _u, _ll, _i, _f, _f, _p, _p],
     "flan_cycle_scan": [_p, _ll, _f, _ll, _p, _p, _p],
@@ -205,8 +205,9 @@ def load_library() -> ctypes.CDLL:
     # the probe's scratch: (steps)
     lib.flan_probe_scratch_floats.argtypes = [_i]
     lib.flan_probe_scratch_floats.restype = ctypes.c_longlong
-    # the stereo delay's shared memory with its rings there: (wide, lb,
-    # rb); what a block of the current device may take
+    # the stereo delay's shared memory with its rings there: (kind: 0 the
+    # narrow kernels, 1 the wide forward, 2 the wide backward; lb, rb);
+    # what a block of the current device may take
     lib.flan_stereo_delay_shared_bytes.argtypes = [_i, _i, _i]
     lib.flan_stereo_delay_shared_bytes.restype = ctypes.c_longlong
     lib.flan_max_shared_bytes.restype = ctypes.c_int

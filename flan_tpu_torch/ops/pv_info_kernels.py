@@ -19,9 +19,13 @@ sal[f, j] = sum_{i = 0..20} row[j + i] g[i], the taps added in order i,
 for j < width - 20.
 
   salience_histogram_cuda  CUDA csrc/pv_info_kernels.cu
-                           flan_salience_histogram: a thread a frame, its
-                           row in shared memory, the block's threads then
-                           spreading the rows; no float atomics.
+                           flan_salience_histogram: a warp a frame, its row
+                           in shared memory; 32 contributions at a time in
+                           (k, h) order, a lane each; every lane writes its
+                           cell's byte tag and reads it back: a lane whose
+                           tag survived alone adds at once, the lanes that
+                           share a cell add one at a time in lane order;
+                           then the warp spreads the row; no float atomics.
   salience_histogram_ref   plain PyTorch: the subharmonic bins built as
                            [F, K, NH] planes, index_add_ into the flat rows
                            (sequential in flat order on the CPU, as JAX's

@@ -681,6 +681,11 @@ STEREO_WIDE_WIDTH = build.STEREO_WIDE_WIDTH  # wide rounds: at most a tile
 # 96, 9.58 at 128 and 8.01 at 160 (spv_variants --source stereo_delay,
 # H100 80GB HBM3)
 STEREO_WIDE_FROM = 128
+# the backward takes the wide regime from this nearest read on: on reads a
+# constant d frames back the narrow backward took 22.10 ms on 2^22 frames
+# at every d, the wide one 25.51 at d = 128, 20.91 at 160 and 17.51 at 192
+# (the same tool, its backward cases; H100 80GB HBM3)
+STEREO_BACK_WIDE_FROM = 160
 # the variant each stereo delay wrapper took on its last launch
 # ("narrow_shared", "narrow_device", "wide_shared" or "wide_device")
 VARIANTS = {"stereo_delay_swept": None, "stereo_delay_swept_backward": None}
@@ -782,6 +787,26 @@ def stereo_delay_wide_starts(el, er) -> np.ndarray:
     return np.array(starts + [len(lim)], np.int32)
 
 
+def stereo_delay_wide_back_starts(el, er) -> np.ndarray:
+    """The rounds the wide backward kernel runs, planned from the end as
+    its planner warp plans them: the round that ends at e (its frames s ..
+    e - 1) starts at max(lo, 1 + max(lim[t] for lo < t < e)), lo = max(e -
+    STEREO_WIDE_WIDTH, 0), the least s at or above lo with lim[t] < s on
+    every frame of (s, e) (a frame at or below lo has lim < lo). Rounds
+    that are valid stay valid cut shorter, so taking each as long as it may
+    be from the end gives the fewest rounds, as many as
+    stereo_delay_wide_starts' from the start. Returns every round's first
+    frame in ascending order, then n, int32."""
+    lim = _round_limits(el, er)
+    starts, e = [], len(lim)
+    while e > 0:
+        lo = max(e - STEREO_WIDE_WIDTH, 0)
+        s = max(lo, int(lim[lo + 1:e].max()) + 1) if e - lo > 1 else lo
+        starts.append(s)
+        e = s
+    return np.array(starts[::-1] + [len(lim)], np.int32)
+
+
 def _as_index(v, device) -> torch.Tensor:
     return (v if isinstance(v, torch.Tensor) else torch.from_numpy(
         np.asarray(v))).to(device=device, dtype=torch.int64)
@@ -850,15 +875,19 @@ def _shifted_gout(gout: torch.Tensor, lb: int, rb: int) -> torch.Tensor:
 
 
 def stereo_delay_backward_ref(gout, g, el, er, lb: int, rb: int,
-                              tile: int = 4096):
+                              tile: int = 4096, starts=None):
     """The adjoint's plain version (see above): gout [2, n] and g [n]
     float32, el and er as stereo_delay_ref takes them; returns gw [2, n],
     the signal's gradient. The rounds of stereo_delay_round_starts(..,
-    tile) from the last, each at once: gw_R, the sends to L (each step's
+    tile), or of `starts` (every round's first frame in ascending order,
+    then n: stereo_delay_wide_back_starts' or stereo_delay_narrow_starts'
+    plan), from the last, each at once: gw_R, the sends to L (each step's
     own last), gw_L, the sends to R, the sends of a round to one slot added
-    the later step first (index_add_ in that order)."""
+    the later step first (index_add_ in that order). Every plan of valid
+    rounds gives the same bits."""
     n = gout.shape[1]
-    starts = stereo_delay_round_starts(el, er, tile).tolist()
+    starts = (stereo_delay_round_starts(el, er, tile) if starts is None
+              else np.asarray(starts)).tolist()
     dev = gout.device
     el_t, er_t = _as_index(el, dev), _as_index(er, dev)
     go = _shifted_gout(gout, lb, rb)
@@ -1178,36 +1207,45 @@ def _nearest_read(el, er) -> int:
     return int(torch.where(el > 0, torch.minimum(el, er), er).min())
 
 
+def _delay_kind(wide: bool, backward: bool) -> int:
+    """The kernel flan_stereo_delay_shared_bytes sizes: 0 the narrow ones,
+    1 the wide forward, 2 the wide backward."""
+    return (2 if backward else 1) if wide else 0
+
+
 def stereo_delay_variant(near: int, lb: int, rb: int,
                          backward: bool = False) -> str:
     """The kernel variant a call takes, from its nearest read (near) and
     rings: "wide" when every step's nearer read is at least
-    STEREO_WIDE_FROM frames back and it is the forward, else "narrow";
-    "_shared" when its rings fit in the card's shared memory, else
-    "_device"."""
-    wide = not backward and near >= STEREO_WIDE_FROM
+    STEREO_WIDE_FROM frames back (the backward's: STEREO_BACK_WIDE_FROM),
+    else "narrow"; "_shared" when its rings fit in the card's shared
+    memory, else "_device"."""
+    wide = near >= (STEREO_BACK_WIDE_FROM if backward else STEREO_WIDE_FROM)
     lib = load_library()
-    fits = (lib.flan_stereo_delay_shared_bytes(int(wide), lb, rb)
+    fits = (lib.flan_stereo_delay_shared_bytes(_delay_kind(wide, backward),
+                                               lb, rb)
             <= lib.flan_max_shared_bytes())
     return ("wide" if wide else "narrow") + ("_shared" if fits
                                              else "_device")
 
 
 def _delay_launch(fn, name, inp, g, el, er, lb, rb, variant, out, rounds,
-                  backward):
+                  stage=()):
+    """One stereo delay kernel's launch; stage: the backward's go scratch
+    ((None,) for the narrow kernel), () for the forward, which takes
+    none."""
     lib = load_library()
-    wide, shared = variant.split("_")
     if variant not in ("narrow_shared", "narrow_device", "wide_shared",
-                       "wide_device") or (backward and wide == "wide"):
+                       "wide_device"):
         raise ValueError(f"{name}: no variant {variant!r}")
+    wide, shared = variant.split("_")
     if rounds is not None:
         check_cuda(rounds, f"{name} rounds", 1, torch.int32)
-    head = (inp.data_ptr(), g.data_ptr(), el.data_ptr(), er.data_ptr(),
-            out.data_ptr(), _ptr(rounds), inp.shape[1], lb, rb)
-    tail = (int(shared == "shared"),
-            torch.cuda.current_stream().cuda_stream)
-    kind = () if backward else (int(wide == "wide"),)
-    err = getattr(lib, fn)(*head, *kind, *tail)
+    err = getattr(lib, fn)(
+        inp.data_ptr(), g.data_ptr(), el.data_ptr(), er.data_ptr(),
+        out.data_ptr(), *(_ptr(t) for t in stage), _ptr(rounds),
+        inp.shape[1], lb, rb, int(wide == "wide"), int(shared == "shared"),
+        torch.cuda.current_stream().cuda_stream)
     raise_on(err, name)
     LAUNCHES[name] += 1
     VARIANTS[name] = variant
@@ -1215,40 +1253,48 @@ def _delay_launch(fn, name, inp, g, el, er, lb, rb, variant, out, rounds,
 
 def stereo_delay_swept_cuda(x, g, el, er, lb: int, rb: int,
                             keep_w: bool = False, variant: str = None,
-                            rounds: torch.Tensor = None):
+                            rounds: torch.Tensor = None, near: int = None):
     """The swept stereo delay kernel: x [2, n] and g [n] float32, el and er
     [n] int32 (stereo_delay_reads), all on one CUDA device; no autograd.
-    The variant is stereo_delay_variant's unless one is named; rounds, a
-    [1] int32 tensor on the card, receives the rounds the kernel ran.
-    Returns the outputs [2, n], with keep_w also w [2, n]."""
+    The variant is stereo_delay_variant's on the call's nearest read (near,
+    else worked out on the card: a reduction and a sync) unless one is
+    named; rounds, a [1] int32 tensor on the card, receives the rounds the
+    kernel ran. Returns the outputs [2, n], with keep_w also w [2, n]."""
     _delay_checked(x, g, el, er, "stereo_delay_swept")
     with torch.cuda.device(x.device):
-        variant = variant or stereo_delay_variant(_nearest_read(el, er), lb,
-                                                  rb)
+        if variant is None:
+            near = _nearest_read(el, er) if near is None else near
+            variant = stereo_delay_variant(near, lb, rb)
         w = torch.empty_like(x)
         _delay_launch("flan_stereo_delay_swept", "stereo_delay_swept", x, g,
-                      el, er, lb, rb, variant, w, rounds, False)
+                      el, er, lb, rb, variant, w, rounds)
     out = stereo_delay_outputs(w, lb, rb)
     return (out, w) if keep_w else out
 
 
 def stereo_delay_swept_backward_cuda(gout, g, el, er, lb: int, rb: int,
                                      variant: str = None,
-                                     rounds: torch.Tensor = None):
+                                     rounds: torch.Tensor = None,
+                                     near: int = None):
     """The swept stereo delay's backward kernel (stereo_delay_backward_ref's
-    work) on the narrow rounds from the end: gout [2, n], the outputs'
+    work) on its regime's rounds from the end: gout [2, n], the outputs'
     gradient, g, el and er as the forward takes them; returns gw [2, n],
-    the signal's gradient. variant and rounds as the forward's (the
-    "narrow" ones)."""
+    the signal's gradient. The variant is stereo_delay_variant's for the
+    backward on the nearest read (near, the forward's; else worked out on
+    the card) unless one is named; rounds as the forward's."""
     _delay_checked(gout, g, el, er, "stereo_delay_swept_backward")
     with torch.cuda.device(gout.device):
-        variant = variant or stereo_delay_variant(0, lb, rb, True)
-        # the device-memory variant sums in gw itself
+        if variant is None:
+            near = _nearest_read(el, er) if near is None else near
+            variant = stereo_delay_variant(near, lb, rb, backward=True)
+        # the wide kernel's scratch: gout shifted by the rings, staged there
+        go = torch.empty_like(gout) if variant.startswith("wide") else None
+        # the device-memory variants sum in gw itself
         gw = (torch.zeros_like(gout) if variant.endswith("_device")
               else torch.empty_like(gout))
         _delay_launch("flan_stereo_delay_swept_backward",
                       "stereo_delay_swept_backward", gout, g, el, er, lb, rb,
-                      variant, gw, rounds, True)
+                      variant, gw, rounds, (go,))
     return gw
 
 
@@ -1319,23 +1365,26 @@ class StereoDelaySwept(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, g, el, er, lb, rb):
+        near = None
         if _on_cpu(x):
             out, w = stereo_delay_ref(x, g, el, er, lb, rb, keep_w=True)
         else:
+            near = _nearest_read(el, er)     # both directions' regime
             out, w = stereo_delay_swept_cuda(x, g, el, er, lb, rb,
-                                             keep_w=True)
+                                             keep_w=True, near=near)
         ctx.save_for_backward(g, el, er, w)
-        ctx.rings = (lb, rb)
+        ctx.args = (lb, rb, near)
         return out
 
     @staticmethod
     def backward(ctx, gout):
         g, el, er, w = ctx.saved_tensors
-        lb, rb = ctx.rings
+        lb, rb, near = ctx.args
         gout = gout.contiguous()
         gw = (stereo_delay_backward_ref(gout, g, el, er, lb, rb)
               if _on_cpu(gout) else
-              stereo_delay_swept_backward_cuda(gout, g, el, er, lb, rb))
+              stereo_delay_swept_backward_cuda(gout, g, el, er, lb, rb,
+                                               near=near))
         gg = (stereo_delay_decay_grad(gw, w, el, er)
               if ctx.needs_input_grad[1] else None)
         return gw, gg, None, None, None, None

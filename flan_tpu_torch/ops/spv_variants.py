@@ -3,15 +3,17 @@ out.
 
     python -m flan_tpu_torch.ops.spv_variants [--source spv scan kxk sqpv
                                                         saturator comb
-                                                        stereo_delay]
+                                                        stereo_delay
+                                                        salience]
                                               [--first-version COMMIT CSRC_DIR]
                                               [--variants NAME ...]
                                               [--ks K ...]
 
-Needs one CUDA card and nvcc. For each source named (all seven by default:
+Needs one CUDA card and nvcc. For each source named (all eight by default:
 csrc/spv_kernels.cu, scan_kernels.cu, the k x k kernel in scan_kernels.cu,
 sqpv_kernels.cu, the saturator multinotch, the swept comb and the swept
-stereo delay in sequential_kernels.cu) it
+stereo delay in sequential_kernels.cu, the salience histogram in
+pv_info_kernels.cu) it
 copies the source
 and common.cuh, applies one textual substitution set per variant (stores
 removed, table loads or gathers replaced by constants, cheap roundings put
@@ -33,10 +35,13 @@ and each forward's largest difference from the plain loop over the first
 SAT_ERR_FRAMES frames, over the loop's peak; the comb's forward and
 backward on phase 8's calls at 600 s stereo (bench_comb: the rounds, the
 cycles a round and a digest of the outputs); the stereo delay's forward
-(narrow and wide) and backward on rounds of 32 steps, on reads a
-constant 48 to 240 frames back (the regimes' crossover) and on phase 9's
-long sweep at 600 s (bench_stereo_delay: the rounds, the cycles a round,
-the chain alone and one block's copy rate among the variants). A variant
+and backward (each narrow and wide) on rounds of 32 steps, on reads a
+constant 48 to 240 frames back (the regimes' crossovers) and on phase 9's
+long and 5-40 ms sweeps at 600 s (bench_stereo_delay: the rounds, the
+cycles a round, the chain alone, one block's copy rate and the wide
+backward's parts among the variants); the salience histogram on phase
+10's 600 s call (bench_salience: the float64 log2, the warp match, the
+spread). A variant
 computes something
 else than the kernel does: only its times mean anything, apart from that
 error where a variant only rounds in another order.
@@ -424,8 +429,8 @@ def source_file(source: str) -> str:
     """The csrc file a source's variants edit (the k x k kernel's are in
     the scans' file, the saturator's in the sequential kernels')."""
     return {"kxk": "scan", "saturator": "sequential",
-            "comb": "sequential", "stereo_delay": "sequential"}.get(
-        source, source) + "_kernels.cu"
+            "comb": "sequential", "stereo_delay": "sequential",
+            "salience": "pv_info"}.get(source, source) + "_kernels.cu"
 
 
 def build_variants(csrc: Path, source: str, variants: dict,
@@ -1121,20 +1126,35 @@ STEREO_VARIANTS = {
     # no copies either: the epochs' barriers and the rounds alone
     "no_copies": _STEREO_COPY_ONLY + [
         ("cu", "      process(j + 4);\n", ""),
-        ("cu", "      if (j < tiles) {\n        const int f0 = j * T, tl = "
-         "min(n - f0, T), o = (j % S) * T;\n",
-         "      if (j < 0) {\n        const int f0 = j * T, tl = "
-         "min(n - f0, T), o = (j % S) * T;\n")],
+        ("cu", "      if (j < tiles) {\n        const int f0 = order(j) * T, "
+         "tl = min(n - f0, T), o = (j % S) * T;\n",
+         "      if (j < 0) {\n        const int f0 = order(j) * T, "
+         "tl = min(n - f0, T), o = (j % S) * T;\n")],
+    # the wide backward without its second step (a round's sends summed
+    # into their slots): the first step, the planner and the copies
+    "back_no_sends": [
+        ("cu", "      sends(std::true_type{}, s, e, marks, L);\n"
+         "      sends(std::false_type{}, s, e, marks, R);\n", "")],
+    # the fast way's runs longer than one not summed (other bits)
+    "back_no_runs": [("cu", "          const bool two = head && t > s && "
+                      "TG[t - 1 - s] == tg;\n",
+                      "          const bool two = false;\n")],
+    # no consumer work: the planner, the copies and the barriers alone
+    "back_rounds_empty": [("cu", "        back_round(s, e, marks);\n", "")],
+    # the marked rounds' sides not summed (other bits)
+    "back_no_ordered": [("cu", "      } else if (warp == (kLeft ? 0 : 1)) {\n",
+                         "      } else if (n < 0) {\n")],
 }
 
 
 def stereo_bench_cases(dev) -> dict:
     """case -> (x, g, el, er, lb, rb): STEREO_FRAMES frames of reads
     STEREO_WIDTH back (rounds of STEREO_WIDTH steps, shared rings) and of
-    reads each STEREO_CROSSOVER distance back, and phase 9's first sweep
-    at STEREO_SECONDS stereo (0.05-0.55 s against 0.05-0.95 s: rings in
-    device memory, its reads 2,400 to 45,600 frames back), the distances
-    as Audio.stereo_delay works them out."""
+    reads each STEREO_CROSSOVER distance back, and phase 9's first two
+    sweeps at STEREO_SECONDS stereo (0.05-0.55 s against 0.05-0.95 s:
+    rings in device memory, its reads 2,400 to 45,600 frames back; 5-40
+    ms against 5-40 ms: the rings in shared memory, 240 to 1,920 back),
+    the distances as Audio.stereo_delay works them out."""
     from flan_tpu_torch.ops import sequential_kernels as seq
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
@@ -1155,29 +1175,45 @@ def stereo_bench_cases(dev) -> dict:
     out["long_sweep_600s"] = (torch.randn((2, n), device=dev, generator=gen),
                               torch.full((n,), 0.5, device=dev), el, er, lb,
                               rb)
+    lt = (0.0225 + 0.0175 * torch.sin(2 * np.pi * 0.05 * t)).to(dev)
+    rt = (0.0225 + 0.0175 * torch.cos(2 * np.pi * 0.07 * t)).to(dev)
+    lb, rb = int(float(lt.max()) * SR), int(float(rt.max()) * SR)
+    el, er = seq.stereo_delay_reads(seq.stereo_delay_frames(lt, SR, lb, n, dev),
+                                    seq.stereo_delay_frames(rt, SR, rb, n, dev),
+                                    lb, rb)
+    out["short_sweep_600s"] = (torch.randn((2, n), device=dev, generator=gen),
+                               torch.full((n,), 0.5, device=dev), el, er, lb,
+                               rb)
     return out
 
 
 def stereo_bench_kernels(variant: str, case: str) -> tuple:
     """The kernels a variant runs on a case: the chain alone the narrow
-    forward and the backward on reads STEREO_WIDTH back; the crossover's
-    cases both forwards, as shipped; the rest the narrow and the wide
-    forward and the backward."""
+    forward and the narrow backward on reads STEREO_WIDTH back; the
+    crossover's cases both forwards and both backwards, as shipped; the
+    wide backward's variants (back_*) the wide backward on the sweeps; the
+    rest the narrow and the wide forward and both backwards."""
     if variant == "chain_only":
         return (("narrow", "backward") if case == f"reads_{STEREO_WIDTH}_back"
                 else ())
+    if variant.startswith("back_"):
+        return ("wide_backward",) if "sweep" in case else ()
     if case in {f"reads_{d}_back" for d in STEREO_CROSSOVER}:
-        return ("narrow", "wide") if variant == "as_shipped" else ()
-    return ("narrow", "wide", "backward")
+        return (("narrow", "wide", "backward", "wide_backward")
+                if variant == "as_shipped" else ())
+    return ("narrow", "wide", "backward", "wide_backward")
 
 
 def bench_stereo_delay(libs: dict, first) -> None:
     """One call per variant, kernel and case (stereo_bench_cases,
-    stereo_bench_kernels), by CUDA events: the forward in each variant its
-    rings allow (narrow and wide, shared or device rings), the backward
-    (narrow); with the rounds the kernel ran, the cycles a round at the
-    H100's 1.98 GHz boost clock (the card's own clock during the calls
-    beside it) and a digest of the output."""
+    stereo_bench_kernels), by CUDA events: the forward and the backward in
+    each regime (narrow and wide) and in the variant its rings allow
+    (shared or device rings; both backwards take x as gout, so that their
+    digests match);
+    with the rounds the kernel ran, the cycles a round at the H100's 1.98
+    GHz boost clock (the card's own clock during the calls beside it) and
+    a digest of the output."""
+    from flan_tpu_torch.ops import sequential_kernels as seq
     dev = torch.device("cuda", 0)
     stream = torch.cuda.current_stream().cuda_stream
     cases = stereo_bench_cases(dev)
@@ -1192,17 +1228,20 @@ def bench_stereo_delay(libs: dict, first) -> None:
             out = torch.empty_like(x)
             rounds = torch.zeros(1, dtype=torch.int32, device=dev)
             for kernel in stereo_bench_kernels(name, case):
-                wide = kernel == "wide"
+                wide = kernel.startswith("wide")
+                back = kernel.endswith("backward")
                 shared = lib.flan_stereo_delay_shared_bytes(
-                    int(wide), lb, rb) <= limit
+                    seq._delay_kind(wide, back), lb, rb) <= limit
+                go = torch.empty_like(x) if wide and back else None
 
                 def run():
-                    if kernel == "backward":
+                    if back:
                         out.zero_()         # the device variant's sums
                         err = lib.flan_stereo_delay_swept_backward(
                             x.data_ptr(), g.data_ptr(), el.data_ptr(),
-                            er.data_ptr(), out.data_ptr(), rounds.data_ptr(),
-                            n, lb, rb, int(shared), stream)
+                            er.data_ptr(), out.data_ptr(), seq._ptr(go),
+                            rounds.data_ptr(), n, lb, rb, int(wide),
+                            int(shared), stream)
                     else:
                         err = lib.flan_stereo_delay_swept(
                             x.data_ptr(), g.data_ptr(), el.data_ptr(),
@@ -1222,6 +1261,91 @@ def bench_stereo_delay(libs: dict, first) -> None:
                           **times}), flush=True)
 
 
+# ---- the salience histogram (pv_info_kernels.cu): phase 10's 600 s call
+SALIENCE_SECONDS = 600.0
+SALIENCE_WIDTH = 620        # get_salience's 600 bins and the spread's 20
+_SALIENCE_BINS = """\
+        float lg = log2f(sub);
+        float v = __fmul_rn(120.f, __fsub_rn(lg, log2_min));
+        if (fabsf(v - floorf(v) - 0.5f) < kRecheck) {
+          lg = (float)log2((double)sub);
+          v = __fmul_rn(120.f, __fsub_rn(lg, log2_min));
+        }
+"""
+SALIENCE_VARIANTS = {
+    "as_shipped": [],
+    # the log2 in float64 for every contribution (the first design's; the
+    # same digest)
+    "float64_log2": [("cu", _SALIENCE_BINS, """\
+        const float lg = (float)log2((double)sub);
+        const float v = __fmul_rn(120.f, __fsub_rn(lg, log2_min));
+""")],
+    # the log2 in float32 alone (other bins: times only)
+    "float32_log2": [("cu", _SALIENCE_BINS, """\
+        const float lg = log2f(sub);
+        const float v = __fmul_rn(120.f, __fsub_rn(lg, log2_min));
+""")],
+    # the float64 path where v lies within 2^-7 of a half-integer (the
+    # same digest; the share of rechecked warps against kRecheck's)
+    "recheck_wider": [("cu", "constexpr float kRecheck = 0x1p-10f;",
+                       "constexpr float kRecheck = 0x1p-7f;")],
+    # no contended lanes: each lane adds its own contribution at once
+    # (races where two meet: times only)
+    "no_contention": [("cu", "    const unsigned contended = __ballot_sync("
+                       "kFull, met);\n",
+                       "    const unsigned contended = 0u * met;\n")],
+
+    # no spread: the rows only
+    "no_spread": [("cu", "  for (int j = lane; j < n_out; j += 32) {\n",
+                   "  for (int j = lane; j < 0; j += 32) {\n")],
+}
+
+
+def salience_bench_inputs(dev):
+    """(i_f, i_m) [F, K]: channel 0's peaks of the PV (window 2048, hop
+    128, dft 4096) of SALIENCE_SECONDS of chip_smoke.py's stereo signal at
+    48 kHz (0.4 sines at 220 and 330 Hz plus 0.1 white noise, seed 0), as
+    get_salience takes them: phase 10's call."""
+    from flan_tpu_torch import Audio
+    from flan_tpu_torch.pv import information
+    n = int(SALIENCE_SECONDS * SR)
+    rng = np.random.default_rng(0)
+    t = np.arange(n, dtype=np.float32) / np.float32(SR)
+    x = np.stack([
+        0.4 * np.sin(2 * np.pi * 220.0 * t) + 0.1 * rng.standard_normal(n),
+        0.4 * np.sin(2 * np.pi * 330.0 * t) + 0.1 * rng.standard_normal(n),
+    ]).astype(np.float32)
+    pv = Audio.create_from_array(x, SR, device=dev).convert_to_PV(
+        2048, 128, 4096)
+    return information.salience_peaks(pv, 0)
+
+
+def bench_salience(libs: dict, first) -> None:
+    """One call per variant on phase 10's 600 s peaks, by CUDA events
+    (three after one), with a digest of the output."""
+    from flan_tpu_torch.ops import pv_info_kernels as pk
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream().cuda_stream
+    i_f, i_m = salience_bench_inputs(dev)
+    alpha = torch.from_numpy(pk.alpha_powers()).to(dev)
+    g = torch.from_numpy(pk.spread_taps()).to(dev)
+    frames, k_cnt = i_f.shape
+    out = torch.empty((frames, SALIENCE_WIDTH - 2 * pk.SPREAD), device=dev)
+    log2_min = float(np.float32(np.log2(55.0)))
+    for name, lib in libs.items():
+        def run():
+            build.raise_on(lib.flan_salience_histogram(
+                i_f.data_ptr(), i_m.data_ptr(), alpha.data_ptr(),
+                g.data_ptr(), out.data_ptr(), frames, k_cnt, SALIENCE_WIDTH,
+                log2_min, stream), name)
+        us = event_us(run, 3)
+        print(json.dumps({"source": "salience", "variant": name,
+                          "frames": frames, "peaks": k_cnt, "us": us,
+                          "digest": _digest(out),
+                          "clocks_sm_mhz_during": _clock_during(run)}),
+              flush=True)
+
+
 SOURCES = {
     "spv": (SPV_VARIANTS, bench_spv),
     "scan": (SCAN_VARIANTS, bench_scan),
@@ -1230,6 +1354,7 @@ SOURCES = {
     "saturator": (SATURATOR_VARIANTS, bench_saturator),
     "comb": (COMB_VARIANTS, bench_comb),
     "stereo_delay": (STEREO_VARIANTS, bench_stereo_delay),
+    "salience": (SALIENCE_VARIANTS, bench_salience),
 }
 
 

@@ -17,7 +17,9 @@ multinotch one warp a channel with its states in shared memory and its
 backward rerunning every step beside the adjoint, one launch); and
 csrc/sequential_kernels.cu of commit 0f06bc7 (the swept comb and its
 backward one warp a channel, each round's length a five-shuffle minimum
-of its frames' delays; comb_rounds counts that version's rounds). `git archive
+of its frames' delays; comb_rounds counts that version's rounds); and
+csrc/pv_info_kernels.cu of commit 8c2a6b1 (the salience histogram a
+thread a frame, its adds one chain). `git archive
 COMMIT
 flan_tpu_torch/csrc | tar -x -C build/first` brings a source back. Beside
 the sets stand the entry points, scratch and constants of those sources
@@ -553,6 +555,20 @@ COMB_FIRST_VARIANTS = {
 }
 
 
+# ---- the salience histogram before its redesign (commit 8c2a6b1): a
+# thread a frame, 16 frames a block
+SALIENCE_FIRST_VARIANTS = {
+    "as_shipped": [],
+    # the log2 in float32 (other bins: times only)
+    "float32_log2": [("cu", "const float lg = (float)log2((double)sub);",
+                      "const float lg = log2f(sub);")],
+    # no spread: the rows only
+    "no_spread": [("cu", "  for (int i = threadIdx.x; i < nf * n_out; "
+                   "i += kThreads) {\n",
+                   "  for (int i = threadIdx.x; i < 0; i += kThreads) {\n")],
+}
+
+
 class Version(NamedTuple):
     """The substitution sets of one commit's sources (source -> variant ->
     edits), its entry points where they differ from ops/build.py's, and the
@@ -583,4 +599,5 @@ VERSIONS = {
                        saturator_backward_call=saturator_backward_call),
     "0f06bc7": Version({"comb": COMB_FIRST_VARIANTS}, comb_rounds=(
         lambda d, reverse: _comb_warp_rounds(d, reverse))),
+    "8c2a6b1": Version({"salience": SALIENCE_FIRST_VARIANTS}),
 }

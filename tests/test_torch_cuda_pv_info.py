@@ -49,6 +49,64 @@ def _inputs(frames, k_cnt, width=620, seed=1):
             torch.from_numpy(i_m[:frames, :k_cnt].copy()))
 
 
+def colliding_peaks(k_cnt: int = 48, seed: int = 4):
+    """Peaks [8, k_cnt] whose contributions meet on a bin: frames 0-2 every
+    peak at one frequency (1500, 1200, 1111 Hz: all 20 subharmonics in the
+    band, so each (k, h) and (k + 1, h) hit one cell and every chunk of 32
+    consecutive contributions collides), frame 3 two frequencies an octave
+    apart in turn, frame 4 a harmonic series on 110 Hz with some peaks dead
+    (i_f <= 0, i_m = 0), frame 5 integer ratios of 220 Hz, frame 6 no peak,
+    frame 7 random; magnitudes random in [0.1, 2]."""
+    rng = np.random.default_rng(seed)
+    k = np.arange(k_cnt)
+    i_f = np.empty((8, k_cnt), np.float32)
+    i_f[0], i_f[1], i_f[2] = 1500.0, 1200.0, 1111.0
+    i_f[3] = np.where(k % 2 == 0, 1500.0, 750.0)
+    i_f[4] = 110.0 * (k + 1)
+    i_f[4, 3::7] = 0.0
+    i_f[5] = 220.0 * (k % 5 + 1) / (k % 3 + 1)
+    i_f[6] = 440.0
+    i_f[7] = rng.uniform(60.0, 3000.0, k_cnt)
+    i_m = rng.uniform(0.1, 2.0, (8, k_cnt)).astype(np.float32)
+    i_m[4, 5::9] = 0.0
+    i_m[6] = 0.0
+    return torch.from_numpy(i_f), torch.from_numpy(i_m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_cnt", [1, 20, 33, 48, 320])
+def test_kernel_keeps_the_order_on_colliding_peaks(cuda_device, k_cnt):
+    """On peaks whose contributions meet on one bin in every chunk of 32
+    (colliding_peaks), the kernel against its plain version on the CPU:
+    the same bits (the lanes that hit one cell are added in (k, h) order);
+    and three calls give the same bits."""
+    i_f, i_m = colliding_peaks(k_cnt)
+    want = pk.salience_histogram_ref(i_f, i_m, 620, LOG2_MIN)
+    i_f, i_m = i_f.to(cuda_device), i_m.to(cuda_device)
+    got = pk.salience_histogram(i_f, i_m, 620, LOG2_MIN)
+    assert torch.equal(got.cpu(), want), float((got.cpu() - want).abs().max())
+    for _ in range(2):
+        assert torch.equal(pk.salience_histogram_cuda(i_f, i_m, 620,
+                                                      LOG2_MIN), got)
+
+
+@pytest.mark.cuda
+def test_kernel_bins_match_the_float64_log2s_on_many_peaks(cuda_device):
+    """25.6 M contributions of peaks spread log-uniformly over 20 Hz-20
+    kHz (their bins all over the row and past its edges, many near a
+    half-integer, where the kernel's float32 log2 is rechecked in float64)
+    against the plain version: the same bits."""
+    rng = np.random.default_rng(8)
+    i_f = torch.from_numpy((20.0 * 1000.0 ** rng.random((20_000, 64)))
+                           .astype(np.float32))
+    i_m = torch.from_numpy(rng.uniform(0.1, 2.0, (20_000, 64)).astype(
+        np.float32))
+    want = pk.salience_histogram_ref(i_f, i_m, 620, LOG2_MIN)
+    got = pk.salience_histogram_cuda(i_f.to(cuda_device), i_m.to(cuda_device),
+                                     620, LOG2_MIN)
+    assert torch.equal(got.cpu(), want), float((got.cpu() - want).abs().max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("frames,k_cnt", [(6, 1), (40, 16), (17, 48),
                                           (33, 2049)])

@@ -67,10 +67,10 @@ def _variants(lb: int, rb: int, backward: bool = False):
     """The variants a call with these rings can take: the shared ones
     where the rings fit."""
     lib = seq.load_library()
-    return [v for v in VARIANTS if not (backward and v.startswith("wide"))
-            and (v.endswith("_device") or lib.flan_stereo_delay_shared_bytes(
-                int(v.startswith("wide")), lb, rb)
-                <= lib.flan_max_shared_bytes())]
+    return [v for v in VARIANTS
+            if v.endswith("_device") or lib.flan_stereo_delay_shared_bytes(
+                seq._delay_kind(v.startswith("wide"), backward), lb, rb)
+            <= lib.flan_max_shared_bytes()]
 
 
 # rings in shared memory and past it (the reads from device memory);
@@ -136,9 +136,9 @@ def test_stereo_delay_backward_kernel_matches_plain(cuda_device, n, lb, rb,
     inputs, TOL_DELAY_BACK of the peak, every frame by one step in float64
     from its own later values, its last 4000 frames against the adjoint
     step by step on the host (run on the call's last frames: nothing
-    before them reaches them); the rounds it ran
-    stereo_delay_narrow_starts' from the end; the same bits on three
-    calls."""
+    before them reaches them); the rounds it ran its regime's plan
+    (stereo_delay_narrow_starts' from the end, stereo_delay_wide_back_starts);
+    the same bits on three calls."""
     x, g, dl, dr, el, er = _delay_inputs(n, lb, rb, kind)
     gout = torch.from_numpy(np.random.default_rng(11).standard_normal(
         (2, n)).astype(np.float32)).cuda()
@@ -160,12 +160,76 @@ def test_stereo_delay_backward_kernel_matches_plain(cuda_device, n, lb, rb,
             gout, g, el, er, lb, rb, gw).values()) <= TOL_DELAY_BACK, variant
         assert (gw[:, n - m:].cpu() - loop).abs().max() <= \
             TOL_DELAY_BACK * peak.cpu(), variant
-        assert int(rounds) == len(seq.stereo_delay_narrow_starts(
-            el, er, reverse=True))
+        assert int(rounds) == (
+            len(seq.stereo_delay_wide_back_starts(el, er)) - 1
+            if variant.startswith("wide") else
+            len(seq.stereo_delay_narrow_starts(el, er, reverse=True))), \
+            variant
         for _ in range(2):
             again = seq.stereo_delay_swept_backward_cuda(gout, g, el, er, lb,
                                                          rb, variant=variant)
             assert torch.equal(again, gw), variant
+
+
+def _sweep_delays(kind: str, n: int):
+    """(dl, dr, lb, rb) of a sweep whose every nearer read lies at least
+    STEREO_BACK_WIDE_FROM frames back: "rising" delays that grow by one
+    frame a step in teeth (runs of one target), "falling" ones that shrink
+    by one a step, "stepped" jumps between two delays; each at a small
+    scale (rings in shared memory) and a large one (in device memory)."""
+    t = np.arange(n)
+    near = seq.STEREO_BACK_WIDE_FROM
+    scale = 1 if kind.endswith("_small") else 12
+    kind = kind.rsplit("_", 1)[0]
+    span = 300 * scale
+    if kind == "rising":
+        dl, dr = near + t % span, near + 40 + (t + 77) % span
+    elif kind == "falling":
+        dl, dr = near + span - t % span, near + span - (t + 31) % span
+    else:
+        dl = np.where((t // (5000 * scale)) % 2 == 1, near + span, near + 10)
+        dr = np.where((t // (3000 * scale)) % 2 == 1, near + 5, near + span)
+    lb, rb = int(dl.max()) + 1, int(dr.max())
+    return dl.astype(np.int64), dr.astype(np.int64), lb, rb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [f"{k}_{s}" for k in ("rising", "falling",
+                                                       "stepped")
+                                  for s in ("small", "large")])
+def test_wide_backward_is_the_narrow_backwards_bits(cuda_device, kind):
+    """The wide backward against the narrow backward on the same call
+    (torch.equal) and against the adjoint step by step on the host over
+    the call's last 4000 frames, on rising, falling and stepped sweeps of
+    100,003 frames, with the sums in shared memory and in device memory
+    (each variant the rings allow); the dispatch takes the wide regime
+    there."""
+    n = 100_003
+    dl, dr, lb, rb = _sweep_delays(kind, n)
+    rng = np.random.default_rng(13)
+    gout = torch.from_numpy(rng.standard_normal((2, n)).astype(
+        np.float32)).cuda()
+    g = torch.from_numpy(rng.uniform(-0.9, 0.9, n).astype(np.float32)).cuda()
+    el, er = seq.stereo_delay_reads(torch.from_numpy(dl).cuda(),
+                                    torch.from_numpy(dr).cuda(), lb, rb)
+    narrow = [v for v in _variants(lb, rb, True) if v.startswith("narrow")]
+    want = seq.stereo_delay_swept_backward_cuda(gout, g, el, er, lb, rb,
+                                                variant=narrow[0])
+    m = 4000
+    loop = torch.from_numpy(seq.stereo_delay_backward_loop(
+        gout[:, n - m:].cpu().numpy(), g[n - m:].cpu().numpy(), dl[n - m:],
+        dr[n - m:], lb, rb))
+    wide = [v for v in _variants(lb, rb, True) if v.startswith("wide")]
+    assert wide[-1] == "wide_device"
+    if kind.endswith("_small"):
+        assert wide[0] == "wide_shared"
+    for variant in wide:
+        got = seq.stereo_delay_swept_backward_cuda(gout, g, el, er, lb, rb,
+                                                   variant=variant)
+        assert torch.equal(got, want), variant
+        assert torch.equal(got[:, n - m:].cpu(), loop), variant
+    seq.stereo_delay_swept_backward_cuda(gout, g, el, er, lb, rb)
+    assert seq.VARIANTS["stereo_delay_swept_backward"] == wide[0]
 
 
 @pytest.mark.cuda
