@@ -2,20 +2,26 @@
 """Smoke test of flan_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --time-calls [--package DIR]
+    python3 chip_smoke.py --time-calls [--package DIR] [--calls GROUP ...]
 
 Runs from the root of a checkout and needs one CUDA card and the CUDA
 toolkit (nvcc). It imports nothing of JAX. With --time-calls it only builds
-the library, drives the filter path and times the scan kernels and the SQPV
-forward and inverse as phases 5 and 6 do (time_kernels, the profiler per
-launch and inside the path), the k x k kernel on phase 8's swept
-multinotch planes at k = 4, 8 and 12, the saturator's forward, backward
-and gradient at 10 s stereo, the swept comb's forward and backward on
-phase 8's calls at 600 s stereo, the T3 probe (with a digest of its
-output) and the swept stereo delay on phase 9's calls where the package
-has it; with --package DIR it takes
-flan_tpu_torch from DIR, so that another commit's kernels are timed by this
-script's yardstick (`git archive COMMIT flan_tpu_torch | tar -x -C
+the library and times kernels on their paths' own calls, by groups (all
+unless --calls names some): "sqpv" the SQPV forward and inverse as phase 5
+times them; "scans" the filter path driven and its scan kernels timed as
+phase 6 times them (time_kernels, the profiler per launch and inside the
+path); "kxk" the k x k kernel on phase 8's swept multinotch planes at k =
+4, 8 and 12; "saturator" the saturator's forward, backward and gradient
+at 10 s stereo; "comb" the swept comb's forward and backward on phase 8's
+calls at 600 s stereo; "probe" the T3 probe (with a digest of its
+output); "stereo_delay" the swept stereo delay on phase 9's calls where
+the package has it; "salience" the salience histogram on phase 10's call;
+"synth" K2 on phase 11's two waveform calls and K3 on its granulate,
+psola and modded texture calls (each with a digest of its output and the
+device time of every launch of a call) and granulate's wall split into
+its host plan, the plan's copies, K3 and the rest. With --package DIR it
+takes flan_tpu_torch from DIR, so that another commit's kernels are timed
+by this script's yardstick (`git archive COMMIT flan_tpu_torch | tar -x -C
 build/parent`, then --package build/parent). Phases:
 
   0. print the card's name and power limit; fail without a CUDA card;
@@ -3385,6 +3391,11 @@ INT32_OPS_PER_S = 132 * 128 * 1.98e9
 # a cycle
 FLOAT64_OPS_PER_S = 132 * 64 * 1.98e9
 THREEFRY_OPS = 74
+# K3's instructions a fade lane: a correctly rounded division 8 (the
+# reciprocal, its two refinements, the quotient and its check), a
+# correctly rounded square root 7, the lane's conversion, the clamp and
+# the min 3
+K3_FADE_OPS = 18
 SYNTH_KERNELS = ("threefry_uniform", "cycle_scan", "grain_overlap_add")
 
 
@@ -3682,6 +3693,16 @@ def synth_bound_and_library(torch, kname: str, args, call: str) -> dict:
     nbytes = (4 * x.numel() + 4 * meta.numel() + 8 * len(offsets)
               + 4 * len(entries) + 4 * ch * out_n
               + (0 if envp is None else 4 * envp.numel()))
+    # the operations this plan needs: a multiply and an add, rounded
+    # apart, a live lane and channel; K3_FADE_OPS a fade lane, once for
+    # every channel (the envelope does not depend on the channel); a
+    # multiply a live lane where an envelope plane is given
+    m64 = meta.to(torch.int64)
+    live = float(m64[1].sum())
+    fade = float((m64[2] + m64[3]).sum())
+    ops = 2 * ch * live + K3_FADE_OPS * fade + (0 if envp is None else live)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / INT32_OPS_PER_S
     # index_add_ of the grains' 128-sample rows (random values of the same
     # shape) into the output's blocks, by the same block ids
     from flan_tpu_torch.ops.grain_mix import grain_blocks
@@ -3693,9 +3714,14 @@ def synth_bound_and_library(torch, kname: str, args, call: str) -> dict:
     acc = torch.zeros((int(ids.max()) + 1, ch * 128), device=x.device)
     lib_ms = cuda_ms(torch, lambda: acc.index_add_(0, ids, rows), 3)
     del rows, acc
-    return {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "bound_note": f"the source, the plan and the output once, "
-            f"{nbytes / 1e9:.3f} GB",
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "bound_note": f"the larger of the source, the plan and the "
+            f"output once, {nbytes / 1e9:.3f} GB ({t_bytes * 1e3:.4f} ms), "
+            f"and the plan's operations, {ops / 1e9:.3f} G lane-"
+            f"instructions at {INT32_OPS_PER_S / 1e12:.2f} T/s "
+            f"({t_ops * 1e3:.4f} ms: {live:.0f} live lanes x {ch} channels "
+            f"x 2, {fade:.0f} fade lanes x {K3_FADE_OPS})",
             "library_ms": lib_ms,
             "library_note": "index_add_ of the grains' 128-sample rows into "
             "the output's blocks (float atomics: no fixed order)"}
@@ -5065,75 +5091,175 @@ def salience_timing(torch, Audio, dev) -> dict:
     return out
 
 
-def time_calls(package) -> None:
-    """The --time-calls mode: the scan kernels on the filter path's planes
-    and the SQPV forward and inverse at their bench shape, timed as phases
-    5 and 6 time them, the k x k kernel on phase 8's multinotch planes at
-    k = 4, 8 and 12 (kxk_regimes), the saturator's forward, backward and
-    gradient at 10 s (saturator_timing), the swept comb's forward and
-    backward on phase 8's calls (comb_timing), T3 with a digest of its
-    output (probe_timing), where the package has it, the swept stereo
-    delay on phase 9's calls (stereo_delay_timing), and the salience
-    histogram on phase 10's (salience_timing), and nothing else."""
+def granulate_split(torch, call) -> dict:
+    """granulate's wall split: the host plan (the host's seconds from the
+    call to the kernel's wrapper), the plan's host -> device copies and
+    K3 (device time, torch.profiler), and the rest of the wall (one
+    unprofiled call after one untimed)."""
+    from torch.profiler import ProfilerActivity, profile
+    from flan_tpu_torch.ops import grain_mix as gm
+    call()
+    _, wall = timed(torch, call)
+    entered = []
+    wrapper = gm.grain_overlap_add_cuda
+
+    def marked(*args, **kwargs):
+        entered.append(time.perf_counter())
+        return wrapper(*args, **kwargs)
+    gm.grain_overlap_add_cuda = marked
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall_profiled = (time.perf_counter() - t0) * 1e3
+    finally:
+        gm.grain_overlap_add_cuda = wrapper
+    copy_us = k3_us = 0.0
+    for ev in prof.key_averages():
+        if "grain_overlap_add" in ev.key:
+            k3_us += ev.device_time_total
+        elif "HtoD" in ev.key:
+            copy_us += ev.device_time_total
+    plan_ms = (entered[0] - t0) * 1e3
+    return {"wall_ms": wall, "wall_profiled_ms": wall_profiled,
+            "host_plan_ms": plan_ms, "plan_copy_ms": copy_us / 1e3,
+            "k3_ms": k3_us / 1e3,
+            "rest_ms": wall_profiled - plan_ms - (copy_us + k3_us) / 1e3}
+
+
+def synth_timing(torch, Audio, dev) -> dict:
+    """K2 on phase 11's waveform_sweep and waveform_const calls and K3 on
+    its granulate, psola and texture_mod calls (the kernels' arguments
+    captured from the calls themselves), by the entry points every version
+    of the port has: ms by CUDA events over three calls after one, and a
+    digest of the output (the same digest from two builds: the same
+    bits), the device microseconds of every launch of a call (the
+    kernel's, the plan's copies and fills: profile_launches); and
+    granulate's wall split (granulate_split)."""
+    from flan_tpu_torch import PitchMode, SnapMode, Wavetable
+    from flan_tpu_torch.ops import cycle_scan as cs
+    from flan_tpu_torch.ops import grain_mix as gm
+    calls = synth_calls(Audio, Wavetable, SnapMode, PitchMode, dev,
+                        SYNTH_SECONDS, SYNTH_SHORT_SECONDS,
+                        SYNTH_TINY_SECONDS)
+    kernels = {"waveform_sweep": cs.cycle_scan_cuda,
+               "waveform_const": cs.cycle_scan_cuda,
+               "granulate": gm.grain_overlap_add_cuda,
+               "psola": gm.grain_overlap_add_cuda,
+               "texture_mod": gm.grain_overlap_add_cuda}
+    out = {}
+    for name, kernel in kernels.items():
+        _, got = capture_calls([(cs, "cycle_scan_cuda"),
+                                (gm, "grain_overlap_add_cuda")],
+                               calls[name][1])
+        args = (got["cycle_scan_cuda"] or got["grain_overlap_add_cuda"])[-1]
+        out[name] = {"kernel": kernel.__name__,
+                     "sha256_16": digest16(kernel(*args)),
+                     "ms": cuda_ms(torch, lambda: kernel(*args), 3),
+                     "profile_us_per_launch": profile_launches(
+                         torch, {name: lambda: kernel(*args)})[name]}
+        del args, got
+        torch.cuda.empty_cache()
+    out["granulate_split"] = granulate_split(torch, calls["granulate"][1])
+    print(json.dumps({"synth_timing": out}), flush=True)
+    return out
+
+
+TIME_CALL_GROUPS = ("sqpv", "scans", "kxk", "saturator", "comb", "probe",
+                    "stereo_delay", "salience", "synth")
+
+
+def time_calls(package, groups=TIME_CALL_GROUPS) -> None:
+    """The --time-calls mode, for the groups named (all by default): the
+    SQPV forward and inverse at their bench shape and the scan kernels on
+    the filter path's planes, timed as phases 5 and 6 time them ("sqpv",
+    "scans"), the k x k kernel on phase 8's multinotch planes at k = 4, 8
+    and 12 (kxk_regimes), the saturator's forward, backward and gradient
+    at 10 s (saturator_timing), the swept comb's forward and backward on
+    phase 8's calls (comb_timing), T3 with a digest of its output
+    (probe_timing), where the package has it, the swept stereo delay on
+    phase 9's calls (stereo_delay_timing), the salience histogram on phase
+    10's (salience_timing), and K2 and K3 on phase 11's (synth_timing),
+    and nothing else."""
     card, torch, dev, _ = start(package)
     from flan_tpu_torch import Audio
-    from flan_tpu_torch.ops import scan, scan_kernels, sqpv_kernels
-    xq = torch.from_numpy(stereo_signal(SQPV_SECONDS)[:1]).to(dev)
-    args = (SR, SQPV_BPO, SQPV_BAND)
-    planes = sqpv_kernels.sqpv_forward_ref(xq, *args)
-    calls = {"sqpv_forward": (
-        lambda: sqpv_kernels.sqpv_forward_cuda(xq, *args),
-        lambda: sqpv_kernels.sqpv_forward_ref(xq, *args)),
-        "sqpv_inverse": (
-        lambda: sqpv_kernels.sqpv_inverse_cuda(*planes, *args),
-        lambda: sqpv_kernels.sqpv_inverse_ref(*planes, *args))}
-    calls["sqpv_inverse"][1]()      # the plain versions' first use
-    times = time_kernels(torch, calls)
-    split = profile_launches(torch, {n: k for n, (k, _) in calls.items()})
-    del planes, calls
-    _, report, captured, _ = phase6_filters(torch, Audio, scan, scan_kernels,
+    from flan_tpu_torch.ops import scan, scan_kernels, sequential_kernels
+    from flan_tpu_torch.ops import sqpv_kernels
+    result = {"package": package or ".", "groups": list(groups)}
+    times, split = {}, {}
+    if "sqpv" in groups:
+        xq = torch.from_numpy(stereo_signal(SQPV_SECONDS)[:1]).to(dev)
+        args = (SR, SQPV_BPO, SQPV_BAND)
+        planes = sqpv_kernels.sqpv_forward_ref(xq, *args)
+        calls = {"sqpv_forward": (
+            lambda: sqpv_kernels.sqpv_forward_cuda(xq, *args),
+            lambda: sqpv_kernels.sqpv_forward_ref(xq, *args)),
+            "sqpv_inverse": (
+            lambda: sqpv_kernels.sqpv_inverse_cuda(*planes, *args),
+            lambda: sqpv_kernels.sqpv_inverse_ref(*planes, *args))}
+        calls["sqpv_inverse"][1]()      # the plain versions' first use
+        times.update(time_kernels(torch, calls))
+        split.update(profile_launches(torch, {n: k for n, (k, _) in
+                                              calls.items()}))
+        del planes, calls
+    if "scans" in groups:
+        _, report, captured, _ = phase6_filters(torch, Audio, scan,
+                                                scan_kernels, dev)
+        calls = {name: (lambda k=k, a=captured[name]: k(*a),
+                        lambda p=p, a=captured[name]: p(*a))
+                 for name, (k, p) in scan_calls(scan_kernels).items()}
+        for _, plain in calls.values():
+            plain()
+        times.update(time_kernels(torch, calls))
+        split.update(profile_launches(torch, {n: k for n, (k, _) in
+                                              calls.items()}))
+        del captured, calls
+        result.update({"scans_in_path": report["scans_in_path"],
+                       "filter_path_ms_second":
+                           report["wall_s_second"] * 1e3,
+                       "filter_stages_ms": report["stages_ms"]})
+    result.update({"call_times": times, "profile_us_per_launch": split})
+    if "kxk" in groups:
+        result["kxk_regimes"] = kxk_regimes(torch, Audio, scan, scan_kernels,
                                             dev)
-    calls = {name: (lambda k=k, a=captured[name]: k(*a),
-                    lambda p=p, a=captured[name]: p(*a))
-             for name, (k, p) in scan_calls(scan_kernels).items()}
-    for _, plain in calls.values():
-        plain()
-    times.update(time_kernels(torch, calls))
-    split.update(profile_launches(torch, {n: k for n, (k, _) in
-                                          calls.items()}))
-    del captured, calls
-    kxk = kxk_regimes(torch, Audio, scan, scan_kernels, dev)
-    from flan_tpu_torch.ops import sequential_kernels
-    sat = saturator_timing(torch, Audio, sequential_kernels, dev)
-    comb = comb_timing(torch, Audio, sequential_kernels, dev)
-    probe = probe_timing(torch, dev)
-    delay = (stereo_delay_timing(torch, Audio, sequential_kernels, dev)
-             if hasattr(sequential_kernels, "stereo_delay_swept_cuda")
-             else None)
-    salience = salience_timing(torch, Audio, dev)
+    if "saturator" in groups:
+        result["saturator"] = saturator_timing(torch, Audio,
+                                               sequential_kernels, dev)
+    if "comb" in groups:
+        result["comb"] = comb_timing(torch, Audio, sequential_kernels, dev)
+    if "probe" in groups:
+        result["probe"] = probe_timing(torch, dev)
+    if "stereo_delay" in groups and hasattr(sequential_kernels,
+                                            "stereo_delay_swept_cuda"):
+        result["stereo_delay"] = stereo_delay_timing(
+            torch, Audio, sequential_kernels, dev)
+    if "salience" in groups:
+        result["salience"] = salience_timing(torch, Audio, dev)
+    if "synth" in groups:
+        result["synth"] = synth_timing(torch, Audio, dev)
     print(f"card: {card}", flush=True)
-    print(json.dumps({"package": package or ".", "kxk_regimes": kxk,
-                      "saturator": sat, "comb": comb, "probe": probe,
-                      "stereo_delay": delay, "salience": salience,
-                      "call_times": times,
-                      "profile_us_per_launch": split,
-                      "scans_in_path": report["scans_in_path"],
-                      "filter_path_ms_second": report["wall_s_second"] * 1e3,
-                      "filter_stages_ms": report["stages_ms"]}), flush=True)
+    print(json.dumps(result), flush=True)
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(
         description="Smoke test of flan_tpu_torch on one NVIDIA GPU.")
     parser.add_argument("--time-calls", action="store_true",
-                        help="only time the scan and SQPV kernels")
+                        help="only time the kernels (time_calls)")
     parser.add_argument("--package", metavar="DIR", default=None,
                         help="with --time-calls: take flan_tpu_torch from DIR")
+    parser.add_argument("--calls", nargs="+", choices=TIME_CALL_GROUPS,
+                        default=None, metavar="GROUP",
+                        help="with --time-calls: only these groups "
+                        f"({', '.join(TIME_CALL_GROUPS)})")
     opts = parser.parse_args()
-    if opts.package is not None and not opts.time_calls:
-        parser.error("--package goes with --time-calls")
+    if (opts.package is not None or opts.calls) and not opts.time_calls:
+        parser.error("--package and --calls go with --time-calls")
     if opts.time_calls:
-        return time_calls(opts.package)
+        return time_calls(opts.package, opts.calls or TIME_CALL_GROUPS)
     seconds = {}    # wall seconds per phase
     t_phase = time.perf_counter()
 

@@ -6,7 +6,7 @@ jax.lax.associative_scan(lambda a, b: jnp.mod(a + b, 1.0), inc), a float32
 tree whose order no other implementation shares. The port sums the same
 float32 increments exactly instead: in Q0.47 fixed point in int64 (every
 increment >= 2^-24 is a whole number of 2^-47), reduced mod 1 by a mask,
-each phase rounded to float32 once through float64. Integer addition
+each phase rounded to float32 once. Integer addition
 associates, so every device and every call gives the same bits, and the
 phases lie within the float32 tree's own distance from the exact scan.
 
@@ -14,9 +14,11 @@ phases lie within the float32 tree's own distance from the exact scan.
             sign), or one constant increment for every element
   phase_i = float32((sum_{j < i} rint(inc_j 2^47) mod 2^47) 2^-47)
 
-  cycle_scan_cuda  CUDA csrc/synth_kernels.cu flan_cycle_scan: tile
-                   totals, their prefix, then each tile rescanned and
-                   written (three launches, one call).
+  cycle_scan_cuda  CUDA csrc/synth_kernels.cu flan_cycle_scan: one pass
+                   over f, tiles taken by a ticket, each tile's prefix by
+                   a look-back over its predecessors' published sums (a
+                   constant increment needs no scan: i q mod 2^47); one
+                   launch a call.
   cycle_scan_ref   plain PyTorch: the same integers, cumsum within blocks
                    of BLOCK elements (short enough not to overflow),
                    masked, with the carries across blocks added.
@@ -104,16 +106,22 @@ def cycle_scan_cuda(f, inc, in_rate: float, n: int, device=None):
         raise ValueError(f"cycle_scan_cuda: n must be positive, got {n}")
     lib = load_library()
     with torch.cuda.device(device):
-        ntiles = -(-n // lib.flan_cycle_scan_tile())
-        totals = torch.empty(ntiles, dtype=torch.int64, device=device)
-        if totals.data_ptr() % 8:
-            raise RuntimeError("cycle scan's totals are not 8-byte aligned")
+        scratch = None
+        if f is not None:
+            # the ticket word, then a published word a tile: zero, so that
+            # the look-back reads "not yet" until a tile publishes
+            ntiles = -(-n // lib.flan_cycle_scan_tile())
+            scratch = torch.zeros(ntiles + 1, dtype=torch.int64,
+                                  device=device)
+            if scratch.data_ptr() % 8:
+                raise RuntimeError("cycle scan's scratch is not 8-byte "
+                                   "aligned")
         phase = torch.empty(n, dtype=torch.float32, device=device)
         err = lib.flan_cycle_scan(
             None if f is None else f.data_ptr(),
             fixed(inc) if f is None else 0, float(np.float32(in_rate)), n,
-            totals.data_ptr(), phase.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            None if scratch is None else scratch.data_ptr(),
+            phase.data_ptr(), torch.cuda.current_stream().cuda_stream)
     raise_on(err, "cycle_scan")
     LAUNCHES["cycle_scan"] += 1
     return phase

@@ -24,8 +24,11 @@ without its cap on the overlap K: offsets [nblk + 1] into entries (grain
 indices, ascending within each block).
 
   grain_overlap_add_cuda  CUDA csrc/synth_kernels.cu
-                          flan_grain_overlap_add: a block a 128-sample
-                          output block and channel.
+                          flan_grain_overlap_add: a block a run of 8
+                          output blocks and two channels, the run's plan
+                          entries and their grains' rows staged in shared
+                          memory (in pieces, in order, when the run has
+                          more than the list holds).
   grain_overlap_add_ref   plain PyTorch: K passes, pass k adding every
                           block's k-th grain (no index is repeated within
                           a pass), the roots through stft.cpu_exact.

@@ -4,16 +4,17 @@ out.
     python -m flan_tpu_torch.ops.spv_variants [--source spv scan kxk sqpv
                                                         saturator comb
                                                         stereo_delay
-                                                        salience]
+                                                        salience synth]
                                               [--first-version COMMIT CSRC_DIR]
                                               [--variants NAME ...]
                                               [--ks K ...]
 
-Needs one CUDA card and nvcc. For each source named (all eight by default:
+Needs one CUDA card and nvcc. For each source named (all nine by default:
 csrc/spv_kernels.cu, scan_kernels.cu, the k x k kernel in scan_kernels.cu,
 sqpv_kernels.cu, the saturator multinotch, the swept comb and the swept
 stereo delay in sequential_kernels.cu, the salience histogram in
-pv_info_kernels.cu) it
+pv_info_kernels.cu, the cycle scan K2 and the grain overlap-add K3 in
+synth_kernels.cu) it
 copies the source
 and common.cuh, applies one textual substitution set per variant (stores
 removed, table loads or gathers replaced by constants, cheap roundings put
@@ -41,7 +42,10 @@ long and 5-40 ms sweeps at 600 s (bench_stereo_delay: the rounds, the
 cycles a round, the chain alone, one block's copy rate and the wide
 backward's parts among the variants); the salience histogram on phase
 10's 600 s call (bench_salience: the float64 log2, the warp match, the
-spread). A variant
+spread); K2 on phase 11's two 600 s waveform calls and K3 on its
+granulate, psola and modded texture calls (bench_synth: K2's
+conversions, look-back, tile, division, remainder, word ordering and
+memory hints; K3's unrolling, run, channels a block and shared list). A variant
 computes something
 else than the kernel does: only its times mean anything, apart from that
 error where a variant only rounds in another order.
@@ -1308,16 +1312,21 @@ def salience_bench_inputs(dev):
     get_salience takes them: phase 10's call."""
     from flan_tpu_torch import Audio
     from flan_tpu_torch.pv import information
-    n = int(SALIENCE_SECONDS * SR)
+    pv = Audio.create_from_array(stereo_signal(SALIENCE_SECONDS), SR,
+                                 device=dev).convert_to_PV(2048, 128, 4096)
+    return information.salience_peaks(pv, 0)
+
+
+def stereo_signal(seconds: float) -> np.ndarray:
+    """chip_smoke.py's stereo signal at 48 kHz: 0.4 sines at 220 and 330
+    Hz plus 0.1 white noise, seed 0."""
+    n = int(seconds * SR)
     rng = np.random.default_rng(0)
     t = np.arange(n, dtype=np.float32) / np.float32(SR)
-    x = np.stack([
+    return np.stack([
         0.4 * np.sin(2 * np.pi * 220.0 * t) + 0.1 * rng.standard_normal(n),
         0.4 * np.sin(2 * np.pi * 330.0 * t) + 0.1 * rng.standard_normal(n),
     ]).astype(np.float32)
-    pv = Audio.create_from_array(x, SR, device=dev).convert_to_PV(
-        2048, 128, 4096)
-    return information.salience_peaks(pv, 0)
 
 
 def bench_salience(libs: dict, first) -> None:
@@ -1346,6 +1355,431 @@ def bench_salience(libs: dict, first) -> None:
               flush=True)
 
 
+# ---- the synthesis kernels (synth_kernels.cu): K2 on phase 11's two
+# waveform calls, K3 on its granulate, psola and modded texture calls
+SYNTH_SECONDS, SYNTH_SHORT_SECONDS = 600.0, 30.0
+_K2_FIXED = "  return __float2ll_rn(__fmul_rn(r, 0x1p47f));\n"
+_K2_PHASE = "  return __fmul_rn(__ll2float_rn(run), 0x1p-47f);\n"
+_K2_RECOMPUTE_Q = [
+    ("cu", """\
+  long long q[kSub][4], s[kSub], pre[kSub], total;
+#pragma unroll
+  for (int k = 0; k < kSub; ++k) s[k] = four_incs(v[k], in_rate, y, q[k]);
+""", """\
+  long long s[kSub], pre[kSub], total;
+#pragma unroll
+  for (int k = 0; k < kSub; ++k) {
+    long long q[4];
+    s[k] = four_incs(v[k], in_rate, y, q);
+  }
+"""),
+    ("cu", """\
+  for (int k = 0; k < kSub; ++k)
+    store_phases(phase, n, i0 + (long long)k * kSubTile, vec,
+                 (pre[k] + before) & kMask, q[k]);
+""", """\
+  for (int k = 0; k < kSub; ++k) {
+    long long q[4];
+    four_incs(v[k], in_rate, y, q);
+    store_phases(phase, n, i0 + (long long)k * kSubTile, vec,
+                 (pre[k] + before) & kMask, q);
+  }
+""")]
+
+
+# K2's earlier grids: "one_tile", a block a tile on a grid of ntiles
+# blocks; "prefetch", the persistent grid taking its next ticket and
+# loading that tile before the current tile's look-back, and publishing
+# its total only after it
+_K2_PERSISTENT_HEAD = """\
+__global__ void __launch_bounds__(kScanThreads)
+cycle_scan_pass(const float* __restrict__ f, float in_rate, long long n,
+                long long ntiles, unsigned long long* scratch,
+                float* __restrict__ phase) {
+  __shared__ unsigned ticket_sm[2];
+  unsigned* ticket = reinterpret_cast<unsigned*>(scratch);
+  unsigned long long* status = scratch + 1;
+  const bool vec = ((reinterpret_cast<uintptr_t>(f) |
+                     reinterpret_cast<uintptr_t>(phase)) & 15) == 0;
+  const float y = in_rate >= 0x1p-60f && in_rate <= 0x1p60f
+                      ? __frcp_rn(in_rate) : 0.f;
+  const long long lane0 = 4 * (long long)threadIdx.x;
+  float v[kSub][4];
+"""
+_K2_PERSISTENT_BODIES = {
+    "prefetch": """\
+  if (threadIdx.x == 0) ticket_sm[0] = atomicAdd(ticket, 1u);
+  __syncthreads();
+  long long tile = ticket_sm[0];
+  if (tile < ntiles)
+    for (int k = 0; k < kSub; ++k)
+      load_four(f, n, tile * kScanTile + k * kSubTile + lane0, vec, v[k]);
+  for (int it = 1; tile < ntiles; ++it) {
+    if (threadIdx.x == 0) ticket_sm[it & 1] = atomicAdd(ticket, 1u);
+    long long q[kSub][4], s[kSub], pre[kSub], total;
+    for (int k = 0; k < kSub; ++k) s[k] = four_incs(v[k], in_rate, y, q[k]);
+    tile_prefixes(s, pre, &total);
+    if (threadIdx.x == 0)
+      store_word(status + tile, (tile == 0 ? kInclusive : kTotal) | total);
+    const long long next = ticket_sm[it & 1];
+    if (next < ntiles)
+      for (int k = 0; k < kSub; ++k)
+        load_four(f, n, next * kScanTile + k * kSubTile + lane0, vec, v[k]);
+    const long long before = look_back(status, tile);
+    if (threadIdx.x == 0 && tile > 0)
+      store_word(status + tile,
+                 kInclusive | (unsigned long long)((before + total) & kMask));
+    for (int k = 0; k < kSub; ++k)
+      store_phases(phase, n, tile * kScanTile + k * kSubTile + lane0, vec,
+                   (pre[k] + before) & kMask, q[k]);
+    tile = next;
+  }
+}
+""",
+}
+_K2_ONE_TILE = """\
+// scratch: a ticket word, then a published word a tile, all zero at the
+// launch. A thread holds a float4 of each of the tile's kSub sub-tiles,
+// so that a warp's loads and stores cover 512 contiguous bytes.
+__global__ void __launch_bounds__(kScanThreads)
+cycle_scan_pass(const float* __restrict__ f, float in_rate, long long n,
+                unsigned long long* scratch, float* __restrict__ phase) {
+  __shared__ unsigned tile_sm;
+  if (threadIdx.x == 0)
+    tile_sm = atomicAdd(reinterpret_cast<unsigned*>(scratch), 1u);
+  __syncthreads();
+  const long long tile = tile_sm;
+  unsigned long long* status = scratch + 1;
+  const bool vec = ((reinterpret_cast<uintptr_t>(f) |
+                     reinterpret_cast<uintptr_t>(phase)) & 15) == 0;
+  const float y = in_rate >= 0x1p-60f && in_rate <= 0x1p60f
+                      ? __frcp_rn(in_rate) : 0.f;
+  const long long i0 = tile * kScanTile + 4 * (long long)threadIdx.x;
+  float v[kSub][4];
+#pragma unroll
+  for (int k = 0; k < kSub; ++k)
+    load_four(f, n, i0 + (long long)k * kSubTile, vec, v[k]);
+  long long q[kSub][4], s[kSub], pre[kSub], total;
+#pragma unroll
+  for (int k = 0; k < kSub; ++k) s[k] = four_incs(v[k], in_rate, y, q[k]);
+  tile_prefixes(s, pre, &total);
+  if (threadIdx.x == 0)
+    store_word(status + tile, (tile == 0 ? kInclusive : kTotal) | total);
+  const long long before = look_back(status, tile);
+  if (threadIdx.x == 0 && tile > 0)
+    store_word(status + tile,
+               kInclusive | (unsigned long long)((before + total) & kMask));
+#pragma unroll
+  for (int k = 0; k < kSub; ++k)
+    store_phases(phase, n, i0 + (long long)k * kSubTile, vec,
+                 (pre[k] + before) & kMask, q[k]);
+}
+
+"""
+_K2_ONE_TILE_LAUNCH = """\
+  cycle_scan_pass<<<(unsigned)ntiles, kScanThreads, 0, s>>>(
+      f, in_rate, n, reinterpret_cast<unsigned long long*>(scratch), phase);
+"""
+
+
+def _k2_kernel(kind: str):
+    """The K2 source with cycle_scan_pass replaced: "one_tile" (and its
+    launch on ntiles blocks) or a persistent body of
+    _K2_PERSISTENT_BODIES."""
+    def edit(cu: str) -> str:
+        start = cu.index("// scratch: a ticket word, then a published word")
+        end = cu.index("// A constant increment q_const")
+        if kind == "one_tile":
+            cu = cu[:start] + _K2_ONE_TILE + cu[end:]
+            a = cu.index("  // a persistent grid: as many blocks")
+            b = cu.index("  return (int)cudaGetLastError();", a)
+            return cu[:a] + _K2_ONE_TILE_LAUNCH + cu[b:]
+        head = cu.index("__global__ void __launch_bounds__(kScanThreads)\n"
+                        "cycle_scan_pass(", start)
+        return (cu[:head] + _K2_PERSISTENT_HEAD + _K2_PERSISTENT_BODIES[kind]
+                + "\n" + cu[end:])
+    return edit
+
+
+def _k2_block_look_back(cu: str) -> str:
+    """K2's look-back by the whole block, each thread reading one of 256
+    tiles' words at a time, the nearest inclusive prefix and the sum found
+    by block reductions."""
+    start = cu.index("// The sum of the tiles before `tile`")
+    end = cu.index("// scratch: a ticket word")
+    return cu[:start] + """\
+__device__ __forceinline__ long long look_back(
+    const unsigned long long* status, long long tile) {
+  __shared__ int nearest_sm[kScanWarps];
+  __shared__ long long sum_sm[kScanWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  long long before = 0;
+  for (long long top = tile - 1;; top -= kScanThreads) {
+    const long long idx = top - threadIdx.x;
+    unsigned long long w = idx >= 0 ? load_word(status + idx) : kInclusive;
+    while ((w >> 62) == 0) w = load_word(status + idx);
+    const unsigned incl = __ballot_sync(kFull, (w >> 62) == 2);
+    if (lane == 0)
+      nearest_sm[warp] = incl ? warp * 32 + __ffs(incl) - 1 : kScanThreads;
+    __syncthreads();
+    int nearest = kScanThreads;
+#pragma unroll
+    for (int k = 0; k < kScanWarps; ++k) nearest = min(nearest, nearest_sm[k]);
+    long long v = (int)threadIdx.x <= nearest ? (long long)(w & kMask) : 0;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1)
+      v = (v + __shfl_xor_sync(kFull, v, d)) & kMask;
+    if (lane == 0) sum_sm[warp] = v;
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kScanWarps; ++k) before = (before + sum_sm[k]) & kMask;
+    __syncthreads();                  // the shared words free for a next use
+    if (nearest < kScanThreads) return before;
+  }
+}
+
+""" + cu[end:]
+
+
+SYNTH_VARIANTS = {
+    "as_shipped": [],
+    # K2's two conversions in 32-bit integer work: q from the float's
+    # exponent and mantissa, rounded half to even by a shift; the phase by
+    # a count of leading zeros and one rounding (the same digest)
+    "k2_integer_conversions": [
+        ("cu", _K2_FIXED, """\
+  const unsigned b = __float_as_uint(r);
+  const int e = (int)(b >> 23) & 0xff;
+  if (e == 0xff) return 0;
+  const unsigned m = (b & 0x7fffffu) | (e ? 0x800000u : 0u);
+  const int sh = max(e, 1) - 103;       // r 2^47 = m 2^sh
+  if (sh >= 0) return (long long)m << sh;
+  const int s = -sh;
+  if (s > 24) return 0;
+  const unsigned half = 1u << (s - 1);
+  const unsigned rest = m & ((half << 1) - 1u);
+  const unsigned qv = m >> s;
+  return qv + ((rest > half || (rest == half && (qv & 1u))) ? 1 : 0);
+"""),
+        ("cu", _K2_PHASE, """\
+  if (run == 0) return 0.f;
+  const unsigned long long u = (unsigned long long)run;
+  const int nb = 64 - __clzll(run);     // 1 .. 47
+  unsigned mant;
+  if (nb <= 24) {
+    mant = (unsigned)u << (24 - nb);
+  } else {
+    const int s = nb - 24;
+    const unsigned long long half = 1ull << (s - 1);
+    const unsigned long long rest = u & ((half << 1) - 1ull);
+    mant = (unsigned)(u >> s);
+    mant += (rest > half || (rest == half && (mant & 1u))) ? 1u : 0u;
+  }
+  return __uint_as_float(((unsigned)(nb + 79 - 1) << 23) + mant);
+""")],
+    # K2 with no conversion at all (other bits: times only)
+    "k2_no_conversions": [
+        ("cu", _K2_FIXED, "  return (long long)__float_as_uint(r);\n"),
+        ("cu", _K2_PHASE, "  return __int_as_float((int)run);\n")],
+    # K2 without the look-back: every tile's prefix 0 (other bits)
+    "k2_no_look_back": [
+        ("cu", "    const long long before = look_back(status, t);\n",
+         "    const long long before = 0;\n")],
+    # K2's tile: 8 sub-tiles (8,192 elements), 128 threads (2,048) (the
+    # same digest)
+    "k2_sub_8": [("cu", "constexpr int kSub = 4; ",
+                  "constexpr int kSub = 8; ")],
+    "k2_threads_128": [("cu", "constexpr int kScanThreads = 256;",
+                        "constexpr int kScanThreads = 128;")],
+    # K2's quotient by the library's division (a reciprocal an element),
+    # its remainder by truncf, its published words by acquire loads and
+    # release stores (the same digest)
+    "k2_library_division": [
+        ("cu", "    const float x = y != 0.f ? quotient(v[j], in_rate, y)\n"
+         "                             : __fdiv_rn(v[j], in_rate);\n",
+         "    const float x = __fdiv_rn(v[j], in_rate);\n")],
+    "k2_trunc_remainder": [("cu", "  if (fabsf(x) < 0x1p22f) {",
+                            "  if (false) {")],
+    "k2_acquire_release": [
+        ("cu", "ld.relaxed.gpu.global.u64", "ld.acquire.gpu.global.u64"),
+        ("cu", "st.relaxed.gpu.global.u64", "st.release.gpu.global.u64")],
+    # K2's tile: 512 threads (8,192 elements), 2 sub-tiles (2,048) (the
+    # same digest)
+    "k2_threads_512": [("cu", "constexpr int kScanThreads = 256;",
+                        "constexpr int kScanThreads = 512;")],
+    "k2_sub_2": [("cu", "constexpr int kSub = 4; ",
+                  "constexpr int kSub = 2; ")],
+    # K2 a block a tile (the grid before the persistent one), without its
+    # look-back, with its increments recomputed for the stores; the
+    # persistent grid that publishes a loaded tile's total only after the
+    # current look-back (the same digest but without the look-back)
+    "k2_one_tile": [("cu", _k2_kernel("one_tile"))],
+    "k2_one_tile_no_look_back": [
+        ("cu", _k2_kernel("one_tile")),
+        ("cu", "  const long long before = look_back(status, tile);\n",
+         "  const long long before = 0;\n")],
+    "k2_one_tile_recompute_q": [("cu", _k2_kernel("one_tile"))]
+    + _K2_RECOMPUTE_Q,
+    "k2_persistent_prefetch": [("cu", _k2_kernel("prefetch"))],
+    # K2's look-back by the whole block, 256 tiles a read (the same
+    # digest)
+    "k2_block_look_back": [("cu", _k2_block_look_back)],
+    # K2's loads and stores without the streaming hints (the same digest)
+    "k2_cached_memory_ops": [("cu", "__ldcs(", "__ldg(", 2),
+                             ("cu", "    __stcs(reinterpret_cast<float4*>("
+                              "phase + i),\n           make_float4(",
+                              "    *reinterpret_cast<float4*>(phase + i) ="
+                              " (\n           make_float4(")],
+    # K3 with 2 and 4 grains' loads in flight at a time (the same digest)
+    "k3_unroll_2": [("cu", "constexpr int kUnroll = 1;",
+                     "constexpr int kUnroll = 2;")],
+    "k3_unroll_4": [("cu", "constexpr int kUnroll = 1;",
+                     "constexpr int kUnroll = 4;")],
+    # K3 with runs of 4 and 16 output blocks (128 and 512 threads; the
+    # same digest)
+    "k3_run_4": [("cu", "constexpr int kRun = 8; ",
+                  "constexpr int kRun = 4; ")],
+    "k3_run_16": [("cu", "constexpr int kRun = 8; ",
+                   "constexpr int kRun = 16; ")],
+    # K3 a channel a block (the envelope computed for each channel; the
+    # same digest)
+    "k3_one_channel": [("cu", "constexpr int kChans = 2; ",
+                        "constexpr int kChans = 1; "),
+                       ("cu", "  const bool pair = c0 + 1 < channels;\n",
+                        "  const bool pair = false;\n")],
+    # K3 held to 40 registers, so that 6 blocks fit an SM (the same
+    # digest)
+    "k3_six_blocks": [("cu", "__global__ void __launch_bounds__("
+                       "kGrainThreads)",
+                       "__global__ void __launch_bounds__(kGrainThreads, 6)")],
+    # K3 with a shared list of 32 entries: long runs walked in pieces
+    # (the same digest)
+    "k3_list_32": [("cu", "constexpr int kList = 256; ",
+                    "constexpr int kList = 32; ")],
+}
+
+
+def _capture(targets, run):
+    """run() with module.<name> for each (module, name) of targets wrapped
+    to keep each call's arguments (the calls still launch). Returns name ->
+    the argument tuples in call order."""
+    kept = {name: [] for _, name in targets}
+    originals = [(m, name, getattr(m, name)) for m, name in targets]
+
+    def recorder(name, fn):
+        def call(*args, **kwargs):
+            kept[name].append(args)
+            return fn(*args, **kwargs)
+        return call
+    try:
+        for m, name, fn in originals:
+            setattr(m, name, recorder(name, fn))
+        run()
+    finally:
+        for m, name, fn in originals:
+            setattr(m, name, fn)
+    return kept
+
+
+def synth_bench_calls(dev) -> dict:
+    """name -> the kernel wrapper's arguments of chip_smoke.py phase 11's
+    calls at 48 kHz: the sine at oversample 16 at a constant 440 Hz and on
+    a 220 + 2000 t / 600 Hz sweep (K2, 600 s), granulate (stereo, 100
+    grains a second of 0.1 s, 600 s), psola (a gliding tone, 30 s) and a
+    modded texture (30 s) (K3)."""
+    import math
+    from flan_tpu_torch import Audio
+    from flan_tpu_torch.ops import cycle_scan as cs
+    from flan_tpu_torch.ops import grain_mix as gm
+    from flan_tpu_torch.ops.stft import cpu_exact
+    long_s, short_s = SYNTH_SECONDS, SYNTH_SHORT_SECONDS
+
+    def sine(p):
+        return cpu_exact(torch.sin, 2.0 * math.pi * p)
+    x_long = Audio.create_from_array(stereo_signal(long_s), SR, device=dev)
+    n = int(short_s * SR)
+    t = np.arange(n, dtype=np.float64) / SR
+    ph = 2 * np.pi * (110.0 * t + 27.5 * t * t / short_s)
+    glide = Audio.create_from_array(np.asarray(
+        [sum(0.5 / k * np.sin(k * r * ph) for k in range(1, 5))
+         for r in (1.0, 1.5)], np.float32), SR, device=dev)
+    src = x_long.cut(0.0, 0.25)
+    runs = {
+        "waveform_sweep": lambda: Audio.synthesize_waveform(
+            sine, long_s, lambda t: 220.0 + t * (2000.0 / long_s), SR, 16,
+            device=dev),
+        "waveform_const": lambda: Audio.synthesize_waveform(
+            sine, long_s, 440.0, SR, 16, device=dev),
+        "granulate": lambda: x_long.granulate(
+            long_s, 100.0, 0.0, lambda t: 0.9 * t, 0.1, 0.01, seed=4),
+        "psola": lambda: glide.psola(short_s, lambda t: 0.9 * t, seed=6),
+        "texture_mod": lambda: src.texture(
+            short_s, 20.0, 0.01,
+            lambda a, t: a.modify_volume(0.5 + t * (0.5 / short_s)), seed=7),
+    }
+    calls = {}
+    for name, run in runs.items():
+        kept = _capture([(cs, "cycle_scan_cuda"),
+                         (gm, "grain_overlap_add_cuda")], run)
+        calls[name] = (kept["cycle_scan_cuda"] or
+                       kept["grain_overlap_add_cuda"])[-1]
+        torch.cuda.empty_cache()
+    return calls
+
+
+def bench_synth(libs: dict, first) -> None:
+    """Each variant on phase 11's K2 and K3 calls: microseconds by CUDA
+    events (three after one) and a digest of the output."""
+    from flan_tpu_torch.ops import grain_mix as gm
+    from flan_tpu_torch.ops.cycle_scan import fixed
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream().cuda_stream
+    calls = synth_bench_calls(dev)
+    for name, lib in libs.items():
+        for call, args in calls.items():
+            if call.startswith("waveform"):
+                f, inc, in_rate, n = args[:4]
+                ntiles = -(-n // lib.flan_cycle_scan_tile())
+                scratch = torch.zeros(ntiles + 1, dtype=torch.int64,
+                                      device=dev)
+                out = torch.empty(n, dtype=torch.float32, device=dev)
+
+                def run():
+                    scratch.zero_()
+                    build.raise_on(lib.flan_cycle_scan(
+                        None if f is None else f.data_ptr(),
+                        fixed(inc) if f is None else 0,
+                        float(np.float32(in_rate)), n, scratch.data_ptr(),
+                        out.data_ptr(), stream), name)
+            else:
+                x, meta, offsets, entries, out_n = args[:5]
+                envp = args[5] if len(args) > 5 else None
+                ch, cstride, gstride, n_clip = gm._source_geometry(x)
+                meta_d = meta.to(dev, torch.int32).contiguous()
+                offs_d = torch.from_numpy(np.asarray(offsets, np.int64)).to(
+                    dev)
+                ent_d = torch.from_numpy(np.asarray(entries, np.int32)).to(
+                    dev)
+                out = torch.empty((ch, out_n), dtype=torch.float32,
+                                  device=dev)
+
+                def run():
+                    build.raise_on(lib.flan_grain_overlap_add(
+                        x.data_ptr(), cstride, gstride, n_clip,
+                        meta_d.data_ptr(), meta.shape[1],
+                        None if envp is None else envp.data_ptr(),
+                        0 if envp is None else envp.shape[1],
+                        offs_d.data_ptr(), ent_d.data_ptr(), out.data_ptr(),
+                        ch, out_n, stream), name)
+            us = event_us(run, 3)
+            print(json.dumps({"source": "synth", "variant": name,
+                              "call": call, "elements": out.numel(),
+                              "us": us, "digest": _digest(out),
+                              "clocks_sm_mhz_during": _clock_during(run)}),
+                  flush=True)
+            del out
+
+
 SOURCES = {
     "spv": (SPV_VARIANTS, bench_spv),
     "scan": (SCAN_VARIANTS, bench_scan),
@@ -1355,6 +1789,7 @@ SOURCES = {
     "comb": (COMB_VARIANTS, bench_comb),
     "stereo_delay": (STEREO_VARIANTS, bench_stereo_delay),
     "salience": (SALIENCE_VARIANTS, bench_salience),
+    "synth": (SYNTH_VARIANTS, bench_synth),
 }
 
 

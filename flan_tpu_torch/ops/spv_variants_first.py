@@ -19,7 +19,10 @@ csrc/sequential_kernels.cu of commit 0f06bc7 (the swept comb and its
 backward one warp a channel, each round's length a five-shuffle minimum
 of its frames' delays; comb_rounds counts that version's rounds); and
 csrc/pv_info_kernels.cu of commit 8c2a6b1 (the salience histogram a
-thread a frame, its adds one chain). `git archive
+thread a frame, its adds one chain); and csrc/synth_kernels.cu of commit
+68f457b (K2 in three launches reading f twice through float64
+conversions; K3 a block an output block and channel, its metadata read
+by dependent loads). `git archive
 COMMIT
 flan_tpu_torch/csrc | tar -x -C build/first` brings a source back. Beside
 the sets stand the entry points, scratch and constants of those sources
@@ -569,6 +572,160 @@ SALIENCE_FIRST_VARIANTS = {
 }
 
 
+# ---- K2 and K3 before their redesign (commit 68f457b): K2 in three
+# launches (tile totals, their prefix, each tile rescanned and written),
+# reading f twice, six conversions through float64 an element; K3 a block
+# a 128-sample output block and channel, each grain's plan entry and
+# metadata read from device memory by a chain of dependent loads
+_K3_FIRST_HEAD = """__global__ void __launch_bounds__(kBlock)
+grain_overlap_add(const float* __restrict__ x, long long chan_stride,
+                  long long grain_stride, long long n_clip,
+                  const int* __restrict__ meta, int grains,
+                  const float* __restrict__ envp, int la,
+                  const long long* __restrict__ offsets,
+                  const int* __restrict__ entries, float* __restrict__ out,
+                  long long out_n) {
+"""
+# a grain's contribution to this thread's sample of channel c0 (and c1),
+# the first design's arithmetic
+_K3_FIRST_GRAIN = """
+    const long long j = (o - qg) * kBlock + l;
+    const int lane = (int)(j - rg);
+    if (lane < 0 || lane >= len) continue;
+    const float lane_f = (float)lane;
+    float env = 1.f;
+    if (lane < sfg)
+      env = __fsqrt_rn(__fdiv_rn(fmaxf(lane_f, 0.f), (float)max(sfg, 1)));
+    if (lane >= len - efg) {
+      const float d = __fsub_rn(__fsub_rn((float)len, 1.f), lane_f);
+      env = fminf(env, __fsqrt_rn(__fdiv_rn(fmaxf(d, 0.f),
+                                            (float)max(efg, 1))));
+    }
+    if (envp != nullptr)
+      env = __fmul_rn(env, __ldg(envp + (long long)g * la + j));
+    long long idx = (long long)s0g + lane;
+    idx = idx < 0 ? 0 : (idx > n_clip - 1 ? n_clip - 1 : idx);
+"""
+
+
+def _k3_first_body(cu: str, body: str) -> str:
+    """The first design's K3 kernel replaced by `body` (from its
+    signature to its closing brace)."""
+    start = cu.index(_K3_FIRST_HEAD)
+    end = cu.index("}\n\n}  // namespace", start) + 2
+    return cu[:start] + body + cu[end:]
+
+
+def _k3_first_staged(cu: str) -> str:
+    """The block's plan entries and their grains' metadata staged in
+    shared memory, a block's worth at a time, before the grain loop."""
+    return _k3_first_body(cu, _K3_FIRST_HEAD + """\
+  __shared__ int sm[7][kBlock];
+  const long long o = blockIdx.x;
+  const int c = blockIdx.y;
+  const int l = threadIdx.x;
+  const float* xc = x + (long long)c * chan_stride;
+  float acc = 0.f;
+  const long long e0 = offsets[o], e1 = offsets[o + 1];
+  for (long long p = e0; p < e1; p += kBlock) {
+    const int cnt = (int)min((long long)kBlock, e1 - p);
+    __syncthreads();
+    if (l < cnt) {
+      const int g = entries[p + l];
+      sm[0][l] = g;
+      for (int r = 0; r < 6; ++r) sm[r + 1][l] = meta[r * grains + g];
+    }
+    __syncthreads();
+    for (int i = 0; i < cnt; ++i) {
+      const int g = sm[0][i], s0g = sm[1][i], len = sm[2][i],
+                sfg = sm[3][i], efg = sm[4][i], rg = sm[5][i], qg = sm[6][i];
+""" + _K3_FIRST_GRAIN.replace("\n    ", "\n      ") + """\
+      const float v = __ldg(xc + (long long)g * grain_stride + idx);
+      acc = __fadd_rn(acc, __fmul_rn(v, env));
+    }
+  }
+  const long long pos = o * kBlock + l;
+  if (pos < out_n) out[(long long)c * out_n + pos] = acc;
+}
+""")
+
+
+def _k3_first_channels(cu: str) -> str:
+    """Both channels in one thread: the grid's second axis gone, the
+    metadata and the envelope read and computed once for both."""
+    head = _K3_FIRST_HEAD.replace("long long out_n) {",
+                                  "long long out_n, int channels) {")
+    cu = _k3_first_body(cu, head + """\
+  const long long o = blockIdx.x;
+  const int l = threadIdx.x;
+  const int* s0 = meta;
+  const int* lens = meta + grains;
+  const int* sf = meta + 2 * grains;
+  const int* ef = meta + 3 * grains;
+  const int* r_off = meta + 4 * grains;
+  const int* q = meta + 5 * grains;
+  const bool pair = channels > 1;
+  float acc0 = 0.f, acc1 = 0.f;
+  const long long e1 = offsets[o + 1];
+  for (long long e = offsets[o]; e < e1; ++e) {
+    const int g = __ldg(entries + e);
+    const int qg = __ldg(q + g), rg = __ldg(r_off + g), len = __ldg(lens + g);
+    const int sfg = __ldg(sf + g), efg = __ldg(ef + g), s0g = __ldg(s0 + g);
+""" + _K3_FIRST_GRAIN + """\
+    const long long at = (long long)g * grain_stride + idx;
+    acc0 = __fadd_rn(acc0, __fmul_rn(__ldg(x + at), env));
+    if (pair)
+      acc1 = __fadd_rn(acc1, __fmul_rn(__ldg(x + chan_stride + at), env));
+  }
+  const long long pos = o * kBlock + l;
+  if (pos < out_n) {
+    out[pos] = acc0;
+    if (pair) out[out_n + pos] = acc1;
+  }
+}
+""")
+    return cu.replace("""  dim3 grid((unsigned)nblk, (unsigned)channels);
+  grain_overlap_add<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+      x, chan_stride, grain_stride, n_clip, meta, grains, envp, la, offsets,
+      entries, out, out_n);""",
+                      """  if (channels > 2) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)nblk, 1u);
+  grain_overlap_add<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+      x, chan_stride, grain_stride, n_clip, meta, grains, envp, la, offsets,
+      entries, out, out_n, channels);""")
+
+
+def _k2_first_one_read(cu: str) -> str:
+    """cycle_write's increments made from the element's index instead of
+    f (the division and conversions kept, the read gone)."""
+    call = "  thread_incs(f, q_const, in_rate, n, i0, q);\n"
+    at = cu.rindex(call)
+    return cu[:at] + """\
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j)
+    q[j] = fixed_inc(__int_as_float(0x3f000000 + (int)((i0 + j) & 0xffff)),
+                     in_rate);
+""" + cu[at + len(call):]
+
+
+SYNTH_FIRST_VARIANTS = {
+    "as_shipped": [],
+    # K2's write pass without its second read of f (other bits: times
+    # only)
+    "k2_no_second_read": [("cu", _k2_first_one_read)],
+    # K2 without its six conversions through float64 (other bits)
+    "k2_no_conversions": [
+        ("cu", "  return __double2ll_rn((double)r * kScale);",
+         "  return (long long)__float_as_uint(r);"),
+        ("cu", "    out[j] = __double2float_rn((double)run * kInvScale);",
+         "    out[j] = __int_as_float((int)run);")],
+    # K3 with its plan entries and metadata staged (the same digest)
+    "k3_staged": [("cu", _k3_first_staged)],
+    # K3 with both channels in one thread (the same digest)
+    "k3_channels_together": [("cu", _k3_first_channels)],
+}
+
+
 class Version(NamedTuple):
     """The substitution sets of one commit's sources (source -> variant ->
     edits), its entry points where they differ from ops/build.py's, and the
@@ -600,4 +757,5 @@ VERSIONS = {
     "0f06bc7": Version({"comb": COMB_FIRST_VARIANTS}, comb_rounds=(
         lambda d, reverse: _comb_warp_rounds(d, reverse))),
     "8c2a6b1": Version({"salience": SALIENCE_FIRST_VARIANTS}),
+    "68f457b": Version({"synth": SYNTH_FIRST_VARIANTS}),
 }

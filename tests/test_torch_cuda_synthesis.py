@@ -238,3 +238,174 @@ def test_wavetable_on_the_card_runs_the_scan(cuda_device):
     assert card.waveform_starts == cpu.waveform_starts
     args = (0.5, lambda t: 220.0 + 100.0 * t, lambda t: t, True, 0.001)
     assert _rel(card.synthesize(*args), cpu.synthesize(*args)) < TOL_PATH
+
+
+def build_lib():
+    from flan_tpu_torch.ops.build import load_library
+    return load_library()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", [1, 2, 3])
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+def test_cycle_scan_at_tile_edges(cuda_device, tiles, edge):
+    """n at multiples of the one pass's tile, one below and one above."""
+    tile = build_lib().flan_cycle_scan_tile()
+    n = tiles * tile + edge
+    in_rate = 768000.0
+    f = _wrap_heavy(n, in_rate, seed=tiles)
+    got = cs.cycle_scan_cuda(f.to(cuda_device), None, in_rate, n)
+    assert torch.equal(got.cpu(), cs.cycle_scan_ref(f, None, in_rate, n))
+    inc = cs.constant_increment(1234.5, in_rate)
+    assert torch.equal(cs.cycle_scan_cuda(None, inc, in_rate, n, cuda_device)
+                       .cpu(), cs.cycle_scan_ref(None, inc, in_rate, n))
+
+
+
+@pytest.mark.cuda
+def test_cycle_scan_look_back_far_past_the_resident_tiles(cuda_device):
+    """More than ten times the tiles the card holds at once (132 SMs x 16
+    blocks of one tile at most): each tile's prefix comes from a look-back
+    over tiles that finish in any order. The plain version on the card,
+    bit for bit, and three calls the same bits."""
+    tile = build_lib().flan_cycle_scan_tile()
+    n = 11 * 132 * 16 * tile + 12_345
+    in_rate = 768000.0
+    f = _wrap_heavy(n, in_rate, seed=9).to(cuda_device)
+    want = cs.cycle_scan_ref(f, None, in_rate, n)
+    first = cs.cycle_scan_cuda(f, None, in_rate, n)
+    assert torch.equal(first, want)
+    for _ in range(2):
+        assert torch.equal(cs.cycle_scan_cuda(f, None, in_rate, n), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo_exp", [-60, -48, -30, -25, -24, -12, -2, -1])
+def test_cycle_scan_conversions_every_mantissa(cuda_device, lo_exp):
+    """At in_rate 1 each frequency is its increment: every mantissa of the
+    binade [2^lo_exp, 2^(lo_exp + 1)), increments under 2^-24 (rounded to
+    Q0.47 half to even) among them, in an order that mixes them; the
+    kernel's phases are the plain version's bits."""
+    m = np.random.default_rng(-lo_exp).permutation(1 << 23)
+    f = torch.from_numpy(((m + (1 << 23)) * 2.0 ** (lo_exp - 23))
+                         .astype(np.float32))
+    n = f.numel()
+    got = cs.cycle_scan_cuda(f.to(cuda_device), None, 1.0, n)
+    assert torch.equal(got.cpu(), cs.cycle_scan_ref(f, None, 1.0, n))
+
+
+def _deep_plan(count, width, span, seed):
+    """count grains of up to `width` samples starting within `span`: a
+    run of the kernel's 8 output blocks sees far more entries than its
+    shared list of 256."""
+    rng = np.random.default_rng(seed)
+    s0 = rng.integers(0, 4000, count)
+    lens = rng.integers(1, width + 1, count)
+    sf = np.minimum(rng.integers(0, width // 2, count), lens // 2)
+    ef = np.minimum(rng.integers(0, width // 2, count), lens - sf)
+    starts = np.sort(rng.integers(0, span, count))
+    out_n = int((starts + lens).max())
+    meta = torch.from_numpy(np.stack([s0, lens, sf, ef, starts % 128,
+                                      starts // 128]).astype(np.int32))
+    nblk_g = gm.grain_blocks(width)
+    offsets, entries = gm.grain_plan(starts // 128, nblk_g, out_n)
+    return meta, offsets, entries, out_n, nblk_g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count,span", [(300, 128), (700, 1024),
+                                        (2000, 3000)])
+@pytest.mark.parametrize("envelope", [False, True])
+@pytest.mark.parametrize("channels", [1, 2, 3])
+def test_grain_overlap_add_spans_past_the_shared_list(cuda_device, count,
+                                                      span, envelope,
+                                                      channels):
+    """One block covered by 300 grains, runs of 8 blocks with 700 and
+    2000 grains' entries (walked in pieces of the shared list, in order),
+    an envelope plane, one to three channels (a block takes two): the
+    plain version's bits, three calls the same bits."""
+    meta, offsets, entries, out_n, nblk_g = _deep_plan(count, 900, span,
+                                                       count)
+    run = np.diff(offsets[::8]).max() if len(offsets) > 8 else len(entries)
+    assert run > 256
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((channels, 5000))
+                         .astype(np.float32))
+    envp = (torch.from_numpy(rng.uniform(0, 1, (count, nblk_g * 128))
+                             .astype(np.float32)) if envelope else None)
+    want = gm.grain_overlap_add_ref(x, meta, offsets, entries, out_n, envp)
+    xd = x.to(cuda_device)
+    ed = None if envp is None else envp.to(cuda_device)
+    got = gm.grain_overlap_add_cuda(xd, meta, offsets, entries, out_n, ed)
+    assert torch.equal(got.cpu(), want)
+    for _ in range(3):
+        assert torch.equal(gm.grain_overlap_add_cuda(xd, meta, offsets,
+                                                     entries, out_n, ed),
+                           got)
+
+
+@pytest.mark.cuda
+def test_grain_overlap_add_of_a_deep_stack(cuda_device):
+    """texture's form, [G, C, g_n], 400 grains over 3 blocks: runs past
+    the shared list read each grain's own rows."""
+    rng = np.random.default_rng(8)
+    g, g_n = 400, 300
+    stack = torch.from_numpy(rng.standard_normal((g, 2, g_n))
+                             .astype(np.float32))
+    starts = np.sort(rng.integers(0, 384, g))
+    out_n = int(starts.max()) + g_n
+    meta = torch.from_numpy(np.stack([np.zeros(g), np.full(g, g_n),
+                                      np.zeros(g), np.zeros(g),
+                                      starts % 128, starts // 128])
+                            .astype(np.int32))
+    offsets, entries = gm.grain_plan(starts // 128, gm.grain_blocks(g_n),
+                                     out_n)
+    want = gm.grain_overlap_add_ref(stack, meta, offsets, entries, out_n)
+    got = gm.grain_overlap_add_cuda(stack.to(cuda_device), meta, offsets,
+                                    entries, out_n)
+    assert torch.equal(got.cpu(), want)
+
+
+class _FailingLibrary:
+    """A kernel library whose every entry point reports a launch error."""
+    def flan_cycle_scan_tile(self):
+        return 4096
+
+    def __getattr__(self, name):
+        return lambda *args: 700    # cudaErrorIllegalAddress
+
+
+@pytest.mark.cuda
+def test_a_failed_launch_raises(cuda_device, monkeypatch):
+    """No fallback to the plain version on the card: an error from K2's or
+    K3's entry point raises, and no launch is counted."""
+    monkeypatch.setattr(cs, "load_library", lambda: _FailingLibrary())
+    monkeypatch.setattr(gm, "load_library", lambda: _FailingLibrary())
+    cs.reset_launch_counts()
+    gm.reset_launch_counts()
+    f = torch.ones(5000, device=cuda_device)
+    with pytest.raises(RuntimeError, match="cycle_scan"):
+        cs.cycle_scan(f, None, 48000.0, 5000)
+    meta, offsets, entries, out_n, _ = _deep_plan(20, 300, 500, 1)
+    with pytest.raises(RuntimeError, match="grain_overlap_add"):
+        gm.grain_overlap_add(torch.ones((2, 5000), device=cuda_device), meta,
+                             offsets, entries, out_n)
+    assert cs.LAUNCHES["cycle_scan"] == 0
+    assert gm.LAUNCHES["grain_overlap_add"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_rate", [768000.0, 705600.0, 3.0, 0.001])
+def test_cycle_scan_every_positive_float(cuda_device, in_rate):
+    """Every positive finite float32 as a frequency (2,139,095,039 of
+    them, in the order of their bits) and the negatives of one in 16: the
+    kernel's increments (the quotient by a reciprocal and two corrections,
+    the remainder by two additions) are the IEEE division's and jnp.mod's,
+    so its phases are the plain version's on the card, bit for bit."""
+    f = torch.arange(1, 0x7F800000, dtype=torch.int32,
+                     device=cuda_device).view(torch.float32)
+    for x in (f, -f[::16]):
+        n = x.numel()
+        want = cs.cycle_scan_ref(x, None, in_rate, n)
+        assert torch.equal(cs.cycle_scan_cuda(x, None, in_rate, n), want)
+        del want
