@@ -19,7 +19,11 @@ the package has it; "salience" the salience histogram on phase 10's call;
 "synth" K2 on phase 11's two waveform calls and K3 on its granulate,
 psola and modded texture calls (each with a digest of its output and the
 device time of every launch of a call) and granulate's wall split into
-its host plan, the plan's copies, K3 and the rest. With --package DIR it
+its host plan, the plan's copies, K3 and the rest; "stretch" the 600 s 2x
+stretch of phases 3 and 7: the streamed call whole (CUDA events), its peak,
+its four stages with their kernel time by torch operation and its
+launches a chunk, and the class path stage by stage, each with a digest
+of its output (the parent's by the same script). With --package DIR it
 takes flan_tpu_torch from DIR, so that another commit's kernels are timed
 by this script's yardstick (`git archive COMMIT flan_tpu_torch | tar -x -C
 build/parent`, then --package build/parent). Phases:
@@ -42,7 +46,10 @@ build/parent`, then --package build/parent). Phases:
      the T3 probe on its own inputs;
   3. drive the PV time-stretch class path at headline size (600 s stereo
      48 kHz, window 2048 / hop 128 / dft 4096, 2x) and check its output;
-     time it once whole and once stage by stage;
+     time it once whole (H1's and H2's launches counted: one a chunk of
+     2,048 hops or frames) and once stage by stage; then once more with
+     every launch of H1 and H2 held to its plain version on its own
+     inputs, bit for bit;
   4. drive the SPV round trip at bench size (30 s mono 48 kHz, 512 bins)
      through the class path, which runs both kernels; then hold its SPV
      planes and each kernel against the plain versions on the same input,
@@ -67,10 +74,14 @@ build/parent`, then --package build/parent). Phases:
      on the CPU and compare; time each scan kernel and the probe against
      their plain versions;
   7. drive the streamed pipelines at headline size: the 2x stretch of
-     phase 3's signal from a host array (twice), held against phase 3's
-     class-path output, its length, tones and peak device memory (gated
-     at the design's bound); the chunk-size sweep; kernel time per stage
-     of the chunk loop and launches per chunk (torch.profiler); the 1.5x
+     phase 3's signal from a host array (twice; H1 and H2 counted, once a
+     chunk each), held against phase 3's class-path output, its length,
+     tones and peak device memory (gated at the design's bound); once more
+     with every launch of H1 and H2 held to its plain version, bit for
+     bit; H1 and H2 on a chunk of it three times for the same bits, timed
+     beside their plain versions; the chunk-size sweep; kernel time per
+     stage of the chunk loop, by torch operation, and launches per chunk
+     (torch.profiler); the 1.5x
      repitch (tones at 1.5 (f + bin width)) and a morph at 600 s, both
      held to their class forms at 60 s; then resonate and perturb on a
      60 s stereo PV: their scans' launches, each scan call against the
@@ -186,7 +197,8 @@ build/parent`, then --package build/parent). Phases:
      pinned host memory.
 
 The launch counters are zeroed just before each main path (phases 3 and 4
-together, then phase 5, then phase 6, then resonate and perturb in phase 7,
+together, H1 and H2 just before phase 3's 600 s call and again before
+phase 7's, then phase 5, then phase 6, then resonate and perturb in phase 7,
 then phase 8's filters, then phase 9's effect chain at full size, after its
 comparisons at 10 s, then phase 10's PV family at 600 s and its contours
 and prism at 30 s, after their comparisons at 10 s, then phase 11's calls,
@@ -918,8 +930,12 @@ def timed(torch, fn):
 
 def phase3_stretch(torch, Audio, dev):
     """PV time-stretch class path: on a small input against the same path
-    on the CPU, then at headline size, whole and stage by stage. Returns
-    the headline output (host) and the whole call's wall seconds."""
+    on the CPU, then at headline size, whole (H1's and H2's launches
+    counted) and stage by stage, then once more with every launch of H1
+    and H2 held to its plain version (held_pv_stages). Returns the headline
+    output (host), the whole call's wall seconds, its launches and the
+    held run's report."""
+    from flan_tpu_torch.ops import pv_stages
     hop = 128
 
     # the size the CPU tests hold the port to the JAX package at
@@ -935,11 +951,16 @@ def phase3_stretch(torch, Audio, dev):
 
     seconds = 600.0
     x = stereo_signal(seconds)
+
+    def run():
+        return (Audio.create_from_array(x, SR, device=dev)
+                .convert_to_PV(2048, hop, 4096).stretch(2.0)
+                .convert_to_audio())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    out, wall_ms = timed(torch, lambda: (
-        Audio.create_from_array(x, SR, device=dev)
-        .convert_to_PV(2048, hop, 4096).stretch(2.0).convert_to_audio()))
+    pv_stages.reset_launch_counts()
+    out, wall_ms = timed(torch, run)
+    launches = dict(pv_stages.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     y = out.to_numpy()
     del out
@@ -951,15 +972,25 @@ def phase3_stretch(torch, Audio, dev):
     del pv
     _, ms_inv = timed(torch, pv2.convert_to_audio)
     del a, pv2, _
+    # H1 once a chunk of 2,048 hops, H2 once a chunk of 2,048 frames
     n_in = x.shape[1]
+    want = {"pv_analysis": math.ceil((n_in // hop + 1) / 2048),
+            "pv_synthesis": math.ceil(2 * (n_in // hop + 1) / 2048)}
     print(json.dumps({"phase": 3, "path": "stretch_2x_600s_stereo_48k",
                       "wall_s": wall_ms / 1e3,
                       "x_realtime": seconds / (wall_ms / 1e3),
                       "peak_alloc_gb": peak_gb, "in_frames": n_in,
                       "out_frames": int(y.shape[1]),
+                      "launches": launches,
                       "stages_ms": {"host_to_device": ms_h2d,
                                     "pv_forward": ms_fwd, "stretch": ms_str,
                                     "pv_inverse": ms_inv}}), flush=True)
+    for name, count in launches.items():
+        check(count == want[name], f"stretch class path: {name} launched "
+              f"{count} times, want {want[name]}")
+    # every chunk's H1 and H2 against their plain versions on its inputs
+    held = held_pv_stages(torch, pv_stages, lambda: run().to_numpy(),
+                          "class path")
     # the stretch maps num_hops = N//hop + 1 frames to twice as many, so
     # the output is 2N plus up to two hops
     check(y.shape == (2, y.shape[1]) and abs(y.shape[1] - 2 * n_in)
@@ -970,7 +1001,153 @@ def phase3_stretch(torch, Audio, dev):
         got = dominant_hz(y[ch, mid:mid + int(SR)])
         check(abs(got - want) <= 2.0,
               f"stretch channel {ch}: dominant {got} Hz, want {want}")
-    return y, wall_ms / 1e3
+    check(np.array_equal(held.pop("output"), y),
+          "the held class path's output is not the path's")
+    return y, wall_ms / 1e3, launches, held
+
+
+PV_STAGE_KERNELS = ("pv_analysis", "pv_synthesis")
+# H1's operations an element: the function's at the fewest instructions
+# (each product, sum and quotient rounded alone, so no FMA), at
+# INT32_OPS_PER_S: the energy 3, its correctly rounded square root 7, the
+# zero test 2, ops/fastmath.py's atan2 37 (the absolute values, max, min
+# and floor 5, a correctly rounded division 8, z^2 and the polynomial's 7
+# steps 15, the product with z 1, the octant and sign fix-ups 8), the
+# difference 2, the wrap 4 (the reciprocal product, rint, the product and
+# the difference) and freq 2
+H1_OPS = 57
+# H2's an output element, the same way: the increment 14 (a correctly
+# rounded division 8, the remainder by 1 6), the sum with the carried
+# cycle and its remainder 7, the polar form 23 (the product by 2 pi,
+# sincos 20, the two products) and the float64 remainder's sign and
+# selects 3; with a plan the remap H2_REMAP_OPS more (the weights 2, the
+# total 1, the weighted sum 3, the tests and selects 4, a correctly
+# rounded division 8; 1 - mix is a frame's); at FLOAT64_OPS_PER_S
+# H2_F64_OPS: the conversions in and out, the within-block sum, the
+# prefix's sum and the remainder's truncation, difference, test and add.
+# A block's total and its prefix, once in 256 frames, are left out
+H2_OPS = 47
+H2_REMAP_OPS = 18
+H2_F64_OPS = 8
+
+
+def held_pv_stages(torch, pv_stages, run, path: str) -> dict:
+    """run() once more with every launch of H1 and H2 held to its plain
+    version on the same inputs on the card: the elements of each output
+    compared bit for bit. Returns, for each kernel, its launches in the
+    run, the elements compared, those that differ and the largest
+    difference, and the arguments of its last call (for the same-bits
+    check and timing); "output" is run()'s result."""
+    kernels = {"pv_analysis": pv_stages.analysis_cuda,
+               "pv_synthesis": pv_stages.synthesis_cuda}
+    plain = {"pv_analysis": pv_stages.analysis_ref,
+             "pv_synthesis": pv_stages.synthesis_ref}
+    stats = {name: {"launches": 0, "elements": 0, "differing": 0,
+                    "max_abs_err": 0.0} for name in kernels}
+
+    def held(name):
+        def call(*args):
+            got = kernels[name](*args)
+            want = plain[name](*args[:6])
+            st = stats[name]
+            st["launches"] += 1
+            for g, w in zip(got, want):
+                if g is None:
+                    continue
+                if g.is_complex():
+                    g, w = torch.view_as_real(g), torch.view_as_real(w)
+                st["elements"] += g.numel()
+                st["differing"] += int((g != w).sum())
+                st["max_abs_err"] = max(st["max_abs_err"], float(
+                    (g.double() - w.double()).abs().max()))
+            st.setdefault("args", args[:6])     # a whole chunk, the first
+            return got
+        return call
+    try:
+        pv_stages.analysis_cuda = held("pv_analysis")
+        pv_stages.synthesis_cuda = held("pv_synthesis")
+        output = run()
+        torch.cuda.synchronize()
+    finally:
+        pv_stages.analysis_cuda = kernels["pv_analysis"]
+        pv_stages.synthesis_cuda = kernels["pv_synthesis"]
+    print(json.dumps({"phase": "pv_stages held", "path": path, **{
+        name: {k: v for k, v in st.items() if k != "args"}
+        for name, st in stats.items()}}), flush=True)
+    for name, st in stats.items():
+        check(st["launches"] > 0 and st["differing"] == 0,
+              f"{path}: {name} against its plain version: "
+              f"{st['differing']} of {st['elements']} elements differ, "
+              f"up to {st['max_abs_err']}")
+    return {**stats, "output": output}
+
+
+def pv_stage_bytes(torch, name: str, args) -> int:
+    """The bytes one launch must move: H1 reads the spectrum and writes mag
+    and freq (the helper hop's rows not), reads and writes a phase row; H2
+    reads the input frames it touches (with a plan, those the plan reads,
+    and the plan) and writes the spectrum and a cycle row."""
+    if name == "pv_analysis":
+        spec, prev = args[0], args[4]
+        rows = spec.numel() // (spec.shape[-2] * spec.shape[-1])
+        frames = spec.shape[-2] - (1 if prev is None else 0)
+        return (8 * spec.numel() + 8 * rows * frames * spec.shape[-1]
+                + 8 * rows * spec.shape[-1])
+    mag, _, cycle, _, plan, write = args
+    c, frames, nbins = mag.shape
+    if plan is None:
+        n_out, read, plan_bytes = frames, frames, 0
+    else:
+        li = plan[0]
+        n_out, plan_bytes = li.shape[0], 13 * li.shape[0]
+        read = int(torch.cat([li, li + 1]).unique().numel())
+    return (8 * c * read * nbins + plan_bytes
+            + (8 * c * n_out * nbins if write else 0) + 8 * c * nbins)
+
+
+def pv_stage_timing(torch, pv_stages, held: dict) -> dict:
+    """H1 and H2 on the first chunk a path gave them: three calls for the
+    same bits, ms a launch (the kernel's device time by the profiler; by
+    CUDA events over 10 launches after one, the wrappers' host time
+    included), the plain version's ms on the same inputs, and the launch's
+    bound: the larger of its bytes at 3.35 TB/s and its operations (H1_OPS;
+    H2_OPS, H2_REMAP_OPS with a plan, and H2_F64_OPS) at their rates."""
+    kernels = {"pv_analysis": pv_stages.analysis_cuda,
+               "pv_synthesis": pv_stages.synthesis_cuda}
+    plain = {"pv_analysis": pv_stages.analysis_ref,
+             "pv_synthesis": pv_stages.synthesis_ref}
+    out = {}
+    for name, fn in kernels.items():
+        args = held[name]["args"]
+        check_same_bits(torch, lambda: fn(*args), f"{name} on its last chunk")
+        fn(*args)
+        ms_events = cuda_ms(torch, lambda: fn(*args), 10)
+        # the profiler records no device time where CUPTI is not at hand
+        us = profile_launches(torch, {name: lambda: fn(*args)})[name].get(name)
+        ms = ms_events if us is None else us / 1e3
+        _, plain_ms = timed(torch, lambda: plain[name](*args))
+        if name == "pv_analysis":
+            elements, ops, f64 = args[0].numel(), H1_OPS, 0
+        else:
+            plan = args[4]
+            elements = args[0].shape[0] * args[0].shape[2] * (
+                args[0].shape[1] if plan is None else plan[0].shape[0])
+            ops = H2_OPS + (0 if plan is None else H2_REMAP_OPS)
+            f64 = H2_F64_OPS
+        nbytes = pv_stage_bytes(torch, name, args)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = elements * (ops / INT32_OPS_PER_S + f64 / FLOAT64_OPS_PER_S)
+        out[name] = {"ms": ms, "ms_events": ms_events, "plain_ms": plain_ms,
+                     "bound_ms": max(t_bytes, t_ops) * 1e3,
+                     "bound_by": "operations" if t_ops > t_bytes
+                     else "bytes",
+                     "bound_note": f"{nbytes / 1e6:.1f} MB "
+                     f"({t_bytes * 1e3:.4f} ms) against {elements} "
+                     f"elements x ({ops} operations at "
+                     f"{INT32_OPS_PER_S / 1e12:.1f} T/s + {f64} float64 at "
+                     f"{FLOAT64_OPS_PER_S / 1e12:.1f} T/s) "
+                     f"({t_ops * 1e3:.4f} ms), one launch"}
+    return out
 
 
 def phase4_spv(torch, Audio, dev):
@@ -1376,18 +1553,33 @@ def stream_peak_bound(n_in: int, ch: int, out_samples: int, chunk: int,
 
 
 STREAM_STAGES = ("_analysis", "_remap", "_synthesis", "_overlap_add")
+# kernels launched through ctypes, which the profiler ties to no torch
+# operation: the stage that launches each (by a part of its name)
+STAGE_KERNELS = {"pv_analysis": "streamed_analysis",
+                 "pv_synthesis": "streamed_synthesis"}
 
 
 def stream_stages(torch, streamed, run) -> dict:
     """Where one run() of a streamed pipeline spends the card's time, from
     torch.profiler: the stage functions of pipelines/streamed.py wrapped
     in record_function ranges for the run (no launch of their own), each
-    stage's kernel milliseconds and calls; all kernels' milliseconds,
-    launches and the wall milliseconds of the run, host clock, synchronised
-    (kernel time over wall is the card's busy share). Information, not a
-    check."""
+    stage's kernel milliseconds and calls, and its kernel milliseconds by
+    the top-level torch operation that launched them (aten::fft_rfft is
+    cuFFT's R2C) or, for the kernels launched through ctypes, by kernel
+    (STAGE_KERNELS); all kernels' milliseconds, launches and the wall
+    milliseconds of the run, host clock, synchronised (kernel time over
+    wall is the card's busy share). Information, not a check."""
     from torch.profiler import ProfilerActivity, profile, record_function
-    originals = {name: getattr(streamed, name) for name in STREAM_STAGES}
+
+    def home(name):
+        if hasattr(streamed, name):
+            return streamed, name
+        # the remap stage is ops/pv_stages.py remap (streamed._remap up to
+        # 5fd7658), which the chunk loop calls through its module
+        from flan_tpu_torch.ops import pv_stages
+        return pv_stages, name.lstrip("_")
+    homes = {name: home(name) for name in STREAM_STAGES}
+    originals = {name: getattr(*where) for name, where in homes.items()}
 
     def ranged(name, fn):
         def call(*args, **kwargs):
@@ -1397,7 +1589,7 @@ def stream_stages(torch, streamed, run) -> dict:
 
     try:
         for name, fn in originals.items():
-            setattr(streamed, name, ranged(name, fn))
+            setattr(*homes[name], ranged(name, fn))
         run()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1405,9 +1597,10 @@ def stream_stages(torch, streamed, run) -> dict:
             _, wall_ms = timed(torch, run)
     finally:
         for name, fn in originals.items():
-            setattr(streamed, name, fn)
+            setattr(*homes[name], fn)
     stages = {"streamed" + name: {"kernel_ms": 0.0, "calls": 0}
               for name in STREAM_STAGES}
+    ops = {name: {} for name in stages}
     kernel_us, launches = 0.0, 0
     for ev in prof.events():
         on_card = str(ev.device_type).endswith("CUDA")
@@ -1417,7 +1610,21 @@ def stream_stages(torch, streamed, run) -> dict:
         elif on_card and not ev.name.startswith("streamed"):
             kernel_us += ev.device_time_total
             launches += 1
-    return {"stages": stages, "kernel_ms": kernel_us / 1e3,
+            for part, stage in STAGE_KERNELS.items():
+                if part in ev.name:     # a ctypes launch: no torch parent
+                    ms = ev.device_time_total / 1e3
+                    stages[stage]["kernel_ms"] += ms
+                    ops[stage][part] = ops[stage].get(part, 0.0) + ms
+        elif not on_card and ev.cpu_parent is not None and \
+                ev.cpu_parent.name in ops:
+            # a top-level torch operation of a stage, its kernels' time
+            by_op = ops[ev.cpu_parent.name]
+            by_op[ev.name] = (by_op.get(ev.name, 0.0)
+                              + ev.device_time_total / 1e3)
+    ops = {name: {op: round(ms, 3) for op, ms in sorted(
+        by_op.items(), key=lambda kv: -kv[1]) if ms > 0}
+        for name, by_op in ops.items()}
+    return {"stages": stages, "ops_ms": ops, "kernel_ms": kernel_us / 1e3,
             "launches": launches, "wall_ms": wall_ms,
             "busy_share": kernel_us / 1e3 / wall_ms}
 
@@ -1429,6 +1636,7 @@ def phase7_streamed(torch, Audio, pipelines, dev, y_class, wall_class):
     phase 3's class-path output; the sweep of chunk sizes; launches per
     chunk; the 1.5x repitch and a morph at 600 s; repitch and morph
     against their class forms at 60 s. Returns the report."""
+    from flan_tpu_torch.ops import pv_stages
     x = stereo_signal(STREAM_SECONDS)
     report = {"phase": 7, "path": "streamed_stretch_2x_600s_stereo_48k",
               "chunk_out": pipelines.streamed.DEFAULT_CHUNK_OUT}
@@ -1436,9 +1644,12 @@ def phase7_streamed(torch, Audio, pipelines, dev, y_class, wall_class):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
+    pv_stages.reset_launch_counts()
     y, ms_first = timed(torch, lambda: pipelines.pv_stretch_pipeline(
         xd, 2.0, sample_rate=SR))
+    launches = dict(pv_stages.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() - base
+    y_first = y.cpu().numpy()
     del y
     y, ms_second = timed(torch, lambda: pipelines.pv_stretch_pipeline(
         x, 2.0, sample_rate=SR))
@@ -1458,8 +1669,23 @@ def phase7_streamed(torch, Audio, pipelines, dev, y_class, wall_class):
         "peak_alloc_gb_above_input": peak / 1e9,
         "peak_bound_gb": bound / 1e9,
         "out_frames": int(y_np.shape[1]), "vs_class_err_rel": err,
-        "dominant_hz": hz})
+        "dominant_hz": hz, "launches": launches})
     print(json.dumps(report), flush=True)
+    # H1 and H2 once a chunk (the remap fused into H2)
+    chunks = math.ceil(2 * (x.shape[1] // 128 + 1) / report["chunk_out"])
+    for name, count in launches.items():
+        check(count == chunks, f"streamed stretch: {name} launched {count} "
+              f"times, {chunks} chunks")
+    check(np.array_equal(y_first, y_np),
+          "streamed stretch: two calls give other bits")
+    del y_first
+    # every chunk's H1 and H2 against their plain versions on its inputs
+    held = held_pv_stages(torch, pv_stages, lambda: pipelines
+                          .pv_stretch_pipeline(xd, 2.0, sample_rate=SR)
+                          .cpu().numpy(), "streamed stretch")
+    check(np.array_equal(held.pop("output"), y_np),
+          "the held streamed stretch's output is not the path's")
+    report["held"] = held
     check(y_np.shape == y_class.shape,
           f"streamed stretch {y_np.shape}, class path {y_class.shape}")
     check(bool(np.isfinite(y_np).all()), "streamed stretch not finite")
@@ -1486,7 +1712,6 @@ def phase7_streamed(torch, Audio, pipelines, dev, y_class, wall_class):
         del y
     stages = stream_stages(torch, pipelines.streamed, lambda: (
         pipelines.pv_stretch_pipeline(xd, 2.0, sample_rate=SR)))
-    chunks = math.ceil(2 * (x.shape[1] // 128 + 1) / report["chunk_out"])
     report_r = {"phase": 7, "chunk_sweep_600s": sweep,
                 "stages_600s": stages, "chunks_600s": chunks,
                 "launches_per_chunk": stages["launches"] / chunks}
@@ -3902,11 +4127,12 @@ def read_bmp(path: str) -> np.ndarray:
 def counter_modules() -> tuple:
     """Every module of the port that counts its kernels' launches."""
     from flan_tpu_torch.ops import (cycle_scan, grain_mix, probe_kernels,
-                                    pv_info_kernels, random, scan_kernels,
-                                    sequential_kernels, spv_kernels,
-                                    sqpv_kernels)
+                                    pv_info_kernels, pv_stages, random,
+                                    scan_kernels, sequential_kernels,
+                                    spv_kernels, sqpv_kernels)
     return (spv_kernels, sqpv_kernels, scan_kernels, sequential_kernels,
-            probe_kernels, pv_info_kernels, random, cycle_scan, grain_mix)
+            probe_kernels, pv_info_kernels, random, cycle_scan, grain_mix,
+            pv_stages)
 
 
 def kernel_counts() -> dict:
@@ -4531,7 +4757,7 @@ def phase13_rank(plan: dict) -> dict:
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from flan_tpu_torch.ops import scan_kernels
+    from flan_tpu_torch.ops import pv_stages, scan_kernels
     from flan_tpu_torch.parallel import batch, conv_sp, scan_sp, stft_sp
     from flan_tpu_torch.parallel.mesh import make_mesh
     from flan_tpu_torch.pipelines import pv_stretch_pipeline
@@ -4562,6 +4788,7 @@ def phase13_rank(plan: dict) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         scan_kernels.reset_launch_counts()
+        pv_stages.reset_launch_counts()
         moved = dict(sp.moved)
         t0 = time.perf_counter()
         results[name] = fn()
@@ -4570,7 +4797,8 @@ def phase13_rank(plan: dict) -> dict:
         report["calls"][name] = {
             "wall_s": wall, "x_realtime": seconds / wall,
             "peak_alloc_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "launches": {k: v for k, v in scan_kernels.LAUNCHES.items()
+            "launches": {k: v for k, v in (*scan_kernels.LAUNCHES.items(),
+                                           *pv_stages.LAUNCHES.items())
                          if v},
             "collective_bytes": {k: sp.moved[k] - moved[k]
                                  for k in moved}}
@@ -5168,8 +5396,66 @@ def synth_timing(torch, Audio, dev) -> dict:
     return out
 
 
+def stretch_timing(torch, Audio, pipelines, dev) -> dict:
+    """The 600 s stereo 2x stretch (window 2048 / hop 128 / dft 4096) as
+    phases 3 and 7 drive it, by the entry points every version of the port
+    has. The streamed call (phase 7's, from a card tensor): its wall by CUDA
+    events (two calls after one), its peak above the input, a digest of
+    its output, and its stages, their kernel ms by torch operation and the
+    launches a chunk (stream_stages). The class path (phase 3's): each
+    stage's wall, synchronised (two runs after one whole call), and a
+    digest of its output."""
+    x = torch.from_numpy(stereo_signal(STREAM_SECONDS)).to(dev)
+
+    def run():
+        return pipelines.pv_stretch_pipeline(x, 2.0, sample_rate=SR)
+    run()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    out = {"streamed": {"sha256_16": digest16(y),
+                        "peak_alloc_gb_above_input": peak / 1e9}}
+    del y
+    out["streamed"]["wall_ms"] = [cuda_ms(torch, run, 1) for _ in range(2)]
+    stages = stream_stages(torch, pipelines.streamed, run)
+    chunks = math.ceil(2 * (x.shape[1] // 128 + 1)
+                       / pipelines.streamed.DEFAULT_CHUNK_OUT)
+    out["streamed"].update(
+        stages=stages["stages"], ops_ms=stages["ops_ms"],
+        busy_share=stages["busy_share"], kernel_ms=stages["kernel_ms"],
+        launches_per_chunk=stages["launches"] / chunks,
+        profile_us_per_launch=profile_launches(
+            torch, {"streamed": run})["streamed"])
+    a = Audio.create_from_array(x, SR)
+    a.convert_to_PV(2048, 128, 4096).stretch(2.0).convert_to_audio()
+    runs = []
+    for _ in range(2):
+        pv, ms_fwd = timed(torch, lambda: a.convert_to_PV(2048, 128, 4096))
+        pv2, ms_str = timed(torch, lambda: pv.stretch(2.0))
+        del pv
+        y, ms_inv = timed(torch, pv2.convert_to_audio)
+        del pv2
+        runs.append({"pv_forward": ms_fwd, "stretch": ms_str,
+                     "pv_inverse": ms_inv})
+    out["class"] = {"stages_ms": runs, "sha256_16": digest16(y.data)}
+    del y
+    # each stage's kernels, device us a launch (profile_launches)
+    pv = a.convert_to_PV(2048, 128, 4096)
+    pv2 = pv.stretch(2.0)
+    out["class"]["profile_us_per_launch"] = profile_launches(torch, {
+        "pv_forward": lambda: a.convert_to_PV(2048, 128, 4096),
+        "pv_inverse": pv2.convert_to_audio})
+    del pv, pv2, a, x
+    torch.cuda.empty_cache()
+    print(json.dumps({"stretch_timing": out}), flush=True)
+    return out
+
+
 TIME_CALL_GROUPS = ("sqpv", "scans", "kxk", "saturator", "comb", "probe",
-                    "stereo_delay", "salience", "synth")
+                    "stereo_delay", "salience", "synth", "stretch")
 
 
 def time_calls(package, groups=TIME_CALL_GROUPS) -> None:
@@ -5182,8 +5468,9 @@ def time_calls(package, groups=TIME_CALL_GROUPS) -> None:
     phase 8's calls (comb_timing), T3 with a digest of its output
     (probe_timing), where the package has it, the swept stereo delay on
     phase 9's calls (stereo_delay_timing), the salience histogram on phase
-    10's (salience_timing), and K2 and K3 on phase 11's (synth_timing),
-    and nothing else."""
+    10's (salience_timing), K2 and K3 on phase 11's (synth_timing), and
+    the 600 s stretch, streamed and class path, stage by stage
+    (stretch_timing), and nothing else."""
     card, torch, dev, _ = start(package)
     from flan_tpu_torch import Audio
     from flan_tpu_torch.ops import scan, scan_kernels, sequential_kernels
@@ -5240,6 +5527,9 @@ def time_calls(package, groups=TIME_CALL_GROUPS) -> None:
         result["salience"] = salience_timing(torch, Audio, dev)
     if "synth" in groups:
         result["synth"] = synth_timing(torch, Audio, dev)
+    if "stretch" in groups:
+        from flan_tpu_torch import pipelines
+        result["stretch"] = stretch_timing(torch, Audio, pipelines, dev)
     print(f"card: {card}", flush=True)
     print(json.dumps(result), flush=True)
 
@@ -5291,7 +5581,8 @@ def main() -> None:
     # count runs over every main path (it lies on none)
     spv_kernels.reset_launch_counts()
     probe_kernels.reset_launch_counts()
-    y_class, wall_class = phase3_stretch(torch, Audio, dev)
+    y_class, wall_class, launches3, held3 = phase3_stretch(torch, Audio,
+                                                          dev)
     phase_done("3 stretch")
     x, spv, y, wall_k = phase4_spv(torch, Audio, dev)
     launches = dict(spv_kernels.LAUNCHES)
@@ -5376,7 +5667,8 @@ def main() -> None:
     phase_done("6 filter path, checks, timing")
 
     # phase 7: the streamed pipelines; resonate and perturb, counted
-    phase7_streamed(torch, Audio, pipelines, dev, y_class, wall_class)
+    report7 = phase7_streamed(torch, Audio, pipelines, dev, y_class,
+                              wall_class)
     del y_class
     phase_done("7 streamed pipelines")
     algo_launches, algo_errs, calls7 = phase7_algorithms(
@@ -5408,6 +5700,28 @@ def main() -> None:
     del pv60, calls7
     print(json.dumps({"phase": 7, "scans_in_regime": regime}), flush=True)
     phase_done("7 resonate, perturb, checks, timing")
+    # H1 and H2: their launches on both paths, each held to its plain
+    # version on every chunk of both; timed on the streamed path's chunk
+    from flan_tpu_torch.ops import pv_stages
+    held7 = report7["held"]
+    times_pv = pv_stage_timing(torch, pv_stages, held7)
+    for name in PV_STAGE_KERNELS:
+        by_path[name] = {"class path (phase 3)": launches3[name],
+                         "streamed stretch (phase 7)":
+                             report7["launches"][name]}
+        launches[name] = sum(by_path[name].values())
+        worst[name] = errs[name] = max(held3[name]["max_abs_err"],
+                                       held7[name]["max_abs_err"])
+        t = times_pv[name]
+        times[name] = {"ms": t["ms"], "ms_events": t["ms_events"],
+                       "plain_ms": t["plain_ms"],
+                       "held": {path: {k: v for k, v in h[name].items()
+                                       if k != "args"}
+                                for path, h in (("class path", held3),
+                                                ("streamed", held7))}}
+        bounds[name] = (t["bound_ms"], t["bound_by"], t["bound_note"])
+    del report7, held3, held7
+    phase_done("7 H1, H2 timing")
 
     # phase 8: the k x k scan and the sequential kernels; the filters on
     # them, counted; the gradients; resampling and convolution
@@ -5695,7 +6009,8 @@ def main() -> None:
               "saturator": "flan_tpu_torch/csrc/sequential_kernels.cu",
               "comb": "flan_tpu_torch/csrc/sequential_kernels.cu",
               "stereo": "flan_tpu_torch/csrc/sequential_kernels.cu",
-              "salience": "flan_tpu_torch/csrc/pv_info_kernels.cu"}
+              "salience": "flan_tpu_torch/csrc/pv_info_kernels.cu",
+              "pv": "flan_tpu_torch/csrc/pv_stage_kernels.cu"}
     replaces = {"spv_forward": "flan_tpu/ops/spv_pallas.py:93",
                 "spv_inverse": "flan_tpu/ops/spv_pallas.py:239",
                 "sqpv_forward": "flan_tpu/ops/sqpv_pallas.py:139",
@@ -5724,7 +6039,10 @@ def main() -> None:
                 "stereo_delay_swept_backward":
                     "flan_tpu/audio/temporal.py:511",
                 # no TPU kernel: XLA's scatter-add and convolution
-                "salience_histogram": "flan_tpu/pv/information.py:121"}
+                "salience_histogram": "flan_tpu/pv/information.py:121",
+                # no TPU kernel: XLA's fusions around the FFTs
+                "pv_analysis": "flan_tpu/ops/stft.py:92",
+                "pv_synthesis": "flan_tpu/ops/stft.py:134"}
     path = {"spv_forward": "spv", "spv_inverse": "spv",
             "sqpv_forward": "sqpv", "sqpv_inverse": "sqpv",
             "scan_linear": "filters, pv_algorithms, gradients, "
@@ -5748,7 +6066,12 @@ def main() -> None:
             "stereo_delay_swept": "effect chain (stereo_delay), gradients",
             "stereo_delay_swept_backward": "gradients (stereo_delay)",
             "salience_histogram": "pv family (get_salience, get_contours, "
-                                  "prism)"}
+                                  "prism)",
+            "pv_analysis": "stretch (pv_forward, the streamed pipelines' "
+                           "_analysis), cli, parallel (stft_sp)",
+            "pv_synthesis": "stretch (pv_inverse, the streamed pipelines' "
+                            "_synthesis, the remap fused), cli, parallel "
+                            "(stft_sp)"}
     errs["probe"] = 0.0     # compared in phase 2 only
     kernels = [{"name": name, "route": "cuda",
                 "source": source[name.split("_")[0]],
@@ -5783,6 +6106,16 @@ def main() -> None:
                 if entry["name"].endswith("_backward")
                 else "a lax.scan: no TPU kernel")
             entry["bound_note"] = bounds[entry["name"]][2]
+        if entry["name"] in PV_STAGE_KERNELS:
+            entry["replaces_note"] = (
+                "XLA's fusion of rfft_mag_phase (:92), _wrap_radians (:71) "
+                "and pv_forward's epilogue (:195): no TPU kernel"
+                if entry["name"] == "pv_analysis" else
+                "XLA's fusion of the streamed remap "
+                "(flan_tpu/pipelines/streamed.py:154), cumsum_mod1_frames "
+                "(:134) and pv_inverse's polar form (:254): no TPU kernel")
+            entry["bound_note"] = bounds[entry["name"]][2]
+            entry["library_note"] = "none: no PyTorch call computes the stage"
         if entry["name"] == "salience_histogram":
             entry["replaces_note"] = ("XLA's scatter-add and HIGHEST "
                                       "convolution: no TPU kernel")

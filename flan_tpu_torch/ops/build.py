@@ -35,6 +35,7 @@ STEREO_WIDE_WIDTH = 1024    # the wide kernels', across tiles
 CYCLE_TILE = 4096       # elements a tile of the cycle scan (synth_kernels.cu)
 CYCLE_FRAC_BITS = 47    # its fixed point's fraction bits
 GRAIN_BLOCK = 128       # output samples a block of the grain overlap-add
+PV_CUMSUM_BLOCK = 256   # frames a block of H2's float64 cumsum
 
 _p, _i, _ll, _d, _f, _u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                            ctypes.c_double, ctypes.c_float, ctypes.c_uint)
@@ -67,13 +68,18 @@ SIGNATURES = {
     "flan_cycle_scan": [_p, _ll, _f, _ll, _p, _p, _p],
     "flan_grain_overlap_add": [_p, _ll, _ll, _ll, _p, _i, _p, _i, _p, _p, _p,
                                _i, _ll, _p],
+    "flan_pv_analysis": [_p, _i, _i, _i, _p, _i, _p, _p, _f, _f, _f, _p, _p,
+                         _ll, _p, _p],
+    "flan_pv_synthesis": [_p, _p, _ll, _p, _p, _p, _p, _p, _p, _i, _i, _ll,
+                          _i, _f, _f, _p],
 }
 # functions of no argument that must return the constants the wrappers
 # size their tensors by (TILE_FRAMES, MAX_BINS and SCAN_CHUNK_TILES from
 # csrc/common.cuh, the SQPV carry's chunk from csrc/sqpv_kernels.cu, the
 # probe's shape from csrc/probe_kernels.cu, the sequential kernels' tiles
 # from csrc/sequential_kernels.cu, the synthesis kernels' tile, fixed point
-# and block from csrc/synth_kernels.cu)
+# and block from csrc/synth_kernels.cu, H2's cumsum block from
+# csrc/pv_stage_kernels.cu)
 _LIMITS = {"flan_spv_tile_frames": TILE_FRAMES,
            "flan_spv_max_bins": MAX_BINS,
            "flan_scan_chunk_tiles": SCAN_CHUNK_TILES,
@@ -87,7 +93,8 @@ _LIMITS = {"flan_spv_tile_frames": TILE_FRAMES,
            "flan_stereo_delay_wide_width": STEREO_WIDE_WIDTH,
            "flan_cycle_scan_tile": CYCLE_TILE,
            "flan_cycle_scan_frac_bits": CYCLE_FRAC_BITS,
-           "flan_grain_block": GRAIN_BLOCK}
+           "flan_grain_block": GRAIN_BLOCK,
+           "flan_pv_cumsum_block": PV_CUMSUM_BLOCK}
 
 
 def sources() -> list[Path]:

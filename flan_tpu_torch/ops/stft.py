@@ -2,12 +2,14 @@
 reference: src/flan/Conversions/AudioPV.cpp:12-139, phase_vocoder.cpp:5-61).
 
 The forward transform is a batched program per chunk of hops: frame, window,
-rFFT (cuFFT on the card through torch.fft), polar, and the lag-1 phase
+rFFT (cuFFT on the card through torch.fft), then the analysis epilogue
+(ops/pv_stages.py: H1 on the card): polar, and the lag-1 phase
 difference, with the last phase of one chunk carried into the next. The
 inverse accumulates phase as cycles modulo 1, so float32 keeps its
-precision over long signals, and overlap-adds each chunk's windowed frames
-into one output stream with slice-adds. Peak memory beyond the input and
-output planes is one chunk of hops.
+precision over long signals (the synthesis prologue, H2 on the card,
+builds each chunk's polar spectrum), and overlap-adds each chunk's windowed
+frames into one output stream with slice-adds. Peak memory beyond the
+input and output planes is one chunk of hops.
 
 Quirks kept from the reference, as the JAX package keeps them: the
 num_hops integer floor, frames centred at -window/2, zero initial phase,
@@ -16,20 +18,15 @@ normalised irFFT.
 """
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
-from flan_tpu_torch.ops.fastmath import atan2 as _fast_atan2
+from flan_tpu_torch.ops import pv_stages
+# stft's names for the shared numerics, which its importers take from here
+from flan_tpu_torch.ops.phase_math import (_MOD1_BLOCK, _TWO_PI, _cdiv,
+                                           _wrap_radians, cpu_exact,
+                                           cumsum_mod1_frames, true_div)
 from flan_tpu_torch.ops.windows import hann_window
-
-_TWO_PI = 2.0 * math.pi
-_MOD1_BLOCK = 256  # frames per within-block cumsum in cumsum_mod1_frames
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 def num_hops(num_frames: int, hop: int) -> int:
@@ -56,29 +53,6 @@ def _frame_signal(x: torch.Tensor, start_hop: int, chunk_hops: int,
     return span.unfold(-1, window_size, hop)
 
 
-def true_div(x: torch.Tensor, s: float) -> torch.Tensor:
-    """x / s, correctly rounded on every device. torch's CUDA kernels turn
-    division by a Python scalar into multiplication by its rounded
-    reciprocal, a bias of up to one ulp in every element that the phase
-    accumulators would integrate over every frame."""
-    return x / torch.full((), s, dtype=x.dtype, device=x.device)
-
-
-def cpu_exact(fn, x: torch.Tensor) -> torch.Tensor:
-    """fn(x) for fn torch.sqrt, torch.log2 or torch.sin, with a float32 CPU
-    tensor evaluated in float64 and rounded back. torch's float32 CPU sqrt
-    and log2 can be off by up to 3e-4 relative in the part of a call that
-    an intra-op worker thread computes the first time it runs them (torch
-    2.13 on an AVX-512 CPU, in one process in two to ten), so a plain
-    version gave two outputs for one input; its sin likewise (the second
-    half of a 2,400-element call up to 2,522 ulps off, in one fresh
-    process in 96 and one in 192). Rounded back from float64 the result
-    stays within one float32 ulp. On the card fn runs in float32."""
-    if x.device.type == "cpu" and x.dtype == torch.float32:
-        return fn(x.double()).to(x.dtype)
-    return fn(x)
-
-
 def bin_frequencies(nbins: int, bin_hz: float, frame_rate: float,
                     dtype=torch.float32, device=None):
     """(bin_freq, expected): each bin's centre frequency, b * bin_hz, and
@@ -90,58 +64,6 @@ def bin_frequencies(nbins: int, bin_hz: float, frame_rate: float,
     expected = bin_freq / npdt(frame_rate) * npdt(_TWO_PI)
     return (torch.from_numpy(bin_freq).to(device),
             torch.from_numpy(expected).to(device))
-
-
-def _wrap_radians(x: torch.Tensor) -> torch.Tensor:
-    """Wrap to [-pi, pi] with round-half-even (reference
-    phase_vocoder.cpp:38-41; torch.round rounds half to even, as
-    jnp.round does)."""
-    return x - _TWO_PI * torch.round(x / _TWO_PI)
-
-
-def rfft_mag_phase(x: torch.Tensor, n: int):
-    """(|X|, arg X) of the real FFT of x [..., m] zero-padded to n.
-
-    The phase is the polynomial atan2 (ops/fastmath.py); zero-energy points
-    get phase 0, as in the JAX package."""
-    spec = torch.fft.rfft(x, n=n, dim=-1)
-    re, im = spec.real, spec.imag
-    energy = re * re + im * im
-    dead = energy == 0.0
-    phase = _fast_atan2(torch.where(dead, 0.0, im), torch.where(dead, 1.0, re))
-    return cpu_exact(torch.sqrt, energy), phase
-
-
-def irfft_polar(mag: torch.Tensor, phase: torch.Tensor, n: int):
-    """Inverse real FFT of mag * exp(i phase) [..., n//2+1] -> [..., n]."""
-    spec = torch.complex(mag * torch.cos(phase), mag * torch.sin(phase))
-    return torch.fft.irfft(spec, n=n, dim=-1)
-
-
-def cumsum_mod1_frames(inc: torch.Tensor) -> torch.Tensor:
-    """Inclusive cumsum modulo 1 along axis 1 of [C, F, B].
-
-    Within blocks of 256 frames the prefix is a plain cumsum; the blocks
-    chain through a mod-1 prefix of their totals, as in the JAX package
-    (which forms the within-block prefix as a triangular matmul and the
-    chain as an associative scan). The sums run in float64 and the result
-    is cast back: torch's CPU cumsum accumulates in float64 and its CUDA
-    cumsum in float32, and a float32 block sum reaching 256 cycles keeps
-    only ~1e-4 cycles of phase, so float64 makes the result the same on
-    every device to the final rounding.
-    """
-    c, f, b = inc.shape
-    blk = _MOD1_BLOCK
-    fpad = _cdiv(f, blk) * blk
-    x = inc.to(torch.float64)
-    if fpad != f:
-        x = torch.nn.functional.pad(x, (0, 0, 0, fpad - f))
-    within = torch.cumsum(x.reshape(c, fpad // blk, blk, b), dim=2)
-    totals = torch.remainder(within[:, :, -1, :], 1.0)         # [C, nb, B]
-    prefix = torch.remainder(torch.cumsum(totals, dim=1), 1.0)
-    prefix = torch.nn.functional.pad(prefix[:, :-1], (0, 0, 1, 0))
-    out = torch.remainder(within + prefix[:, :, None, :], 1.0)
-    return out.reshape(c, fpad, b)[:, :f].to(inc.dtype)
 
 
 def pv_forward(x: torch.Tensor, *, window_size: int = 2048, hop: int = 128,
@@ -169,13 +91,10 @@ def pv_forward(x: torch.Tensor, *, window_size: int = 2048, hop: int = 128,
     for start in range(0, nh, chunk_hops):
         h = min(chunk_hops, nh - start)
         framed = _frame_signal(x, start, h, hop, window_size) * window
-        m, phase = rfft_mag_phase(framed, dft_size)
-        prev = torch.cat([prev_phase, phase[:, :-1]], dim=1)
-        delta = _wrap_radians(phase - prev - expected)
-        mag[:, start:start + h] = m
-        freq[:, start:start + h] = bin_freq + delta * (analysis_rate
-                                                       / _TWO_PI)
-        prev_phase = phase[:, -1:]
+        spec = torch.fft.rfft(framed, n=dft_size, dim=-1)
+        _, _, prev_phase = pv_stages.analysis(
+            spec, bin_freq, expected, analysis_rate, prev=prev_phase,
+            out=(mag[:, start:start + h], freq[:, start:start + h]))
     return mag, freq
 
 
@@ -210,14 +129,12 @@ def pv_inverse(mag: torch.Tensor, freq: torch.Tensor, *,
     cycle0 = torch.zeros((c, 1, nbins), dtype=torch.float32, device=dev)
     for start in range(0, f, chunk_hops):
         h = min(chunk_hops, f - start)
-        inc = torch.remainder(true_div(freq[:, start:start + h],
-                                       analysis_rate), 1.0)
-        cycles = torch.remainder(cumsum_mod1_frames(inc) + cycle0, 1.0)
-        frames = irfft_polar(mag[:, start:start + h], cycles * _TWO_PI,
-                             dft_size)[..., :wpad] * window
+        spec, cycle0 = pv_stages.synthesis(
+            mag[:, start:start + h], freq[:, start:start + h], cycle0,
+            analysis_rate)
+        frames = torch.fft.irfft(spec, n=dft_size, dim=-1)[..., :wpad] * window
         blocks = frames.reshape(c, h, r, hop)
         for j in range(r):
             stream[:, start + j:start + j + h] += blocks[:, :, j]
-        cycle0 = cycles[:, -1:]
     shift = window_size // 2
     return stream.reshape(c, (f + r) * hop)[:, shift:shift + f * hop]

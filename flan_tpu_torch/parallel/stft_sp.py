@@ -31,16 +31,16 @@ import math
 import numpy as np
 import torch
 
-from flan_tpu_torch.ops.stft import (_TWO_PI, _cdiv, _wrap_radians,
-                                     num_hops, rfft_mag_phase)
+from flan_tpu_torch.ops import pv_stages
+from flan_tpu_torch.ops.stft import _cdiv, num_hops
 from flan_tpu_torch.parallel.mesh import (Mesh, all_gather, from_last,
                                           gather_time, shard_time,
                                           shift_left, shift_right)
 from flan_tpu_torch.pipelines.streamed import (_analysis, _as_inputs,
-                                               _cycles, _frames, _geometry,
-                                               _morph_chunk_op,
-                                               _overlap_add, _remap,
-                                               _repitch_chunk_op, _synthesis)
+                                               _geometry, _morph_chunk_op,
+                                               _overlap_add,
+                                               _repitch_chunk_op, _synthesis,
+                                               _window)
 from flan_tpu_torch.pipelines.stretch import stretch_factors
 
 
@@ -90,16 +90,13 @@ def pv_forward_sp(x, mesh: Mesh, *, window_size: int = 2048,
                       shift_left(mesh, x_l[:, :halo])], dim=-1)
     # local hop j - 1 (j = 0 the helper) starts at span sample j * hop
     frames = span.unfold(-1, window_size, hop)[:, :nh_local + 1] * g.window
-    mag, phase = rfft_mag_phase(frames, dft_size)
-    prev = torch.nn.functional.pad(phase[:, :-1], (0, 0, 1, 0))
+    spec = torch.fft.rfft(frames, n=dft_size, dim=-1)
     # hops before the first have phase 0 (the reference's zero start)
-    dead = max(0, 2 - mesh.rank * nh_local)
-    if dead > 1:
-        prev[:, 1:dead] = 0.0
-    delta = _wrap_radians(phase - prev - g.expected)
-    freq = g.bin_freq + delta * (g.analysis_rate / _TWO_PI)
-    return (gather_time(mesh, mag[:, 1:].contiguous(), axis=1),
-            gather_time(mesh, freq[:, 1:].contiguous(), axis=1))
+    mag, freq, _ = pv_stages.analysis(
+        spec, g.bin_freq, g.expected, g.analysis_rate,
+        dead=max(0, 2 - mesh.rank * nh_local))
+    return (gather_time(mesh, mag.contiguous(), axis=1),
+            gather_time(mesh, freq.contiguous(), axis=1))
 
 
 def pv_inverse_sp(mag, freq, mesh: Mesh, *, window_size: int = 2048,
@@ -120,9 +117,13 @@ def pv_inverse_sp(mag, freq, mesh: Mesh, *, window_size: int = 2048,
         raise ValueError("shard too small for the overlap-add tail")
     m_l = shard_time(mesh, mag, axis=1).to(mesh.device)
     f_l = shard_time(mesh, freq, axis=1).to(mesh.device)
-    cycles = _cycles(g, f_l)
-    cycles = torch.remainder(cycles + _prefix(mesh, cycles[:, -1:]), 1.0)
-    audio, tail = _overlap_add(g, _frames(g, m_l, cycles),
+    # the rank's last cycle from 0 (one walk, nothing written), then the
+    # spectrum from the ranks' prefix
+    _, last = pv_stages.synthesis(m_l, f_l, None, g.analysis_rate,
+                                  write=False)
+    spec, _ = pv_stages.synthesis(m_l, f_l, _prefix(mesh, last),
+                                  g.analysis_rate)
+    audio, tail = _overlap_add(g, _window(g, spec),
                                m_l.new_zeros((c, g.r, hop)))
     stream = _hand_over_tail(mesh, g, audio, tail)
     shift = window_size // 2
@@ -176,14 +177,16 @@ def stretch_sp(x, mesh: Mesh, *, factor, window_size: int = 2048,
     li = torch.from_numpy(idx_s[mesh.rank] - 1 - lo[mesh.rank]).to(
         mesh.device)
     mag, freq = _analysis(g, [x], int(lo[mesh.rank]), h_count)
-    s_mag, s_freq = _remap(
-        mag, freq, li,
-        torch.from_numpy(mix[span].astype(np.float32)).to(mesh.device),
-        torch.from_numpy(valid[span]).to(mesh.device))
-    s_mag, s_freq = s_mag[0], s_freq[0]
-    cycles = _cycles(g, s_freq)
-    cycles = torch.remainder(cycles + _prefix(mesh, cycles[:, -1:]), 1.0)
-    audio, tail = _overlap_add(g, _frames(g, s_mag, cycles),
+    plan = (li,
+            torch.from_numpy(mix[span].astype(np.float32)).to(mesh.device),
+            torch.from_numpy(valid[span]).to(mesh.device))
+    # the remap fused into H2: the rank's last cycle from 0, then the
+    # spectrum from the ranks' prefix
+    _, last = pv_stages.synthesis(mag[0], freq[0], None, g.analysis_rate,
+                                  plan=plan, write=False)
+    spec, _ = pv_stages.synthesis(mag[0], freq[0], _prefix(mesh, last),
+                                  g.analysis_rate, plan=plan)
+    audio, tail = _overlap_add(g, _window(g, spec),
                                x.new_zeros((c, g.r, hop)))
     stream = _hand_over_tail(mesh, g, audio, tail)
     shift = window_size // 2
@@ -248,7 +251,8 @@ def streamed_sp_process(xs_list, mesh: Mesh, chunk_op=None, *,
 
     def chunk(k: int):
         mag, freq = _analysis(g, xs, int(i0[k]), h_count)
-        s_mag, s_freq = _remap(mag, freq, li[k], mix_d[k], valid_d[k])
+        s_mag, s_freq = pv_stages.remap(mag, freq, li[k], mix_d[k],
+                                         valid_d[k])
         if chunk_op is not None:
             return chunk_op(s_mag, s_freq, k * chunk_out)
         return s_mag[0], s_freq[0]
@@ -258,7 +262,8 @@ def streamed_sp_process(xs_list, mesh: Mesh, chunk_op=None, *,
     total = torch.zeros((c, 1, nbins), dtype=torch.float32,
                         device=mesh.device)
     for k in mine:
-        total = torch.remainder(total + _cycles(g, chunk(k)[1])[:, -1:], 1.0)
+        _, total = pv_stages.synthesis(*chunk(k), total, g.analysis_rate,
+                                       write=False)
 
     # ---- pass 2: the chunks synthesised from the rank's prefix ----
     cycle = _prefix(mesh, total)

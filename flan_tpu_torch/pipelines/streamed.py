@@ -25,7 +25,10 @@ The remap plan is host numpy in float32 arithmetic, copied from the JAX
 package so that both pick the same hops with the same mixes (remap_plan).
 The JAX package's static-row plan, its A/B knobs and its chunk-op memo
 exist for XLA on the TPU and have no counterpart here. On the card the
-transforms run on cuFFT through torch.fft and the rest is PyTorch.
+transforms run on cuFFT through torch.fft; around them each chunk takes
+one launch of the analysis epilogue (H1) and one of the synthesis prologue
+(H2, which fuses the stretch's remap), ops/pv_stages.py. Framing, the
+chunk ops, the synthesis window and the overlap-add are PyTorch.
 """
 from __future__ import annotations
 
@@ -38,20 +41,20 @@ import torch
 
 from flan_tpu_torch.core.types import DEFAULT_DEVICE, float_iota
 from flan_tpu_torch.func.function import as_function2d, broadcast_f32
-from flan_tpu_torch.ops import pv_modify
-from flan_tpu_torch.ops.stft import (_TWO_PI, _cdiv, _wrap_radians,
-                                     bin_frequencies, cumsum_mod1_frames,
-                                     irfft_polar, num_hops, rfft_mag_phase,
-                                     true_div)
+from flan_tpu_torch.ops import pv_modify, pv_stages
+from flan_tpu_torch.ops.stft import _cdiv, bin_frequencies, num_hops, true_div
 from flan_tpu_torch.ops.windows import hann_window
 
 # Output frames per chunk unless the caller names a count. Device memory
-# grows with it (about 21 [channels, chunk, bins] float32 planes at once)
-# and the host's launch cost falls with it (~124 launches a chunk). The 2x
-# stretch of 600 s stereo 48 kHz, dft 4096, on an H100 80GB HBM3 at
-# 700 W, in two runs of chip_smoke.py phase 7: 2.6-5.7 s at 256 frames,
-# 0.52-0.69 s at 2048 (1.2 GB above the input), 0.48-0.54 s at 4096
-# (1.9 GB), 0.46-0.49 s at 8192 (3.3 GB).
+# grows with it (the output and about 12 [channels, chunk, bins] float32
+# planes at once) and the host's cost falls with it: ~31 launches and
+# ~1.5 ms of host time a chunk, which hold the call (its kernels take about
+# half its wall). The 2x stretch of 600 s stereo 48 kHz, dft 4096, on an
+# H100 80GB HBM3 at 700 W, in two runs of chip_smoke.py phase 7's sweep:
+# 1.39-2.13 s at 256 frames, 0.44-0.69 s at 1024, 0.27-0.30 s at 2048
+# (0.95 GB above the input), 0.136-0.170 s at 4096 (1.28 GB),
+# 0.138-0.142 s at 8192 (1.96 GB, more than the 1.9 GB this default is
+# held to).
 DEFAULT_CHUNK_OUT = 4096
 
 
@@ -203,54 +206,29 @@ def _analysis(g: _Geometry, xs: Sequence[torch.Tensor], i0: int, H: int):
     frames = torch.stack([
         _span(x, start, span_len).unfold(-1, g.wpad, g.hop)[
             :, :H, :g.window_size] for x in xs]) * g.window
-    mag, phase = rfft_mag_phase(frames, g.dft_size)
-    prev = torch.nn.functional.pad(phase[:, :, :-1], (0, 0, 1, 0))
+    spec = torch.fft.rfft(frames, n=g.dft_size, dim=-1)
     # hops before the first have phase 0 (the reference's zero start)
-    dead = max(0, 2 - i0)
-    if dead > 1:
-        prev[:, :, 1:dead] = 0.0
-    delta = _wrap_radians(phase - prev - g.expected)
-    freq = g.bin_freq + delta * (g.analysis_rate / _TWO_PI)
-    return mag[:, :, 1:], freq[:, :, 1:]
+    mag, freq, _ = pv_stages.analysis(spec, g.bin_freq, g.expected,
+                                      g.analysis_rate, dead=max(0, 2 - i0))
+    return mag, freq
 
 
-def _remap(mag, freq, li, mix, valid):
-    """The monotonic time remap of one chunk, weighted-frequency-sum
-    policy (PVModify.cpp:344-355): output frame j reads hops li[j] and
-    li[j] + 1 with weights 1 - mix[j] and mix[j]; frames outside the map
-    are zero."""
-    mix = mix[:, None]
-    w0 = (1.0 - mix) * mag.index_select(2, li)
-    w1 = mix * mag.index_select(2, li + 1)
-    total = w0 + w1
-    fsum = w0 * freq.index_select(2, li) + w1 * freq.index_select(2, li + 1)
-    v = valid[:, None]
-    pos = total > 0.0
-    return (torch.where(v, total, 0.0),
-            torch.where(v & pos, fsum / torch.where(pos, total, 1.0), 0.0))
+def _window(g: _Geometry, spec):
+    """The irFFT of a polar spectrum [C, frames, B] and the synthesis
+    window: [C, frames, wpad]."""
+    return torch.fft.irfft(spec, n=g.dft_size,
+                           dim=-1)[..., :g.wpad] * g.inv_window
 
 
-def _cycles(g: _Geometry, freq):
-    """The mod-1 phase cycles of planes [C, frames, B] from 0: the inclusive
-    sum of freq / analysis_rate modulo 1 along the frames."""
-    return cumsum_mod1_frames(
-        torch.remainder(true_div(freq, g.analysis_rate), 1.0))
-
-
-def _frames(g: _Geometry, mag, cycles):
-    """The polar irFFT of planes [C, frames, B] at `cycles` and the
-    synthesis window: [C, frames, wpad]."""
-    return irfft_polar(mag, cycles * _TWO_PI,
-                       g.dft_size)[..., :g.wpad] * g.inv_window
-
-
-def _synthesis(g: _Geometry, mag, freq, cycle):
-    """The inverse of one chunk's planes [C, chunk, B]: mod-1 cycles from
-    the offset the chunk before left (`cycle` [C, 1, B]), the polar irFFT,
-    the synthesis window. Returns the frames [C, chunk, wpad] and the
-    offset for the next chunk."""
-    cycles = torch.remainder(_cycles(g, freq) + cycle, 1.0)
-    return _frames(g, mag, cycles), cycles[:, -1:]
+def _synthesis(g: _Geometry, mag, freq, cycle, plan=None):
+    """The inverse of one chunk's planes [C, frames, B], or of the chunk
+    that plan = (li, mix, valid) remaps them to: mod-1 cycles from the
+    offset the chunk before left (`cycle` [C, 1, B]), the polar irFFT, the
+    synthesis window. Returns the frames [C, chunk, wpad] and the offset
+    for the next chunk."""
+    spec, cycle = pv_stages.synthesis(mag, freq, cycle, g.analysis_rate,
+                                      plan=plan)
+    return _window(g, spec), cycle
 
 
 def _overlap_add(g: _Geometry, frames, tail):
@@ -271,7 +249,8 @@ def _run_chunks(xs: Sequence[torch.Tensor], plan: RemapPlan, chunk_op, *,
                 window_size: int, hop: int, dft_size: int,
                 sample_rate: float) -> torch.Tensor:
     """The chunk loop (flan_tpu/pipelines/streamed.py:74-251): per chunk,
-    _analysis, _remap, chunk_op, _synthesis and _overlap_add, the cycle
+    _analysis, pv_stages.remap and chunk_op (without a chunk op, the remap
+    of input 0 fused into H2), _synthesis and _overlap_add, the cycle
     offset and the tail carried to the next; then the window/2 shift."""
     c = xs[0].shape[0]
     dev = xs[0].device
@@ -288,14 +267,16 @@ def _run_chunks(xs: Sequence[torch.Tensor], plan: RemapPlan, chunk_op, *,
                         device=dev)
     tail = torch.zeros((c, g.r, hop), dtype=torch.float32, device=dev)
     for k in range(nchunks):
-        mag, freq = _analysis(g, xs, int(plan.i0[k]), plan.max_hops)
-        s_mag, s_freq = _remap(mag, freq, li_all[k], mix_all[k],
-                               valid_all[k])
-        if chunk_op is not None:
-            s_mag, s_freq = chunk_op(s_mag, s_freq, k * chunk)
+        # without a chunk op only input 0 reaches the output
+        mag, freq = _analysis(g, xs if chunk_op else xs[:1],
+                              int(plan.i0[k]), plan.max_hops)
+        chunk_plan = (li_all[k], mix_all[k], valid_all[k])
+        if chunk_op is None:
+            frames, cycle = _synthesis(g, mag[0], freq[0], cycle, chunk_plan)
         else:
-            s_mag, s_freq = s_mag[0], s_freq[0]
-        frames, cycle = _synthesis(g, s_mag, s_freq, cycle)
+            s_mag, s_freq = chunk_op(
+                *pv_stages.remap(mag, freq, *chunk_plan), k * chunk)
+            frames, cycle = _synthesis(g, s_mag, s_freq, cycle)
         stream[:, k * chunk * hop:(k + 1) * chunk * hop], tail = \
             _overlap_add(g, frames, tail)
     stream[:, nchunks * chunk * hop:] = tail.reshape(c, g.r * hop)

@@ -435,9 +435,9 @@ def test_plain_sqrt_and_log2_are_correctly_rounded_on_the_cpu():
 def test_kernel_library_lists_every_source():
     names = [p.name for p in build.sources()]
     assert names == ["probe_kernels.cu", "pv_info_kernels.cu",
-                     "random_kernels.cu", "scan_kernels.cu",
-                     "sequential_kernels.cu", "spv_kernels.cu",
-                     "sqpv_kernels.cu", "synth_kernels.cu"]
+                     "pv_stage_kernels.cu", "random_kernels.cu",
+                     "scan_kernels.cu", "sequential_kernels.cu",
+                     "spv_kernels.cu", "sqpv_kernels.cu", "synth_kernels.cu"]
     assert set(build.SIGNATURES) == {"flan_spv_forward", "flan_spv_inverse",
                                      "flan_sqpv_forward",
                                      "flan_sqpv_inverse", "flan_scan",
@@ -451,7 +451,8 @@ def test_kernel_library_lists_every_source():
                                      "flan_stereo_delay_swept_backward",
                                      "flan_salience_histogram",
                                      "flan_threefry", "flan_cycle_scan",
-                                     "flan_grain_overlap_add"}
+                                     "flan_grain_overlap_add",
+                                     "flan_pv_analysis", "flan_pv_synthesis"}
 
 
 
