@@ -214,6 +214,7 @@ line.
 """
 import argparse
 import functools
+import hashlib
 import json
 import math
 import re
@@ -1036,14 +1037,17 @@ def held_pv_stages(torch, pv_stages, run, path: str) -> dict:
     version on the same inputs on the card: the elements of each output
     compared bit for bit. Returns, for each kernel, its launches in the
     run, the elements compared, those that differ and the largest
-    difference, and the arguments of its last call (for the same-bits
-    check and timing); "output" is run()'s result."""
+    difference (for H2 also the columns its launches summed in frame
+    order: pv_stages.exact_path_columns), and the arguments of its first
+    call (for the same-bits check and timing); "output" is run()'s
+    result."""
     kernels = {"pv_analysis": pv_stages.analysis_cuda,
                "pv_synthesis": pv_stages.synthesis_cuda}
     plain = {"pv_analysis": pv_stages.analysis_ref,
              "pv_synthesis": pv_stages.synthesis_ref}
     stats = {name: {"launches": 0, "elements": 0, "differing": 0,
                     "max_abs_err": 0.0} for name in kernels}
+    stats["pv_synthesis"]["exact_path_columns"] = 0
 
     def held(name):
         def call(*args):
@@ -1051,6 +1055,10 @@ def held_pv_stages(torch, pv_stages, run, path: str) -> dict:
             want = plain[name](*args[:6])
             st = stats[name]
             st["launches"] += 1
+            if name == "pv_synthesis":
+                mag, freq, _, rate, plan = args[:5]
+                st["exact_path_columns"] += pv_stages.exact_path_columns(
+                    mag, freq, rate, plan)
             for g, w in zip(got, want):
                 if g is None:
                     continue
@@ -1071,9 +1079,12 @@ def held_pv_stages(torch, pv_stages, run, path: str) -> dict:
     finally:
         pv_stages.analysis_cuda = kernels["pv_analysis"]
         pv_stages.synthesis_cuda = kernels["pv_synthesis"]
-    print(json.dumps({"phase": "pv_stages held", "path": path, **{
-        name: {k: v for k, v in st.items() if k != "args"}
-        for name, st in stats.items()}}), flush=True)
+    digest = hashlib.sha256(np.ascontiguousarray(output).tobytes()
+                            ).hexdigest()[:16]
+    print(json.dumps({"phase": "pv_stages held", "path": path,
+                      "output_sha256_16": digest, **{
+                          name: {k: v for k, v in st.items() if k != "args"}
+                          for name, st in stats.items()}}), flush=True)
     for name, st in stats.items():
         check(st["launches"] > 0 and st["differing"] == 0,
               f"{path}: {name} against its plain version: "
@@ -1111,7 +1122,8 @@ def pv_stage_timing(torch, pv_stages, held: dict) -> dict:
     CUDA events over 10 launches after one, the wrappers' host time
     included), the plain version's ms on the same inputs, and the launch's
     bound: the larger of its bytes at 3.35 TB/s and its operations (H1_OPS;
-    H2_OPS, H2_REMAP_OPS with a plan, and H2_F64_OPS) at their rates."""
+    H2_OPS, H2_REMAP_OPS with a plan, and H2_F64_OPS) at their rates. Prints
+    each kernel's us a launch with its share of either bound."""
     kernels = {"pv_analysis": pv_stages.analysis_cuda,
                "pv_synthesis": pv_stages.synthesis_cuda}
     plain = {"pv_analysis": pv_stages.analysis_ref,
@@ -1137,6 +1149,12 @@ def pv_stage_timing(torch, pv_stages, held: dict) -> dict:
         nbytes = pv_stage_bytes(torch, name, args)
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = elements * (ops / INT32_OPS_PER_S + f64 / FLOAT64_OPS_PER_S)
+        print(json.dumps({"phase": "7 H1, H2 timing", "kernel": name,
+                          "us_per_launch": ms * 1e3,
+                          "share_of_bytes_bound": t_bytes * 1e3 / ms,
+                          "share_of_operations_bound": t_ops * 1e3 / ms,
+                          "bytes": nbytes, "elements": elements}),
+              flush=True)
         out[name] = {"ms": ms, "ms_events": ms_events, "plain_ms": plain_ms,
                      "bound_ms": max(t_bytes, t_ops) * 1e3,
                      "bound_by": "operations" if t_ops > t_bytes
@@ -5175,7 +5193,6 @@ def probe_timing(torch, dev) -> dict:
     """T3 on its own inputs, as phase 6 times it (time_kernels), with a
     digest of its output (two builds with the same digest gave the same
     bits)."""
-    import hashlib
     from flan_tpu_torch.ops import probe_kernels
     xp, wp = (torch.from_numpy(a).to(dev)
               for a in probe_kernels.probe_inputs())
@@ -5295,7 +5312,6 @@ def stereo_delay_timing(torch, Audio, seq, dev) -> dict:
 
 def digest16(t) -> str:
     """The first 16 hex digits of the sha256 of a tensor's bytes."""
-    import hashlib
     return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
 
 

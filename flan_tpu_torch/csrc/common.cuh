@@ -1,8 +1,10 @@
 // Device helpers shared by the kernels of flan_tpu_torch/csrc: the
 // polynomial atan2 of flan_tpu/ops/fastmath.py, mod 1, the exclusive prefix
-// over tiles (of the SPV kernels), and the epilogue block shape. Everything
-// sits in an anonymous namespace, so each .cu file that includes it gets its
-// own copy and the files link into one library without clashing.
+// over tiles (of the SPV kernels), the IEEE quotient by a reciprocal (K2's,
+// and H2's variant in ops/spv_variants.py), and the epilogue block shape.
+// Everything sits in an anonymous namespace, so each .cu file that includes
+// it gets its own copy and the files link into one library without
+// clashing.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -173,6 +175,21 @@ void launch_tile_prefix(typename Op::T* plane0, typename Op::T* plane1,
                                                  ntiles, nbins, nchunks);
   scan_chunks_apply<Op><<<grid, block, 0, s>>>(plane0, plane1, channels,
                                                ntiles, nbins, nchunks);
+}
+
+// a / b rounded to nearest, for b in [2^-60, 2^60] and y = RN(1 / b)
+// (one reciprocal a thread, none an element): q0 = RN(a y) lies within
+// 1.5 ulps of a / b; one correction RN(q0 + RN(a - q0 b) y) brings it
+// within an ulp; from there the remainder a - q1 b is exact by an FMA and
+// a second correction gives the IEEE quotient (Markstein's theorem)
+// wherever nothing leaves the normal range. |a| outside [2^-60, 2^60] (0
+// among them) takes the library's division.
+__device__ __forceinline__ float quotient(float a, float b, float y) {
+  const float ax = fabsf(a);
+  if (!(ax >= 0x1p-60f && ax <= 0x1p60f)) return __fdiv_rn(a, b);
+  float q = __fmul_rn(a, y);
+  q = __fmaf_rn(__fmaf_rn(-q, b, a), y, q);
+  return __fmaf_rn(__fmaf_rn(-q, b, a), y, q);
 }
 
 // Bins per thread K and threads per block for an epilogue that holds all

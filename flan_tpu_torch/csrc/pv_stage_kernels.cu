@@ -46,25 +46,46 @@
 //   spec = (mag cos(cycles 2pi), mag sin(cycles 2pi)) complex64; the last
 //     frame's cycle is carried.
 // Bound: bytes. It reads the planes it touches (8 bytes an input element)
-// and writes the spectrum (8 an output element): 201 MB a chunk of the
-// 600 s stretch, 60 us at 3.35 TB/s. The function's operations an output
-// element (chip_smoke.py H2_OPS, H2_REMAP_OPS, H2_F64_OPS: the remap, two
+// and writes the spectrum (8 an output element): 201.5 MB a chunk of the
+// 600 s stretch, 60.2 us at 3.35 TB/s (the class path's 2,048 frames
+// 134 MB, 40.1 us). The function's operations an output element
+// (chip_smoke.py H2_OPS, H2_REMAP_OPS, H2_F64_OPS: the remap, two
 // correctly rounded divisions, the remainders, the float64 sums, sincos)
-// take 41 us at the H100's rates. This design issues more: its second
-// walk redoes the remap and the increment, and its loads, index
-// arithmetic and shared-memory reads are its own.
-// Design: a block a (channel, 32 bins), a warp a block of kCum frames,
-// lanes the bins. Each warp stages its frames' plan rows in shared memory
-// (lane-parallel loads), then walks its frames in float64 in order for
-// the block's total, kUnroll frames at a time with every load of a batch
-// issued before its arithmetic (a frame's loads issued alone cost a
-// memory latency a frame, with only 16 warps an SM to hide it); warp 0
-// prefixes the totals in shared memory (continuing the running sum from
-// the pass before); each warp walks its frames again, recomputing the
-// remap and the increment rather than storing them, and writes. A chunk
-// of more than kWarps blocks goes in passes of kWarps. The last frame's
-// cycle comes from the first walk's total and the prefix, so a call that
-// only wants it (write == 0: the sharded paths' totals) makes one walk.
+// take 40.6 us at the H100's rates.
+// Design: every element read, computed and written once. A block a
+// (channel, kBins bins, block of kCum frames), two blocks an SM: a thread
+// a bin (lane) and a segment of kSeg frames (warp) taken in order, in
+// batches of kBatch (kRowBatch without a plan) whose loads are all issued
+// before their arithmetic (the plan rows staged in shared memory first);
+// each frame's magnitude and increment stay in shared memory for the
+// write.
+// The float64 sums in any order: while every increment of a column is a
+// multiple of 2^-45 (every float32 in [2^-22, 1], and 0), each partial sum
+// of a block (at most 2^8) is exact in float64, so the sum in frame order
+// is the warps' segment sums added in any order. A column holding another
+// increment (0 < freq / rate < 2^-22 with low bits set: a flag in shared
+// memory, then __syncthreads_or) is summed in frame order instead, the
+// warps in turn from the sum the warp before left: the plain version's
+// float64 additions. The blocks of a (channel, kBins bins) form one
+// thread-block cluster of up to kCluster: after a cluster barrier, warp 0
+// of every block reads the cluster's totals mod 1 from distributed shared
+// memory and chains them in frame order (run += total, prefix =
+// rem1d(run before)); a chunk of more blocks takes them in turns of
+// kCluster, the chain carried. A call that wants only the last cycle
+// (write == 0: the sharded paths' totals) writes nothing else.
+// Measured on an H100 80GB HBM3 at 700 W (PERF.md §6): 162.3 us a
+// streamed chunk (37% of the byte bound) and 74-75 us on the class path's
+// 2,048 frames (53-54%), from 315 and 165. No single part holds it
+// (ops/spv_variants.py --source pv_stages): the increments' arithmetic
+// ~26 us of the one walk, the spectrum's stores ~19, the cluster's
+// barrier and chain ~5-10, sincosf ~6; staging the input rows in shared
+// memory, a persistent grid that writes one item while it loads the
+// next, 16 bins a block and clusters of 4 or 16 measured no faster. K2's
+// reciprocal quotient by the rate read 4-9 us less a streamed chunk, not
+// kept: one division, the library's.
+
+#include <atomic>
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
@@ -73,8 +94,17 @@ namespace {
 constexpr int kRun = 16;       // H1: frames a thread walks
 constexpr int kH1Threads = 128;
 constexpr int kCum = 256;      // H2: frames a block of the float64 cumsum
-constexpr int kWarps = 16;     // H2: frame blocks a pass walks at once
-constexpr int kUnroll = 8;     // H2: frames whose loads fly together
+constexpr int kBins = 32;      // H2: bins a block
+constexpr int kSeg = 16;       // H2: frames a thread takes, in order
+constexpr int kSegs = kCum / kSeg;          // H2: segments a block
+constexpr int kH2Threads = kBins * kSegs;
+constexpr int kH2Blocks = 65536 / (64 * kH2Threads);  // at 64 registers
+constexpr int kCluster = 8;    // H2: frame blocks a cluster chains at once
+constexpr int kBatch = 4;      // H2: frames whose loads fly together
+constexpr int kRowBatch = 8;   // H2: the same without a plan (2 loads)
+// H2's dynamic shared memory: a block's magnitudes and increments
+constexpr int kH2Smem = 2 * kCum * kBins * (int)sizeof(float);
+constexpr float kFixed = 0x1p45f;  // an increment times this is whole: exact
 
 __device__ __forceinline__ float atan_poly_rn(float z) {
   const float z2 = __fmul_rn(z, z);
@@ -156,12 +186,6 @@ pv_analysis(const float2* __restrict__ spec, int H, int B, int nruns,
   if (carry && j1 == H) carry[row * B + b] = last;
 }
 
-// Whether a batch of H2's walk holds kUnroll frames (no guards).
-template <bool kWhole>
-struct Whole {
-  static constexpr bool value = kWhole;
-};
-
 // One output frame's magnitude and float32 increment from its inputs: with
 // a plan the remap of frames i (weight 1 - a) and i + 1 (weight a), zero
 // outside the map; without, the frame itself (m0, q0).
@@ -182,108 +206,220 @@ __device__ __forceinline__ float increment(float m0, float m1, float q0,
   return rem1f(__fdiv_rn(fv, rate));
 }
 
+// One output frame's spectrum element from its float64 sum x within the
+// block, the block's prefix and the carried cycle: the cycle mod 1, then
+// mag (cos, sin)(2 pi cycle).
+__device__ __forceinline__ float2 polar(double x, double pre, float c0,
+                                        float m, float two_pi) {
+  const float cyc = rem1f(__fadd_rn(
+      __double2float_rn(rem1d(__dadd_rn(x, pre))), c0));
+  float sn, cs;                 // sinf's and cosf's bits (the card tests)
+  sincosf(__fmul_rn(cyc, two_pi), &sn, &cs);
+  return make_float2(__fmul_rn(m, cs), __fmul_rn(m, sn));
+}
+
 template <bool kPlan>
-__global__ void __launch_bounds__(32 * kWarps)
+__global__ void __launch_bounds__(kH2Threads, kH2Blocks)
 pv_synthesis(const float* __restrict__ mag, const float* __restrict__ freq,
              long long in_row, const long long* __restrict__ li,
              const float* __restrict__ mix,
              const unsigned char* __restrict__ valid, long long F, int B,
              float rate, const float* cycle_in, float* cycle_out,
              float2* __restrict__ spec, float two_pi) {
-  __shared__ double totals[kWarps][32];
-  __shared__ double prefix[kWarps][32];
-  // each warp's block of frames: its plan rows (input frame, mix, valid)
-  __shared__ int s_li[kWarps][kCum];
-  __shared__ float s_mix[kWarps][kCum];
-  __shared__ unsigned char s_ok[kWarps][kCum];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  // each frame's magnitude and increment, computed once, read to write
+  extern __shared__ float s_vals[];
+  float (*s_mag)[kBins] = reinterpret_cast<float (*)[kBins]>(s_vals);
+  float (*s_inc)[kBins] =
+      reinterpret_cast<float (*)[kBins]>(s_vals + kCum * kBins);
+  __shared__ int s_li[kCum];          // the block's plan rows
+  __shared__ float s_mix[kCum];
+  __shared__ unsigned char s_ok[kCum];
+  __shared__ double seg[kSegs][kBins];  // each segment's sum of its frames
+  __shared__ double chain[kBins];     // a column's sum in frame order
+  __shared__ double totals[2][kBins];  // the block's total mod 1, by turn
+  __shared__ double prefix[kBins];
+  __shared__ int dirty[kBins];        // a column summed in frame order
+  // a thread a bin and a segment of kSeg frames
+  const int lane = threadIdx.x % kBins, sg = threadIdx.x / kBins;
+  const unsigned ncl = cluster.num_blocks(), rank = cluster.block_rank();
   const int c = blockIdx.y;
-  const int b = blockIdx.x * 32 + lane;
+  const int b = (int)(blockIdx.x / ncl) * kBins + lane;
   const bool live = b < B;
-  const int bb = live ? b : 0;
+  const int bb = live ? b : B - 1;
   const float* m_in = mag + c * in_row + bb;
   const float* f_in = freq + c * in_row + bb;
   const float c0 = (cycle_in && live) ? cycle_in[(long long)c * B + b] : 0.f;
   float2* out = spec ? spec + (long long)c * F * B + bb : nullptr;
   const long long nblk = (F + kCum - 1) / kCum;
-  double run = 0.0;            // warp 0: the sum of the totals so far
-  for (long long base = 0; base < nblk; base += nw) {
-    const long long k = base + warp;
-    const long long j0 = k * kCum, j1 = min(j0 + kCum, F);
-    if (kPlan && k < nblk) {
-      for (int r = lane; r < j1 - j0; r += 32) {
-        s_li[warp][r] = (int)li[j0 + r];
-        s_mix[warp][r] = mix[j0 + r];
-        s_ok[warp][r] = valid[j0 + r];
-      }
-      __syncwarp();
+  const int r0 = sg * kSeg;           // the thread's first row of a block
+  if (threadIdx.x < kBins) dirty[threadIdx.x] = 0;
+  __syncthreads();       // cleared before any warp marks a column
+  double run = 0.0;      // segment 0: the totals mod 1 before the turn
+  for (long long base = 0; base < nblk; base += ncl) {
+    const long long k = base + rank;
+    const int par = (int)((base / ncl) & 1);
+    const long long f0 = k * kCum;                   // the block's frames
+    const int n = k < nblk ? (int)min((long long)kSeg, max(0LL, F - f0 - r0))
+                           : 0;
+    if (kPlan) {
+      for (int r = threadIdx.x; r < kCum; r += kH2Threads)
+        if (k < nblk && f0 + r < F) {
+          s_li[r] = (int)li[f0 + r];
+          s_mix[r] = mix[f0 + r];
+          s_ok[r] = valid[f0 + r];
+        }
+      __syncthreads();
     }
-    // a batch of frames from row r0 (n of them; all kUnroll when `full`),
-    // every load issued before the arithmetic: fn(row, m, inc) in order
-    auto batch = [&](int r0, int n, auto full, bool want_mag, auto&& fn) {
-      constexpr bool kFull = decltype(full)::value;
-      float m0[kUnroll], m1[kUnroll], q0[kUnroll], q1[kUnroll];
+    double d = 0.0;      // the segment's sum: exact while `clean`
+    bool clean = true;
+    // the thread's frames in batches, each batch's loads issued first
+    constexpr int batch = kPlan ? kBatch : kRowBatch;
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int r = r0 + (kFull ? u : min(u, n - 1));
-        const long long i = (kPlan ? (long long)s_li[warp][r] : j0 + r) * B;
-        m0[u] = kPlan || want_mag ? m_in[i] : 0.f;
-        q0[u] = f_in[i];
-        m1[u] = kPlan ? m_in[i + B] : 0.f;
-        q1[u] = kPlan ? f_in[i + B] : 0.f;
-      }
+    for (int u0 = 0; u0 < kSeg; u0 += batch) {
+      float m0[batch], m1[batch], q0[batch], q1[batch];
+      if (u0 < n) {
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (kFull || u < n) {
-          float m;
-          const float v = increment<kPlan>(
-              m0[u], m1[u], q0[u], q1[u], kPlan ? s_mix[warp][r0 + u] : 0.f,
-              kPlan ? s_ok[warp][r0 + u] != 0 : true, rate, &m);
-          fn(r0 + u, m, v);
+        for (int u = 0; u < batch; ++u) {
+          const int r = r0 + min(u0 + u, n - 1);   // in bounds, unguarded
+          const long long i = kPlan ? (long long)s_li[r] : f0 + r;
+          m0[u] = kPlan || out ? m_in[i * B] : 0.f;
+          q0[u] = f_in[i * B];
+          m1[u] = kPlan ? m_in[(i + 1) * B] : 0.f;
+          q1[u] = kPlan ? f_in[(i + 1) * B] : 0.f;
         }
       }
-    };
-    // the block's frames in order: whole batches unguarded, then the rest
-    auto walk = [&](bool want_mag, auto&& fn) {
-      const int n = (int)(j1 - j0);
-      int r0 = 0;
-      for (; r0 + kUnroll <= n; r0 += kUnroll)
-        batch(r0, kUnroll, Whole<true>(), want_mag, fn);
-      if (r0 < n) batch(r0, n - r0, Whole<false>(), want_mag, fn);
-    };
-    double s = 0.0;
-    if (live && k < nblk)
-      walk(false, [&](int, float, float v) { s = __dadd_rn(s, (double)v); });
-    totals[warp][lane] = s;
-    __syncthreads();
-    if (warp == 0) {
-      for (int w = 0; w < nw && base + w < nblk; ++w) {
-        prefix[w][lane] = rem1d(run);
-        run = __dadd_rn(run, rem1d(totals[w][lane]));
+#pragma unroll
+      for (int u = 0; u < batch; ++u) {
+        const int r = r0 + u0 + u;
+        float mv = 0.f, v = 0.f;
+        if (u0 + u < n)
+          v = increment<kPlan>(m0[u], m1[u], q0[u], q1[u],
+                               kPlan ? s_mix[r] : 0.f,
+                               kPlan ? s_ok[r] != 0 : true, rate, &mv);
+        s_mag[r][lane] = mv;
+        s_inc[r][lane] = v;
+        d = __dadd_rn(d, (double)v);
+        const float q = __fmul_rn(v, kFixed);
+        clean = clean && q == truncf(q);
+      }
+    }
+    seg[sg][lane] = d;
+    if (!clean && live) dirty[lane] = 1;
+    const bool any = __syncthreads_or(!clean && live) != 0;
+    const bool mine = dirty[lane] != 0;
+    double start = 0.0;  // the column's sum before the thread's frames
+    if (any) {
+      // the columns summed in frame order: the segments in turn
+      for (int s = 0; s < kSegs; ++s) {
+        if (sg == s && mine) {
+          double x = s == 0 ? 0.0 : chain[lane];
+          start = x;
+#pragma unroll
+          for (int u = 0; u < kSeg; ++u)
+            x = __dadd_rn(x, (double)s_inc[r0 + u][lane]);
+          chain[lane] = x;
+        }
+        __syncthreads();
+      }
+    }
+    if (!mine)
+      for (int s = 0; s < sg; ++s) start = __dadd_rn(start, seg[s][lane]);
+    double total = 0.0;
+    if (sg == 0) {
+      if (mine) {
+        total = chain[lane];
+      } else {
+#pragma unroll
+        for (int s = 0; s < kSegs; ++s)
+          total = __dadd_rn(total, seg[s][lane]);
+      }
+      totals[par][lane] = rem1d(total);
+    }
+    cluster.sync();
+    if (sg == 0) {
+      dirty[lane] = 0;
+      // the cluster's totals, every load issued before the chain
+      double t[kCluster];
+#pragma unroll
+      for (int q = 0; q < kCluster; ++q)
+        t[q] = q < (int)ncl && base + q < nblk
+                   ? cluster.map_shared_rank(&totals[par][0], q)[lane]
+                   : 0.0;
+      double pre = 0.0;
+#pragma unroll
+      for (int q = 0; q < kCluster; ++q) {
+        if (q < (int)ncl && base + q < nblk) {
+          if (q == (int)rank) pre = rem1d(run);
+          run = __dadd_rn(run, t[q]);
+        }
+      }
+      prefix[lane] = pre;
+      if (k == nblk - 1 && live) {
+        // the last frame's cycle: its sum within the block is the total
+        const float last = __double2float_rn(rem1d(__dadd_rn(total, pre)));
+        cycle_out[(long long)c * B + b] =
+            cycle_in ? rem1f(__fadd_rn(last, c0)) : last;
       }
     }
     __syncthreads();
-    const double pre = prefix[warp][lane];
-    if (live && k == nblk - 1) {
-      // the last frame's cycle: its within-block sum is the block's total
-      const float last = __double2float_rn(rem1d(__dadd_rn(s, pre)));
-      cycle_out[(long long)c * B + b] =
-          cycle_in ? rem1f(__fadd_rn(last, c0)) : last;
+    if (out && live) {
+      const double pre = prefix[lane];
+      double x = start;
+#pragma unroll 4
+      for (int u = 0; u < n; ++u) {
+        const int r = r0 + u;
+        x = __dadd_rn(x, (double)s_inc[r][lane]);
+        out[(f0 + r) * B] = polar(x, pre, c0, s_mag[r][lane], two_pi);
+      }
     }
-    if (out && live && k < nblk) {
-      double s2 = 0.0;
-      walk(true, [&](int r, float m, float v) {
-        s2 = __dadd_rn(s2, (double)v);
-        const float cyc = rem1f(__fadd_rn(
-            __double2float_rn(rem1d(__dadd_rn(s2, pre))), c0));
-        float sn, cs;           // sinf's and cosf's bits (the card tests)
-        sincosf(__fmul_rn(cyc, two_pi), &sn, &cs);
-        out[(j0 + r) * B] = make_float2(__fmul_rn(m, cs), __fmul_rn(m, sn));
-      });
-    }
-    __syncthreads();
   }
+  cluster.sync();        // no block leaves while the cluster reads it
+}
+
+// pv_synthesis<kPlan>'s dynamic shared memory limit, set once a device:
+// the attribute holds for the process, so later launches skip the call.
+template <bool kPlan>
+cudaError_t allow_synthesis_smem() {
+  static std::atomic<unsigned long long> set{0};   // a bit a device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ULL << (dev & 63);
+  if (set.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(pv_synthesis<kPlan>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kH2Smem);
+  if (err == cudaSuccess) set.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
+template <bool kPlan>
+cudaError_t launch_synthesis(dim3 grid, unsigned ncl, cudaStream_t stream,
+                             const float* mag, const float* freq,
+                             long long in_row, const long long* li,
+                             const float* mix, const unsigned char* valid,
+                             long long F, int B, float rate,
+                             const float* cycle_in, float* cycle_out,
+                             float2* spec, float two_pi) {
+  const cudaError_t err = allow_synthesis_smem<kPlan>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ncl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kH2Threads);
+  cfg.dynamicSmemBytes = kH2Smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, pv_synthesis<kPlan>, mag, freq, in_row,
+                            li, mix, valid, F, B, rate, cycle_in, cycle_out,
+                            spec, two_pi);
 }
 
 }  // namespace
@@ -333,17 +469,19 @@ int flan_pv_synthesis(const float* mag, const float* freq, long long in_row,
       ((li == nullptr) != (valid == nullptr)))
     return (int)cudaErrorInvalidValue;
   const long long nblk = (F + kCum - 1) / kCum;
-  const int warps = nblk < kWarps ? (int)nblk : kWarps;
-  const dim3 grid((B + 31) / 32, C);
+  const unsigned ncl = nblk < kCluster ? (unsigned)nblk : kCluster;
+  const long long strips = (B + kBins - 1) / kBins;
+  if (strips * ncl > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(strips * ncl), C);
   float2* out = write ? (float2*)spec : nullptr;
-  if (li)
-    pv_synthesis<true><<<grid, 32 * warps, 0, (cudaStream_t)stream>>>(
-        mag, freq, in_row, li, mix, valid, F, B, rate, cycle_in, cycle_out,
-        out, two_pi);
-  else
-    pv_synthesis<false><<<grid, 32 * warps, 0, (cudaStream_t)stream>>>(
-        mag, freq, in_row, li, mix, valid, F, B, rate, cycle_in, cycle_out,
-        out, two_pi);
+  const cudaError_t err =
+      li ? launch_synthesis<true>(grid, ncl, (cudaStream_t)stream, mag, freq,
+                                  in_row, li, mix, valid, F, B, rate,
+                                  cycle_in, cycle_out, out, two_pi)
+         : launch_synthesis<false>(grid, ncl, (cudaStream_t)stream, mag,
+                                   freq, in_row, li, mix, valid, F, B, rate,
+                                   cycle_in, cycle_out, out, two_pi);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -108,21 +108,6 @@ constexpr int kChans = 2;                    // channels a K3 block
 constexpr int kList = 256;                   // plan entries staged at once
 constexpr int kUnroll = 1;                   // grains whose loads fly at once
 
-// a / b rounded to nearest, for b in [2^-60, 2^60] and y = RN(1 / b)
-// (one reciprocal a thread, none an element): q0 = RN(a y) lies within
-// 1.5 ulps of a / b; one correction RN(q0 + RN(a - q0 b) y) brings it
-// within an ulp; from there the remainder a - q1 b is exact by an FMA and
-// a second correction gives the IEEE quotient (Markstein's theorem)
-// wherever nothing leaves the normal range. |a| outside [2^-60, 2^60] (0
-// among them) takes the library's division.
-__device__ __forceinline__ float quotient(float a, float b, float y) {
-  const float ax = fabsf(a);
-  if (!(ax >= 0x1p-60f && ax <= 0x1p60f)) return __fdiv_rn(a, b);
-  float q = __fmul_rn(a, y);
-  q = __fmaf_rn(__fmaf_rn(-q, b, a), y, q);
-  return __fmaf_rn(__fmaf_rn(-q, b, a), y, q);
-}
-
 // float32 mod(x, 1) as jnp.mod / torch.remainder give it: RN(x -
 // trunc(x)), + 1 (rounded) where negative, which is RN(x - floor(x)).
 // For |x| < 2^22 the nearest integer t comes from two additions, x - t is

@@ -1,6 +1,7 @@
 """Elementwise numerics shared by the STFT (ops/stft.py), its stages
 (ops/pv_stages.py) and the other representations' plain versions: exact
-division and roots, the half-even phase wrap and the mod-1 cycle sum.
+division and roots, the half-even phase wrap, the mod-1 cycle sum and the
+test of which of its columns sum exactly in any order.
 
 They import nothing of the port, so ops/stft.py and ops/pv_stages.py both
 take them from here; ops/stft.py keeps their names for its importers.
@@ -73,3 +74,17 @@ def cumsum_mod1_frames(inc: torch.Tensor) -> torch.Tensor:
     prefix = torch.nn.functional.pad(prefix[:, :-1], (0, 0, 1, 0))
     out = torch.remainder(within + prefix[:, :, None, :], 1.0)
     return out.reshape(c, fpad, b)[:, :f].to(inc.dtype)
+
+
+def clean_columns(inc: torch.Tensor) -> torch.Tensor:
+    """[C, blocks, B] of increments [C, F, B]: whether every increment of
+    a column's block of 256 frames is a whole multiple of 2^-45 (inc 2^45
+    whole; false for a nonzero float32 below 2^-22 with low bits set, or
+    NaN). Such a column's float64 sums in cumsum_mod1_frames are exact, so
+    they give the same bits in any order (csrc/pv_stage_kernels.cu)."""
+    c, f, b = inc.shape
+    fpad = _cdiv(f, _MOD1_BLOCK) * _MOD1_BLOCK
+    q = torch.nn.functional.pad(inc * 2.0 ** 45, (0, 0, 0, fpad - f))
+    whole = (q == torch.trunc(q)).reshape(c, fpad // _MOD1_BLOCK,
+                                          _MOD1_BLOCK, b)
+    return whole.all(dim=2)

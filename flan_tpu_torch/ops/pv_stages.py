@@ -17,12 +17,17 @@ cuFFT.
                   ops/phase_math.py cumsum_mod1_frames from a carried
                   cycle, and the polar spectrum [C, F, B] complex64 that
                   irfft takes; the last cycle carried. Without writing,
-                  the last cycle alone (the sharded paths' totals).
+                  the last cycle alone (the sharded paths' totals). Each
+                  element is read, computed and written once: a block a
+                  (channel, 32 bins, 256 frames), the blocks of 32 bins
+                  chained in a thread-block cluster.
   analysis_ref,   the plain PyTorch versions: the operations the callers ran
   synthesis_ref   before the kernels, in the same order, so each kernel
                   gives their bits.
   remap           the chunk's remap alone, on every device: the streamed
                   paths' stage before a chunk op.
+  exact_path_columns  the columns of a call whose cycle sums H2 takes in
+                  frame order (the rest it adds in any order, exactly).
 
 analysis() and synthesis() dispatch by device: the CPU takes the plain
 version, CUDA the kernel or the call raises. LAUNCHES counts the kernels'
@@ -36,8 +41,8 @@ import torch
 from flan_tpu_torch.ops.build import check_cuda, load_library, raise_on
 from flan_tpu_torch.ops.fastmath import atan2 as _fast_atan2
 from flan_tpu_torch.ops.phase_math import (_TWO_PI, _wrap_radians,
-                                           cpu_exact, cumsum_mod1_frames,
-                                           true_div)
+                                           clean_columns, cpu_exact,
+                                           cumsum_mod1_frames, true_div)
 
 LAUNCHES = {"pv_analysis": 0, "pv_synthesis": 0}
 
@@ -213,6 +218,18 @@ def synthesis_ref(mag, freq, cycle, analysis_rate: float, plan=None,
     phase = cycles * _TWO_PI
     return (torch.complex(mag * torch.cos(phase), mag * torch.sin(phase)),
             cycles[:, -1:])
+
+
+def exact_path_columns(mag, freq, analysis_rate: float, plan=None) -> int:
+    """How many columns (channel, block of 256 frames, bin) of synthesis'
+    increments hold one that is not a whole multiple of 2^-45 (a nonzero
+    increment below 2^-22 with low bits set, or NaN): the columns H2 sums
+    in frame order. Every other column's float64 sums are exact, and H2
+    adds them in any order (csrc/pv_stage_kernels.cu)."""
+    if plan is not None:
+        mag, freq = remap(mag, freq, *plan)
+    inc = torch.remainder(true_div(freq, analysis_rate), 1.0)
+    return int((~clean_columns(inc)).sum())
 
 
 def synthesis_cuda(mag, freq, cycle, analysis_rate: float, plan=None,

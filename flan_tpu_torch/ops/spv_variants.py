@@ -4,17 +4,18 @@ out.
     python -m flan_tpu_torch.ops.spv_variants [--source spv scan kxk sqpv
                                                         saturator comb
                                                         stereo_delay
-                                                        salience synth]
+                                                        salience synth
+                                                        pv_stages]
                                               [--first-version COMMIT CSRC_DIR]
                                               [--variants NAME ...]
                                               [--ks K ...]
 
-Needs one CUDA card and nvcc. For each source named (all nine by default:
+Needs one CUDA card and nvcc. For each source named (all ten by default:
 csrc/spv_kernels.cu, scan_kernels.cu, the k x k kernel in scan_kernels.cu,
 sqpv_kernels.cu, the saturator multinotch, the swept comb and the swept
 stereo delay in sequential_kernels.cu, the salience histogram in
 pv_info_kernels.cu, the cycle scan K2 and the grain overlap-add K3 in
-synth_kernels.cu) it
+synth_kernels.cu, H2 in pv_stage_kernels.cu) it
 copies the source
 and common.cuh, applies one textual substitution set per variant (stores
 removed, table loads or gathers replaced by constants, cheap roundings put
@@ -45,7 +46,13 @@ backward's parts among the variants); the salience histogram on phase
 spread); K2 on phase 11's two 600 s waveform calls and K3 on its
 granulate, psola and modded texture calls (bench_synth: K2's
 conversions, look-back, tile, division, remainder, word ordering and
-memory hints; K3's unrolling, run, channels a block and shared list). A variant
+memory hints; K3's unrolling, run, channels a block and shared list); H2
+on the first chunk of the 2x stretch of 12 s, streamed (4,096 frames, the
+remap fused), the same chunk's last cycle alone and pv_inverse's first
+2,048 frames (bench_pv_stages: the divisions, stores, batches, cluster
+size, bins a block and parts taken out; the parent's second walk,
+divisions, sincosf and plan staging under --first-version f50131e). A
+variant
 computes something
 else than the kernel does: only its times mean anything, apart from that
 error where a variant only rounds in another order.
@@ -434,7 +441,8 @@ def source_file(source: str) -> str:
     the scans' file, the saturator's in the sequential kernels')."""
     return {"kxk": "scan", "saturator": "sequential",
             "comb": "sequential", "stereo_delay": "sequential",
-            "salience": "pv_info"}.get(source, source) + "_kernels.cu"
+            "salience": "pv_info",
+            "pv_stages": "pv_stage"}.get(source, source) + "_kernels.cu"
 
 
 def build_variants(csrc: Path, source: str, variants: dict,
@@ -1780,6 +1788,176 @@ def bench_synth(libs: dict, first) -> None:
             del out
 
 
+# ---- H2, the remap and synthesis prologue (pv_stage_kernels.cu): chunks
+# of chip_smoke.py's 2x stretch (window 2048 / hop 128 / dft 4096)
+PV_SECONDS = 12.0       # three streamed chunks, two of pv_inverse
+PV_STAGES_VARIANTS = {
+    "as_shipped": [],
+    # the division by the rate as K2's: a reciprocal a thread and two
+    # corrections, the library's division outside quotient's range (the
+    # same digest)
+    "reciprocal_rate_division": [
+        ("cu", "float rate, float* mag) {",
+         "float rate, float y, float* mag) {"),
+        ("cu", "  return rem1f(__fdiv_rn(fv, rate));",
+         "  return rem1f(y != 0.f ? quotient(fv, rate, y) : "
+         "__fdiv_rn(fv, rate));"),
+        ("cu", "  const long long nblk = (F + kCum - 1) / kCum;\n  const int r0",
+         "  const float y =\n      rate >= 0x1p-60f && rate <= 0x1p60f ? "
+         "__frcp_rn(rate) : 0.f;\n  const long long nblk = (F + kCum - 1) / "
+         "kCum;\n  const int r0"),
+        ("cu", "kPlan ? s_ok[r] != 0 : true, rate, &mv);",
+         "kPlan ? s_ok[r] != 0 : true, rate, y, &mv);")],
+    # dirty's clear fenced by its own barrier only without a plan (with
+    # one, the plan's staging barrier follows it; the same digest)
+    "clear_barrier_without_plan": [
+        ("cu", "  __syncthreads();       // cleared before any warp marks a "
+         "column", "  if (!kPlan) __syncthreads();")],
+    # the remap's division a reciprocal and two corrections (other bits
+    # where a total leaves quotient's range: times, and the digest)
+    "reciprocal_remap_division": [
+        ("cu", "__fdiv_rn(fsum, total) : 0.f;",
+         "quotient(fsum, total, __frcp_rn(total)) : 0.f;")],
+    # the spectrum's stores marked streaming (the same digest)
+    "streaming_stores": [
+        ("cu", "        out[(f0 + r) * B] = polar(x, pre, c0, s_mag[r][lane], "
+         "two_pi);", "        __stcs(out + (f0 + r) * B, polar(x, pre, c0, "
+         "s_mag[r][lane], two_pi));")],
+    # batches of 8 frames with a plan, of 4 without (the same digest)
+    "batches_of_8": [("cu", "constexpr int kBatch = 4;",
+                      "constexpr int kBatch = 8;")],
+    "row_batches_of_4": [("cu", "constexpr int kRowBatch = 8;",
+                          "constexpr int kRowBatch = 4;")],
+    # clusters of 4 and 16 frame blocks (the same digest)
+    "cluster_4": [("cu", "constexpr int kCluster = 8;",
+                   "constexpr int kCluster = 4;")],
+    "cluster_16": [("cu", "constexpr int kCluster = 8;",
+                    "constexpr int kCluster = 16;"),
+                   ("cu", "  if (err != cudaSuccess) return err;\n  cuda"
+                    "LaunchAttribute", "  if (err != cudaSuccess) return err;"
+                    "\n  if (ncl > 8)\n    cudaFuncSetAttribute(pv_synthesis"
+                    "<kPlan>, cudaFuncAttributeNonPortableClusterSizeAllowed, "
+                    "1);\n  cudaLaunchAttribute")],
+    # the increments kept in float64 (no second conversion; the same
+    # digest)
+    "double_increments": [
+        ("cu", "  float (*s_inc)[kBins] =\n      reinterpret_cast<float (*)"
+         "[kBins]>(s_vals + kCum * kBins);",
+         "  double (*s_inc)[kBins] =\n      reinterpret_cast<double (*)"
+         "[kBins]>(s_vals + kCum * kBins);"),
+        ("cu", "constexpr int kH2Smem = 2 * kCum",
+         "constexpr int kH2Smem = 3 * kCum"),
+        ("cu", "        s_inc[r][lane] = v;\n",
+         "        s_inc[r][lane] = (double)v;\n")],
+    # 16 bins a block (256 threads, four blocks an SM; the same digest)
+    "bins_16": [("cu", "constexpr int kBins = 32;",
+                 "constexpr int kBins = 16;")],
+    # parts taken out (other bits: times only): the cluster's barrier and
+    # chain (each block its own prefix), the plan's loads (rows from the
+    # frame's index), the remap's division, the spectrum's stores (the
+    # polar form kept), the polar form (the magnitude and the sum stored),
+    # sincosf, the increments' arithmetic, the exact-path test
+    "no_cluster_chain": [
+        ("cu", "    cluster.sync();\n    if (sg == 0) {\n",
+         "    __syncthreads();\n    if (sg == 0) {\n"),
+        ("cu", "        t[q] = q < (int)ncl && base + q < nblk",
+         "        t[q] = q == (int)rank")],
+    "no_plan_loads": [("cu", """\
+          s_li[r] = (int)li[f0 + r];
+          s_mix[r] = mix[f0 + r];
+          s_ok[r] = valid[f0 + r];
+""", """\
+          s_li[r] = (int)((f0 + r) >> 1);
+          s_mix[r] = 0.5f;
+          s_ok[r] = 1;
+""")],
+    "no_remap_division": [("cu", "__fdiv_rn(fsum, total) : 0.f;",
+                           "__fmul_rn(fsum, total) : 0.f;")],
+    "no_spectrum_stores": [
+        ("cu", "        out[(f0 + r) * B] = polar(x, pre, c0, s_mag[r][lane], "
+         "two_pi);", "        const float2 e = polar(x, pre, c0, "
+         "s_mag[r][lane], two_pi);\n        if (e.x == 123.456f) "
+         "out[(f0 + r) * B] = e;")],
+    "no_polar_math": [
+        ("cu", "polar(x, pre, c0, s_mag[r][lane], two_pi);",
+         "make_float2(s_mag[r][lane], (float)x);")],
+    "no_sincos": [("cu", "  sincosf(__fmul_rn(cyc, two_pi), &sn, &cs);",
+                   "  sn = cyc;\n  cs = __fmul_rn(cyc, two_pi);")],
+    "no_increment_math": [
+        ("cu", """\
+          v = increment<kPlan>(m0[u], m1[u], q0[u], q1[u],
+                               kPlan ? s_mix[r] : 0.f,
+                               kPlan ? s_ok[r] != 0 : true, rate, &mv);""",
+         """\
+          v = __fmul_rn(__fadd_rn(q0[u], q1[u]), rate), mv = m0[u] + m1[u];""")],
+    "no_exact_test": [("cu", "        clean = clean && q == truncf(q);",
+                       "        clean = clean && q == q;")],
+}
+
+
+def pv_stages_bench_calls(dev) -> dict:
+    """name -> synthesis_cuda's arguments on PV_SECONDS of the stereo
+    signal: the streamed 2x stretch's first chunk (4,096 frames remapped
+    from 2,051, 2 x 2,049 bins), the same chunk's last cycle alone (write
+    0, the sharded paths' totals) and pv_inverse's first chunk (2,048
+    frames, no plan)."""
+    from flan_tpu_torch.ops import pv_stages, stft
+    from flan_tpu_torch.pipelines import pv_stretch_pipeline
+    x = torch.from_numpy(stereo_signal(PV_SECONDS)).to(dev)
+    streamed = _capture([(pv_stages, "synthesis_cuda")],
+                        lambda: pv_stretch_pipeline(x, 2.0, sample_rate=SR)
+                        )["synthesis_cuda"][0]
+    mag, freq = stft.pv_forward(x, sample_rate=SR)
+    whole = _capture([(pv_stages, "synthesis_cuda")],
+                     lambda: stft.pv_inverse(mag, freq, sample_rate=SR)
+                     )["synthesis_cuda"][0]
+    return {"streamed": streamed,
+            "streamed_totals": (*streamed[:5], False),
+            "class": whole}
+
+
+def h2_launcher(lib, args, stream):
+    """(run, outputs): run() launches lib's flan_pv_synthesis on
+    synthesis_cuda's arguments into outputs of its own."""
+    from flan_tpu_torch.ops import pv_stages
+    mag, freq, cycle, rate, plan, write = args
+    c, frames, nbins = mag.shape
+    n_out = frames if plan is None else plan[0].shape[0]
+    spec = (torch.empty((c, n_out, nbins), dtype=torch.complex64,
+                        device=mag.device) if write else None)
+    last = torch.empty((c, 1, nbins), dtype=torch.float32, device=mag.device)
+    ptrs = ((None, None, None) if plan is None else
+            tuple(t.data_ptr() for t in plan))
+
+    def run():
+        build.raise_on(lib.flan_pv_synthesis(
+            mag.data_ptr(), freq.data_ptr(), mag.stride(0), *ptrs,
+            None if cycle is None else cycle.data_ptr(), last.data_ptr(),
+            None if spec is None else spec.data_ptr(), int(write), c, n_out,
+            nbins, float(np.float32(rate)), float(pv_stages._TWO_PI_F32),
+            stream), "pv_synthesis")
+    return run, (spec, last)
+
+
+def bench_pv_stages(libs: dict, first) -> None:
+    """Each variant of H2 on a streamed chunk, its totals alone and a class
+    path chunk: device microseconds a launch (torch.profiler, three after
+    one; CUDA events beside them) and a digest of the outputs."""
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream().cuda_stream
+    calls = pv_stages_bench_calls(dev)
+    for name, lib in libs.items():
+        for call, args in calls.items():
+            run, outs = h2_launcher(lib, args, stream)
+            prof = launch_times(run)
+            print(json.dumps({"source": "pv_stages", "variant": name,
+                              "call": call, "us_per_launch": prof,
+                              "us_events": event_us(run, 3),
+                              "digest": _digest(*outs),
+                              "clocks_sm_mhz_during": _clock_during(run)}),
+                  flush=True)
+            del outs
+
 SOURCES = {
     "spv": (SPV_VARIANTS, bench_spv),
     "scan": (SCAN_VARIANTS, bench_scan),
@@ -1790,6 +1968,7 @@ SOURCES = {
     "stereo_delay": (STEREO_VARIANTS, bench_stereo_delay),
     "salience": (SALIENCE_VARIANTS, bench_salience),
     "synth": (SYNTH_VARIANTS, bench_synth),
+    "pv_stages": (PV_STAGES_VARIANTS, bench_pv_stages),
 }
 
 

@@ -22,7 +22,9 @@ csrc/pv_info_kernels.cu of commit 8c2a6b1 (the salience histogram a
 thread a frame, its adds one chain); and csrc/synth_kernels.cu of commit
 68f457b (K2 in three launches reading f twice through float64
 conversions; K3 a block an output block and channel, its metadata read
-by dependent loads). `git archive
+by dependent loads); and csrc/pv_stage_kernels.cu of commit f50131e (H2
+a block a channel and 32 bins, a warp a block of 256 frames walked twice:
+once for the float64 total, once to write). `git archive
 COMMIT
 flan_tpu_torch/csrc | tar -x -C build/first` brings a source back. Beside
 the sets stand the entry points, scratch and constants of those sources
@@ -726,6 +728,48 @@ SYNTH_FIRST_VARIANTS = {
 }
 
 
+
+# ---- H2 before its redesign (commit f50131e): a block a (channel, 32
+# bins), a warp a block of 256 frames walked twice
+_H2_FIRST_SECOND_WALK = """\
+      walk(true, [&](int r, float m, float v) {
+        s2 = __dadd_rn(s2, (double)v);
+        const float cyc = rem1f(__fadd_rn(
+            __double2float_rn(rem1d(__dadd_rn(s2, pre))), c0));
+        float sn, cs;           // sinf's and cosf's bits (the card tests)
+        sincosf(__fmul_rn(cyc, two_pi), &sn, &cs);
+        out[(j0 + r) * B] = make_float2(__fmul_rn(m, cs), __fmul_rn(m, sn));
+      });
+"""
+PV_STAGES_FIRST_VARIANTS = {
+    "as_shipped": [],
+    # the second walk's loads, remap, increments and polar form gone, its
+    # stores kept (other bits: times only)
+    "no_second_walk": [("cu", _H2_FIRST_SECOND_WALK, """\
+      for (int r = 0; r < (int)(j1 - j0); ++r)
+        out[(j0 + r) * B] = make_float2((float)pre, (float)s2);
+""")],
+    # both correctly rounded divisions a product (other bits)
+    "no_divisions": [
+        ("cu", "__fdiv_rn(fsum, total) : 0.f;",
+         "__fmul_rn(fsum, total) : 0.f;"),
+        ("cu", "  return rem1f(__fdiv_rn(fv, rate));",
+         "  return rem1f(__fmul_rn(fv, rate));")],
+    # no sincosf: the cycle and its product by 2 pi stored (other bits)
+    "no_sincos": [("cu", "        sincosf(__fmul_rn(cyc, two_pi), &sn, &cs);",
+                   "        sn = cyc;\n        cs = __fmul_rn(cyc, two_pi);")],
+    # the plan rows made from the frame's index, not loaded (other bits)
+    "no_plan_staging": [("cu", """\
+        s_li[warp][r] = (int)li[j0 + r];
+        s_mix[warp][r] = mix[j0 + r];
+        s_ok[warp][r] = valid[j0 + r];
+""", """\
+        s_li[warp][r] = (int)((j0 + r) >> 1);
+        s_mix[warp][r] = 0.5f;
+        s_ok[warp][r] = 1;
+""")],
+}
+
 class Version(NamedTuple):
     """The substitution sets of one commit's sources (source -> variant ->
     edits), its entry points where they differ from ops/build.py's, and the
@@ -758,4 +802,5 @@ VERSIONS = {
         lambda d, reverse: _comb_warp_rounds(d, reverse))),
     "8c2a6b1": Version({"salience": SALIENCE_FIRST_VARIANTS}),
     "68f457b": Version({"synth": SYNTH_FIRST_VARIANTS}),
+    "f50131e": Version({"pv_stages": PV_STAGES_FIRST_VARIANTS}),
 }

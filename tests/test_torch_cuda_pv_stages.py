@@ -3,9 +3,10 @@ csrc/pv_stage_kernels.cu, on the card: each against its plain version
 (ops/pv_stages.py analysis_ref, synthesis_ref) on the card, bit for bit,
 over the stages' edges (zero energy, the helper hop's dead rows, frames
 outside the map, pairs whose weight is 0, ragged chunks, one frame), bin
-counts 2, 257, 2049 and 4097, chunks from 256 to 8192 frames and one past
-what a block walks in one pass, and three calls for the same bits; then
-the paths through them.
+counts 2, 257, 2049 and 4097, chunks from 256 to 9001 frames, past what a
+cluster of H2 chains in one turn, columns whose increments H2 sums in
+frame order (frequencies below 2^-22 of the rate), and three calls for
+the same bits; then the paths through them.
 
 Marked `cuda`: each test skips where torch sees no GPU. The file imports
 no jax, so it also runs where jax is not installed:
@@ -24,8 +25,8 @@ from flan_tpu_torch.pipelines import pv_stretch_pipeline
 SR = 48000.0
 RATE = SR / 128
 BINS = (2, 257, 2049, 4097)
-# frames a block of H2 walks in one pass: 16 warps of 256 frames
-PASS_FRAMES = 16 * 256
+# frames a cluster of H2 chains in one turn: 8 blocks of 256 frames
+TURN_FRAMES = 8 * 256
 
 
 @pytest.fixture
@@ -156,11 +157,11 @@ def test_cumsum_mod1_frames_is_the_cpus_on_the_card(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nbins", BINS)
-@pytest.mark.parametrize("frames", [1, 255, 256, 257, PASS_FRAMES,
-                                    PASS_FRAMES + 1, 8192])
+@pytest.mark.parametrize("frames", [1, 255, 256, 257, TURN_FRAMES,
+                                    TURN_FRAMES + 1, 4096, 4097, 8192])
 def test_synthesis_matches_plain(cuda_device, nbins, frames):
     """pv_inverse's chunk and the chunk ops' path: no plan; frames of zero
-    magnitude; a ragged last block; one frame; several passes."""
+    magnitude; a ragged last block; one frame; several turns."""
     mag, freq = planes(2, frames, nbins, frames + nbins, cuda_device,
                        zero=(0,) if frames > 1 else ())
     cycle = torch.rand((2, 1, nbins), device=cuda_device)
@@ -191,6 +192,30 @@ def test_synthesis_with_a_plan_matches_plain(cuda_device, nbins, frames_out):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("frames_out", [256, 1000, 4096])
+def test_synthesis_with_a_wide_plan_matches_plain(cuda_device, frames_out):
+    """A plan whose blocks of 256 output frames read input rows far apart
+    (a 3x compression, and a block that jumps back and ahead), beside a
+    first block that reads 129 rows."""
+    nbins = 257
+    frames_in = 3 * frames_out + 4
+    mag, freq = planes(2, frames_in, nbins, frames_out + 5, cuda_device,
+                       zero=(7, 8))
+    li, mix, valid = plan(frames_in, frames_out, frames_out + 1, cuda_device)
+    head = min(256, frames_out)
+    li[:head] = torch.arange(head, device=cuda_device) // 2
+    if frames_out > 300:
+        li[256:300] = torch.arange(44, device=cuda_device)
+        li[300:512] = frames_in - 2
+    p = (li, mix, valid)
+    cycle = torch.rand((2, 1, nbins), device=cuda_device)
+    want = pv_stages.synthesis_ref(mag, freq, cycle, RATE, p)
+    got = pv_stages.synthesis_cuda(mag, freq, cycle, RATE, p)
+    torch.cuda.synchronize()
+    assert same(got[1], want[1]) and same(got[0], want[0])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("carried", [False, True])
 @pytest.mark.parametrize("frames", [1, 300, 12_345])
 def test_synthesis_without_writing_matches_plain(cuda_device, carried,
@@ -201,6 +226,69 @@ def test_synthesis_without_writing_matches_plain(cuda_device, carried,
     got = pv_stages.synthesis_cuda(mag, freq, cycle, RATE, write=False)
     torch.cuda.synchronize()
     assert got[0] is None and same(got[1], want[1])
+
+
+def tiny(mag, freq, frames, cols, seed, plan=None):
+    """freq at (frames, cols) set to rate x u, u in (0, 2^-22) from a
+    seed: increments below 2^-22 that are no multiple of 2^-45, so H2 sums
+    those columns in frame order (with a plan, the input frames that the
+    output frames read). Returns how many columns that gives."""
+    rng = np.random.default_rng(seed)
+    shape = (freq.shape[0], len(frames), len(cols))
+    u = rng.uniform(0.05, 0.95, shape) * 2.0 ** -22
+    idx = np.ix_(range(freq.shape[0]), frames, cols)
+    f = freq.cpu().numpy()
+    f[idx] = (u * RATE).astype(np.float32)
+    freq.copy_(torch.from_numpy(f))
+    return pv_stages.exact_path_columns(mag, freq, RATE, plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_plan", [False, True])
+@pytest.mark.parametrize("many", [False, True])
+@pytest.mark.parametrize("frames_out", [256, 2100, 9001])
+def test_synthesis_exact_path_columns_match_plain(cuda_device, with_plan,
+                                                  many, frames_out):
+    """Columns whose increments hold values below 2^-22 (late in a block,
+    where the float64 sum has grown and they round): H2 sums them in frame
+    order and gives the plain version's bits; one column of one block, or
+    a third of the bins in every block, past a cluster's turn."""
+    nbins = 257
+    frames_in = frames_out // 2 + 6 if with_plan else frames_out
+    mag, freq = planes(2, frames_in, nbins, frames_out + 3, cuda_device)
+    p = (plan(frames_in, frames_out, frames_out, cuda_device) if with_plan
+         else None)
+    step = 2 if with_plan else 1      # a plan reads input frames at half rate
+    if many:
+        frames = [j for j in range(100 // step, frames_in, 7)]
+        cols = list(range(0, nbins, 3))
+    else:
+        frames = [j // step for j in range(200, 212)]
+        cols = [37]
+    n = tiny(mag, freq, frames, cols, frames_out, p)
+    assert n >= 2
+    cycle = torch.rand((2, 1, nbins), device=cuda_device)
+    want = pv_stages.synthesis_ref(mag, freq, cycle, RATE, p)
+    got = pv_stages.synthesis_cuda(mag, freq, cycle, RATE, p)
+    torch.cuda.synchronize()
+    assert same(got[1], want[1]) and same(got[0], want[0])
+    total = pv_stages.synthesis_ref(mag, freq, None, RATE, p, write=False)
+    got = pv_stages.synthesis_cuda(mag, freq, None, RATE, p, write=False)
+    assert got[0] is None and same(got[1], total[1])
+
+
+@pytest.mark.cuda
+def test_synthesis_exact_path_same_bits_on_three_calls(cuda_device):
+    mag, freq = planes(2, 4096, 2049, 8, cuda_device)
+    assert tiny(mag, freq, list(range(150, 4096, 5)), list(range(1, 2049, 4)),
+                8) > 0
+    cycle = torch.rand((2, 1, 2049), device=cuda_device)
+    first = pv_stages.synthesis_cuda(mag, freq, cycle, RATE)
+    for _ in range(2):
+        again = pv_stages.synthesis_cuda(mag, freq, cycle, RATE)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    want = pv_stages.synthesis_ref(mag, freq, cycle, RATE)
+    assert same(first[0], want[0]) and same(first[1], want[1])
 
 
 @pytest.mark.cuda

@@ -806,7 +806,8 @@ def test_first_version_variants_are_well_formed():
     from flan_tpu_torch.ops import spv_variants, spv_variants_first
     versions = spv_variants_first.VERSIONS
     assert set(versions) == {"9089281", "9ad48d3", "91765eb", "1f4e009",
-                             "4441291", "0f06bc7", "8c2a6b1", "68f457b"}
+                             "4441291", "0f06bc7", "8c2a6b1", "68f457b",
+                             "f50131e"}
     assert {src for v in versions.values() for src in v.variants} == set(
         spv_variants.SOURCES) - {"stereo_delay"}
     for version in versions.values():
